@@ -1,0 +1,363 @@
+#!/usr/bin/env python3
+"""Drive xsmm_tpu_torch's main path on one CUDA card and hold its kernels
+against their plain PyTorch versions.
+
+    python3 chip_smoke.py [--batch 131072] [--seed 0]
+
+Run from the repository root, on a machine with a CUDA card and nvcc.  It:
+
+1. prints the card (name, count, power limit);
+2. builds the CUDA kernels from the sources in the checkout (one nvcc per
+   source, all started together) and prints the build time and what ptxas
+   says of each kernel;
+3. drives the main path through the user entry points at batch 131072, 23^3
+   (``dmmdispatch`` under split2_fast, split2 and float32, beta 0 and 1;
+   ``smmdispatch`` beta 0 and 1; ``bsmmdispatch``; ``bmmdispatch``), with the
+   launch counts set to 0 just before and read just after, and checks each
+   result against numpy f64 gold on a 4096-problem subset;
+4. compares each kernel with its plain version on the same packed operands;
+5. runs the non-kernel routes once each (f32 product at 256^3 without TF32,
+   native f64, int16, batch-reduce);
+6. times the three kernels, their plain versions and ``torch.bmm`` on the
+   same problems with CUDA events, beside the bound of the card, and the
+   whole entry-point call (f64 split2_fast, and f32);
+7. prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and as
+   its last line ``{"ok": true, "device": {...}}``.
+
+Any failure raises and the script exits non-zero without the last line; it
+also exits non-zero when ``torch.cuda.is_available()`` is false.  It imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+M = N = K = 23
+GOLD_SUBSET = 4096
+
+# H100 SXM peaks (NVIDIA data sheet; the card's power limit is printed
+# beside every number)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+SOURCE = "xsmm_tpu_torch/ops/csrc/smm_packed.cu"
+REPLACES = {
+    "packed_split2_fast": "xsmm_tpu/ops/smm.py:296",
+    "packed_f32": "xsmm_tpu/ops/smm.py:193",
+    "packed_split2": "xsmm_tpu/ops/smm.py:251",
+}
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=131072)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.ops import cuda_build, smm_packed
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    if "jax" in sys.modules or "xsmm_tpu" in sys.modules:
+        raise RuntimeError("the port pulled in jax or xsmm_tpu")
+
+    # -- 1. the card ---------------------------------------------------------
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = nvidia_smi_line()
+    print(f"device: {kind} (count {count}); torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}")
+    print(f"nvidia-smi: {smi}")
+    xp.set_config(target="cuda")
+
+    # -- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.2f} s ({', '.join(cuda_build.SOURCES)})")
+    for name, log in cuda_build.build_logs.items():
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # -- inputs, made on the card from the seed ------------------------------
+    B = args.batch
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    a64, b64, c64 = (torch.randn((B, M, K), generator=g, device=dev,
+                                 dtype=torch.float64) for _ in range(3))
+    a32, b32, c32 = a64.float(), b64.float(), c64.float()
+    a16, b16 = a32.bfloat16(), b32.bfloat16()
+
+    # (label, f64 strategy, dispatcher, beta, (a, b, c), kernel, gold tol)
+    cases = [
+        ("dmm split2_fast beta0", "split2_fast", xp.dmmdispatch, 0.0,
+         (a64, b64, c64), "packed_split2_fast", 1e-6),
+        ("dmm split2 beta0", "split2", xp.dmmdispatch, 0.0,
+         (a64, b64, c64), "packed_split2", 1e-6),
+        ("dmm float32 beta0", "float32", xp.dmmdispatch, 0.0,
+         (a64, b64, c64), "packed_f32", 1e-6),
+        ("dmm split2_fast beta1", "split2_fast", xp.dmmdispatch, 1.0,
+         (a64, b64, c64), "packed_split2_fast", 1e-6),
+        ("dmm split2 beta1", "split2", xp.dmmdispatch, 1.0,
+         (a64, b64, c64), "packed_split2", 1e-6),
+        ("smm beta0", None, xp.smmdispatch, 0.0, (a32, b32, c32),
+         "packed_f32", 1e-3),
+        ("smm beta1", None, xp.smmdispatch, 1.0, (a32, b32, c32),
+         "packed_f32", 1e-3),
+        # bf16 inputs, f32 sum: gold is exact products of the bf16 values
+        ("bsmm beta0", None, xp.bsmmdispatch, 0.0, (a16, b16, None),
+         "packed_f32", 1e-6),
+        # bf16 sum rounded at every k step (as the TPU kernel): ~5e-3
+        ("bmm beta0", None, xp.bmmdispatch, 0.0, (a16, b16, None),
+         "packed_f32", 1e-2),
+    ]
+
+    # -- 3. the main path, counted -------------------------------------------
+    kernels = {}
+    subsets = {}
+    smm_packed.reset_launches()
+    t0 = time.perf_counter()
+    for label, strategy, disp, beta, (a, b, c), kname, _ in cases:
+        xp.set_config(f64_strategy=strategy or "split2_fast")
+        kern = disp(M, N, K, batch=B, beta=beta)
+        if not isinstance(kern, xp.BatchedSMM):
+            raise RuntimeError(f"{label}: routed to {type(kern).__name__}")
+        before = smm_packed.launches[kname]
+        out = kern(a, b, c) if beta else kern(a, b)
+        torch.cuda.synchronize()
+        if smm_packed.launches[kname] <= before:
+            raise RuntimeError(f"{label}: {kname} was not launched")
+        if tuple(out.shape) != (B, M, N):
+            raise RuntimeError(f"{label}: shape {tuple(out.shape)}")
+        sub = out[:GOLD_SUBSET]
+        sub = (np.array(sub) if isinstance(sub, np.ndarray)
+               else sub.float().cpu().numpy())
+        if not np.isfinite(sub).all():
+            raise RuntimeError(f"{label}: non-finite output")
+        subsets[label] = sub
+        kernels[label] = kern
+    main_s = time.perf_counter() - t0
+    main_launches = dict(smm_packed.launches)
+    print(f"main path: {len(cases)} dispatch calls at B={B}, {M}x{N}x{K} in "
+          f"{main_s:.2f} s; launches {main_launches}")
+    for kname, n in main_launches.items():
+        if n < 1:
+            raise RuntimeError(f"{kname} was not launched on the main path")
+
+    # gold on a subset of the problems
+    for label, strategy, disp, beta, (a, b, c), kname, tol in cases:
+        af = a[:GOLD_SUBSET].double().cpu().numpy()
+        bf = b[:GOLD_SUBSET].double().cpu().numpy()
+        gold = np.einsum("bmk,bkn->bmn", af, bf)
+        if beta:
+            gold = gold + c[:GOLD_SUBSET].double().cpu().numpy()
+        err = xp.matdiff(gold, subsets[label]).normf_rel
+        ok = err < tol
+        print(f"gold  {label:24s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: {err:.3e} >= {tol:g} against gold")
+    del subsets
+
+    # -- 4. each kernel against its plain version, same packed operands ------
+    def packed_ops(kern, a, b, c):
+        if kern.is_f64:
+            ah, al = xp.split_f64(a, dev)
+            bh, bl = xp.split_f64(b, dev)
+            ops = {"split2": [ah, al, bh, bl], "split2_fast": [ah, bh, bl],
+                   "float32": [ah, bh]}[kern.strategy]
+            n_a = 2 if kern.strategy == "split2" else 1
+            ops = ([kern.pack_a(x) for x in ops[:n_a]]
+                   + [kern.pack_b(x) for x in ops[n_a:]])
+            if kern.desc.beta:
+                ch, cl = xp.split_f64(c, dev)
+                ops += [kern.pack_c(x) for x in
+                        ([ch, cl] if kern.strategy == "split2" else [ch])]
+            return ops
+        ops = [kern.pack_a(a), kern.pack_b(b)]
+        if kern.desc.beta:
+            ops.append(kern.pack_c(c.to(kern.out_dt)))
+        return ops
+
+    def run_kernel(kname, kern, ops, plain=False):
+        """The wrapper of kernel ``kname`` (or its plain version) on ``ops``."""
+        fn = getattr(smm_packed, kname + ("_plain" if plain else ""))
+        if kname == "packed_f32":
+            return fn(*ops, out_dtype=kern.out_dt)
+        return fn(*ops)
+    max_abs = {k: 0.0 for k in REPLACES}
+    timing_ops = {}
+    for label, strategy, disp, beta, (a, b, c), kname, _ in cases:
+        kern = kernels[label]
+        ops = packed_ops(kern, a, b, c)
+        got = kern.packed(*ops)
+        want = run_kernel(kname, kern, ops, plain=True)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        # bf16 outputs hold ~3 digits; everything else is f32
+        tol = 1e-2 if kern.out_dt == torch.bfloat16 else 1e-6
+        err = rel = 0.0
+        for g_, w_ in zip(got, want):
+            d = (g_.double() - w_.double())
+            err = max(err, d.abs().max().item())
+            rel = max(rel, (torch.linalg.vector_norm(d)
+                            / torch.linalg.vector_norm(w_.double())).item())
+        max_abs[kname] = max(max_abs[kname], err)
+        ok = rel <= tol
+        print(f"plain {label:24s} {kname:18s} max_abs_err {err:.3e} "
+              f"rel-Frobenius {rel:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: kernel and plain version disagree")
+        if label in ("dmm split2_fast beta0", "dmm split2 beta0", "smm beta0"):
+            timing_ops[kname] = (kern, ops)
+        del ops, got, want
+    del kernels
+    torch.cuda.empty_cache()
+
+    # -- 5. the non-kernel routes --------------------------------------------
+    rng = np.random.default_rng(args.seed)
+    xp.set_config(f64_strategy="split2_fast")
+    kern = xp.smmdispatch(256, 256, 256, batch=4, beta=0.0)
+    assert isinstance(kern, xp.XlaGemm), type(kern)
+    a = rng.standard_normal((4, 256, 256), dtype=np.float32)
+    b = rng.standard_normal((4, 256, 256), dtype=np.float32)
+    err = xp.matdiff(np.einsum("bmk,bkn->bmn", a.astype(np.float64), b),
+                     kern(a, b).cpu().numpy()).normf_rel
+    print(f"route XlaGemm f32 256^3 (tf32 {torch.backends.cuda.matmul.allow_tf32}"
+          f", precision {torch.get_float32_matmul_precision()}): {err:.3e}")
+    if not err < 1e-5:
+        raise RuntimeError("f32 XlaGemm is not full f32")
+
+    xp.set_config(f64_strategy="native")
+    kern = xp.dmmdispatch(M, N, K, batch=GOLD_SUBSET, beta=0.0)
+    assert isinstance(kern, xp.XlaGemm), type(kern)
+    a = rng.standard_normal((GOLD_SUBSET, M, K))
+    b = rng.standard_normal((GOLD_SUBSET, K, N))
+    gold = np.matmul(a, b)
+    err = np.linalg.norm(kern(a, b) - gold) / np.linalg.norm(gold)
+    print(f"route XlaGemm f64 native: {err:.3e}")
+    if not err < 1e-13:
+        raise RuntimeError("native f64 is not f64")
+    xp.set_config(f64_strategy="split2_fast")
+
+    probe = torch.ones((2, 2), dtype=torch.int16, device=dev)
+    try:
+        torch.matmul(probe, probe)
+        int_mm = "has int16 kernels"
+    except RuntimeError as e:
+        int_mm = f"raises ({str(e).splitlines()[0][:80]})"
+    kern = xp.wimmdispatch(9, 9, 9, batch=8, beta=0.0)
+    a = rng.integers(-100, 100, (8, 9, 9)).astype(np.int16)
+    b = rng.integers(-100, 100, (8, 9, 9)).astype(np.int16)
+    c = kern(a, b)
+    exact = (c.dtype == torch.int32 and np.array_equal(
+        c.cpu().numpy(), np.einsum("bmk,bkn->bmn", a.astype(np.int64),
+                                   b.astype(np.int64))))
+    print(f"route XlaGemm int16->int32 exact: {exact}; torch.matmul int16 on "
+          f"cuda {int_mm}")
+    if not exact:
+        raise RuntimeError("int16 product is not exact")
+
+    a = rng.standard_normal((12, 14, 6))
+    b = rng.standard_normal((12, 6, 10))
+    gold = np.einsum("bmk,bkn->mn", a, b)
+    e32 = xp.matdiff(gold, xp.smmdispatch_reducebatch(14, 10, 6, beta=0.0)(
+        a.astype(np.float32), b.astype(np.float32)).cpu().numpy()).normf_rel
+    e64 = xp.matdiff(gold, xp.dmmdispatch_reducebatch(14, 10, 6, beta=0.0)(
+        a, b)).normf_rel
+    print(f"route BatchReduceGemm f32 {e32:.3e}, f64 split2_fast {e64:.3e}")
+    if not (e32 < 1e-5 and e64 < 1e-6):
+        raise RuntimeError("batch-reduce out of tolerance")
+
+    # -- 6. times at the main path's shape -----------------------------------
+    planes = {  # f32 planes moved at beta = 0: (A, B, C)
+        "packed_f32": (1, 1, 1), "packed_split2_fast": (1, 2, 1),
+        "packed_split2": (2, 2, 2)}
+    ops_per_mnk = {"packed_f32": 2, "packed_split2_fast": 4,
+                   "packed_split2": 6}
+    library = {
+        "packed_f32": (a32, b32),
+        "packed_split2_fast": (a64, b64),
+        "packed_split2": (a64, b64),
+    }
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for kname in ("packed_split2_fast", "packed_f32", "packed_split2"):
+        kern, ops = timing_ops[kname]
+        la, lb = library[kname]
+        ms = cuda_time_ms(run_kernel, kname, kern, ops, warmup=3, iters=20)
+        plain_ms = cuda_time_ms(run_kernel, kname, kern, ops, True, warmup=1,
+                                iters=3)
+        library_ms = cuda_time_ms(lambda: torch.bmm(la, lb), warmup=3,
+                                  iters=20)
+        pa, pb, pc = planes[kname]
+        nbytes = (pa * M * K + pb * K * N + pc * M * N) * B * 4
+        nops = ops_per_mnk[kname] * M * N * K * B
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"time  {kname:18s} {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms; torch.bmm "
+              f"{la.dtype} {library_ms:.4f} ms  [{smi}]")
+        rows.append({
+            "name": kname, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[kname], "launches": main_launches[kname],
+            "max_abs_err": max_abs[kname], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "check": "pass",
+            "shape": f"B={B} {M}x{N}x{K} beta=0",
+        })
+
+    # the whole entry-point call at the same shape: f64 in, numpy f64 out
+    # (split, pack, kernel, unpack, join, copy to the host), and f32 with
+    # tensors that stay on the card
+    xp.set_config(f64_strategy="split2_fast")
+    kern = xp.dmmdispatch(M, N, K, batch=B, beta=0.0)
+    call_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern(a64, b64)
+        call_s.append(time.perf_counter() - t0)
+    kern32 = xp.smmdispatch(M, N, K, batch=B, beta=0.0)
+    call32_ms = cuda_time_ms(lambda: kern32(a32, b32), warmup=2, iters=10)
+    print(f"call  dmmdispatch split2_fast beta0 {sorted(call_s)[2] * 1e3:.3f} "
+          f"ms (median of 5, host clock, numpy f64 out); smmdispatch f32 "
+          f"beta0 {call32_ms:.3f} ms (CUDA events, tensors on the card)  "
+          f"[{smi}]")
+
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

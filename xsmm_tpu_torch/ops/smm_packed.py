@@ -1,0 +1,223 @@
+"""The three packed batched-GEMM kernels: wrappers, plain versions, counts.
+
+Operands use the lane-packed layout of ``xsmm_tpu/ops/smm.py``
+(``BatchedSMM``), batch index innermost and contiguous:
+A ``[M, K, Bp]``, B ``[K, N, Bp]``, C ``[M, N, Bp]``; any Bp.
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+
+* on CUDA tensors it allocates the outputs with ``torch.empty``, launches
+  its kernel (``ops/csrc/smm_packed.cu``) on the current stream, raises if
+  the launch returned a CUDA error, and adds one to ``launches[name]``;
+* on CPU tensors it runs its plain PyTorch version (``*_plain``), which
+  repeats the kernel's arithmetic term by term in the same order.
+
+Any other device raises.  There is no fallback from a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import cuda_build
+
+# kernel name -> launches since the last reset_launches()
+launches: Dict[str, int] = {"packed_f32": 0, "packed_split2_fast": 0,
+                            "packed_split2": 0}
+
+# dtype codes of core/descriptors.py, for the types the f32 schedule takes
+_CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("smm_packed")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.xsmm_packed_f32.argtypes = [p, p, p, p, i, i, i, ll, i, i, i, p]
+        lib.xsmm_packed_split2_fast.argtypes = [p, p, p, p, p, i, i, i, ll,
+                                                i, p]
+        lib.xsmm_packed_split2.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                           ll, i, p]
+        for fn in (lib.xsmm_packed_f32, lib.xsmm_packed_split2_fast,
+                   lib.xsmm_packed_split2):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _shapes(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int, int, int]:
+    if a.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"packed operands must be 3-D, got A{tuple(a.shape)}"
+                         f" B{tuple(b.shape)}")
+    m, k, bp = a.shape
+    k2, n, bp2 = b.shape
+    if k2 != k or bp2 != bp:
+        raise ValueError(f"packed shapes disagree: A[M,K,Bp]={tuple(a.shape)}"
+                         f" B[K,N,Bp]={tuple(b.shape)}")
+    if k < 1:
+        raise ValueError("packed kernels need K >= 1")
+    return m, n, k, bp
+
+
+def _check(device: torch.device,
+           ops: Dict[str, Tuple[Optional[torch.Tensor], torch.dtype, tuple]]
+           ) -> None:
+    """Each named operand (tensor or None, dtype, shape) must be a
+    contiguous tensor of that dtype and shape on ``device``."""
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"packed kernels run on cuda or cpu, not {device}")
+    for name, (t, dtype, shape) in ops.items():
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, A is on {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(fn, device: torch.device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, device.index if device.index is not None
+            else torch.cuda.current_device(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed "
+                           f"(code {rc}: -1 = dtype not taken, else cudaError)")
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: _make_packed_kernel_f32 (xsmm_tpu/ops/smm.py:193)
+# ---------------------------------------------------------------------------
+
+
+def packed_f32_plain(a, b, cin=None, *, out_dtype):
+    """C (+)= sum_k A[:,k]*B[k] with the running sum held in ``out_dtype``:
+    each product f32(a)*f32(b) is rounded to ``out_dtype`` and then added
+    (and rounded) — bf16 -> bf16 rounds at every k step."""
+    af, bf = a.float(), b.float()
+    c = None if cin is None else cin.to(out_dtype)
+    for kk in range(a.shape[1]):
+        p = (af[:, kk, None, :] * bf[kk, None, :, :]).to(out_dtype)
+        c = p if c is None else (c.float() + p.float()).to(out_dtype)
+    return c
+
+
+def packed_f32(a: torch.Tensor, b: torch.Tensor,
+               cin: Optional[torch.Tensor] = None, *,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """One-product schedule: A, B in f32/bf16/f16, C in ``out_dtype``
+    (f32/bf16/f16); ``cin`` (beta = 1) in ``out_dtype``."""
+    m, n, k, bp = _shapes(a, b)
+    if a.dtype not in _CODES or out_dtype not in _CODES:
+        raise ValueError(f"packed_f32 takes {list(_CODES)} in and out, got "
+                         f"{a.dtype} -> {out_dtype}")
+    _check(a.device, {"A": (a, a.dtype, (m, k, bp)),
+                      "B": (b, a.dtype, (k, n, bp)),
+                      "C_in": (cin, out_dtype, (m, n, bp))})
+    if a.device.type == "cpu":
+        return packed_f32_plain(a, b, cin, out_dtype=out_dtype)
+    c = torch.empty((m, n, bp), dtype=out_dtype, device=a.device)
+    if c.numel():
+        _launch(_lib().xsmm_packed_f32, a.device, _ptr(a), _ptr(b), _ptr(cin),
+                _ptr(c), m, n, k, bp, _CODES[a.dtype], _CODES[out_dtype])
+        launches["packed_f32"] += 1
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: _make_packed_kernel_split2_fast (xsmm_tpu/ops/smm.py:296)
+# ---------------------------------------------------------------------------
+
+
+def packed_split2_fast_plain(ah, bh, bl, cin=None):
+    """hi = (c_in +) sum ah*bh; lo = sum ah*bl, kept apart; C = hi + lo."""
+    hi, lo = cin, None
+    for kk in range(ah.shape[1]):
+        a_k = ah[:, kk, None, :]
+        th, tl = a_k * bh[kk, None, :, :], a_k * bl[kk, None, :, :]
+        hi = th if hi is None else hi + th
+        lo = tl if lo is None else lo + tl
+    return hi + lo
+
+
+def packed_split2_fast(ah: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor,
+                       cin: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Default f64 schedule on f32 hi/lo planes: (ah, bh, bl[, c_in]) -> C."""
+    m, n, k, bp = _shapes(ah, bh)
+    f32 = torch.float32
+    _check(ah.device, {"Ah": (ah, f32, (m, k, bp)), "Bh": (bh, f32, (k, n, bp)),
+                       "Bl": (bl, f32, (k, n, bp)),
+                       "C_in": (cin, f32, (m, n, bp))})
+    if ah.device.type == "cpu":
+        return packed_split2_fast_plain(ah, bh, bl, cin)
+    c = torch.empty((m, n, bp), dtype=f32, device=ah.device)
+    if c.numel():
+        _launch(_lib().xsmm_packed_split2_fast, ah.device, _ptr(ah), _ptr(bh),
+                _ptr(bl), _ptr(cin), _ptr(c), m, n, k, bp)
+        launches["packed_split2_fast"] += 1
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: _make_packed_kernel_split2 (xsmm_tpu/ops/smm.py:251)
+# ---------------------------------------------------------------------------
+
+
+def packed_split2_plain(ah, al, bh, bl, chin=None, clin=None):
+    """ch = (ch_in +) sum ah*bh; cl = (cl_in +) sum (ah*bl + al*bh)."""
+    ch, cl = chin, clin
+    for kk in range(ah.shape[1]):
+        ah_k, al_k = ah[:, kk, None, :], al[:, kk, None, :]
+        bh_k, bl_k = bh[kk, None, :, :], bl[kk, None, :, :]
+        th = ah_k * bh_k
+        tl = ah_k * bl_k + al_k * bh_k
+        ch = th if ch is None else ch + th
+        cl = tl if cl is None else cl + tl
+    return ch, cl
+
+
+def packed_split2(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,
+                  bl: torch.Tensor, chin: Optional[torch.Tensor] = None,
+                  clin: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Three-product f64 schedule: (ah, al, bh, bl[, ch_in, cl_in]) ->
+    (ch, cl), joined in f64 by the caller."""
+    m, n, k, bp = _shapes(ah, bh)
+    if (chin is None) != (clin is None):
+        raise ValueError("split2 takes both C halves or neither")
+    f32 = torch.float32
+    _check(ah.device, {"Ah": (ah, f32, (m, k, bp)), "Al": (al, f32, (m, k, bp)),
+                       "Bh": (bh, f32, (k, n, bp)), "Bl": (bl, f32, (k, n, bp)),
+                       "Ch_in": (chin, f32, (m, n, bp)),
+                       "Cl_in": (clin, f32, (m, n, bp))})
+    if ah.device.type == "cpu":
+        return packed_split2_plain(ah, al, bh, bl, chin, clin)
+    ch = torch.empty((m, n, bp), dtype=f32, device=ah.device)
+    cl = torch.empty_like(ch)
+    if ch.numel():
+        _launch(_lib().xsmm_packed_split2, ah.device, _ptr(ah), _ptr(al),
+                _ptr(bh), _ptr(bl), _ptr(chin), _ptr(clin), _ptr(ch),
+                _ptr(cl), m, n, k, bp)
+        launches["packed_split2"] += 1
+    return ch, cl
