@@ -2,7 +2,8 @@
 """Drive xsmm_tpu_torch's main path on one CUDA card and hold its kernels
 against their plain PyTorch versions.
 
-    python3 chip_smoke.py [--batch 131072] [--seed 0]
+    python3 chip_smoke.py [--batch 131072] [--sparse-n 65536]
+                          [--sparse-big 1048576] [--seed 0]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 
@@ -21,8 +22,22 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 6. times the three kernels, their plain versions and ``torch.bmm`` on the
    same problems with CUDA events, beside the bound of the card, and the
    whole entry-point call (f64 split2_fast, and f32);
-7. prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and as
-   its last line ``{"ok": true, "device": {...}}``.
+7. drives the sparse path through its entry points at N = 65536 on the
+   three PyFR-shaped operators of ``samples/pyfr_driver.py`` (seed 0):
+   ``create_dcsr_reg`` under each f64 schedule, beta 0 and ``acc_fn``;
+   ``create_csr_soa`` f32, beta 0 and ``acc_fn``; ``create_csc_soa``;
+   ``dfsspmdm_create`` / ``sfsspmdm_create``; the dense strategy; and
+   ``spmdm_init`` dense and ell — with the sparse launch counts set to 0
+   just before and read just after, each result held against numpy f64
+   gold;
+8. compares each sparse kernel with its plain version on the same operands,
+   then times the four kernels (f64 under split2 and fold) at N = 65536 and
+   1048576 beside their bounds, the plain versions, ``torch.sparse.mm`` /
+   ``torch.addmm`` on a CSR tensor and ``torch.matmul`` of the densified
+   operator, and the whole ``create_dcsr_reg(op, 65536)(b)`` call step by
+   step;
+9. prints one ``{"kernels": [...]}`` JSON line (all seven kernels), the
+   nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
 also exits non-zero when ``torch.cuda.is_available()`` is false.  It imports
@@ -53,6 +68,18 @@ REPLACES = {
     "packed_split2": "xsmm_tpu/ops/smm.py:251",
 }
 
+SPARSE_SOURCE = "xsmm_tpu_torch/ops/csrc/spgemm.cu"
+SPARSE_REPLACES = {
+    "spgemm_unroll_f32": "xsmm_tpu/ops/spgemm.py:195",
+    "spgemm_unroll_f64": "xsmm_tpu/ops/spgemm.py:233",
+    "spgemm_acc_f32": "xsmm_tpu/ops/spgemm.py:322",
+    "spgemm_acc_f64": "xsmm_tpu/ops/spgemm.py:363",
+}
+# (M, K, density) of the PyFR-shaped operators, samples/pyfr_driver.py:23-30
+PYFR_SPECS = [(105, 75, 0.11), (75, 105, 0.08), (150, 150, 0.05)]
+SPARSE_TOL = {"float64": 1e-5, "float32": 1e-3}  # tests/test_sparse.py gates
+PLAIN_TOL = 1e-6
+
 
 def nvidia_smi_line() -> str:
     out = subprocess.run(
@@ -62,9 +89,311 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def pyfr_operators(np):
+    """The three PyFR-shaped operators of samples/pyfr_driver.py:23-30, made
+    in the same order from the same seed."""
+    rng = np.random.default_rng(0)
+    out = []
+    for m, k, dens in PYFR_SPECS:
+        a = np.where(rng.random((m, k)) < dens,
+                     rng.standard_normal((m, k)), 0.0)
+        out.append((f"{m}x{k}", a))
+    return out
+
+
+def sparse_phase(args, dev, smi):
+    """Steps 7 and 8 of the module docstring; returns the sparse kernels'
+    rows of the ``{"kernels": [...]}`` line."""
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.ops import spgemm_kernels as sk
+    from xsmm_tpu_torch.ops.spgemm import F64_SCHEDULES
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    N = args.sparse_n
+    scheds = sorted(F64_SCHEDULES)
+    rng = np.random.default_rng(args.seed + 1)
+    ops = pyfr_operators(np)
+    f32, f64 = torch.float32, torch.float64
+
+    def host(x):
+        return x if isinstance(x, np.ndarray) else x.double().cpu().numpy()
+
+    def gate(label, gold, got, tol):
+        got = host(got)
+        if got.shape != gold.shape:
+            raise RuntimeError(f"{label}: shape {got.shape} != {gold.shape}")
+        if not np.isfinite(got).all():
+            raise RuntimeError(f"{label}: non-finite output")
+        err = xp.matdiff(gold, got).normf_rel
+        ok = err < tol
+        print(f"gold  {label:36s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: {err:.3e} >= {tol:g} against gold")
+
+    # inputs: f64 on the host (the README call's numpy contract) and their
+    # f32 hi/lo planes on the card
+    data = {}
+    for name, a in ops:
+        m, k = a.shape
+        b = rng.standard_normal((k, N))
+        c = rng.standard_normal((m, N))
+        bh, bl = xp.split_f64(b, dev)
+        ch, cl = xp.split_f64(c, dev)
+        data[name] = dict(a=a, b=b, c=c, bh=bh, bl=bl, ch=ch, cl=cl,
+                          gold=a @ b)
+
+    # -- 7. the sparse path through its entry points, counted ----------------
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    for name, a in ops:
+        d = data[name]
+        m, k = a.shape
+        for sched in scheds:
+            kern = xp.create_dcsr_reg(a, N, f64_schedule=sched)
+            if kern.strategy != "unroll":
+                raise RuntimeError(f"{name}: strategy {kern.strategy}")
+            gate(f"dcsr_reg {name} {sched}", d["gold"], kern(d["b"]),
+                 SPARSE_TOL["float64"])
+            cs = [d["ch"], d["cl"]] if kern.c_lo else [d["ch"]]
+            bs = [d["bh"], d["bl"]] if kern.b_lo else [d["bh"]]
+            out = kern.acc_fn(*cs, *bs)
+            out = out[0].to(f64) + out[1].to(f64) if kern.c_lo else out
+            gate(f"dcsr_reg acc_fn {name} {sched}", d["c"] + d["gold"], out,
+                 SPARSE_TOL["float64"])
+        a32 = a.astype(np.float32)
+        gold32 = a32.astype(np.float64) @ host(d["bh"])
+        kern = xp.create_csr_soa(a32, N)
+        gate(f"csr_soa f32 {name}", gold32, kern(d["bh"]),
+             SPARSE_TOL["float32"])
+        gate(f"csr_soa f32 acc_fn {name}", host(d["ch"]) + gold32,
+             kern.acc_fn(d["ch"], d["bh"]), SPARSE_TOL["float32"])
+    # dense A [N, 75] x sparse B: the transpose of the 105x75 operator
+    bsp = ops[0][1].T.astype(np.float32)
+    a_dense = torch.randn((N, bsp.shape[0]), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              args.seed))
+    kern = xp.create_csc_soa(bsp, N)
+    gate("csc_soa f32 75x105^T", host(a_dense) @ bsp.astype(np.float64),
+         kern(a_dense), SPARSE_TOL["float32"])
+    name, a = ops[2]
+    d = data[name]
+    m, k = a.shape
+    h = xp.dfsspmdm_create(m, N, k, a)
+    gate(f"dfsspmdm {name} ({h.strategy})", d["gold"], h(d["b"]),
+         SPARSE_TOL["float64"])
+    a32 = a.astype(np.float32)
+    h = xp.sfsspmdm_create(m, N, k, a32)
+    gate(f"sfsspmdm {name} ({h.strategy})",
+         a32.astype(np.float64) @ host(d["bh"]), h(d["bh"]),
+         SPARSE_TOL["float32"])
+    kern = xp.create_dcsr_reg(a, N, strategy="dense")
+    gate(f"dcsr_reg dense strategy {name}", d["gold"], kern(d["b"]),
+         SPARSE_TOL["float64"])
+    sm = 1024
+    a_sp = np.where(rng.random((sm, sm)) < 0.01,
+                    rng.standard_normal((sm, sm)), 0).astype(np.float32)
+    b_sp = rng.standard_normal((sm, sm)).astype(np.float32)
+    for strategy in ("dense", "ell"):
+        hs = xp.spmdm_init(sm, sm, sm, strategy=strategy)
+        sl = hs.create_sparse_slice(a_sp)
+        if sl.kind != strategy:
+            raise RuntimeError(f"spmdm {strategy}: slice kind {sl.kind}")
+        gate(f"spmdm {strategy} {sm}^3 1 %", a_sp.astype(np.float64)
+             @ b_sp, hs.compute(sl, b_sp), SPARSE_TOL["float32"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launched = dict(sk.launches)
+    print(f"sparse path: N={N}, 3 PyFR-shaped operators, in {main_s:.2f} s; "
+          f"launches {launched}")
+    for kname, n in launched.items():
+        if n < 1:
+            raise RuntimeError(f"{kname} was not launched on the sparse path")
+
+    # -- 8a. each kernel against its plain version, same operands -----------
+    def variants(d, op):
+        """(kernel name, label, wrapper call, plain call) of every kernel
+        variant on operator ``op``."""
+        bh, bl, ch, cl = d["bh"], d["bl"], d["ch"], d["cl"]
+        out = [("spgemm_unroll_f32", "f32", lambda p=False: (
+                    sk.unroll_f32_plain if p else sk.unroll_f32)(op, bh)),
+               ("spgemm_acc_f32", "f32", lambda p=False: (
+                   sk.acc_f32_plain if p else sk.acc_f32)(op, ch, bh))]
+        for sched in scheds:
+            b_lo, c_lo = F64_SCHEDULES[sched]
+            bl_, cl_ = (bl if b_lo else None), (cl if c_lo else None)
+            out.append(("spgemm_unroll_f64", sched, lambda p=False, bl_=bl_,
+                        c_lo=c_lo: (sk.unroll_f64_plain if p else
+                                    sk.unroll_f64)(op, bh, bl_, c_lo=c_lo)))
+            out.append(("spgemm_acc_f64", sched, lambda p=False, bl_=bl_,
+                        cl_=cl_: (sk.acc_f64_plain if p else sk.acc_f64)(
+                            op, ch, cl_, bh, bl_)))
+        return out
+
+    max_abs = {kname: 0.0 for kname in SPARSE_REPLACES}
+    plain_ops = {}
+    for name, a in ops:
+        op = sk.SparseOperator(xp.Csr.from_dense(a), dev)
+        plain_ops[name] = op
+        for kname, label, run in variants(data[name], op):
+            got, want = run(), run(True)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            err = rel = 0.0
+            for g_, w_ in zip(got, want):
+                dd = g_.double() - w_.double()
+                err = max(err, dd.abs().max().item())
+                rel = max(rel, (torch.linalg.vector_norm(dd) / max(
+                    torch.linalg.vector_norm(w_.double()).item(), 1e-300)
+                    ).item())
+            max_abs[kname] = max(max_abs[kname], err)
+            ok = rel <= PLAIN_TOL
+            print(f"plain {name:8s} {kname:18s} {label:11s} max_abs_err "
+                  f"{err:.3e} rel-Frobenius {rel:.3e} (tol {PLAIN_TOL:g}) "
+                  f"{'pass' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{name} {kname} {label}: kernel and plain "
+                                   f"version disagree")
+
+    # -- 8b. times at N and at the big N, 150x150 operator in the JSON --------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    timed = [("spgemm_unroll_f32", None), ("spgemm_acc_f32", None),
+             ("spgemm_unroll_f64", "split2"), ("spgemm_unroll_f64", "fold"),
+             ("spgemm_acc_f64", "split2"), ("spgemm_acc_f64", "fold")]
+    rows = {}
+    for name, a in ops:
+        m, k = a.shape
+        nnz = int(np.count_nonzero(a))
+        a32 = torch.from_numpy(a.astype(np.float32)).to(dev)
+        a64 = torch.from_numpy(a).to(dev)
+        csr32, csr64 = a32.to_sparse_csr(), a64.to_sparse_csr()
+        for n in (N, args.sparse_big):
+            g = torch.Generator(device=dev).manual_seed(args.seed)
+            bh, bl = (torch.randn((k, n), generator=g, device=dev)
+                      for _ in range(2))
+            ch, cl = (torch.randn((m, n), generator=g, device=dev)
+                      for _ in range(2))
+            b64, c64 = bh.double(), ch.double()
+            op = plain_ops[name]
+            lib = {
+                "sparse.mm f32": cuda_time_ms(torch.sparse.mm, csr32, bh),
+                "sparse.mm f64": cuda_time_ms(torch.sparse.mm, csr64, b64),
+                "matmul dense f32": cuda_time_ms(torch.matmul, a32, bh),
+                "addmm f32": cuda_time_ms(torch.addmm, ch, csr32, bh),
+                "addmm f64": cuda_time_ms(torch.addmm, c64, csr64, b64),
+            }
+            for kname, sched in timed:
+                acc = kname.startswith("spgemm_acc")
+                is64 = kname.endswith("f64")
+                b_lo, c_lo = F64_SCHEDULES[sched] if is64 else (False, False)
+                kern = (xp.create_dcsr_reg(a, n, f64_schedule=sched) if is64
+                        else xp.create_csr_soa(a, n))
+                rd, wr = kern.stream_bytes
+                nbytes = (rd + wr + (wr if acc else 0) + 4 * (m + 1)
+                          + nnz * (12 if is64 else 8))
+                nops = (6 if b_lo else 4 if is64 else 2) * nnz * n
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = nops / FP32_FLOP_PER_S * 1e3
+                bound_ms = max(t_bytes, t_ops)
+                bound_by = "bytes" if t_bytes >= t_ops else "operations"
+                bl_ = bl if b_lo else None
+                cl_ = cl if c_lo else None
+                if kname == "spgemm_unroll_f32":
+                    fn, fargs = sk.unroll_f32, (op, bh)
+                    lib_key = "sparse.mm f32"
+                elif kname == "spgemm_acc_f32":
+                    fn, fargs, lib_key = sk.acc_f32, (op, ch, bh), "addmm f32"
+                elif kname == "spgemm_unroll_f64":
+                    fn = lambda *x, c_lo=c_lo: sk.unroll_f64(*x, c_lo=c_lo)
+                    fargs, lib_key = (op, bh, bl_), "sparse.mm f64"
+                else:
+                    fn, fargs = sk.acc_f64, (op, ch, cl_, bh, bl_)
+                    lib_key = "addmm f64"
+                ms = cuda_time_ms(fn, *fargs, warmup=3, iters=20)
+                plain_ms = None
+                if n == N:
+                    plain = getattr(sk, kname.removeprefix("spgemm_")
+                                    + "_plain")
+                    plain_ms = cuda_time_ms(
+                        (lambda *x, c_lo=c_lo: plain(*x, c_lo=c_lo))
+                        if kname == "spgemm_unroll_f64" else plain, *fargs,
+                        warmup=1, iters=3)
+                label = f"{kname} {sched or 'f32'}"
+                print(f"time  {name:8s} N={n:<8d} {label:24s} {ms:.4f} ms, "
+                      f"{nbytes / ms / 1e6:.1f} GB/s, bound {bound_ms:.4f} ms "
+                      f"({bound_by}), share {bound_ms / ms:.3f}"
+                      + (f"; plain {plain_ms:.3f} ms" if plain_ms else "")
+                      + f"; {lib_key} {lib[lib_key]:.4f} ms  [{smi}]")
+                if name == ops[2][0] and sched in (None, "split2"):
+                    row = rows.setdefault(kname, {
+                        "name": kname, "route": "cuda",
+                        "source": SPARSE_SOURCE,
+                        "replaces": SPARSE_REPLACES[kname],
+                        "launches": launched[kname],
+                        "max_abs_err": max_abs[kname],
+                        "check": "pass"})
+                    if n == N:
+                        row.update(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=lib[lib_key],
+                                   library=f"torch.{lib_key}",
+                                   shape=f"{name} nnz={nnz} N={n} "
+                                         f"{sched or 'f32'}")
+                    else:
+                        row.update(ms_big=ms, bound_ms_big=bound_ms,
+                                   n_big=n)
+            print(f"lib   {name:8s} N={n:<8d} " + ", ".join(
+                f"{k_} {v:.4f} ms" for k_, v in lib.items()) + f"  [{smi}]")
+            del bh, bl, ch, cl, b64, c64
+            torch.cuda.empty_cache()
+
+    # -- 8c. the whole README call, numpy f64 in and out, step by step -------
+    name, a = ops[2]
+    b = data[name]["b"]
+    kern = xp.create_dcsr_reg(a, N)
+    op = plain_ops[name]
+    whole, steps = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern(b)
+        whole.append(time.perf_counter() - t0)
+        t = [time.perf_counter()]
+        bd = torch.from_numpy(b).to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        bh = bd.to(f32)
+        bl = (bd - bh.to(f64)).to(f32)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ch, cl = sk.unroll_f64(op, bh, bl, c_lo=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        cd = ch.to(f64) + cl.to(f64)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        cd.cpu().numpy()
+        t.append(time.perf_counter())
+        steps.append([t[i + 1] - t[i] for i in range(5)])
+    med = sorted(whole)[2] * 1e3
+    parts = np.median(np.array(steps), axis=0) * 1e3
+    print(f"call  create_dcsr_reg({name}, {N})(b) split2: {med:.3f} ms "
+          f"(median of 5, host clock, numpy f64 in and out); steps (median): "
+          f"copy in {parts[0]:.3f}, split {parts[1]:.3f}, kernel "
+          f"{parts[2]:.3f}, join {parts[3]:.3f}, copy out {parts[4]:.3f} ms"
+          f"  [{smi}]")
+    return [rows[k_] for k_ in SPARSE_REPLACES]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
+    ap.add_argument("--sparse-n", type=int, default=65536)
+    ap.add_argument("--sparse-big", type=int, default=1 << 20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -351,6 +680,11 @@ def main() -> int:
           f"ms (median of 5, host clock, numpy f64 out); smmdispatch f32 "
           f"beta0 {call32_ms:.3f} ms (CUDA events, tensors on the card)  "
           f"[{smi}]")
+
+    del cases, library, la, lb, timing_ops
+    del a64, b64, c64, a32, b32, c32, a16, b16
+    torch.cuda.empty_cache()
+    rows += sparse_phase(args, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

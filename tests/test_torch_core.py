@@ -448,14 +448,18 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_import_has_no_jax_and_builds_nothing(tmp_path):
-    """Importing every module of the port pulls in neither jax nor
-    xsmm_tpu, imports no triton, and starts no build."""
+    """Importing every module of the port (the sparse path's spgemm,
+    spgemm_kernels, fsspmdm, spmdm and utils.mtx among them) pulls in
+    neither jax nor xsmm_tpu, imports no triton, and starts no build."""
     before = sorted(p.name for p in cuda_build.BUILD_DIR.glob("*")) \
         if cuda_build.BUILD_DIR.exists() else []
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in (REPO / "xsmm_tpu_torch").rglob("*.py"))
+    for m in ("ops.spgemm", "ops.spgemm_kernels", "ops.fsspmdm", "ops.spmdm",
+              "utils.mtx"):
+        assert "xsmm_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("

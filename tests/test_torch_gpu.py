@@ -1,4 +1,5 @@
-"""Card-only tests: each packed CUDA kernel against its plain version.
+"""Card-only tests: each CUDA kernel (the packed batched-GEMM kernels and
+the sparse x dense kernels) against its plain version.
 
 The kernels have no CPU mode, so these tests need a CUDA card and skip
 elsewhere (the check is made in the ``cuda`` fixture).  On a CUDA machine:
@@ -108,4 +109,110 @@ def test_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(smm_packed, "packed_f32_plain", boom)
     a, b = _planes(cuda, 6, (4, 4, 64), (4, 4, 64))
     smm_packed.packed_f32(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The four sparse x dense kernels (ops/csrc/spgemm.cu)
+# ---------------------------------------------------------------------------
+
+from xsmm_tpu_torch.ops import spgemm_kernels as sk  # noqa: E402
+
+SCHEDULES = {"split2": (True, True), "split2_fast": (True, False),
+             "split2_wout": (False, True), "fold": (False, False)}
+
+# (M, K, density, N): PyFR-shaped operators at a ragged N; a row-less
+# operator; N = 1; K = 300 and 600 take the kernels' unstaged path (the
+# B tile would not leave room for two blocks on an SM)
+SPARSE_SHAPES = [(105, 75, 0.11, 65536 + 37), (150, 150, 0.05, 4099),
+                 (12, 16, 0.3, 1), (5, 7, 0.0, 300), (40, 300, 0.05, 1000),
+                 (33, 600, 0.03, 129)]
+
+
+def _sparse(dev, m, k, density, n, seed):
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.random((m, k)) < density,
+                 rng.standard_normal((m, k)), 0.0)
+    if m > 4:
+        a[3] = 0.0  # an empty row
+    op = sk.SparseOperator(xp.Csr.from_dense(a), dev)
+    bh, bl = _planes(dev, seed, (k, n), (k, n))
+    ch, cl = _planes(dev, seed + 1, (m, n), (m, n))
+    return op, bh, bl, ch, cl
+
+
+@pytest.mark.parametrize("m,k,density,n", SPARSE_SHAPES)
+def test_spgemm_f32_matches_plain(cuda, m, k, density, n):
+    op, bh, _, ch, _ = _sparse(cuda, m, k, density, n, 7)
+    before = dict(sk.launches)
+    got = sk.unroll_f32(op, bh)
+    acc = sk.acc_f32(op, ch, bh)
+    torch.cuda.synchronize()
+    assert sk.launches["spgemm_unroll_f32"] == before["spgemm_unroll_f32"] + 1
+    assert sk.launches["spgemm_acc_f32"] == before["spgemm_acc_f32"] + 1
+    _same(got, sk.unroll_f32_plain(op, bh))
+    _same(acc, sk.acc_f32_plain(op, ch, bh))
+    if m > 4:
+        assert not got[3].any()
+        assert torch.equal(acc[3], ch[3])
+
+
+@pytest.mark.parametrize("m,k,density,n", SPARSE_SHAPES)
+@pytest.mark.parametrize("sched", sorted(SCHEDULES))
+def test_spgemm_f64_matches_plain(cuda, m, k, density, n, sched):
+    b_lo, c_lo = SCHEDULES[sched]
+    op, bh, bl, ch, cl = _sparse(cuda, m, k, density, n, 8)
+    bl = bl if b_lo else None
+    clin = cl if c_lo else None
+    got = sk.unroll_f64(op, bh, bl, c_lo=c_lo)
+    acc = sk.acc_f64(op, ch, clin, bh, bl)
+    torch.cuda.synchronize()
+    want = sk.unroll_f64_plain(op, bh, bl, c_lo=c_lo)
+    want_acc = sk.acc_f64_plain(op, ch, clin, bh, bl)
+    for g, w in zip(*(x if c_lo else (x,) for x in (got, want))):
+        _same(g, w)
+    for g, w in zip(*(x if c_lo else (x,) for x in (acc, want_acc))):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("sched", sorted(SCHEDULES) + ["float32"])
+def test_spgemm_entry_point_card_equals_cpu(cuda, sched):
+    """create_dcsr_reg / create_csr_soa and acc_fn give the same bits on
+    the card as on the CPU."""
+    rng = np.random.default_rng(9)
+    a = np.where(rng.random((75, 105)) < 0.08,
+                 rng.standard_normal((75, 105)), 0.0)
+    b = rng.standard_normal((105, 1000))
+    c = rng.standard_normal((75, 1000)).astype(np.float32)
+    out = {}
+    for target in ("cuda", "cpu"):
+        xp.set_config(target=target)
+        if sched == "float32":
+            kern = xp.create_csr_soa(a, 1000)
+            b32 = b.astype(np.float32)
+            out[target] = [kern(b32).cpu().numpy(),
+                           kern.acc_fn(c, b32).cpu().numpy()]
+        else:
+            kern = xp.create_dcsr_reg(a, 1000, f64_schedule=sched)
+            bh = b.astype(np.float32)
+            bs = [bh, (b - bh).astype(np.float32)] if kern.b_lo else [bh]
+            cs = [c, c * 1e-8] if kern.c_lo else [c]
+            acc = kern.acc_fn(*cs, *bs)
+            acc = acc if kern.c_lo else (acc,)
+            out[target] = [kern(b)] + [x.cpu().numpy() for x in acc]
+    for x, y in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_sparse_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+    for name in ("unroll_f32_plain", "unroll_f64_plain", "acc_f32_plain",
+                 "acc_f64_plain"):
+        monkeypatch.setattr(sk, name, boom)
+    op, bh, bl, ch, cl = _sparse(cuda, 12, 16, 0.3, 100, 10)
+    sk.unroll_f32(op, bh)
+    sk.acc_f32(op, ch, bh)
+    sk.unroll_f64(op, bh, bl, c_lo=True)
+    sk.acc_f64(op, ch, cl, bh, bl)
     torch.cuda.synchronize()

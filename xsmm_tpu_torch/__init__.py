@@ -25,7 +25,12 @@ from .ops.smm import (
     join_f64, mmdispatch, packed_from_numpy, smmdispatch,
     smmdispatch_reducebatch, split_f64, wimmdispatch, wsmmdispatch,
 )
+from .ops.spgemm import (CsrSpgemm, create_csc_soa, create_csr_soa,
+                         create_dcsr_reg)
+from .ops.fsspmdm import Fsspmdm, dfsspmdm_create, sfsspmdm_create
+from .ops.spmdm import SpmdmHandle, spmdm_init
 from .utils.matdiff import MatdiffInfo, check, matdiff
+from .utils.mtx import Csc, Csr, read_mtx, write_mtx
 from .utils import timer
 
 __version__ = "0.1.0"

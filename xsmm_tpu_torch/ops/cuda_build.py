@@ -28,6 +28,7 @@ BUILD_DIR = _PKG.parent / "build"
 # library name -> CUDA sources, relative to this directory
 SOURCES: Dict[str, tuple] = {
     "smm_packed": ("csrc/smm_packed.cu",),
+    "spgemm": ("csrc/spgemm.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -103,6 +104,21 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         raise RuntimeError("xsmm_tpu_torch: CUDA build failed:\n"
                            + "\n".join(failed))
     return paths
+
+
+def launch(fn, device, *args) -> None:
+    """Call C entry point ``fn(*args, device index, stream)`` on the current
+    stream of ``device`` (a ``torch.device``); raise if it returns non-zero
+    (-1: a dtype code it does not take; else the ``cudaError`` of the
+    launch)."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, device.index if device.index is not None
+            else torch.cuda.current_device(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed (code "
+                           f"{rc}: -1 = dtype not taken, else cudaError)")
 
 
 def load(name: str) -> ctypes.CDLL:

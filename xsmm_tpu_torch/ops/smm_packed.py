@@ -97,15 +97,6 @@ def _check(device: torch.device,
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(fn, device: torch.device, *args) -> None:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, device.index if device.index is not None
-            else torch.cuda.current_device(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__}: kernel launch failed "
-                           f"(code {rc}: -1 = dtype not taken, else cudaError)")
-
-
 # ---------------------------------------------------------------------------
 # Kernel 2: _make_packed_kernel_f32 (xsmm_tpu/ops/smm.py:193)
 # ---------------------------------------------------------------------------
@@ -139,8 +130,9 @@ def packed_f32(a: torch.Tensor, b: torch.Tensor,
         return packed_f32_plain(a, b, cin, out_dtype=out_dtype)
     c = torch.empty((m, n, bp), dtype=out_dtype, device=a.device)
     if c.numel():
-        _launch(_lib().xsmm_packed_f32, a.device, _ptr(a), _ptr(b), _ptr(cin),
-                _ptr(c), m, n, k, bp, _CODES[a.dtype], _CODES[out_dtype])
+        cuda_build.launch(_lib().xsmm_packed_f32, a.device, _ptr(a), _ptr(b),
+                          _ptr(cin), _ptr(c), m, n, k, bp, _CODES[a.dtype],
+                          _CODES[out_dtype])
         launches["packed_f32"] += 1
     return c
 
@@ -173,8 +165,8 @@ def packed_split2_fast(ah: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor,
         return packed_split2_fast_plain(ah, bh, bl, cin)
     c = torch.empty((m, n, bp), dtype=f32, device=ah.device)
     if c.numel():
-        _launch(_lib().xsmm_packed_split2_fast, ah.device, _ptr(ah), _ptr(bh),
-                _ptr(bl), _ptr(cin), _ptr(c), m, n, k, bp)
+        cuda_build.launch(_lib().xsmm_packed_split2_fast, ah.device, _ptr(ah),
+                          _ptr(bh), _ptr(bl), _ptr(cin), _ptr(c), m, n, k, bp)
         launches["packed_split2_fast"] += 1
     return c
 
@@ -216,8 +208,8 @@ def packed_split2(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,
     ch = torch.empty((m, n, bp), dtype=f32, device=ah.device)
     cl = torch.empty_like(ch)
     if ch.numel():
-        _launch(_lib().xsmm_packed_split2, ah.device, _ptr(ah), _ptr(al),
-                _ptr(bh), _ptr(bl), _ptr(chin), _ptr(clin), _ptr(ch),
-                _ptr(cl), m, n, k, bp)
+        cuda_build.launch(_lib().xsmm_packed_split2, ah.device, _ptr(ah),
+                          _ptr(al), _ptr(bh), _ptr(bl), _ptr(chin), _ptr(clin),
+                          _ptr(ch), _ptr(cl), m, n, k, bp)
         launches["packed_split2"] += 1
     return ch, cl

@@ -1,0 +1,316 @@
+"""The four sparse x dense kernels: wrappers, plain versions, counts.
+
+C[M,N] = A_csr[M,K] @ B[K,N] for an operator fixed at creation, on row-major
+f32 planes: B ``[K, N]``, C and C_in ``[M, N]``, any N.  f64 data is carried
+as f32 hi/lo planes, as in ``xsmm_tpu/ops/spgemm.py``.
+
+The operator (``SparseOperator``) holds the CSR structure and values on one
+device, made once: the f32 values ``vh = f32(v)`` and the f64 lo part
+``vl = f32(v - f64(vh))``.  It plays the part of the JAX package's baked-in
+constants.
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+
+* on CUDA tensors it allocates the outputs with ``torch.empty``, launches
+  its kernel (``ops/csrc/spgemm.cu``) on the current stream, raises if the
+  launch returned a CUDA error, and adds one to ``launches[name]``;
+* on CPU tensors it runs its plain PyTorch version (``*_plain``), which
+  repeats the kernel's arithmetic in the same term order.  It works on all
+  rows at once: step j adds term j of every row that has one.
+
+Any other device raises.  There is no fallback from a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import cuda_build
+
+# kernel name -> launches since the last reset_launches()
+launches: Dict[str, int] = {"spgemm_unroll_f32": 0, "spgemm_unroll_f64": 0,
+                            "spgemm_acc_f32": 0, "spgemm_acc_f64": 0}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+F32 = torch.float32
+Out64 = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("spgemm")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.xsmm_spgemm_unroll_f32.argtypes = [p, p, p, p, p, i, i, ll, i, p]
+        lib.xsmm_spgemm_acc_f32.argtypes = [p, p, p, p, p, p, i, i, ll, i, p]
+        lib.xsmm_spgemm_unroll_f64.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                               ll, i, p]
+        lib.xsmm_spgemm_acc_f64.argtypes = [p, p, p, p, p, p, p, p, p, p, i,
+                                            i, ll, i, p]
+        for fn in (lib.xsmm_spgemm_unroll_f32, lib.xsmm_spgemm_acc_f32,
+                   lib.xsmm_spgemm_unroll_f64, lib.xsmm_spgemm_acc_f64):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def split_values(values) -> Tuple[np.ndarray, np.ndarray]:
+    """The two-float split of the operator's values, elementwise:
+    hi = f32(v), lo = f32(f64(v) - f64(hi))."""
+    hi = np.asarray(values).astype(np.float32)
+    lo = (np.asarray(values).astype(np.float64)
+          - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
+
+
+class SparseOperator:
+    """A CSR operator's structure and values on one device."""
+
+    def __init__(self, csr, device: torch.device):
+        self.m, self.k = int(csr.m), int(csr.k)
+        row_ptr = np.asarray(csr.row_ptr, np.int64)
+        cols = np.asarray(csr.col_idx, np.int64)
+        # the kernels index B and the values with these: check them here
+        if (row_ptr.shape != (self.m + 1,) or row_ptr[0] != 0
+                or (np.diff(row_ptr) < 0).any() or row_ptr[-1] != cols.size
+                or np.asarray(csr.values).shape != cols.shape
+                or (cols.size and not (0 <= cols.min() <= cols.max()
+                                       < self.k))):
+            raise ValueError(f"not a valid {self.m}x{self.k} CSR structure")
+        vh, vl = split_values(csr.values)
+        self.row_ptr = torch.as_tensor(row_ptr, dtype=torch.int32,
+                                       device=device)
+        self.col_idx = torch.as_tensor(cols, dtype=torch.int32,
+                                       device=device)
+        self.vh = torch.as_tensor(vh, device=device)
+        self.vl = torch.as_tensor(vl, device=device)
+        self.device = self.row_ptr.device  # with its index: cuda:0
+        self.nnz = int(self.col_idx.numel())
+        # for the plain versions: term j of every row that has one
+        lengths = np.diff(row_ptr)
+        self._steps_host = [np.nonzero(lengths > j)[0]
+                            for j in range(int(lengths.max(initial=0)))]
+        self._row_start = row_ptr[:-1]
+        self._steps: Optional[List] = None
+
+    def steps(self) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """(rows, cols, term index) of step j = 0, 1, ...: the rows with a
+        j-th term, that term's B row, and its index into the values."""
+        if self._steps is None:
+            out = []
+            for j, rows in enumerate(self._steps_host):
+                idx = torch.as_tensor(self._row_start[rows] + j,
+                                      device=self.device)
+                out.append((torch.as_tensor(rows, device=self.device),
+                            self.col_idx[idx].long(), idx))
+            self._steps = out
+        return self._steps
+
+    def nonempty(self) -> torch.Tensor:
+        """[M, 1] bool: rows with at least one term."""
+        return (self.row_ptr[1:] > self.row_ptr[:-1])[:, None]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(op: SparseOperator, ops: Dict[str, Optional[torch.Tensor]],
+           n: int) -> None:
+    """Each named operand must be a contiguous f32 tensor on the
+    operator's device: B planes [K, n], C planes [M, n]."""
+    if op.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"spgemm kernels run on cuda or cpu, not "
+                         f"{op.device}")
+    for name, t in ops.items():
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+        shape = (op.k if name.startswith("B") else op.m, n)
+        if t.device != op.device:
+            raise ValueError(f"{name} is on {t.device}, the operator on "
+                             f"{op.device}")
+        if t.dtype != F32:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected {F32}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _width(b: torch.Tensor) -> int:
+    if not isinstance(b, torch.Tensor) or b.dim() != 2:
+        raise ValueError("B must be a 2-D tensor [K, N]")
+    return int(b.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the kernels' arithmetic, all rows at once, term by term
+# ---------------------------------------------------------------------------
+
+
+def _sums_f32(op: SparseOperator, b: torch.Tensor) -> torch.Tensor:
+    """acc = v[s]*b[c[s]], then acc + v[p]*b[c[p]], per row (0 where a row
+    has no term)."""
+    acc = torch.zeros((op.m, b.shape[1]), dtype=F32, device=b.device)
+    for j, (rows, cols, idx) in enumerate(op.steps()):
+        t = op.vh[idx, None] * b[cols]
+        acc[rows] = t if j == 0 else acc[rows] + t
+    return acc
+
+
+def _sums_f64(op: SparseOperator, bh: torch.Tensor,
+              bl: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of the f64 schedule: the first term sets hi = vh*bh and
+    lo = vl*bh (+ vh*bl); later terms add vh*bh and (vh*bl + vl*bh) (or
+    vl*bh)."""
+    shape = (op.m, bh.shape[1])
+    hi = torch.zeros(shape, dtype=F32, device=bh.device)
+    lo = torch.zeros(shape, dtype=F32, device=bh.device)
+    for j, (rows, cols, idx) in enumerate(op.steps()):
+        vh, vl = op.vh[idx, None], op.vl[idx, None]
+        bhr = bh[cols]
+        th = vh * bhr
+        if j == 0:
+            tl = vl * bhr
+            if bl is not None:
+                tl = tl + vh * bl[cols]
+            hi[rows], lo[rows] = th, tl
+            continue
+        hi[rows] = hi[rows] + th
+        if bl is not None:
+            lo[rows] = lo[rows] + (vh * bl[cols] + vl * bhr)
+        else:
+            lo[rows] = lo[rows] + vl * bhr
+    return hi, lo
+
+
+def unroll_f32_plain(op: SparseOperator, b: torch.Tensor) -> torch.Tensor:
+    return _sums_f32(op, b)
+
+
+def unroll_f64_plain(op: SparseOperator, bh: torch.Tensor,
+                     bl: Optional[torch.Tensor] = None, *,
+                     c_lo: bool) -> Out64:
+    hi, lo = _sums_f64(op, bh, bl)
+    return (hi, lo) if c_lo else hi + lo
+
+
+def acc_f32_plain(op: SparseOperator, cin: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    return torch.where(op.nonempty(), cin + _sums_f32(op, b), cin)
+
+
+def acc_f64_plain(op: SparseOperator, chin: torch.Tensor,
+                  clin: Optional[torch.Tensor], bh: torch.Tensor,
+                  bl: Optional[torch.Tensor] = None) -> Out64:
+    hi, lo = _sums_f64(op, bh, bl)
+    keep = op.nonempty()
+    if clin is not None:
+        return (torch.where(keep, chin + hi, chin),
+                torch.where(keep, clin + lo, clin))
+    return torch.where(keep, chin + (hi + lo), chin)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: CsrSpgemm._build_unroll.kernel (xsmm_tpu/ops/spgemm.py:195)
+# ---------------------------------------------------------------------------
+
+
+def unroll_f32(op: SparseOperator, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B in f32; rows of A without a term give 0."""
+    n = _width(b)
+    _check(op, {"B": b}, n)
+    if op.device.type == "cpu":
+        return unroll_f32_plain(op, b)
+    c = torch.empty((op.m, n), dtype=F32, device=op.device)
+    if c.numel():
+        cuda_build.launch(_lib().xsmm_spgemm_unroll_f32, op.device,
+                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
+                          _ptr(b), _ptr(c), op.m, op.k, n)
+        launches["spgemm_unroll_f32"] += 1
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: CsrSpgemm._build_unroll.kernel64 (xsmm_tpu/ops/spgemm.py:233)
+# ---------------------------------------------------------------------------
+
+
+def unroll_f64(op: SparseOperator, bh: torch.Tensor,
+               bl: Optional[torch.Tensor] = None, *, c_lo: bool) -> Out64:
+    """f64 schedule on f32 planes: B-lo read when ``bl`` is given; returns
+    (ch, cl) when ``c_lo``, else the folded hi + lo."""
+    n = _width(bh)
+    _check(op, {"Bh": bh, "Bl": bl}, n)
+    if op.device.type == "cpu":
+        return unroll_f64_plain(op, bh, bl, c_lo=c_lo)
+    ch = torch.empty((op.m, n), dtype=F32, device=op.device)
+    cl = torch.empty_like(ch) if c_lo else None
+    if ch.numel():
+        cuda_build.launch(_lib().xsmm_spgemm_unroll_f64, op.device,
+                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
+                          _ptr(op.vl), _ptr(bh), _ptr(bl), _ptr(ch), _ptr(cl),
+                          op.m, op.k, n)
+        launches["spgemm_unroll_f64"] += 1
+    return (ch, cl) if c_lo else ch
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: CsrSpgemm._build_acc.kernel (xsmm_tpu/ops/spgemm.py:322)
+# ---------------------------------------------------------------------------
+
+
+def acc_f32(op: SparseOperator, cin: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """C = C_in + A @ B in f32 (a new tensor; C_in is not written); rows of
+    A without a term keep C_in."""
+    n = _width(b)
+    _check(op, {"B": b, "C_in": cin}, n)
+    if op.device.type == "cpu":
+        return acc_f32_plain(op, cin, b)
+    c = torch.empty((op.m, n), dtype=F32, device=op.device)
+    if c.numel():
+        cuda_build.launch(_lib().xsmm_spgemm_acc_f32, op.device,
+                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
+                          _ptr(cin), _ptr(b), _ptr(c), op.m, op.k, n)
+        launches["spgemm_acc_f32"] += 1
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Kernel 8: CsrSpgemm._build_acc.kernel64 (xsmm_tpu/ops/spgemm.py:363)
+# ---------------------------------------------------------------------------
+
+
+def acc_f64(op: SparseOperator, chin: torch.Tensor,
+            clin: Optional[torch.Tensor], bh: torch.Tensor,
+            bl: Optional[torch.Tensor] = None) -> Out64:
+    """(ch, cl) = (ch_in + hi, cl_in + lo) when ``clin`` is given, else
+    c = c_in + (hi + lo); B-lo read when ``bl`` is given.  New tensors;
+    rows of A without a term keep C_in."""
+    n = _width(bh)
+    _check(op, {"Bh": bh, "Bl": bl, "Ch_in": chin, "Cl_in": clin}, n)
+    if op.device.type == "cpu":
+        return acc_f64_plain(op, chin, clin, bh, bl)
+    ch = torch.empty((op.m, n), dtype=F32, device=op.device)
+    cl = None if clin is None else torch.empty_like(ch)
+    if ch.numel():
+        cuda_build.launch(_lib().xsmm_spgemm_acc_f64, op.device,
+                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
+                          _ptr(op.vl), _ptr(chin), _ptr(clin), _ptr(bh),
+                          _ptr(bl), _ptr(ch), _ptr(cl), op.m, op.k, n)
+        launches["spgemm_acc_f64"] += 1
+    return ch if cl is None else (ch, cl)
