@@ -3,7 +3,8 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py [--batch 131072] [--sparse-n 65536]
-                          [--sparse-big 1048576] [--seed 0]
+                          [--sparse-big 1048576] [--gemm-size 4096]
+                          [--copy-size 8192] [--seed 0]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 
@@ -36,8 +37,27 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
    ``torch.addmm`` on a CSR tensor and ``torch.matmul`` of the densified
    operator, and the whole ``create_dcsr_reg(op, 65536)(b)`` call step by
    step;
-9. prints one ``{"kernels": [...]}`` JSON line (all seven kernels), the
-   nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+10. drives the dense path through its entry points, with the tiled-GEMM
+    and xcopy launch counts set to 0 just before and read just after:
+    ``xgemm`` at 4096^3 bf16 and f32, ``gemm_handle`` bf16 -> f32, ``xgemm``
+    with ``c0``, the ragged 4095 x 4097 x 1000 (f32 and bf16) and the four
+    DeepBench shapes of ``samples/xgemm_driver.py`` in bf16; ``matcopy``,
+    ``otrans`` and ``itrans`` at 8192^2 f32, ``otrans`` at the ragged
+    8448 x 8320, of f64 and of bf16, a batched ``matcopy``; each non-kernel
+    route of ``ops/xcopy.py`` once (they must launch nothing); the blocked
+    GEMM at 2048^3 bf16 with blocks of 256 and an f64 handle;
+    ``gemm_batch`` and a ``torch.matmul`` rerouted by
+    ``mmbatch_begin(record_only=False)``, whose ``packed_f32`` launches show
+    that they reached the batched kernel; each result against gold (f64
+    products on the card, or bit for bit for the copies);
+11. compares the three dense kernels with their plain versions on the same
+    inputs (GEMMs to f32 rounding, copies bit for bit);
+12. times them beside their bounds, their plain versions and the library
+    call (``torch.matmul`` without TF32, ``clone``,
+    ``Tensor.t().contiguous()``), and the whole ``xgemm`` call at 4096^3
+    bf16 with tensors on the card;
+13. prints one ``{"kernels": [...]}`` JSON line (all ten kernels), the
+    nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
 also exits non-zero when ``torch.cuda.is_available()`` is false.  It imports
@@ -79,6 +99,22 @@ SPARSE_REPLACES = {
 PYFR_SPECS = [(105, 75, 0.11), (75, 105, 0.08), (150, 150, 0.05)]
 SPARSE_TOL = {"float64": 1e-5, "float32": 1e-3}  # tests/test_sparse.py gates
 PLAIN_TOL = 1e-6
+
+BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
+DENSE_SOURCES = {
+    "tiled_gemm": ("xsmm_tpu_torch/ops/csrc/tiled_gemm.cu",
+                   "xsmm_tpu/ops/tiled_gemm.py:83"),
+    "xcopy_copy": ("xsmm_tpu_torch/ops/csrc/xcopy.cu",
+                   "xsmm_tpu/ops/xcopy.py:35"),
+    "xcopy_trans": ("xsmm_tpu_torch/ops/csrc/xcopy.cu",
+                    "xsmm_tpu/ops/xcopy.py:105"),
+}
+# (m, n, k) of samples/xgemm_driver.py:16-17
+DEEPBENCH = [(1760, 128, 1760), (2048, 64, 2048), (2560, 64, 2560),
+             (4096, 128, 4096)]
+# tiled GEMM, kernel against plain and against gold: the two sum in f32 in
+# other orders; a bf16 output holds ~3 digits
+GEMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def nvidia_smi_line() -> str:
@@ -389,11 +425,306 @@ def sparse_phase(args, dev, smi):
     return [rows[k_] for k_ in SPARSE_REPLACES]
 
 
+def dense_phase(args, dev, smi):
+    """Steps 10 to 12 of the module docstring; returns the dense kernels'
+    rows of the ``{"kernels": [...]}`` line."""
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.ops import smm_packed
+    from xsmm_tpu_torch.ops import tiled_gemm_kernels as tk
+    from xsmm_tpu_torch.ops import xcopy_kernels as xk
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    # the plain GEMM, the gold products and the torch.matmul yardstick in
+    # full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    S, T = args.gemm_size, args.copy_size
+    g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=f64 if dtype == f64 else f32).to(dtype)
+
+    def rel(got, want):
+        d = torch.linalg.vector_norm(got.double() - want.double())
+        return (d / max(torch.linalg.vector_norm(want.double()).item(),
+                        1e-300)).item()
+
+    def gate(label, err, tol, what="gold"):
+        ok = err <= tol
+        print(f"{what:5s} {label:36s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: {err:.3e} > {tol:g} against {what}")
+
+    def equal(label, got, want, what="gold"):
+        ok = got.shape == want.shape and torch.equal(got, want)
+        print(f"{what:5s} {label:36s} bit-exact {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: not equal to {what}")
+
+    # -- inputs, made on the card from the seed ------------------------------
+    a32, b32, c0 = randn(S, S), randn(S, S), randn(S, S)
+    a16, b16 = a32.to(bf16), b32.to(bf16)
+    rm, rn, rk = S - 1, S + 1, 1000          # 4095 x 4097 x 1000 at S = 4096
+    ra, rb = randn(rm, rk), randn(rk, rn)
+    deep = [(m, n, k, randn(m, k, dtype=bf16), randn(k, n, dtype=bf16))
+            for m, n, k in DEEPBENCH]
+    x = randn(T, T)
+    xr = randn(T + 256, T + 128)             # 8448 x 8320 at T = 8192
+    x64 = randn(T // 2, T // 4, dtype=f64)
+    x16 = randn(T // 4, T // 2, dtype=bf16)
+    xb = randn(16, T // 8, T // 2)           # [rows, n] = [16 T/8, T/2]
+    small = randn(23, 37), randn(3, 17, 29), randn(512, 256)
+    B2 = S // 2                              # blocked GEMM 2048^3, blocks 256
+    ba, bb = randn(B2, B2, dtype=bf16), randn(B2, B2, dtype=bf16)
+    rng = np.random.default_rng(args.seed + 2)
+    da, db, dc = (rng.standard_normal(s) for s in
+                  [(768, 512), (512, 640), (768, 640)])
+    ga, gb = randn(4096, 23, 23), randn(4096, 23, 23)
+
+    # -- 10. the dense path through its entry points, counted ----------------
+    # (label, call): every call the users make on this surface
+    gemm_calls = [
+        (f"xgemm bf16 {S}^3", lambda: xp.xgemm(a16, b16)),
+        (f"xgemm f32 {S}^3", lambda: xp.xgemm(a32, b32)),
+        (f"gemm_handle bf16->f32 {S}^3", lambda: xp.gemm_handle(
+            S, S, S, in_dtype="bfloat16", out_dtype="float32")(a16, b16)),
+        (f"xgemm f32 c0 {S}^3", lambda: xp.xgemm(a32, b32, c0)),
+        (f"xgemm f32 {rm}x{rn}x{rk}", lambda: xp.xgemm(ra, rb)),
+        (f"xgemm bf16 {rm}x{rn}x{rk}",
+         lambda: xp.xgemm(ra.to(bf16), rb.to(bf16))),
+    ] + [(f"xgemm bf16 {m}x{n}x{k}", lambda a=a, b=b: xp.xgemm(a, b))
+         for m, n, k, a, b in deep]
+    copy_calls = [
+        (f"matcopy f32 {T}^2", lambda: xp.matcopy(x)),
+        (f"otrans f32 {T}^2", lambda: xp.otrans(x)),
+        (f"itrans f32 {T}^2", lambda: xp.itrans(x)),
+        (f"otrans f32 {T + 256}x{T + 128}", lambda: xp.otrans(xr)),
+        (f"otrans f64 {T // 2}x{T // 4}", lambda: xp.otrans(x64)),
+        (f"otrans bf16 {T // 4}x{T // 2}", lambda: xp.otrans(x16)),
+        (f"matcopy f32 16x{T // 8}x{T // 2}", lambda: xp.matcopy(xb)),
+    ]
+    # the JAX package's non-kernel routes: these must launch nothing
+    route_calls = [
+        ("matcopy 23x37 (clone)", lambda: xp.matcopy(small[0])),
+        ("matcopy zero 23x37", lambda: xp.matcopy(small[0], zero=True)),
+        ("otrans 3x17x29 (batched)", lambda: xp.otrans(small[1])),
+        ("otrans 512x256 (small)", lambda: xp.otrans(small[2])),
+    ]
+    hb = xp.blocked_gemm_handle(B2, B2, B2, bm=256, bn=256, bk=256,
+                                dtype="bfloat16")
+    hd = xp.blocked_gemm_handle(768, 640, 512, bm=128, bn=128, bk=128,
+                                dtype="float64")
+    tk.reset_launches()
+    xk.reset_launches()
+    t0 = time.perf_counter()
+    outs = {label: fn() for label, fn in gemm_calls + copy_calls}
+    torch.cuda.synchronize()
+    before = dict(tk.launches, **xk.launches)
+    for label, fn in route_calls:
+        outs[label] = fn()
+    if dict(tk.launches, **xk.launches) != before:
+        raise RuntimeError("a non-kernel route launched a kernel")
+    outs["bgemm bf16"] = hb(ba, bb)
+    outs["bgemm f64"] = hd(da, db, dc)
+    packed0 = smm_packed.launches["packed_f32"]
+    outs["gemm_batch f32 4096x23^3"] = xp.gemm_batch(ga, gb)
+    with xp.mmbatch_begin(record_only=False) as calls:
+        outs["mmbatch_begin reroute"] = torch.matmul(ga, gb)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launched = dict(tk.launches, **xk.launches)
+    rerouted = smm_packed.launches["packed_f32"] - packed0
+    print(f"dense path: {len(outs)} calls in {main_s:.2f} s; launches "
+          f"{launched}; packed_f32 +{rerouted} (gemm_batch and the "
+          f"mmbatch_begin reroute); recorded {len(calls)} call(s)")
+    for kname, n in launched.items():
+        if n < 1:
+            raise RuntimeError(f"{kname} was not launched on the dense path")
+    if rerouted != 2 or len(calls) != 1:
+        raise RuntimeError("gemm_batch or the mmbatch_begin reroute did not "
+                           "reach the packed kernel")
+
+    # gold: f64 products on the card of what each handle computed from
+    gold16 = a16.double() @ b16.double()
+    gold32 = a32.double() @ b32.double()
+    golds = {f"xgemm bf16 {S}^3": (gold16, "bfloat16"),
+             f"xgemm f32 {S}^3": (gold32, "float32"),
+             f"gemm_handle bf16->f32 {S}^3": (gold16, "float32"),
+             f"xgemm f32 c0 {S}^3": (gold32 + c0.double(), "float32"),
+             f"xgemm f32 {rm}x{rn}x{rk}": (ra.double() @ rb.double(),
+                                          "float32"),
+             f"xgemm bf16 {rm}x{rn}x{rk}": (ra.to(bf16).double()
+                                           @ rb.to(bf16).double(),
+                                           "bfloat16")}
+    for m, n, k, a, b in deep:
+        golds[f"xgemm bf16 {m}x{n}x{k}"] = (a.double() @ b.double(),
+                                           "bfloat16")
+    for label, (gold, out_dt) in golds.items():
+        got = outs[label]
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{label}: non-finite output")
+        gate(label, rel(got, gold), GEMM_TOL[out_dt])
+    del gold16, gold32, golds
+    copy_gold = {f"matcopy f32 {T}^2": x, f"otrans f32 {T}^2": x.t(),
+                 f"itrans f32 {T}^2": x.t(),
+                 f"otrans f32 {T + 256}x{T + 128}": xr.t(),
+                 f"otrans f64 {T // 2}x{T // 4}": x64.t(),
+                 f"otrans bf16 {T // 4}x{T // 2}": x16.t(),
+                 f"matcopy f32 16x{T // 8}x{T // 2}": xb,
+                 "matcopy 23x37 (clone)": small[0],
+                 "matcopy zero 23x37": torch.zeros_like(small[0]),
+                 "otrans 3x17x29 (batched)": small[1].transpose(-1, -2),
+                 "otrans 512x256 (small)": small[2].t()}
+    for label, want in copy_gold.items():
+        equal(label, outs[label], want)
+        if not outs[label].is_contiguous():
+            raise RuntimeError(f"{label}: not a contiguous tensor")
+    gate(f"blocked bf16 {B2}^3 blocks 256", rel(outs["bgemm bf16"],
+                                               ba.double() @ bb.double()),
+         GEMM_TOL["bfloat16"])
+    err = xp.matdiff(da @ db + dc, outs["bgemm f64"]).normf_rel
+    gate("blocked f64 768x640x512 + C", err, 1e-6)
+    gsum = torch.einsum("bmk,bkn->bmn", ga.double(), gb.double())
+    gate("gemm_batch f32 4096x23^3", rel(outs["gemm_batch f32 4096x23^3"],
+                                         gsum), 1e-5)
+    gate("mmbatch_begin reroute", rel(outs["mmbatch_begin reroute"], gsum),
+         1e-5)
+
+    # -- 11. each kernel against its plain version, same inputs --------------
+    max_abs = {k_: 0.0 for k_ in DENSE_SOURCES}
+    plain_cases = [(f"bf16 {S}^3", a16, b16, bf16), (f"f32 {S}^3", a32, b32, f32),
+                   (f"bf16->f32 {S}^3", a16, b16, f32),
+                   (f"f32 {rm}x{rn}x{rk}", ra, rb, f32),
+                   (f"bf16 {rm}x{rn}x{rk}", ra.to(bf16), rb.to(bf16), bf16)]
+    plain_cases += [(f"bf16 {m}x{n}x{k}", a, b, bf16) for m, n, k, a, b in deep]
+    for label, a, b, out_dt in plain_cases:
+        h = xp.gemm_handle(a.shape[0], b.shape[1], a.shape[1],
+                           in_dtype=a.dtype, out_dtype=out_dt)
+        got = tk.gemm(a, b, out_dtype=out_dt)
+        want = tk.gemm_plain(a, b, out_dtype=out_dt, bk=h.bk)
+        max_abs["tiled_gemm"] = max(max_abs["tiled_gemm"], (
+            got.double() - want.double()).abs().max().item())
+        gate(f"tiled_gemm {label}", rel(got, want),
+             GEMM_TOL["float32" if out_dt == f32 else "bfloat16"], "plain")
+    for label, fn, plain, src in [
+            (f"copy f32 {T}^2", xk.copy, xk.copy_plain, x),
+            (f"copy f32 16x{T // 8}x{T // 2}", xk.copy, xk.copy_plain, xb),
+            (f"trans f32 {T}^2", xk.trans, xk.trans_plain, x),
+            (f"trans f32 {T + 256}x{T + 128}", xk.trans, xk.trans_plain, xr),
+            (f"trans f64 {T // 2}x{T // 4}", xk.trans, xk.trans_plain, x64),
+            (f"trans bf16 {T // 4}x{T // 2}", xk.trans, xk.trans_plain, x16)]:
+        equal(label, fn(src), plain(src), "plain")
+
+    # -- 12. times, beside the bound, the plain version and the library ------
+    def gemm_bound(m, n, k, in_size, out_size, peak):
+        t_bytes = ((m * k + k * n) * in_size + m * n * out_size) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * n * k / peak * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    timed = {}
+    for label, a, b, out_dt, lib in [
+            (f"bf16->bf16 {S}^3", a16, b16, bf16, True),
+            (f"f32 {S}^3", a32, b32, f32, True),
+            (f"bf16->f32 {S}^3", a16, b16, f32, False),
+            (f"f32 {rm}x{rn}x{rk}", ra, rb, f32, True)] + [
+            (f"bf16 {m}x{n}x{k}", a, b, bf16, True) for m, n, k, a, b in deep]:
+        m, k = a.shape
+        n = b.shape[1]
+        peak = FP32_FLOP_PER_S if a.dtype == f32 else BF16_FLOP_PER_S
+        bound_ms, bound_by = gemm_bound(m, n, k, a.element_size(),
+                                        torch.empty((), dtype=out_dt)
+                                        .element_size(), peak)
+        ms = cuda_time_ms(lambda: tk.gemm(a, b, out_dtype=out_dt), warmup=3,
+                          iters=20)
+        plain_ms = library_ms = None
+        if label in (f"bf16->bf16 {S}^3", f"f32 {S}^3"):
+            plain_ms = cuda_time_ms(lambda: tk.gemm_plain(
+                a, b, out_dtype=out_dt, bk=512), warmup=1, iters=3)
+        if lib:
+            library_ms = cuda_time_ms(torch.matmul, a, b, warmup=3, iters=20)
+        timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
+        print(f"time  tiled_gemm {label:22s} {ms:.4f} ms, "
+              f"{2 * m * n * k / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} "
+              f"ms ({bound_by}), share {bound_ms / ms:.3f}"
+              + (f"; plain {plain_ms:.3f} ms" if plain_ms else "")
+              + (f"; torch.matmul {library_ms:.4f} ms" if lib else "")
+              + f"  [{smi}]")
+    for label, fn, plain, lib, src in [
+            (f"copy f32 {T}^2", xk.copy, xk.copy_plain, torch.clone, x),
+            (f"trans f32 {T}^2", xk.trans, xk.trans_plain,
+             lambda t: t.t().contiguous(), x),
+            (f"trans f32 {T + 256}x{T + 128}", xk.trans, xk.trans_plain,
+             lambda t: t.t().contiguous(), xr),
+            (f"trans f64 {T // 2}x{T // 4}", xk.trans, xk.trans_plain,
+             lambda t: t.t().contiguous(), x64),
+            (f"trans bf16 {T // 4}x{T // 2}", xk.trans, xk.trans_plain,
+             lambda t: t.t().contiguous(), x16),
+            (f"copy f32 16x{T // 8}x{T // 2}", xk.copy, xk.copy_plain,
+             torch.clone, xb)]:
+        nbytes = 2 * src.numel() * src.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = cuda_time_ms(fn, src, warmup=3, iters=20)
+        plain_ms = cuda_time_ms(plain, src, warmup=3, iters=20)
+        library_ms = cuda_time_ms(lib, src, warmup=3, iters=20)
+        timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by="bytes", library_ms=library_ms)
+        print(f"time  {label:33s} {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
+              f"bound {bound_ms:.4f} ms (bytes), share {bound_ms / ms:.3f}; "
+              f"plain {plain_ms:.4f} ms; library {library_ms:.4f} ms  "
+              f"[{smi}]")
+
+    # the whole entry-point call at the headline shape, tensors on the card
+    call_ms = cuda_time_ms(lambda: xp.xgemm(a16, b16), warmup=3, iters=20)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xp.xgemm(a16, b16)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    print(f"call  xgemm bf16 {S}^3: {call_ms:.4f} ms (CUDA events, 20 calls); "
+          f"{sorted(host)[2] * 1e3:.4f} ms (median of 5, host clock, "
+          f"synchronized); kernel {timed[f'bf16->bf16 {S}^3']['ms']:.4f} ms"
+          f"  [{smi}]")
+
+    def row(kname, label, shape, library, extra=None):
+        src, replaces = DENSE_SOURCES[kname]
+        r = {"name": kname, "route": "cuda", "source": src,
+             "replaces": replaces, "launches": launched[kname],
+             "max_abs_err": max_abs[kname], **timed[label],
+             "library": library, "check": "pass", "shape": shape}
+        r.update(extra or {})
+        return r
+
+    f32_row = timed[f"f32 {S}^3"]
+    return [
+        row("tiled_gemm", f"bf16->bf16 {S}^3", f"{S}^3 bf16->bf16",
+            "torch.matmul bf16",
+            {"ms_f32": f32_row["ms"], "plain_ms_f32": f32_row["plain_ms"],
+             "bound_ms_f32": f32_row["bound_ms"],
+             "library_ms_f32": f32_row["library_ms"]}),
+        row("xcopy_copy", f"copy f32 {T}^2", f"{T}^2 f32", "torch.clone"),
+        row("xcopy_trans", f"trans f32 {T}^2", f"{T}^2 f32",
+            "Tensor.t().contiguous()",
+            {"ms_ragged": timed[f"trans f32 {T + 256}x{T + 128}"]["ms"]}),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
     ap.add_argument("--sparse-n", type=int, default=65536)
     ap.add_argument("--sparse-big", type=int, default=1 << 20)
+    ap.add_argument("--gemm-size", type=int, default=4096)
+    ap.add_argument("--copy-size", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -685,6 +1016,8 @@ def main() -> int:
     del a64, b64, c64, a32, b32, c32, a16, b16
     torch.cuda.empty_cache()
     rows += sparse_phase(args, dev, smi)
+    torch.cuda.empty_cache()
+    rows += dense_phase(args, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,13 +1,17 @@
-"""Card-only tests: each CUDA kernel (the packed batched-GEMM kernels and
-the sparse x dense kernels) against its plain version.
+"""Card-only tests: each CUDA kernel (the packed batched-GEMM kernels, the
+sparse x dense kernels, the tiled GEMM and the copy and transpose) against
+its plain version.
 
 The kernels have no CPU mode, so these tests need a CUDA card and skip
 elsewhere (the check is made in the ``cuda`` fixture).  On a CUDA machine:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
-The kernels round every product and every sum separately, in the plain
-versions' k order, so kernel and plain version must agree exactly.
+The batched and sparse kernels round every product and every sum
+separately, in the plain versions' k order, so kernel and plain version
+must agree exactly; so must the copies.  The tiled GEMM sums in f32 in
+another order than its plain version: 1e-5 rel-Frobenius (1e-2 for a
+16-bit output).
 """
 
 import numpy as np
@@ -215,4 +219,141 @@ def test_sparse_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
     sk.acc_f32(op, ch, bh)
     sk.unroll_f64(op, bh, bl, c_lo=True)
     sk.acc_f64(op, ch, cl, bh, bl)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The tiled-GEMM kernel (ops/csrc/tiled_gemm.cu) and the copy and transpose
+# kernels (ops/csrc/xcopy.cu)
+# ---------------------------------------------------------------------------
+
+from xsmm_tpu_torch.ops import tiled_gemm_kernels as tk  # noqa: E402
+from xsmm_tpu_torch.ops import xcopy_kernels as xk  # noqa: E402
+
+# ragged M, N and K (1, 15, 17, 127, 129, 4095), K = 1, aligned and
+# misaligned row lengths; (129, 127, 4095), (129, 200, 1000) and
+# (1760, 128, 1760) have too few tiles of C for the SMs and split K
+# ((129, 200, 1000) with a short final split)
+GEMM_SHAPES = [(1, 1, 1), (15, 17, 1), (17, 15, 129), (127, 129, 15),
+               (129, 127, 4095), (4095, 17, 127), (256, 4095, 64),
+               (300, 200, 100), (129, 200, 1000), (1760, 128, 1760)]
+GEMM_TYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float16, torch.float32), (torch.float16, torch.float16)]
+
+
+def _rel(got, want):
+    d = torch.linalg.vector_norm(got.double() - want.double())
+    return (d / max(torch.linalg.vector_norm(want.double()).item(),
+                    1e-300)).item()
+
+
+def _gemm_tol(out_dt):
+    # the kernel and the plain version sum in f32 in other orders; a 16-bit
+    # output holds ~3 digits
+    return 1e-5 if out_dt == torch.float32 else 1e-2
+
+
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+@pytest.mark.parametrize("in_dt,out_dt", GEMM_TYPES)
+def test_tiled_gemm_matches_plain(cuda, m, n, k, in_dt, out_dt):
+    a, b = _planes(cuda, 11, (m, k), (k, n), dtype=in_dt)
+    before = tk.launches["tiled_gemm"]
+    got = tk.gemm(a, b, out_dtype=out_dt)
+    torch.cuda.synchronize()
+    assert tk.launches["tiled_gemm"] == before + 1
+    assert got.shape == (m, n) and got.dtype == out_dt
+    want = tk.gemm_plain(a, b, out_dtype=out_dt, bk=512)
+    assert _rel(got, want) <= _gemm_tol(out_dt)
+    gold = a.double() @ b.double()
+    assert _rel(got, gold) <= (1e-5 if out_dt == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("in_dt,out_dt", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16)])
+def test_tiled_gemm_c0_card_equals_plain(cuda, in_dt, out_dt):
+    """c0 is added after the cast, in the output dtype, on the card as on
+    the CPU."""
+    a, b = _planes(cuda, 12, (200, 70), (70, 150))
+    c0 = _planes(cuda, 13, (200, 150), dtype=out_dt)[0]
+    h = xp.TiledGemm(200, 150, 70, in_dtype=in_dt, out_dtype=out_dt)
+    got = h(a, b, c0)
+    want = tk.gemm_plain(a.to(in_dt), b.to(in_dt), out_dtype=out_dt,
+                         bk=h.bk) + c0
+    torch.cuda.synchronize()
+    assert got.dtype == out_dt
+    assert _rel(got, want) <= _gemm_tol(out_dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("offset,count", [(0, 1), (1, 7), (3, 4099),
+                                          (5, 65536 + 3), (8, 1000), (13, 1)])
+def test_copy_misaligned(cuda, dtype, offset, count):
+    """Sliced sources start at any element; odd byte counts leave a tail."""
+    base = torch.randint(0, 255, (count + 64,), device=cuda,
+                         dtype=torch.uint8).to(dtype)
+    x = base[offset:offset + count]
+    before = xk.launches["xcopy_copy"]
+    got = xk.copy(x)
+    torch.cuda.synchronize()
+    assert xk.launches["xcopy_copy"] == before + 1
+    _same(got, xk.copy_plain(x))
+    # a byte view at an odd start: head and tail bytes around the vectors
+    raw = base.view(torch.uint8)[offset * 3 + 1:]
+    _same(xk.copy(raw), raw.clone())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("m,n", [(512, 512), (520, 516), (513, 1031),
+                                 (4099, 512), (600, 3)])
+def test_trans_matches_plain(cuda, dtype, m, n):
+    x = torch.randint(0, 255, (m, n), device=cuda,
+                      dtype=torch.uint8).to(dtype)
+    before = xk.launches["xcopy_trans"]
+    got = xk.trans(x)
+    torch.cuda.synchronize()
+    assert xk.launches["xcopy_trans"] == before + 1
+    _same(got, xk.trans_plain(x))
+
+
+def test_dense_entry_points_card_equal_cpu(cuda):
+    """xgemm, matcopy and otrans on the card against the same calls with
+    target="cpu": copies bit for bit, GEMMs to f32 rounding."""
+    rng = np.random.default_rng(14)
+    a = rng.standard_normal((300, 100)).astype(np.float32)
+    b = rng.standard_normal((100, 200)).astype(np.float32)
+    c0 = rng.standard_normal((300, 200)).astype(np.float32)
+    x = rng.standard_normal((1024, 640)).astype(np.float32)
+    out = {}
+    for target in ("cuda", "cpu"):
+        xp.set_config(target=target)
+        before = dict(tk.launches, **xk.launches)
+        out[target] = [xp.xgemm(a, b).cpu(), xp.xgemm(a, b, c0).cpu(),
+                       xp.gemm_handle(300, 200, 100, in_dtype="bfloat16",
+                                      out_dtype="float32")(a, b).cpu(),
+                       xp.matcopy(x).cpu(), xp.otrans(x).cpu(),
+                       xp.itrans(x[:512, :520]).cpu()]
+        launched = {k: v - before[k] for k, v in dict(tk.launches,
+                                                      **xk.launches).items()}
+        if target == "cuda":
+            assert launched == {"tiled_gemm": 3, "xcopy_copy": 1,
+                                "xcopy_trans": 2}
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        assert _rel(got, want) <= 1e-5
+    for got, want in zip(out["cuda"][3:], out["cpu"][3:]):
+        assert torch.equal(got, want)
+
+
+def test_dense_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+    for mod, name in ((tk, "gemm_plain"), (xk, "copy_plain"),
+                      (xk, "trans_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    a, b = _planes(cuda, 15, (64, 64), (64, 64))
+    tk.gemm(a, b, out_dtype=torch.float32)
+    xk.copy(a)
+    xk.trans(a)
     torch.cuda.synchronize()

@@ -25,10 +25,14 @@ from .ops.smm import (
     join_f64, mmdispatch, packed_from_numpy, smmdispatch,
     smmdispatch_reducebatch, split_f64, wimmdispatch, wsmmdispatch,
 )
+from .ops.xcopy import itrans, matcopy, matcopy_dispatch, otrans, trans_dispatch
+from .ops.tiled_gemm import TiledGemm, gemm_handle, xgemm
 from .ops.spgemm import (CsrSpgemm, create_csc_soa, create_csr_soa,
                          create_dcsr_reg)
 from .ops.fsspmdm import Fsspmdm, dfsspmdm_create, sfsspmdm_create
 from .ops.spmdm import SpmdmHandle, spmdm_init
+from .ops.blocked_gemm import BlockedGemmHandle, blocked_gemm_handle
+from .ops.mmbatch import gemm_batch, mmbatch, mmbatch_begin
 from .utils.matdiff import MatdiffInfo, check, matdiff
 from .utils.mtx import Csc, Csr, read_mtx, write_mtx
 from .utils import timer

@@ -29,6 +29,8 @@ BUILD_DIR = _PKG.parent / "build"
 SOURCES: Dict[str, tuple] = {
     "smm_packed": ("csrc/smm_packed.cu",),
     "spgemm": ("csrc/spgemm.cu",),
+    "xcopy": ("csrc/xcopy.cu",),
+    "tiled_gemm": ("csrc/tiled_gemm.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -284,13 +284,32 @@ class BatchedSMM(_Kernel):
 # ---------------------------------------------------------------------------
 
 
-def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """torch.matmul with f32 in full f32: TF32 is switched off here, before
-    every f32 product, rather than trusting PyTorch's defaults."""
-    if a.dtype == torch.float32:
+# The originals, taken when this module is imported: inside an
+# ``mmbatch_begin`` scope ``torch.matmul``/``torch.einsum`` are the recording
+# wrappers, and the package's own products must neither be recorded nor be
+# rerouted back into dispatch (ops/mmbatch.py).
+_torch_matmul = torch.matmul
+_torch_einsum = torch.einsum
+
+
+def _full_f32(dtype: torch.dtype) -> None:
+    """Switch TF32 off before an f32 product, rather than trusting
+    PyTorch's defaults."""
+    if dtype == torch.float32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-    return torch.matmul(a, b)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.matmul with f32 in full f32."""
+    _full_f32(a.dtype)
+    return _torch_matmul(a, b)
+
+
+def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.einsum of two operands with f32 in full f32."""
+    _full_f32(a.dtype)
+    return _torch_einsum(spec, a, b)
 
 
 def _acc_dtype(in_dtype: str) -> torch.dtype:
