@@ -4,7 +4,9 @@ against their plain PyTorch versions.
 
     python3 chip_smoke.py [--batch 131072] [--sparse-n 65536]
                           [--sparse-big 1048576] [--gemm-size 4096]
-                          [--copy-size 8192] [--seed 0]
+                          [--copy-size 8192] [--packed-batch 131072]
+                          [--packed-big-m 125] [--packed-big-batch 4096]
+                          [--seed 0]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 
@@ -56,7 +58,25 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     call (``torch.matmul`` without TF32, ``clone``,
     ``Tensor.t().contiguous()``), and the whole ``xgemm`` call at 4096^3
     bf16 with tensors on the card;
-13. prints one ``{"kernels": [...]}`` JSON line (all ten kernels), the
+14. drives the packed-LA path through its entry points, with the packed
+    launch counts set to 0 just before and read just after each call (each
+    must launch its one kernel): ``getrf_dispatch`` 16x16 at batch 131072
+    in f32 and f64 (numpy in and out), 12x8 and 8x12; ``trsm_dispatch``
+    16/16 in the six variants of ``tests/test_packed.py`` and with alpha 2;
+    the f64 trsm under refine None, "host" and False; getrf and trsm at
+    125 (the element block of a p = 4 hexahedron) and batch 4096, which
+    take the loop kernels; ``trmm_dispatch`` f32 and f64 and
+    ``pgemm_dispatch`` 16^3, which reach the batched kernels 2 and 1;
+    each result against f64 gold on the card (L U against A, op(A) X
+    against alpha B, the refine gates of ``tests/test_packed.py``);
+15. compares the four packed-LA kernels with their plain versions on the
+    same packed operands, bit for bit (tolerance 0);
+16. times them beside their bounds, their plain versions and the library
+    call on the same problems in [B, M, N] (``torch.linalg.lu_factor_ex``
+    without pivoting, ``torch.linalg.solve_triangular``), and the whole
+    ``getrf_dispatch(16, 16, batch=131072)(a)`` call with a tensor on the
+    card and with numpy f64 step by step;
+17. prints one ``{"kernels": [...]}`` JSON line (all fourteen kernels), the
     nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
@@ -115,6 +135,22 @@ DEEPBENCH = [(1760, 128, 1760), (2048, 64, 2048), (2560, 64, 2560),
 # tiled GEMM, kernel against plain and against gold: the two sum in f32 in
 # other orders; a bf16 output holds ~3 digits
 GEMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+PACKED_SOURCE = "xsmm_tpu_torch/ops/csrc/packed.cu"
+PACKED_REPLACES = {
+    "getrf_unrolled": "xsmm_tpu/ops/packed.py:66",
+    "getrf_loop": "xsmm_tpu/ops/packed.py:104",
+    "trsm_unrolled": "xsmm_tpu/ops/packed.py:196",
+    "trsm_loop": "xsmm_tpu/ops/packed.py:219",
+}
+# the six (side, uplo, transa, diag) variants of tests/test_packed.py:57-60
+TRSM_VARIANTS = [("L", "L", "N", "N"), ("L", "U", "N", "N"),
+                 ("L", "L", "T", "N"), ("L", "L", "N", "U"),
+                 ("R", "L", "N", "N"), ("R", "U", "T", "N")]
+# f32 results against f64 gold; the f64 trsm gates of tests/test_packed.py
+PACKED_TOL = {"f32": 1e-5, "refine": 1e-7, "host": 1e-8, "trmm_f64": 1e-6}
+# kernel against its plain version: the same roundings in the same order
+PACKED_PLAIN_TOL = 0.0
 
 
 def nvidia_smi_line() -> str:
@@ -718,6 +754,284 @@ def dense_phase(args, dev, smi):
     ]
 
 
+def packed_phase(args, dev, smi):
+    """Steps 14 to 16 of the module docstring; returns the packed-LA
+    kernels' rows of the ``{"kernels": [...]}`` line."""
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.ops import packed_kernels as pk
+    from xsmm_tpu_torch.ops import smm_packed
+    from xsmm_tpu_torch.ops.pack_util import pack_lanes as pack
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    f64 = torch.float64
+    B, M = args.packed_batch, 16
+    BB, BM = args.packed_big_batch, args.packed_big_m
+    S = min(GOLD_SUBSET, B, BB)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=f64)
+
+    def dd(b, m, n=None):
+        """tests/test_packed.py:23-29: standard normal plus m on the
+        diagonal (factorizable without pivoting)."""
+        a = randn(b, m, n or m)
+        idx = torch.arange(min(m, n or m), device=dev)
+        a[:, idx, idx] += m
+        return a
+
+    def sub(x):
+        x = x[:S]
+        return (torch.from_numpy(np.ascontiguousarray(x)) if
+                isinstance(x, np.ndarray) else x).to(dev, f64)
+
+    def rel(got, want):
+        d = torch.linalg.vector_norm(got - want)
+        return (d / torch.linalg.vector_norm(want)).item()
+
+    def gate(label, err, tol):
+        ok = err <= tol
+        print(f"gold  {label:36s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: {err:.3e} > {tol:g} against gold")
+
+    def op_tri(a, uplo, transa, diag):
+        at = (torch.tril if uplo == "L" else torch.triu)(a)
+        if diag == "U":
+            idx = torch.arange(at.shape[-1], device=dev)
+            at[..., idx, idx] = 1.0
+        return at.transpose(-1, -2) if transa == "T" else at
+
+    # -- inputs, made on the card from the seed ------------------------------
+    a64, b64 = dd(B, M), randn(B, M, M)
+    a32, b32 = a64.float(), b64.float()
+    a_np, b_np = a64.cpu().numpy(), b64.cpu().numpy()  # the f64 contract
+    rect = {(12, 8): dd(B, 12, 8).float(), (8, 12): dd(B, 8, 12).float()}
+    abig, bbig = dd(BB, BM).float(), randn(BB, BM, BM).float()
+
+    # -- 14. the packed path through its entry points, counted ---------------
+    counts = (pk.launches, smm_packed.launches)
+    totals = dict.fromkeys(PACKED_REPLACES, 0)
+    outs = {}
+
+    def drive(label, fn, expect):
+        """Counts set to 0 just before the call and read just after it:
+        the call must launch ``expect`` and nothing else."""
+        pk.reset_launches()
+        smm_packed.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for c in counts for k, v in c.items() if v}
+        if set(got) != {expect}:
+            raise RuntimeError(f"{label}: launched {got}, expected {expect}")
+        for k in totals:
+            totals[k] += pk.launches[k]
+        print(f"drive {label:36s} launches {got}")
+        outs[label] = out
+
+    t0 = time.perf_counter()
+    drive(f"getrf f32 {M}x{M}", lambda: xp.getrf_dispatch(M, M, batch=B)(a32),
+          "getrf_unrolled")
+    drive(f"getrf f64 {M}x{M} numpy", lambda: xp.getrf_dispatch(
+        M, M, dtype="float64", batch=B)(a_np), "getrf_unrolled")
+    for (m, n), a in rect.items():
+        drive(f"getrf f32 {m}x{n}", lambda m=m, n=n, a=a: xp.getrf_dispatch(
+            m, n, batch=B)(a), "getrf_unrolled")
+    for v in TRSM_VARIANTS:
+        side, uplo, transa, diag = v
+        drive(f"trsm f32 {''.join(v)} {M}/{M}", lambda v=v: xp.trsm_dispatch(
+            M, M, side=v[0], uplo=v[1], transa=v[2], diag=v[3], batch=B)(
+                a32, b32), "trsm_unrolled")
+    drive(f"trsm f32 LLNN {M}/{M} alpha=2", lambda: xp.trsm_dispatch(
+        M, M, batch=B)(a32, b32, alpha=2.0), "trsm_unrolled")
+    k64 = xp.trsm_dispatch(M, M, dtype="float64", batch=B)
+    for refine in (None, "host", False):
+        drive(f"trsm f64 {M}/{M} refine={refine}",
+              lambda r=refine: k64(a_np, b_np, refine=r), "trsm_unrolled")
+    drive(f"getrf f32 {BM}x{BM}", lambda: xp.getrf_dispatch(
+        BM, BM, batch=BB)(abig), "getrf_loop")
+    drive(f"trsm f32 LLNN {BM}/{BM}", lambda: xp.trsm_dispatch(
+        BM, BM, batch=BB)(abig, bbig), "trsm_loop")
+    drive(f"trmm f32 {M}/{M}", lambda: xp.trmm_dispatch(M, M, batch=B)(
+        a32, b32), "packed_f32")
+    drive(f"trmm f64 {M}/{M} numpy", lambda: xp.trmm_dispatch(
+        M, M, dtype="float64", batch=B)(a_np, b_np), "packed_split2_fast")
+    drive(f"pgemm f32 {M}^3", lambda: xp.pgemm_dispatch(M, M, M, batch=B)(
+        a32, b32), "packed_f32")
+    main_s = time.perf_counter() - t0
+    print(f"packed path: {len(outs)} calls at B={B} ({M}) and B={BB} ({BM}) "
+          f"in {main_s:.2f} s; packed-LA launches {totals}")
+    for kname, n in totals.items():
+        if n < 1:
+            raise RuntimeError(f"{kname} was not launched on the packed path")
+
+    # -- 15. gold on the first S problems, f64 on the card -------------------
+    for label, a in [(f"getrf f32 {M}x{M}", a32), (f"getrf f64 {M}x{M} numpy",
+                                                   a32),
+                     (f"getrf f32 12x8", rect[(12, 8)]),
+                     (f"getrf f32 8x12", rect[(8, 12)]),
+                     (f"getrf f32 {BM}x{BM}", abig)]:
+        lu, a = sub(outs[label]), sub(a)
+        if not torch.isfinite(lu).all():
+            raise RuntimeError(f"{label}: non-finite output")
+        m, n = lu.shape[1:]
+        k = min(m, n)
+        low = torch.tril(lu[:, :, :k], -1) + torch.eye(m, k, dtype=f64,
+                                                       device=dev)
+        gate(f"{label} L@U", rel(low @ torch.triu(lu[:, :k, :]), a),
+             PACKED_TOL["f32"])
+
+    def solve_gate(label, a, b, v, alpha, tol):
+        side, uplo, transa, diag = v
+        x, opa = sub(outs[label]), op_tri(sub(a), uplo, transa, diag)
+        if not torch.isfinite(x).all():
+            raise RuntimeError(f"{label}: non-finite output")
+        gate(f"{label} op(A)X", rel(opa @ x if side == "L" else x @ opa,
+                                    alpha * sub(b)), tol)
+
+    for v in TRSM_VARIANTS:
+        solve_gate(f"trsm f32 {''.join(v)} {M}/{M}", a32, b32, v, 1.0,
+                   PACKED_TOL["f32"])
+    solve_gate(f"trsm f32 LLNN {M}/{M} alpha=2", a32, b32, TRSM_VARIANTS[0],
+               2.0, PACKED_TOL["f32"])
+    for refine, tol in ((None, "refine"), ("host", "host"), (False, "f32")):
+        solve_gate(f"trsm f64 {M}/{M} refine={refine}", a64, b64,
+                   TRSM_VARIANTS[0], 1.0, PACKED_TOL[tol])
+    solve_gate(f"trsm f32 LLNN {BM}/{BM}", abig, bbig, TRSM_VARIANTS[0], 1.0,
+               PACKED_TOL["f32"])
+    for label, a, b, tol in [(f"trmm f32 {M}/{M}", a32, b32, "f32"),
+                             (f"trmm f64 {M}/{M} numpy", a64, b64,
+                              "trmm_f64")]:
+        gate(label, rel(sub(outs[label]), torch.tril(sub(a)) @ sub(b)),
+             PACKED_TOL[tol])
+    gate(f"pgemm f32 {M}^3", rel(sub(outs[f"pgemm f32 {M}^3"]),
+                                 sub(a32) @ sub(b32)), PACKED_TOL["f32"])
+    del outs
+
+    # -- 16a. each kernel against its plain version, same packed operands ---
+    # the unit-diagonal solves take A scaled by 1/m: random unit-lower
+    # matrices grow X exponentially in m
+    pa, pb, pabig, pbbig = pack(a32), pack(b32), pack(abig), pack(bbig)
+    cases = [("getrf_unrolled", f"{M}x{M}", (pa,)),
+             ("getrf_unrolled", "12x8", (pack(rect[(12, 8)]),)),
+             ("getrf_unrolled", "8x12", (pack(rect[(8, 12)]),)),
+             ("getrf_loop", f"{BM}x{BM}", (pabig,)),
+             ("trsm_unrolled", f"{M}/{M}", (pa, pb, False)),
+             ("trsm_unrolled", f"{M}/{M} unit", (pa / M, pb, True)),
+             ("trsm_loop", f"{BM}/{BM}", (pabig, pbbig, False)),
+             ("trsm_loop", f"{BM}/{BM} unit", (pabig / BM, pbbig, True))]
+    max_abs = dict.fromkeys(PACKED_REPLACES, 0.0)
+    for kname, label, ops in cases:
+        got = getattr(pk, kname)(*ops)
+        want = getattr(pk, kname + "_plain")(*ops)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        ok = (bool(torch.isfinite(got).all()) and torch.equal(got, want)
+              and err <= PACKED_PLAIN_TOL)
+        max_abs[kname] = max(max_abs[kname], err)
+        print(f"plain {kname:15s} {label:14s} max_abs_err {err:.3e} (tol "
+              f"{PACKED_PLAIN_TOL:g}, bit for bit) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{kname} {label}: kernel and plain version "
+                               f"disagree")
+    del cases
+
+    # -- 16b. times beside the bound, the plain version and the library ----
+    def getrf_ops(m, n, recip):
+        steps = [k for k in range(min(m, n)) if k + 1 < m]
+        return sum((m - k - 1) + 2 * (m - k - 1) * (n - k - 1) + recip
+                   for k in steps)
+
+    def trsm_ops(sm, sn, loop):
+        # loop: a multiply and an add per term, then b - s and a division;
+        # unrolled: a multiply and a subtract per term, the reciprocal and
+        # the row scaling
+        return sm * (sm - 1) * sn + (2 * sm * sn if loop else sm * sn + sm)
+
+    timed = [
+        ("getrf_unrolled", f"{M}x{M} B={B}", (pa,), M, M, B,
+         getrf_ops(M, M, 1), "torch.linalg.lu_factor_ex(pivot=False)",
+         (lambda x: torch.linalg.lu_factor_ex(x, pivot=False), a32)),
+        ("getrf_loop", f"{BM}x{BM} B={BB}", (pabig,), BM, BM, BB,
+         getrf_ops(BM, BM, 0), "torch.linalg.lu_factor_ex(pivot=False)",
+         (lambda x: torch.linalg.lu_factor_ex(x, pivot=False), abig)),
+        ("trsm_unrolled", f"{M}/{M} B={B}", (pa, pb, False), M, M, B,
+         trsm_ops(M, M, False), "torch.linalg.solve_triangular",
+         (lambda x, y: torch.linalg.solve_triangular(x, y, upper=False),
+          a32, b32)),
+        ("trsm_loop", f"{BM}/{BM} B={BB}", (pabig, pbbig, False), BM, BM, BB,
+         trsm_ops(BM, BM, True), "torch.linalg.solve_triangular",
+         (lambda x, y: torch.linalg.solve_triangular(x, y, upper=False),
+          abig, bbig)),
+    ]
+    rows = []
+    for kname, shape, ops, m, n, bsz, nops1, lib_name, lib in timed:
+        # getrf reads A and writes LU; trsm reads tril(A) and B, writes X
+        nbytes = (2 * m * n if kname.startswith("getrf")
+                  else m * (m + 1) // 2 + 2 * m * n) * 4 * bsz
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops1 * bsz / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        fn = getattr(pk, kname)
+        ms = cuda_time_ms(fn, *ops, warmup=3, iters=20)
+        plain_ms = cuda_time_ms(getattr(pk, kname + "_plain"), *ops,
+                                warmup=1, iters=3)
+        library_ms = cuda_time_ms(*lib, warmup=2, iters=10)
+        print(f"time  {kname:15s} {shape:18s} {ms:.4f} ms, "
+              f"{nbytes / ms / 1e6:.1f} GB/s, {nops1 * bsz / ms / 1e9:.2f} "
+              f"TFLOP/s, bound {bound_ms:.4f} ms ({bound_by}; bytes "
+              f"{t_bytes:.4f}, ops {t_ops:.4f}), share {bound_ms / ms:.3f}; "
+              f"plain {plain_ms:.3f} ms; {lib_name} {library_ms:.4f} ms  "
+              f"[{smi}]")
+        rows.append({
+            "name": kname, "route": "cuda", "source": PACKED_SOURCE,
+            "replaces": PACKED_REPLACES[kname], "launches": totals[kname],
+            "max_abs_err": max_abs[kname], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library": lib_name, "check": "pass",
+            "shape": shape})
+
+    # -- 16c. the whole getrf call: tensors on the card, and numpy f64 ------
+    kern = xp.getrf_dispatch(M, M, batch=B)
+    call_ms = cuda_time_ms(kern, a32, warmup=2, iters=10)
+    kern64 = xp.getrf_dispatch(M, M, dtype="float64", batch=B)
+    whole, steps = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern64(a_np)
+        whole.append(time.perf_counter() - t0)
+        t = [time.perf_counter()]
+        ad = torch.from_numpy(np.asarray(a_np, np.float32)).to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ap = pack(ad)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        lu = pk.getrf_unrolled(ap)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = lu.permute(2, 0, 1).contiguous()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out.cpu().numpy().astype(np.float64)
+        t.append(time.perf_counter())
+        steps.append([t[i + 1] - t[i] for i in range(5)])
+    med = sorted(whole)[2] * 1e3
+    parts = np.median(np.array(steps), axis=0) * 1e3
+    print(f"call  getrf_dispatch({M}, {M}, batch={B})(a): f32 tensor on the "
+          f"card {call_ms:.4f} ms (CUDA events, kernel "
+          f"{rows[0]['ms']:.4f} ms); f64 numpy in and out {med:.3f} ms "
+          f"(median of 5, host clock); steps (median): copy in "
+          f"{parts[0]:.3f}, pack {parts[1]:.3f}, kernel {parts[2]:.3f}, "
+          f"unpack {parts[3]:.3f}, copy out {parts[4]:.3f} ms  [{smi}]")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
@@ -725,6 +1039,9 @@ def main() -> int:
     ap.add_argument("--sparse-big", type=int, default=1 << 20)
     ap.add_argument("--gemm-size", type=int, default=4096)
     ap.add_argument("--copy-size", type=int, default=8192)
+    ap.add_argument("--packed-batch", type=int, default=131072)
+    ap.add_argument("--packed-big-m", type=int, default=125)
+    ap.add_argument("--packed-big-batch", type=int, default=4096)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1018,6 +1335,8 @@ def main() -> int:
     rows += sparse_phase(args, dev, smi)
     torch.cuda.empty_cache()
     rows += dense_phase(args, dev, smi)
+    torch.cuda.empty_cache()
+    rows += packed_phase(args, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

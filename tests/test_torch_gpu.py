@@ -357,3 +357,146 @@ def test_dense_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
     xk.copy(a)
     xk.trans(a)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The four packed-LA kernels (ops/csrc/packed.cu)
+# ---------------------------------------------------------------------------
+
+from xsmm_tpu_torch.ops import packed_kernels as pk  # noqa: E402
+
+PACKED_BP = 1000  # not a multiple of 16 or 32: the ragged tail is masked
+# (M, N): every register bucket (8, 16, 32, 64), rectangular both ways, and
+# sizes above 64 (one block per problem, shared memory)
+GETRF_SHAPES = [(1, 1), (5, 5), (12, 8), (8, 12), (16, 16), (23, 17),
+                (32, 32), (40, 64), (64, 64), (70, 20), (80, 80), (125, 125)]
+# (SM, SN): every register bucket; SN above the 16 columns of a block and
+# above the shared trsm's 128-column chunk
+TRSM_SHAPES = [(1, 1), (5, 3), (8, 8), (16, 16), (16, 40), (23, 7), (32, 32),
+               (64, 64), (64, 130), (80, 80), (125, 125), (100, 300)]
+
+
+def _lower(dev, seed, m, n=None, bp=PACKED_BP):
+    """[M, N, Bp] with entries of size 1/M off the diagonal and 1 + ... on
+    it: factorizable without pivoting and well conditioned, unit diagonal
+    or not."""
+    n = n or m
+    a = _planes(dev, seed, (m, n, bp))[0] / m
+    idx = torch.arange(min(m, n), device=dev)
+    a[idx, idx] += 1.0
+    return a
+
+
+@pytest.mark.parametrize("m,n", GETRF_SHAPES)
+@pytest.mark.parametrize("kernel", ["getrf_unrolled", "getrf_loop"])
+def test_getrf_matches_plain(cuda, kernel, m, n):
+    a = _lower(cuda, 20, m, n)
+    before = pk.launches[kernel]
+    got = getattr(pk, kernel)(a)
+    torch.cuda.synchronize()
+    assert pk.launches[kernel] == before + 1
+    _same(got, getattr(pk, kernel + "_plain")(a))
+
+
+@pytest.mark.parametrize("sm,sn", TRSM_SHAPES)
+@pytest.mark.parametrize("kernel", ["trsm_unrolled", "trsm_loop"])
+@pytest.mark.parametrize("unit", [False, True])
+def test_trsm_matches_plain(cuda, kernel, sm, sn, unit):
+    a = _lower(cuda, 21, sm)
+    b = _planes(cuda, 22, (sm, sn, PACKED_BP))[0]
+    before = pk.launches[kernel]
+    got = getattr(pk, kernel)(a, b, unit)
+    torch.cuda.synchronize()
+    assert pk.launches[kernel] == before + 1
+    _same(got, getattr(pk, kernel + "_plain")(a, b, unit))
+
+
+def test_packed_launch_raises(cuda):
+    a = _lower(cuda, 23, 16)
+    b = _planes(cuda, 24, (16, 4, 64))[0]
+    with pytest.raises(ValueError, match="dtype"):
+        pk.getrf_unrolled(a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.getrf_loop(a.transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.trsm_unrolled(a, b[:, :, ::2], False)
+    with pytest.raises(ValueError, match="dtype"):
+        pk.trsm_loop(a, b.double(), False)
+    before = dict(pk.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.getrf_loop(torch.zeros((250, 250, 2), device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.getrf_unrolled(torch.zeros((250, 250, 2), device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        pk.trsm_loop(torch.zeros((230, 230, 2), device=cuda),
+                     torch.zeros((230, 8, 2), device=cuda), False)
+    assert pk.launches == before  # a refused size counts no launch
+
+
+@pytest.mark.parametrize("knob", [64, 4])
+def test_packed_entry_points_card_equal_cpu(cuda, knob):
+    """getrf_dispatch, trsm_dispatch (six variants), trmm_dispatch and
+    pgemm_dispatch in f32 give the same bits on the card as on the CPU, and
+    reach the kernels the knob picks."""
+    rng = np.random.default_rng(25)
+    m, n, bsz = 12, 9, 300
+    a = rng.standard_normal((bsz, m, m)) / m + np.eye(m)
+    a = a.astype(np.float32)
+    b = rng.standard_normal((bsz, m, n)).astype(np.float32)
+    bs = rng.standard_normal((bsz, m, m)).astype(np.float32)
+    variants = [("L", "L", "N", "N"), ("L", "U", "N", "N"),
+                ("L", "L", "T", "N"), ("L", "L", "N", "U"),
+                ("R", "L", "N", "N"), ("R", "U", "T", "N")]
+    out = {}
+    for target in ("cuda", "cpu"):
+        xp.get_registry().clear()
+        xp.set_config(target=target, getrf_unroll=knob)
+        before = dict(pk.launches)
+        res = [xp.getrf_dispatch(m, m, batch=bsz)(a),
+               xp.getrf_dispatch(m, n, batch=bsz)(a[:, :, :n])]
+        for side, uplo, tr, dg in variants:
+            rhs = b if side == "L" else bs
+            res.append(xp.trsm_dispatch(m, rhs.shape[2], side=side, uplo=uplo,
+                                        transa=tr, diag=dg, batch=bsz)(
+                a, rhs, alpha=1.5))
+        res.append(xp.trmm_dispatch(m, n, batch=bsz, transa="T")(a, b, 2.0))
+        res.append(xp.pgemm_dispatch(m, n, m, batch=bsz)(a, b))
+        out[target] = [r.cpu() for r in res]
+        launched = {k: v - before[k] for k, v in pk.launches.items()}
+        if target == "cuda":
+            kind = "unrolled" if knob >= m else "loop"
+            assert launched[f"getrf_{kind}"] == 2
+            assert launched[f"trsm_{kind}"] == 6
+            assert sum(launched.values()) == 8
+    xp.get_registry().clear()
+    xp.set_config(getrf_unroll=64)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        _same(got, want)
+
+
+def test_packed_f64_refinement_on_card(cuda):
+    rng = np.random.default_rng(26)
+    m, n, bsz = 16, 12, 1000
+    a = rng.standard_normal((bsz, m, m))
+    a[:, np.arange(m), np.arange(m)] += m
+    b = rng.standard_normal((bsz, m, n))
+    kern = xp.trsm_dispatch(m, n, dtype="float64", batch=bsz)
+    gates = {None: 1e-7, "host": 1e-8, False: 1e-3}
+    for refine, gate in gates.items():
+        x = kern(a, b, refine=refine)
+        assert xp.matdiff(b, np.tril(a) @ x).normf_rel < gate, refine
+
+
+def test_packed_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+    for name in ("getrf_unrolled_plain", "getrf_loop_plain",
+                 "trsm_unrolled_plain", "trsm_loop_plain"):
+        monkeypatch.setattr(pk, name, boom)
+    a = _lower(cuda, 27, 16, bp=100)
+    b = _planes(cuda, 28, (16, 5, 100))[0]
+    pk.getrf_unrolled(a)
+    pk.getrf_loop(a)
+    pk.trsm_unrolled(a, b, False)
+    pk.trsm_loop(a, b, True)
+    torch.cuda.synchronize()

@@ -1,0 +1,527 @@
+"""xsmm_tpu_torch's packed LA (getrf, trsm, trmm, pgemm) against xsmm_tpu's
+and numpy f64.
+
+Each test of ``tests/test_packed.py`` has a counterpart here that feeds the
+same numpy inputs (seeded) to both packages: the JAX package runs its Pallas
+kernels in interpret mode (``tests/conftest.py``), the port runs with
+``target="cpu"``, i.e. through the kernels' plain PyTorch versions.  The
+port is held to the JAX test's gate against gold and, in f32, to 1e-6
+rel-Frobenius against the JAX package (the two sum in other orders and XLA
+may contract a multiply and a subtract; the port rounds each on its own).
+
+Kernels 11-14 are reached as the JAX package reaches them: the unrolled
+kernels at the default ``getrf_unroll`` (64), the loop kernels with
+``getrf_unroll=4``, set in both packages before the first dispatch of the
+shape (both registries are cleared first: the knob is not part of the key).
+The route tests count both sides: the JAX package's kernel factories while
+it builds, the port's kernel wrappers.
+"""
+
+import dataclasses
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import xsmm_tpu as xt
+import xsmm_tpu_torch as xp
+from xsmm_tpu.core import descriptors as jd
+from xsmm_tpu.core.registry import get_registry as jget_registry
+from xsmm_tpu.ops import packed as jp
+from xsmm_tpu.ops.smm import BatchedSMM as JBatchedSMM
+from xsmm_tpu_torch.core import descriptors as pd
+from xsmm_tpu_torch.core.registry import get_registry
+from xsmm_tpu_torch.ops import cuda_build
+from xsmm_tpu_torch.ops import packed as pp
+from xsmm_tpu_torch.ops import packed_kernels as pk
+
+B = 8
+PARITY = 1e-6
+
+# the six (side, uplo, transa, diag) variants of tests/test_packed.py
+VARIANTS = [("L", "L", "N", "N"), ("L", "U", "N", "N"), ("L", "L", "T", "N"),
+            ("L", "L", "N", "U"), ("R", "L", "N", "N"), ("R", "U", "T", "N")]
+KERNELS = ("getrf_unrolled", "getrf_loop", "trsm_unrolled", "trsm_loop")
+
+
+@pytest.fixture(autouse=True)
+def cpu_target():
+    saved_p = dataclasses.asdict(xp.get_config())
+    saved_j = dataclasses.asdict(xt.get_config())
+    xp.set_config(target="cpu")
+    yield
+    xp.set_config(**saved_p)
+    xt.set_config(**saved_j)
+
+
+@pytest.fixture
+def fresh():
+    """Both registries emptied, so the next dispatch builds under the
+    current knob; emptied again afterwards, so no kernel built under a test
+    knob stays cached."""
+    get_registry().clear()
+    jget_registry().clear()
+    yield
+    get_registry().clear()
+    jget_registry().clear()
+
+
+@pytest.fixture
+def loop_knob(fresh):
+    xt.set_config(getrf_unroll=4)
+    xp.set_config(getrf_unroll=4)
+
+
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """Calls of the port's kernel wrappers and of the JAX package's kernel
+    factories (on the CPU the wrappers run the plain versions and count no
+    launch)."""
+    counts = {"port": dict.fromkeys(KERNELS, 0),
+              "jax": dict.fromkeys(KERNELS, 0)}
+    for name in KERNELS:
+        def counted(*a, _fn=getattr(pk, name), _name=name, **k):
+            counts["port"][_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(pk, name, counted)
+    for name, fac in (("getrf_unrolled", "_getrf_kernel_unrolled"),
+                      ("getrf_loop", "_getrf_kernel"),
+                      ("trsm_unrolled", "_trsm_kernel_unrolled"),
+                      ("trsm_loop", "_trsm_kernel")):
+        def counted_fac(*a, _fn=getattr(jp, fac), _name=name):
+            counts["jax"][_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(jp, fac, counted_fac)
+    return counts
+
+
+def lu_gold(a):
+    """Unpivoted LU, packed storage, numpy f64."""
+    a = np.asarray(a, np.float64).copy()
+    m, n = a.shape[-2:]
+    for k in range(min(m, n)):
+        a[..., k + 1:, k] /= a[..., k:k + 1, k:k + 1][..., 0, 0][..., None]
+        a[..., k + 1:, k + 1:] -= (a[..., k + 1:, k:k + 1]
+                                   @ a[..., k:k + 1, k + 1:])
+    return a
+
+
+def dd_matrix(rng, b, m, n=None):
+    """Diagonally dominant (no-pivot-safe) batch."""
+    n = n or m
+    a = rng.standard_normal((b, m, n))
+    for i in range(min(m, n)):
+        a[:, i, i] += m
+    return a
+
+
+def host(x):
+    return np.asarray(x.cpu().numpy() if isinstance(x, torch.Tensor) else x,
+                      np.float64)
+
+
+def rel(got, want):
+    got, want = host(got), host(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def op_tri(a, uplo, transa, diag):
+    """op(A) of the referenced triangle, numpy f64."""
+    at = (np.tril if uplo == "L" else np.triu)(np.asarray(a, np.float64))
+    if diag == "U":
+        idx = np.arange(at.shape[-1])
+        at[..., idx, idx] = 1.0
+    return np.swapaxes(at, -1, -2) if transa == "T" else at
+
+
+# ---------------------------------------------------------------------------
+# The counterparts of tests/test_packed.py
+# ---------------------------------------------------------------------------
+
+
+def test_getrf_square(rng):
+    m = 16
+    a = dd_matrix(rng, B, m).astype(np.float32)
+    lu = pp.getrf_dispatch(m, m, batch=B)(a)
+    assert isinstance(lu, torch.Tensor) and lu.dtype == torch.float32
+    xp.check(lu_gold(a), host(lu), 1e-3, what="getrf 16x16")
+    assert rel(lu, np.asarray(jp.getrf_dispatch(m, m, batch=B)(a))) <= PARITY
+
+
+def test_getrf_rect(rng):
+    m, n = 12, 8
+    a = dd_matrix(rng, B, m, n).astype(np.float32)
+    lu = pp.getrf_dispatch(m, n, batch=B)(a)
+    xp.check(lu_gold(a), host(lu), 1e-3)
+    assert rel(lu, np.asarray(jp.getrf_dispatch(m, n, batch=B)(a))) <= PARITY
+
+
+def test_getrf_reconstruct(rng):
+    """L @ U must reproduce A."""
+    m = 10
+    a = dd_matrix(rng, B, m).astype(np.float32)
+    lu = host(pp.getrf_dispatch(m, m, batch=B)(a))
+    l = np.tril(lu, -1) + np.eye(m)
+    u = np.triu(lu)
+    xp.check(a, l @ u, 1e-3, what="L@U == A")
+    assert rel(lu, np.asarray(jp.getrf_dispatch(m, m, batch=B)(a))) <= PARITY
+
+
+@pytest.mark.parametrize("side,uplo,transa,diag", VARIANTS)
+def test_trsm_variants(rng, side, uplo, transa, diag):
+    m, n = 12, 10
+    am = m if side == "L" else n
+    a = dd_matrix(rng, B, am).astype(np.float32)
+    b = rng.standard_normal((B, m, n)).astype(np.float32)
+    kw = dict(side=side, uplo=uplo, transa=transa, diag=diag, batch=B)
+    x = pp.trsm_dispatch(m, n, **kw)(a, b)
+    opa = op_tri(a, uplo, transa, diag)
+    x64 = host(x)
+    lhs = opa @ x64 if side == "L" else x64 @ opa
+    xp.check(np.asarray(b, np.float64), lhs, 1e-3,
+             what=f"trsm {side}{uplo}{transa}{diag}")
+    assert rel(x, np.asarray(jp.trsm_dispatch(m, n, **kw)(a, b))) <= PARITY
+
+
+def test_trsm_alpha(rng):
+    m, n = 8, 6
+    a = dd_matrix(rng, B, m).astype(np.float32)
+    b = rng.standard_normal((B, m, n)).astype(np.float32)
+    kern = pp.trsm_dispatch(m, n, batch=B)
+    x2 = host(kern(a, b, alpha=2.0))
+    x1 = host(kern(a, b))
+    xp.check(2.0 * x1, x2, 1e-3)
+    ref = np.asarray(jp.trsm_dispatch(m, n, batch=B)(a, b, alpha=2.0))
+    assert rel(x2, ref) <= PARITY
+
+
+def test_trsm_f64_refinement(rng):
+    m, n = 16, 12
+    a = dd_matrix(rng, B, m)
+    b = rng.standard_normal((B, m, n))
+    kern = pp.trsm_dispatch(m, n, dtype="float64", batch=B)
+    jkern = jp.trsm_dispatch(m, n, dtype="float64", batch=B)
+    # default: device split2 residual
+    x = kern(a, b)
+    assert isinstance(x, np.ndarray) and x.dtype == np.float64
+    info = xp.matdiff(b, np.tril(a) @ x)
+    assert info.normf_rel < 1e-7, f"refined trsm too lossy: {info.normf_rel}"
+    # "host": f64 residual on the host, max precision
+    xh = kern(a, b, refine="host")
+    info_h = xp.matdiff(b, np.tril(a) @ xh)
+    assert info_h.normf_rel < 1e-8, f"host refine: {info_h.normf_rel}"
+    # unrefined f32 solve is much lossier but inside the reference gate
+    x0 = kern(a, b, refine=False)
+    info_0 = xp.matdiff(b, np.tril(a) @ x0)
+    assert info_0.normf_rel < 1e-3
+    assert info.normf_rel < info_0.normf_rel
+    # the JAX package lands in the same classes on the same inputs
+    assert rel(x0, jkern(a, b, refine=False)) <= PARITY
+    assert rel(xh, jkern(a, b, refine="host")) <= 1e-8
+    assert rel(x, jkern(a, b)) <= 1e-6
+
+
+@pytest.mark.parametrize("side,uplo", [("L", "L"), ("L", "U"), ("R", "U")])
+def test_trmm(rng, side, uplo):
+    m, n = 9, 11
+    am = m if side == "L" else n
+    a = rng.standard_normal((B, am, am)).astype(np.float32)
+    b = rng.standard_normal((B, m, n)).astype(np.float32)
+    c = pp.trmm_dispatch(m, n, side=side, uplo=uplo, batch=B)(a, b)
+    at = op_tri(a, uplo, "N", "N")
+    gold = at @ b if side == "L" else b @ at
+    xp.check(gold, host(c), 1e-3, what=f"trmm {side}{uplo}")
+    ref = jp.trmm_dispatch(m, n, side=side, uplo=uplo, batch=B)(a, b)
+    assert rel(c, np.asarray(ref)) <= PARITY
+
+
+def test_pgemm(rng):
+    kern = pp.pgemm_dispatch(8, 8, 8, batch=B)
+    assert isinstance(kern, xp.BatchedSMM)
+    a = rng.standard_normal((B, 8, 8)).astype(np.float32)
+    b = rng.standard_normal((B, 8, 8)).astype(np.float32)
+    gold = np.einsum("bmk,bkn->bmn", a.astype(np.float64),
+                     b.astype(np.float64))
+    c = kern(a, b)
+    xp.check(gold, host(c), 1e-3)
+    assert rel(c, np.asarray(jp.pgemm_dispatch(8, 8, 8, batch=B)(a, b))) \
+        <= PARITY
+
+
+def test_dispatch_cached():
+    k1 = pp.getrf_dispatch(8, 8)
+    assert pp.getrf_dispatch(8, 8) is k1
+    assert pp.trsm_dispatch(8, 8) is pp.trsm_dispatch(8, 8)
+
+
+def test_trsm_f64_refined_transposed(rng):
+    """Refinement masks op(A)'s triangle, not A's storage triangle: with
+    transa='T' the referenced triangle flips."""
+    m, n = 12, 8
+    a = dd_matrix(rng, B, m)
+    b = rng.standard_normal((B, m, n))
+    kern = pp.trsm_dispatch(m, n, dtype="float64", transa="T", batch=B)
+    for refine in (None, "host"):
+        x = kern(a, b, refine=refine)
+        lhs = np.swapaxes(np.tril(a), -1, -2) @ x
+        info = xp.matdiff(b, lhs)
+        assert info.normf_rel < 1e-7, (refine, info.normf_rel)
+
+
+def test_trmm_routes_lane_packed(rng):
+    """TRMM runs the batched SMM (the packed f32 kernel)."""
+    kern = pp.trmm_dispatch(8, 8, batch=B)
+    assert isinstance(kern._smm, xp.BatchedSMM)
+    assert isinstance(jp.trmm_dispatch(8, 8, batch=B)._smm, JBatchedSMM)
+
+
+@pytest.mark.parametrize("transa,diag,alpha", [("T", "N", 1.0),
+                                               ("N", "U", 2.5),
+                                               ("T", "U", -0.5)])
+def test_trmm_variants(rng, transa, diag, alpha):
+    m, n = 8, 12
+    a = rng.standard_normal((B, m, m)).astype(np.float32)
+    b = rng.standard_normal((B, m, n)).astype(np.float32)
+    kw = dict(side="L", uplo="L", transa=transa, diag=diag, batch=B)
+    c = pp.trmm_dispatch(m, n, **kw)(a, b, alpha=alpha)
+    gold = alpha * (op_tri(a, "L", transa, diag) @ b)
+    xp.check(gold, host(c), 1e-3, what=f"trmm {transa}{diag}a{alpha}")
+    ref = jp.trmm_dispatch(m, n, **kw)(a, b, alpha=alpha)
+    assert rel(c, np.asarray(ref)) <= PARITY
+
+
+def test_trmm_f64(rng):
+    m, n = 9, 7
+    a = rng.standard_normal((B, m, m))
+    b = rng.standard_normal((B, m, n))
+    c = pp.trmm_dispatch(m, n, dtype="float64", batch=B)(a, b)
+    assert isinstance(c, np.ndarray) and c.dtype == np.float64
+    gold = np.tril(a) @ b
+    err = np.linalg.norm(c - gold) / np.linalg.norm(gold)
+    assert err < 1e-6, err  # split-schedule class, not f32 class
+
+
+# ---------------------------------------------------------------------------
+# Kernels 11-14 against the JAX package, routed alike
+# ---------------------------------------------------------------------------
+
+
+def _getrf_parity(rng, m, n, kernel, counts):
+    a = dd_matrix(rng, B, m, n).astype(np.float32)
+    jk = jp.getrf_dispatch(m, n, batch=B)
+    kern = pp.getrf_dispatch(m, n, batch=B)
+    assert kern.kernel_name == kernel and kern.bt == jk.bt
+    ap = np.ascontiguousarray(np.transpose(a, (1, 2, 0)))
+    ref = np.asarray(jk.packed(ap))
+    got = kern.packed(xp.packed_from_numpy(ap))
+    assert rel(got, ref) <= PARITY
+    assert rel(kern(a), np.asarray(jk(a))) <= PARITY
+    assert rel(got, np.transpose(lu_gold(a), (1, 2, 0))) <= 1e-5
+    other = {"getrf_unrolled": "getrf_loop",
+             "getrf_loop": "getrf_unrolled"}[kernel]
+    for side in ("port", "jax"):
+        assert counts[side][other] == 0
+    assert counts["port"][kernel] == 2 and counts["jax"][kernel] == 1
+
+
+@pytest.mark.parametrize("m,n", [(16, 16), (12, 8), (8, 12)])
+def test_getrf_unrolled_kernel_parity(rng, fresh, kernel_calls, m, n):
+    _getrf_parity(rng, m, n, "getrf_unrolled", kernel_calls)
+
+
+@pytest.mark.parametrize("m,n", [(10, 10), (12, 8), (8, 12)])
+def test_getrf_loop_kernel_parity(rng, loop_knob, kernel_calls, m, n):
+    _getrf_parity(rng, m, n, "getrf_loop", kernel_calls)
+
+
+def _trsm_parity(rng, variant, kernel, counts):
+    side, uplo, transa, diag = variant
+    m, n = 8, 6
+    am = m if side == "L" else n
+    a = dd_matrix(rng, B, am).astype(np.float32)
+    b = rng.standard_normal((B, m, n)).astype(np.float32)
+    kw = dict(side=side, uplo=uplo, transa=transa, diag=diag, batch=B)
+    jk = jp.trsm_dispatch(m, n, **kw)
+    kern = pp.trsm_dispatch(m, n, **kw)
+    assert kern.kernel_name == kernel and kern.bt == jk.bt
+    x = kern(a, b, alpha=-1.5)
+    assert rel(x, np.asarray(jk(a, b, alpha=-1.5))) <= PARITY
+    opa = op_tri(a, uplo, transa, diag)
+    lhs = opa @ host(x) if side == "L" else host(x) @ opa
+    assert rel(lhs, -1.5 * b.astype(np.float64)) <= 1e-5
+    other = {"trsm_unrolled": "trsm_loop",
+             "trsm_loop": "trsm_unrolled"}[kernel]
+    for s in ("port", "jax"):
+        assert counts[s][other] == 0 and counts[s][kernel] == 1
+
+
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_trsm_unrolled_kernel_parity(rng, fresh, kernel_calls, variant, unit):
+    variant = variant[:3] + ("U" if unit else "N",)
+    _trsm_parity(rng, variant, "trsm_unrolled", kernel_calls)
+
+
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_trsm_loop_kernel_parity(rng, loop_knob, kernel_calls, variant, unit):
+    variant = variant[:3] + ("U" if unit else "N",)
+    _trsm_parity(rng, variant, "trsm_loop", kernel_calls)
+
+
+def test_factor_then_solve(rng):
+    """The slice as its users run it: factor once (getrf), then solve with
+    the unit-lower and the upper factor (two trsm), in both packages."""
+    m, n = 12, 5
+    a = dd_matrix(rng, B, m)
+    b = rng.standard_normal((B, m, n))
+    a32, b32 = a.astype(np.float32), b.astype(np.float32)
+    out = {}
+    for name, mod in (("port", pp), ("jax", jp)):
+        lu = host(mod.getrf_dispatch(m, m, batch=B)(a32)).astype(np.float32)
+        y = mod.trsm_dispatch(m, n, uplo="L", diag="U", batch=B)(lu, b32)
+        y = host(y).astype(np.float32)
+        out[name] = host(mod.trsm_dispatch(m, n, uplo="U", batch=B)(lu, y))
+    assert rel(out["port"], out["jax"]) <= PARITY
+    assert rel(out["port"], np.linalg.solve(a32.astype(np.float64), b)) \
+        <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Keys, knob, plain versions, wrappers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("op,kw", [
+    ("getrf", dict(m=12, n=8)), ("getrf", dict(m=16, n=16, dtype="float64")),
+    ("trsm", dict(m=12, n=10, side="R", uplo="U", transa="T", diag="U")),
+    ("trmm", dict(m=9, n=11, uplo="U")), ("pgemm", dict(m=8, n=8, k=8))])
+def test_descriptor_bytes_and_names_match(fresh, op, kw):
+    dt = kw.pop("dtype", "float32")
+    jdesc = jd.PackedDescriptor(op=op, dtype=dt, batch=B, **kw)
+    pdesc = pd.PackedDescriptor(op=op, dtype=dt, batch=B, **kw)
+    assert jdesc.pack() == pdesc.pack()
+    if op == "pgemm":
+        return
+    args = {k: v for k, v in kw.items() if k not in ("m", "n")}
+    getattr(pp, f"{op}_dispatch")(kw["m"], kw["n"], dtype=dt, batch=B, **args)
+    getattr(jp, f"{op}_dispatch")(kw["m"], kw["n"], dtype=dt, batch=B, **args)
+    pinfo = get_registry().kernel_info(pdesc)
+    jinfo = jget_registry().kernel_info(jdesc)
+    assert pinfo["name"] == jinfo["name"]
+
+
+def test_knob_is_not_part_of_the_key(fresh):
+    """As in the JAX package: a shape dispatched before the knob changes
+    keeps the kernel it was built with."""
+    kern = pp.getrf_dispatch(6, 6, batch=3)
+    jk = jp.getrf_dispatch(6, 6, batch=3)
+    xp.set_config(getrf_unroll=4)
+    xt.set_config(getrf_unroll=4)
+    assert pp.getrf_dispatch(6, 6, batch=3) is kern
+    assert jp.getrf_dispatch(6, 6, batch=3) is jk
+    assert kern.kernel_name == "getrf_unrolled"
+    assert pp.trsm_dispatch(6, 6, batch=3).kernel_name == "trsm_loop"
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (5, 5), (7, 3), (3, 7), (16, 16)])
+def test_getrf_plain_versions_match_f64(rng, m, n):
+    a = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        dd_matrix(rng, 11, m, n), (1, 2, 0))).astype(np.float32))
+    gold = lu_gold(np.transpose(a.double().numpy(), (2, 0, 1)))
+    for fn in (pk.getrf_unrolled_plain, pk.getrf_loop_plain):
+        got = fn(a)
+        assert got.shape == a.shape and got.dtype == torch.float32
+        assert rel(np.transpose(host(got), (2, 0, 1)), gold) <= 1e-5
+
+
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("sm,sn", [(1, 1), (6, 3), (16, 1), (9, 16)])
+def test_trsm_plain_versions_match_f64(rng, sm, sn, unit):
+    a = dd_matrix(rng, 11, sm)
+    b = rng.standard_normal((11, sm, sn))
+    at = op_tri(a, "L", "N", "U" if unit else "N")
+    gold = np.linalg.solve(at, b)
+    ap = torch.from_numpy(np.ascontiguousarray(np.transpose(a, (1, 2, 0)))
+                          .astype(np.float32))
+    bp = torch.from_numpy(np.ascontiguousarray(np.transpose(b, (1, 2, 0)))
+                          .astype(np.float32))
+    for fn in (pk.trsm_unrolled_plain, pk.trsm_loop_plain):
+        got = fn(ap, bp, unit)
+        assert rel(np.transpose(host(got), (2, 0, 1)), gold) <= 1e-5
+
+
+def test_wrappers_check_operands():
+    a = torch.ones((4, 4, 8))
+    b = torch.ones((4, 3, 8))
+    for fn in (pk.getrf_unrolled, pk.getrf_loop):
+        with pytest.raises(ValueError, match="dtype"):
+            fn(a.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(a.transpose(0, 1))
+        with pytest.raises(ValueError, match="3-D"):
+            fn(a[0])
+    for fn in (pk.trsm_unrolled, pk.trsm_loop):
+        with pytest.raises(ValueError, match="disagree"):
+            fn(a, torch.ones((3, 3, 8)), False)
+        with pytest.raises(ValueError, match="dtype"):
+            fn(a, b.double(), False)
+        with pytest.raises(TypeError):
+            fn(a, b.numpy(), False)
+    before = dict(pk.launches)
+    pk.getrf_unrolled(a + 4 * torch.eye(4)[..., None])
+    pk.trsm_loop(a, b, True)
+    assert pk.launches == before  # the CPU runs the plain versions
+
+
+def test_shared_memory_limit_raises(monkeypatch):
+    """packed.cu alone decides what fits a block: its -2 (nothing launched)
+    reaches the caller as ValueError; a CUDA error stays RuntimeError."""
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    dev = torch.device("cuda", 0)
+
+    def entry(rc):
+        def xsmm_trsm_loop(*args):
+            assert args[-2:] == (0, 0)  # device index, stream
+            return rc
+        return xsmm_trsm_loop
+
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_build.launch(entry(-2), dev, 230, 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_build.launch(entry(9), dev, 230, 8)
+    cuda_build.launch(entry(0), dev, 125, 125)
+
+
+def test_entry_point_shapes_checked(rng):
+    with pytest.raises(ValueError, match="kernel built for"):
+        pp.getrf_dispatch(4, 4, batch=2)(np.ones((2, 4, 5), np.float32))
+    with pytest.raises(ValueError, match="kernel built for"):
+        pp.trsm_dispatch(4, 3, batch=2)(np.ones((2, 3, 3), np.float32),
+                                        np.ones((2, 4, 3), np.float32))
+
+
+def test_getrf_f64_contract(rng):
+    """f64 in, computed in f32, numpy f64 out — as the JAX package."""
+    a = dd_matrix(rng, B, 7)
+    lu = pp.getrf_dispatch(7, 7, dtype="float64", batch=B)(a)
+    ref = jp.getrf_dispatch(7, 7, dtype="float64", batch=B)(a)
+    assert isinstance(lu, np.ndarray) and lu.dtype == np.float64
+    assert rel(lu, ref) <= PARITY
+    xp.check(lu_gold(a), lu, 1e-5)
+
+
+def test_dispatch_without_card_raises(monkeypatch):
+    """With the target unset and no card, building raises; nothing runs on
+    the CPU unasked."""
+    xp.set_config(target="")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: pp.getrf_dispatch(5, 7, batch=3),
+                 lambda: pp.trsm_dispatch(5, 7, batch=3),
+                 lambda: pp.trmm_dispatch(5, 7, batch=3),
+                 lambda: pp.pgemm_dispatch(5, 7, 3, batch=3)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -33,6 +33,8 @@ from .ops.fsspmdm import Fsspmdm, dfsspmdm_create, sfsspmdm_create
 from .ops.spmdm import SpmdmHandle, spmdm_init
 from .ops.blocked_gemm import BlockedGemmHandle, blocked_gemm_handle
 from .ops.mmbatch import gemm_batch, mmbatch, mmbatch_begin
+from .ops.packed import (GetrfKernel, TrmmKernel, TrsmKernel, getrf_dispatch,
+                         pgemm_dispatch, trmm_dispatch, trsm_dispatch)
 from .utils.matdiff import MatdiffInfo, check, matdiff
 from .utils.mtx import Csc, Csr, read_mtx, write_mtx
 from .utils import timer

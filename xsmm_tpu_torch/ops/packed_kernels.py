@@ -1,0 +1,228 @@
+"""The four packed-LA kernels (GETRF and TRSM): wrappers, plain versions,
+counts.
+
+Operands use the lane-packed layout of ``xsmm_tpu/ops/packed.py``, batch
+index innermost and contiguous: GETRF A and LU ``[M, N, Bp]``; TRSM A
+``[SM, SM, Bp]`` (the canonical left/lower operator), B and X
+``[SM, SN, Bp]``; any Bp, float32.
+
+Each wrapper checks device, dtype, shape and contiguity, then:
+
+* on CUDA tensors it allocates the output with ``torch.empty``, launches
+  its kernel (``ops/csrc/packed.cu``) on the current stream, raises if the
+  launch returned a CUDA error, and adds one to ``launches[name]``;
+* on CPU tensors it runs its plain PyTorch version (``*_plain``), which
+  repeats the JAX kernel's arithmetic in the JAX kernel's order, each
+  product and sum rounded on its own, so that kernel and plain version
+  agree bit for bit.
+
+Any other device raises.  There is no fallback from a CUDA tensor.  The
+kernels take sizes above the register buckets (64) through a block per
+problem with the matrix in shared memory; ``packed.cu`` alone decides what
+fits, and refuses sizes that do not fit a block's shared memory before any
+launch, which ``cuda_build.launch`` raises as ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from . import cuda_build
+
+# kernel name -> launches since the last reset_launches()
+launches: Dict[str, int] = {"getrf_unrolled": 0, "getrf_loop": 0,
+                            "trsm_unrolled": 0, "trsm_loop": 0}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("packed")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.xsmm_getrf_unrolled, lib.xsmm_getrf_loop):
+            fn.argtypes = [p, p, i, i, ll, i, p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.xsmm_trsm_unrolled, lib.xsmm_trsm_loop):
+            fn.argtypes = [p, p, p, i, i, ll, i, i, p]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(name: str, t, device: Optional[torch.device] = None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"packed kernels run on cuda or cpu, not {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, A is on {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dim() != 3:
+        raise ValueError(f"{name}: packed operands are 3-D, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _trsm_shapes(a: torch.Tensor, b: torch.Tensor):
+    _check("A", a)
+    _check("B", b, a.device)
+    sm, sm2, bp = a.shape
+    if sm2 != sm or b.shape[0] != sm or b.shape[2] != bp:
+        raise ValueError(f"packed shapes disagree: A[SM,SM,Bp]="
+                         f"{tuple(a.shape)} B[SM,SN,Bp]={tuple(b.shape)}")
+    return sm, b.shape[1], bp
+
+
+# ---------------------------------------------------------------------------
+# Kernel 11: _getrf_kernel_unrolled (xsmm_tpu/ops/packed.py:66)
+# ---------------------------------------------------------------------------
+
+
+def getrf_unrolled_plain(a: torch.Tensor) -> torch.Tensor:
+    """Unpivoted LU, one reciprocal per pivot: l = a[k+1:, k] * (1/a[k,k]),
+    then the trailing block less l * a[k, k+1:]; stops at k + 1 >= M."""
+    o = a.clone()
+    m, n = a.shape[:2]
+    for k in range(min(m, n)):
+        if k + 1 >= m:
+            break
+        l = o[k + 1:, k] * torch.reciprocal(o[k, k])[None, :]
+        o[k + 1:, k] = l
+        if k + 1 < n:
+            o[k + 1:, k + 1:] = (o[k + 1:, k + 1:]
+                                 - l[:, None, :] * o[k, k + 1:][None])
+    return o
+
+
+def getrf_unrolled(a: torch.Tensor) -> torch.Tensor:
+    """LU [M, N, Bp] of A [M, N, Bp] (unit L below the diagonal, U on and
+    above it), kernel 11's arithmetic."""
+    _check("A", a)
+    if a.device.type == "cpu":
+        return getrf_unrolled_plain(a)
+    m, n, bp = a.shape
+    o = torch.empty_like(a)
+    if o.numel():
+        cuda_build.launch(_lib().xsmm_getrf_unrolled, a.device, a.data_ptr(),
+                          o.data_ptr(), m, n, bp)
+        launches["getrf_unrolled"] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Kernel 12: _getrf_kernel (xsmm_tpu/ops/packed.py:104)
+# ---------------------------------------------------------------------------
+
+
+def getrf_loop_plain(a: torch.Tensor) -> torch.Tensor:
+    """The same LU with the column divided by the pivot:
+    l = a[k+1:, k] / a[k,k]."""
+    o = a.clone()
+    m, n = a.shape[:2]
+    for k in range(min(m, n)):
+        if k + 1 >= m:
+            break  # the JAX loop's later steps change nothing
+        l = o[k + 1:, k] / o[k, k][None, :]
+        o[k + 1:, k] = l
+        if k + 1 < n:
+            o[k + 1:, k + 1:] = (o[k + 1:, k + 1:]
+                                 - l[:, None, :] * o[k, k + 1:][None])
+    return o
+
+
+def getrf_loop(a: torch.Tensor) -> torch.Tensor:
+    """LU [M, N, Bp] of A [M, N, Bp], kernel 12's arithmetic."""
+    _check("A", a)
+    if a.device.type == "cpu":
+        return getrf_loop_plain(a)
+    m, n, bp = a.shape
+    o = torch.empty_like(a)
+    if o.numel():
+        cuda_build.launch(_lib().xsmm_getrf_loop, a.device, a.data_ptr(),
+                          o.data_ptr(), m, n, bp)
+        launches["getrf_loop"] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Kernel 13: _trsm_kernel_unrolled (xsmm_tpu/ops/packed.py:196)
+# ---------------------------------------------------------------------------
+
+
+def trsm_unrolled_plain(a: torch.Tensor, b: torch.Tensor,
+                        unit: bool) -> torch.Tensor:
+    """Right-looking forward substitution: row i of X times 1/a[i,i]
+    (unless unit), then the rows below less a[r,i] * x[i]."""
+    x = b.clone()
+    sm = a.shape[0]
+    for i in range(sm):
+        xi = x[i]
+        if not unit:
+            xi = xi * torch.reciprocal(a[i, i])[None, :]
+            x[i] = xi
+        if i + 1 < sm:
+            x[i + 1:] = x[i + 1:] - a[i + 1:, i][:, None, :] * xi[None]
+    return x
+
+
+def trsm_unrolled(a: torch.Tensor, b: torch.Tensor,
+                  unit: bool) -> torch.Tensor:
+    """X [SM, SN, Bp] with tril(A) X = B (unit diagonal if ``unit``),
+    kernel 13's arithmetic."""
+    sm, sn, bp = _trsm_shapes(a, b)
+    if a.device.type == "cpu":
+        return trsm_unrolled_plain(a, b, unit)
+    x = torch.empty_like(b)
+    if x.numel():
+        cuda_build.launch(_lib().xsmm_trsm_unrolled, a.device, a.data_ptr(),
+                          b.data_ptr(), x.data_ptr(), sm, sn, bp, int(unit))
+        launches["trsm_unrolled"] += 1
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Kernel 14: _trsm_kernel (xsmm_tpu/ops/packed.py:219)
+# ---------------------------------------------------------------------------
+
+
+def trsm_loop_plain(a: torch.Tensor, b: torch.Tensor,
+                    unit: bool) -> torch.Tensor:
+    """Left-looking substitution: x[i] = (b[i] - s[i]) / a[i,i], where
+    s[i] = sum_{r<i} a[i,r] * x[r] is summed from 0 in r order (kept as a
+    running sum for every row, one term a step)."""
+    x = torch.empty_like(b)
+    s = torch.zeros_like(b)
+    sm = a.shape[0]
+    for i in range(sm):
+        xi = b[i] - s[i]
+        if not unit:
+            xi = xi / a[i, i][None, :]
+        x[i] = xi
+        if i + 1 < sm:
+            s[i + 1:] = s[i + 1:] + a[i + 1:, i][:, None, :] * xi[None]
+    return x
+
+
+def trsm_loop(a: torch.Tensor, b: torch.Tensor, unit: bool) -> torch.Tensor:
+    """X [SM, SN, Bp] with tril(A) X = B, kernel 14's arithmetic."""
+    sm, sn, bp = _trsm_shapes(a, b)
+    if a.device.type == "cpu":
+        return trsm_loop_plain(a, b, unit)
+    x = torch.empty_like(b)
+    if x.numel():
+        cuda_build.launch(_lib().xsmm_trsm_loop, a.device, a.data_ptr(),
+                          b.data_ptr(), x.data_ptr(), sm, sn, bp, int(unit))
+        launches["trsm_loop"] += 1
+    return x
