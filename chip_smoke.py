@@ -6,7 +6,7 @@ against their plain PyTorch versions.
                           [--sparse-big 1048576] [--gemm-size 4096]
                           [--copy-size 8192] [--packed-batch 131072]
                           [--packed-big-m 125] [--packed-big-batch 4096]
-                          [--seed 0]
+                          [--rnn-shape 128,512,512,32] [--seed 0]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 
@@ -76,7 +76,25 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     without pivoting, ``torch.linalg.solve_triangular``), and the whole
     ``getrf_dispatch(16, 16, batch=131072)(a)`` call with a tensor on the
     card and with numpy f64 step by step;
-17. prints one ``{"kernels": [...]}`` JSON line (all fourteen kernels), the
+18. drives the RNN forward path through its entry points
+    (``create_rnncell(RnnDesc(...))`` then ``forward`` and
+    ``forward_train``) at N, C, K, T = 128, 512, 512, 32, the shape of
+    ``samples/lstm_driver.py:30``: LSTM, GRU and RNN_TANH in f32 and bf16;
+    RNN_RELU and RNN_SIGMOID at T = 8; the ragged N 100, C 200, K 300, T 5
+    and T = 1; with the RNN launch counts and the scan route's count set to
+    0 just before each call and read just after (each call must launch its
+    one kernel, forward_train its train form, and the scan route 0 times);
+    each result, the train residuals too, against numpy f64 gold (1e-3 f32,
+    5e-2 bf16), and hs against ``torch.nn.LSTM``/``GRU``/``RNN`` (cuDNN,
+    TF32 off) given the same weights, outside the path;
+19. compares the three RNN kernels, in both forms, with their plain
+    versions on the same zx, R, h0 and c0 (1e-5 with f32 R, 1e-3 with bf16
+    R; bit-exactness reported when reached);
+20. times them beside their bounds (and per step), their plain versions,
+    the whole ``forward`` call with tensors on the card and the cuDNN
+    forward at the same shape, in f32 and bf16, with the FLOP rate
+    2*T*N*(C+K)*G*K of the whole forward beside cuDNN's;
+21. prints one ``{"kernels": [...]}`` JSON line (all seventeen kernels), the
     nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
@@ -151,6 +169,18 @@ TRSM_VARIANTS = [("L", "L", "N", "N"), ("L", "U", "N", "N"),
 PACKED_TOL = {"f32": 1e-5, "refine": 1e-7, "host": 1e-8, "trmm_f64": 1e-6}
 # kernel against its plain version: the same roundings in the same order
 PACKED_PLAIN_TOL = 0.0
+
+RNN_SOURCE = "xsmm_tpu_torch/ops/csrc/rnn_seq.cu"
+RNN_REPLACES = {
+    "lstm_seq": "xsmm_tpu/dnn/rnn_seq.py:112",
+    "gru_seq": "xsmm_tpu/dnn/rnn_seq.py:271",
+    "rnn_seq": "xsmm_tpu/dnn/rnn_seq.py:451",
+}
+# against f64 gold: the TOL of tests/test_dnn.py:20, and :370 for bf16
+RNN_GOLD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# kernel against its plain version: f32 sums in another order than cuBLAS;
+# with bf16 R both sum exact products in k order
+RNN_PLAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
 def nvidia_smi_line() -> str:
@@ -1032,6 +1062,316 @@ def packed_phase(args, dev, smi):
     return rows
 
 
+def rnn_gold(np, act, ct, x, w, r, b, h0, c0):
+    """The cell's recurrence in numpy f64 (tests/test_dnn.py:323-336 for the
+    LSTM, :603-614 for the GRU): (hs, h_T, c_T, residuals), the residuals
+    those of forward_train (LSTM cs, i, g, f, o; GRU ri, zi, gi, zr_g)."""
+    x, w, r, b, h, c = (np.asarray(v, np.float64) for v in (x, w, r, b, h0,
+                                                            c0))
+    t, n, _ = x.shape
+    k = h.shape[1]
+    sig = lambda z: 1 / (1 + np.exp(-z))
+    zx = (x.reshape(t * n, -1) @ w + b).reshape(t, n, -1)
+    hs, res = [], []
+    for ti in range(t):
+        if ct == "lstm":
+            z = zx[ti] + h @ r
+            i, g = sig(z[:, :k]), np.tanh(z[:, k:2 * k])
+            f, o = sig(z[:, 2 * k:3 * k]), sig(z[:, 3 * k:])
+            c = f * c + i * g
+            h = o * np.tanh(c)
+            res.append((c, i, g, f, o))
+        elif ct == "gru":
+            zr = h @ r
+            ri = sig(zx[ti][:, :k] + zr[:, :k])
+            zi = sig(zx[ti][:, k:2 * k] + zr[:, k:2 * k])
+            gi = np.tanh(zx[ti][:, 2 * k:] + ri * zr[:, 2 * k:])
+            h = (1 - zi) * gi + zi * h
+            res.append((ri, zi, gi, zr[:, 2 * k:]))
+        else:
+            a = zx[ti] + h @ r
+            h = {"relu": lambda v: np.maximum(v, 0), "sigmoid": sig,
+                 "tanh": np.tanh}[act](a)
+        hs.append(h)
+    return np.stack(hs), h, c, [np.stack(v) for v in zip(*res)]
+
+
+def rnn_phase(args, dev, smi):
+    """Steps 18 to 20 of the module docstring; returns the RNN kernels' rows
+    of the ``{"kernels": [...]}`` line."""
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.dnn import (CellType, RnnDesc, create_rnncell,
+                                    rnn_params_from_numpy)
+    from xsmm_tpu_torch.dnn import rnn_seq as rs
+    from xsmm_tpu_torch.dnn import rnncell
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    N, C, K, T = (int(v) for v in args.rnn_shape.split(","))
+    f32, bf16 = torch.float32, torch.bfloat16
+    kinds = {CellType.LSTM: ("lstm", 4, "lstm_seq"),
+             CellType.GRU: ("gru", 3, "gru_seq"),
+             CellType.RNN_RELU: ("relu", 1, "rnn_seq"),
+             CellType.RNN_SIGMOID: ("sigmoid", 1, "rnn_seq"),
+             CellType.RNN_TANH: ("tanh", 1, "rnn_seq")}
+    cases = {}   # (cell type, shape) -> inputs, device tensors and gold
+
+    def inputs(ct, shape):
+        """numpy inputs from the seed (x ~ N(0,1); weights x0.1 as
+        samples/lstm_driver.py:37-38; small random b, h0 and c0), the
+        same on the card, and the f64 gold; made once per cell and shape."""
+        key = (ct, shape)
+        if key not in cases:
+            name, g, _ = kinds[ct]
+            n, c, k, t = shape
+            rng = np.random.default_rng(args.seed + 10 + len(cases))
+            x = rng.standard_normal((t, n, c)).astype(np.float32)
+            w, r = ((rng.standard_normal(s) * 0.1).astype(np.float32)
+                    for s in ((c, g * k), (k, g * k)))
+            b = (rng.standard_normal(g * k) * 0.1).astype(np.float32)
+            h0, c0 = ((rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+                      for _ in range(2))
+            wd, rd, bd = rnn_params_from_numpy(w, r, b)
+            cell = name if g > 1 else "rnn"
+            cases[key] = dict(
+                np=(x, w, r, b, h0, c0),
+                dev=(torch.from_numpy(x).to(dev), wd, rd, bd,
+                     torch.from_numpy(h0).to(dev),
+                     torch.from_numpy(c0).to(dev)),
+                gold=rnn_gold(np, name, cell, x, w, r, b, h0, c0))
+        return cases[key]
+
+    def rel(gold, got):
+        got = np.asarray(got.double().cpu().numpy() if isinstance(
+            got, torch.Tensor) else got, np.float64)
+        if got.shape != gold.shape:
+            raise RuntimeError(f"shape {got.shape} != {gold.shape}")
+        if not np.isfinite(got).all():
+            raise RuntimeError("non-finite output")
+        return np.linalg.norm(got - gold) / max(np.linalg.norm(gold), 1e-300)
+
+    def gate(label, err, tol, what="gold"):
+        ok = err <= tol
+        print(f"{what:5s} {label:44s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: {err:.3e} > {tol:g} against {what}")
+
+    # -- 18. the RNN path through its entry points, counted ------------------
+    full, ragged = (N, C, K, T), (100, 200, 300, 5)
+    drive = []   # (cell type, dtype, shape, train, numpy inputs)
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        for dt in ("float32", "bfloat16"):
+            drive += [(ct, dt, full, False, False), (ct, dt, full, True, False)]
+    for ct in (CellType.RNN_RELU, CellType.RNN_SIGMOID):
+        for dt in ("float32", "bfloat16"):
+            drive.append((ct, dt, (N, C, K, 8), False, False))
+    for ct in CellType:
+        drive.append((ct, "float32", ragged, False, True))
+    for ct in (CellType.LSTM, CellType.GRU):
+        drive += [(ct, "bfloat16", ragged, False, True),
+                  (ct, "float32", ragged, True, True)]
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        drive.append((ct, "float32", (N, C, K, 1), False, False))
+    drive.append((CellType.LSTM, "float32", (N, C, K, 1), True, False))
+
+    totals = dict.fromkeys(RNN_REPLACES, 0)
+    t0 = time.perf_counter()
+    for ct, dt, shape, train, numpy_in in drive:
+        name, g, kname = kinds[ct]
+        n, c, k, t = shape
+        case = inputs(ct, shape)
+        cell = create_rnncell(RnnDesc(n=n, c=c, k=k, max_t=t, cell_type=ct,
+                                      in_dtype=dt, out_dtype=dt))
+        ins = case["np"] if numpy_in else case["dev"]
+        rs.reset_launches()
+        rnncell.reset_scan_calls()
+        if train:
+            (hs, h_t, c_t), saved = cell.forward_train(*ins)
+        else:
+            hs, h_t, c_t = cell.forward(*ins)
+        torch.cuda.synchronize()
+        got = {k_: v for k_, v in rs.launches.items() if v}
+        trained = {k_: v for k_, v in rs.train_launches.items() if v}
+        label = (f"{'forward_train' if train else 'forward'} {ct.value} {dt} "
+                 f"N{n} C{c} K{k} T{t}" + (" numpy" if numpy_in else ""))
+        want_train = {kname: 1} if train and g > 1 else {}
+        if (got != {kname: 1} or trained != want_train
+                or any(rnncell.scan_calls.values())):
+            raise RuntimeError(f"{label}: launched {got}, train form "
+                               f"{trained}, scan route {rnncell.scan_calls}")
+        totals[kname] += 1
+        if hs.dtype != (bf16 if dt == "bfloat16" else f32) or hs.device != dev:
+            raise RuntimeError(f"{label}: hs {hs.dtype} on {hs.device}")
+        ghs, gh, gc, gres = case["gold"]
+        tol = RNN_GOLD_TOL[dt]
+        errs = [rel(ghs, hs), rel(gh, h_t)] + ([rel(gc, c_t)] if g == 4
+                                                else [])
+        if train and g > 1:
+            errs += [rel(gv, v) for gv, v in zip(gres, saved[-1])]
+        print(f"drive {label:44s} launches {got} train {trained} scan 0")
+        gate(label + (" (hs, states, residuals)" if train and g > 1
+                      else " (hs, states)"), max(errs), tol)
+    main_s = time.perf_counter() - t0
+    print(f"rnn path: {len(drive)} calls in {main_s:.2f} s; launches "
+          f"{totals}  [{smi}]")
+    for kname, n_ in totals.items():
+        if n_ < 1:
+            raise RuntimeError(f"{kname} was not launched on the RNN path")
+
+    # -- 18b. hs against cuDNN, outside the path -------------------------------
+    def cudnn(ct, shape, dtype):
+        """torch.nn.LSTM/GRU/RNN with the cell's weights: the gate blocks
+        (i, g, f, o) become torch's (i, f, g, o) as
+        xsmm_tpu/bindings/torch_lstm.py:163-174 does; b goes into bias_ih,
+        bias_hh is zero (for the GRU that is exactly the cell)."""
+        name, g, _ = kinds[ct]
+        _, c, k, _ = shape
+        x, w, r, b, h0, c0 = cases[(ct, shape)]["dev"]
+        if ct == CellType.LSTM:
+            mod, perm = torch.nn.LSTM(c, k), (0, 2, 1, 3)
+        elif ct == CellType.GRU:
+            mod, perm = torch.nn.GRU(c, k), (0, 1, 2)
+        else:
+            mod, perm = torch.nn.RNN(c, k, nonlinearity=name), (0,)
+
+        def blocks(a):
+            return torch.cat([a[..., p * k:(p + 1) * k] for p in perm], -1)
+        mod = mod.to(dev)
+        with torch.no_grad():
+            mod.weight_ih_l0.copy_(blocks(w).T)
+            mod.weight_hh_l0.copy_(blocks(r).T)
+            mod.bias_ih_l0.copy_(blocks(b))
+            mod.bias_hh_l0.zero_()
+        mod = mod.to(dtype)
+        xs, hx = x.to(dtype), h0[None].to(dtype)
+        hx = (hx, c0[None].to(dtype)) if g == 4 else hx
+
+        def run():
+            with torch.no_grad():
+                return mod(xs, hx)[0]
+        return run
+
+    lib_ms = {}
+    for ct, shape in [(CellType.LSTM, full), (CellType.GRU, full),
+                      (CellType.RNN_TANH, full),
+                      (CellType.RNN_RELU, (N, C, K, 8))]:
+        for dt, dtype in (("float32", f32), ("bfloat16", bf16)):
+            n, c, k, t = shape
+            cell = create_rnncell(RnnDesc(n=n, c=c, k=k, max_t=t, cell_type=ct,
+                                          in_dtype=dt, out_dtype=dt))
+            hs = cell.forward(*cases[(ct, shape)]["dev"])[0]
+            run = cudnn(ct, shape, dtype)
+            ref = run()
+            torch.cuda.synchronize()
+            gate(f"{ct.value} {dt} hs vs torch.nn (cuDNN) T{t}",
+                 rel(ref.double().cpu().numpy(), hs), RNN_GOLD_TOL[dt],
+                 "cudnn")
+            if shape == full:
+                lib_ms[(ct, dt)] = cuda_time_ms(run, warmup=3, iters=20)
+    print("cudnn RNN_SIGMOID: no torch.nn counterpart (nn.RNN takes tanh and "
+          "relu only)")
+
+    # -- 19. each kernel against its plain version, same operands -----------
+    ops = {}
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        name, g, kname = kinds[ct]
+        x, w, r, b, h0, c0 = cases[(ct, full)]["dev"]
+        zx = (x.reshape(T * N, C) @ w + b).reshape(T, N, g * K)
+        for rdt in (f32, bf16):
+            ops[(kname, rdt)] = (zx, r.to(rdt), h0, c0)
+
+    def call(kname, rdt, train, plain=False):
+        zx, r, h0, c0 = ops[(kname, rdt)]
+        sfx = "_plain" if plain else ""
+        if kname == "lstm_seq":
+            return getattr(rs, kname + sfx)(zx, r, h0, c0, train=train)
+        if kname == "gru_seq":
+            return getattr(rs, kname + sfx)(zx, r, h0, train=train)
+        return getattr(rs, kname + sfx)(zx, r, h0, act="tanh")
+
+    max_abs = dict.fromkeys(RNN_REPLACES, 0.0)
+    for kname in RNN_REPLACES:
+        for rdt in (f32, bf16):
+            for train in ((False, True) if kname != "rnn_seq" else (False,)):
+                got = call(kname, rdt, train)
+                want = call(kname, rdt, train, plain=True)
+                torch.cuda.synchronize()
+                dt = "float32" if rdt == f32 else "bfloat16"
+                err = max((g_.double() - w_.double()).abs().max().item()
+                          for g_, w_ in zip(got, want))
+                relf = max(rel(w_.double().cpu().numpy(), g_)
+                           for g_, w_ in zip(got, want))
+                exact = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+                max_abs[kname] = max(max_abs[kname], err)
+                print(f"plain {kname:8s} R {dt:8s} "
+                      f"{'train' if train else 'infer'} max_abs_err "
+                      f"{err:.3e}" + (" (bit-exact)" if exact else ""))
+                gate(f"{kname} R {dt} {'train' if train else 'inference'} "
+                     f"vs plain", relf, RNN_PLAIN_TOL[dt], "plain")
+                del got, want
+
+    # -- 20. times: kernels, plain versions, the whole call, cuDNN -----------
+    def bound(kname, g, rdt, train):
+        """(bound ms, bound by) at the full shape: each input read once and
+        each output written once; h@R's 2*T*N*K*G*K operations at the FP32
+        or bf16 peak."""
+        nres = {"lstm_seq": 5, "gru_seq": 4}.get(kname, 0) if train else 0
+        states = 2 if kname == "lstm_seq" else 1
+        nbytes = (4 * T * N * g * K + rdt.itemsize * K * g * K
+                  + 4 * states * N * K * 2 + 4 * T * N * K * (1 + nres))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        peak = FP32_FLOP_PER_S if rdt == f32 else BF16_FLOP_PER_S
+        t_ops = 2 * T * N * K * g * K / peak * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    rows = []
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        name, g, kname = kinds[ct]
+        module = {"lstm": "LSTM", "gru": "GRU"}.get(name, "RNN")
+        row = {"name": kname, "route": "cuda", "source": RNN_SOURCE,
+               "replaces": RNN_REPLACES[kname], "launches": totals[kname],
+               "max_abs_err": max_abs[kname], "check": "pass",
+               "shape": f"N{N} C{C} K{K} T{T}",
+               "library": f"torch.nn.{module} (cuDNN), the whole forward"}
+        flops = 2 * T * N * (C + K) * g * K
+        for dt, rdt in (("float32", f32), ("bfloat16", bf16)):
+            ms = cuda_time_ms(call, kname, rdt, False, warmup=3, iters=20)
+            ms_train = (cuda_time_ms(call, kname, rdt, True, warmup=3,
+                                     iters=20) if g > 1 else ms)
+            plain_ms = cuda_time_ms(call, kname, rdt, False, True, warmup=1,
+                                    iters=3 if rdt == f32 else 1)
+            bound_ms, bound_by = bound(kname, g, rdt, False)
+            cell = create_rnncell(RnnDesc(n=N, c=C, k=K, max_t=T,
+                                          cell_type=ct, in_dtype=dt,
+                                          out_dtype=dt))
+            call_ms = cuda_time_ms(cell.forward, *cases[(ct, full)]["dev"],
+                                   warmup=3, iters=20)
+            lms = lib_ms[(ct, dt)]
+            print(f"time  {kname:8s} {dt:8s} kernel {ms:.4f} ms "
+                  f"({ms * 1e3 / T:.2f} us/step; train form {ms_train:.4f} "
+                  f"ms), bound {bound_ms:.4f} ms ({bound_by}), share "
+                  f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms; forward "
+                  f"call {call_ms:.4f} ms = {flops / call_ms / 1e9:.2f} "
+                  f"TFLOP/s; cuDNN {lms:.4f} ms = {flops / lms / 1e9:.2f} "
+                  f"TFLOP/s  [{smi}]")
+            sfx = "" if dt == "float32" else "_bf16"
+            row.update({f"ms{sfx}": ms, f"ms_train{sfx}": ms_train,
+                        f"us_per_step{sfx}": ms * 1e3 / T,
+                        f"plain_ms{sfx}": plain_ms,
+                        f"bound_ms{sfx}": bound_ms,
+                        f"bound_by{sfx}": bound_by,
+                        f"call_ms{sfx}": call_ms,
+                        f"library_ms{sfx}": lms})
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
@@ -1042,6 +1382,8 @@ def main() -> int:
     ap.add_argument("--packed-batch", type=int, default=131072)
     ap.add_argument("--packed-big-m", type=int, default=125)
     ap.add_argument("--packed-big-batch", type=int, default=4096)
+    ap.add_argument("--rnn-shape", default="128,512,512,32",
+                    help="N,C,K,T of the RNN phase")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1337,6 +1679,8 @@ def main() -> int:
     rows += dense_phase(args, dev, smi)
     torch.cuda.empty_cache()
     rows += packed_phase(args, dev, smi)
+    torch.cuda.empty_cache()
+    rows += rnn_phase(args, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -451,8 +451,9 @@ def test_import_has_no_jax_and_builds_nothing(tmp_path):
     """Importing every module of the port (the sparse path's spgemm,
     spgemm_kernels, fsspmdm, spmdm and utils.mtx, and the dense path's
     tiled_gemm, tiled_gemm_kernels, xcopy, xcopy_kernels, blocked_gemm and
-    mmbatch, and the packed path's packed and packed_kernels among them) pulls in neither jax nor xsmm_tpu, imports no
-    triton, and starts no build."""
+    mmbatch, and the packed path's packed and packed_kernels, and the RNN
+    forward path's dnn.types, dnn.rnn_seq and dnn.rnncell among them) pulls
+    in neither jax nor xsmm_tpu, imports no triton, and starts no build."""
     before = sorted(p.name for p in cuda_build.BUILD_DIR.glob("*")) \
         if cuda_build.BUILD_DIR.exists() else []
     mods = sorted(
@@ -462,7 +463,8 @@ def test_import_has_no_jax_and_builds_nothing(tmp_path):
     for m in ("ops.spgemm", "ops.spgemm_kernels", "ops.fsspmdm", "ops.spmdm",
               "utils.mtx", "ops.tiled_gemm", "ops.tiled_gemm_kernels",
               "ops.xcopy", "ops.xcopy_kernels", "ops.blocked_gemm",
-              "ops.mmbatch", "ops.packed", "ops.packed_kernels"):
+              "ops.mmbatch", "ops.packed", "ops.packed_kernels", "dnn",
+              "dnn.types", "dnn.rnn_seq", "dnn.rnncell"):
         assert "xsmm_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

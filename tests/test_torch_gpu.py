@@ -1,6 +1,6 @@
 """Card-only tests: each CUDA kernel (the packed batched-GEMM kernels, the
-sparse x dense kernels, the tiled GEMM and the copy and transpose) against
-its plain version.
+sparse x dense kernels, the tiled GEMM, the copy and transpose, the packed
+GETRF/TRSM kernels and the RNN sequence kernels) against its plain version.
 
 The kernels have no CPU mode, so these tests need a CUDA card and skip
 elsewhere (the check is made in the ``cuda`` fixture).  On a CUDA machine:
@@ -11,7 +11,7 @@ The batched and sparse kernels round every product and every sum
 separately, in the plain versions' k order, so kernel and plain version
 must agree exactly; so must the copies.  The tiled GEMM sums in f32 in
 another order than its plain version: 1e-5 rel-Frobenius (1e-2 for a
-16-bit output).
+16-bit output).  The RNN kernels: 1e-5 with f32 R, 1e-3 with bf16 R.
 """
 
 import numpy as np
@@ -500,3 +500,131 @@ def test_packed_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
     pk.trsm_unrolled(a, b, False)
     pk.trsm_loop(a, b, True)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The three RNN forward kernels (ops/csrc/rnn_seq.cu)
+# ---------------------------------------------------------------------------
+
+from xsmm_tpu_torch.dnn import CellType, RnnDesc, create_rnncell  # noqa: E402
+from xsmm_tpu_torch.dnn import rnn_seq as rs  # noqa: E402
+from xsmm_tpu_torch.dnn import rnncell  # noqa: E402
+
+# (T, N, K): lstm_driver's N and K; ragged N and K; T = 1; K below a block's
+# 16 units; N = 4100 at K = 512 needs several 32-row passes a block
+RNN_SHAPES = [(4, 128, 512), (5, 100, 300), (1, 3, 7), (3, 33, 65),
+              (2, 4100, 512)]
+RNN_GATES = {"lstm": 4, "gru": 3, "rnn": 1}
+
+
+def _rnn_call(cell, zx, r, h0, c0, train, plain=False):
+    if cell == "lstm":
+        fn = rs.lstm_seq_plain if plain else rs.lstm_seq
+        return fn(zx, r, h0, c0, train=train)
+    if cell == "gru":
+        fn = rs.gru_seq_plain if plain else rs.gru_seq
+        return fn(zx, r, h0, train=train)
+    fn = rs.rnn_seq_plain if plain else rs.rnn_seq
+    return fn(zx, r, h0, act="sigmoid" if train else "tanh")
+
+
+def _rnn_operands(dev, seed, t, n, k, gates, r_dt):
+    zx, r, h0, c0 = _planes(dev, seed, (t, n, gates * k), (k, gates * k),
+                            (n, k), (n, k))
+    return zx, (r * 0.1).to(r_dt), h0 * 0.1, c0 * 0.1
+
+
+@pytest.mark.parametrize("t,n,k", RNN_SHAPES)
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
+@pytest.mark.parametrize("r_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+def test_rnn_seq_matches_plain(cuda, t, n, k, cell, r_dt, train):
+    """Each kernel in both forms (the simple RNN's second form: sigmoid)
+    against its plain version: f32 to 1e-5 (the product sums in another
+    order than cuBLAS), bf16 to 1e-3."""
+    zx, r, h0, c0 = _rnn_operands(cuda, 30, t, n, k, RNN_GATES[cell], r_dt)
+    name = cell + "_seq"
+    before, before_t = rs.launches[name], dict(rs.train_launches)
+    got = _rnn_call(cell, zx, r, h0, c0, train)
+    torch.cuda.synchronize()
+    assert rs.launches[name] == before + 1
+    if cell != "rnn":
+        assert rs.train_launches[name] == before_t[name] + int(train)
+    want = _rnn_call(cell, zx, r, h0, c0, train, plain=True)
+    assert len(got) == len(want)
+    tol = 1e-5 if r_dt == torch.float32 else 1e-3
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and g_.dtype == torch.float32
+        assert torch.isfinite(g_).all()
+        assert _rel(g_, w_) <= tol
+
+
+def test_rnn_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+    for name in ("lstm_seq_plain", "gru_seq_plain", "rnn_seq_plain"):
+        monkeypatch.setattr(rs, name, boom)
+    for cell, gates in RNN_GATES.items():
+        zx, r, h0, c0 = _rnn_operands(cuda, 31, 3, 16, 24, gates,
+                                      torch.float32)
+        _rnn_call(cell, zx, r, h0, c0, False)
+    torch.cuda.synchronize()
+
+
+def test_rnn_seq_beyond_envelope(cuda):
+    """K = 1024 with f32 R needs a 256 KB R slice: seq_kernel_ok says no,
+    the wrapper refuses before any launch, and the cell takes the scan
+    route; bf16 R at the same K fits."""
+    k = 1024
+    assert not rs.seq_kernel_ok(8, k, 4, 4)
+    assert rs.seq_kernel_ok(8, k, 4, 2)
+    assert rs.seq_kernel_ok(128, 512, 4, 4)       # samples/lstm_driver.py
+    zx, r, h0, c0 = _rnn_operands(cuda, 32, 2, 8, k, 4, torch.float32)
+    before = dict(rs.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        rs.lstm_seq(zx, r, h0, c0, train=False)
+    assert rs.launches == before
+    rnncell.reset_scan_calls()
+    rng = np.random.default_rng(33)
+    cell = create_rnncell(RnnDesc(n=8, c=16, k=k, max_t=2))
+    x = rng.standard_normal((2, 8, 16)).astype(np.float32)
+    w = (rng.standard_normal((16, 4 * k)) * 0.1).astype(np.float32)
+    rw = (rng.standard_normal((k, 4 * k)) * 0.1).astype(np.float32)
+    hs, _, _ = cell.forward(x, w, rw, np.zeros(4 * k, np.float32))
+    torch.cuda.synchronize()
+    assert rnncell.scan_calls["lstm"] == 1 and rs.launches == before
+    assert torch.isfinite(hs).all()
+
+
+@pytest.mark.parametrize("ct", list(CellType))
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rnncell_card_equals_cpu(cuda, ct, dt):
+    """forward and forward_train on the card (one launch each) against the
+    same calls with target="cpu"."""
+    g = {CellType.LSTM: 4, CellType.GRU: 3}.get(ct, 1)
+    n, c, k, t = 37, 50, 70, 4
+    rng = np.random.default_rng(34)
+    x = rng.standard_normal((t, n, c)).astype(np.float32)
+    w, r = ((rng.standard_normal(s) * 0.1).astype(np.float32)
+            for s in ((c, g * k), (k, g * k)))
+    b = rng.standard_normal(g * k).astype(np.float32)
+    h0, c0 = (rng.standard_normal((n, k)).astype(np.float32) * 0.1
+              for _ in range(2))
+    desc = RnnDesc(n=n, c=c, k=k, max_t=t, cell_type=ct, in_dtype=dt,
+                   out_dtype=dt)
+    out = {}
+    for target in ("cuda", "cpu"):
+        xp.set_config(target=target)
+        cell = create_rnncell(desc)
+        rs.reset_launches()
+        fwd = cell.forward(x, w, r, b, h0, c0)
+        (hs, h_t, c_t), saved = cell.forward_train(x, w, r, b, h0, c0)
+        if target == "cuda":
+            torch.cuda.synchronize()
+            assert sum(rs.launches.values()) == 2
+            assert sum(rs.train_launches.values()) == int(g > 1)
+        out[target] = [v.cpu() for v in fwd + (hs, h_t, c_t)]
+    tol = 1e-5 if dt == "float32" else 1e-2
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == want.dtype
+        assert _rel(got, want) <= tol

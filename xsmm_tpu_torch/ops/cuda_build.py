@@ -32,6 +32,7 @@ SOURCES: Dict[str, tuple] = {
     "xcopy": ("csrc/xcopy.cu",),
     "tiled_gemm": ("csrc/tiled_gemm.cu",),
     "packed": ("csrc/packed.cu",),
+    "rnn_seq": ("csrc/rnn_seq.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,8 +114,9 @@ def launch(fn, device, *args) -> None:
     """Call C entry point ``fn(*args, device index, stream)`` on the current
     stream of ``device`` (a ``torch.device``); raise if it returns non-zero
     (-1: a dtype code it does not take; -2, raised as ``ValueError``: sizes
-    that need more shared memory than a block has, refused before any
-    launch; else the ``cudaError`` of the launch)."""
+    that need more shared memory than a block has, or more blocks than the
+    card holds at once for a cooperative kernel, refused before any launch;
+    else the ``cudaError`` of the launch)."""
     import torch
 
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -122,7 +124,9 @@ def launch(fn, device, *args) -> None:
             else torch.cuda.current_device(), stream)
     if rc == -2:
         raise ValueError(f"{fn.__name__}: these sizes need more shared memory "
-                         f"than a block has; nothing was launched")
+                         f"than a block has (or, for a cooperative kernel, "
+                         f"more blocks than the card holds at once); nothing "
+                         f"was launched")
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: kernel launch failed (code "
                            f"{rc}: -1 = dtype not taken, else cudaError)")
