@@ -94,7 +94,30 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     the whole ``forward`` call with tensors on the card and the cuDNN
     forward at the same shape, in f32 and bf16, with the FLOP rate
     2*T*N*(C+K)*G*K of the whole forward beside cuDNN's;
-21. prints one ``{"kernels": [...]}`` JSON line (all seventeen kernels), the
+21. drives the RNN training path through its entry points at the same
+    shapes, with the forward and backward launch counts and both scan
+    routes' counts set to 0 just before each call and read just after
+    (each call must launch its one backward kernel, and the scan routes 0
+    times): ``forward_train`` then ``backward_from_saved``,
+    ``backward_weight_update``, ``execute(Kind.BWD)`` and autograd through
+    ``forward`` for LSTM, GRU and RNN_TANH in f32 and bf16;
+    ``backward_from_saved`` for RNN_RELU and RNN_SIGMOID at T = 8, for
+    every cell at the ragged N 100 C 200 K 300 T 5 with numpy inputs, and
+    at T = 1; ``XsmmLSTM`` with ``loss.backward()``; every gradient (dx,
+    dw, dr, db, dh0, dc0) against torch autograd through a plain f64 loop
+    of the recurrence written here (1e-3 f32, 5e-2 bf16), and, outside the
+    path, against cuDNN's ``torch.nn.LSTM``/``GRU``/``RNN`` backward (TF32
+    off) given the same weights; and the RNN_TANH forward at N 37, C 50,
+    K 70, T 4 a thousand times (hs and x@W bit for bit, card vs CPU);
+22. compares the three backward kernels with their plain versions on the
+    same residuals (1e-5 with f32 R, 1e-3 with bf16 R; bit-exactness
+    reported when reached);
+23. times them beside their bounds (and per step), their plain versions,
+    the whole ``backward_from_saved``, ``backward_weight_update`` and
+    training step (``forward_train`` + ``backward_from_saved``) and its
+    split, and cuDNN's backward and forward + backward at the same shape,
+    with the rate 3*2*T*N*(C+K)*G*K of ``samples/lstm_driver.py:42-47``;
+24. prints one ``{"kernels": [...]}`` JSON line (all twenty kernels), the
     nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
@@ -181,6 +204,12 @@ RNN_GOLD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 # kernel against its plain version: f32 sums in another order than cuBLAS;
 # with bf16 R both sum exact products in k order
 RNN_PLAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+RNN_BWD_REPLACES = {
+    "lstm_seq_bwd": "xsmm_tpu/dnn/rnn_seq.py:185",
+    "gru_seq_bwd": "xsmm_tpu/dnn/rnn_seq.py:335",
+    "rnn_seq_bwd": "xsmm_tpu/dnn/rnn_seq.py:407",
+}
+GRAD_NAMES = ("dx", "dw", "dr", "db", "dh0", "dc0")
 
 
 def nvidia_smi_line() -> str:
@@ -1372,6 +1401,453 @@ def rnn_phase(args, dev, smi):
     return rows
 
 
+def rnn_bwd_gold(torch, dev, kind, act, x, w, r, b, h0, c0, dhs):
+    """The gradients (dx, dw, dr, db, dh0, dc0) of sum(hs * dhs) by torch
+    autograd through a plain f64 loop of the cell's recurrence on the card,
+    independent of the port (c0 unused for the GRU and the RNN: zeros)."""
+    f64 = torch.float64
+    leaves = [torch.from_numpy(v).to(dev, f64).requires_grad_()
+              for v in (x, w, r, b, h0, c0)]
+    x, w, r, b, h, c = leaves
+    t, n, _ = x.shape
+    k = h.shape[1]
+    zx = (x.reshape(t * n, -1) @ w + b).reshape(t, n, -1)
+    hs = []
+    for ti in range(t):
+        if kind == "lstm":
+            z = zx[ti] + h @ r
+            i, g = torch.sigmoid(z[:, :k]), torch.tanh(z[:, k:2 * k])
+            f, o = torch.sigmoid(z[:, 2 * k:3 * k]), torch.sigmoid(z[:, 3 * k:])
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+        elif kind == "gru":
+            zr = h @ r
+            ri = torch.sigmoid(zx[ti][:, :k] + zr[:, :k])
+            zi = torch.sigmoid(zx[ti][:, k:2 * k] + zr[:, k:2 * k])
+            gi = torch.tanh(zx[ti][:, 2 * k:] + ri * zr[:, 2 * k:])
+            h = (1 - zi) * gi + zi * h
+        else:
+            h = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                 "tanh": torch.tanh}[act](zx[ti] + h @ r)
+        hs.append(h)
+    loss = (torch.stack(hs) * torch.from_numpy(dhs).to(dev, f64)).sum()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [(torch.zeros_like(v) if g is None else g).cpu().numpy()
+            for g, v in zip(grads, leaves)]
+
+
+def rnn_bwd_phase(args, dev, smi):
+    """Steps 21 to 23 of the module docstring; returns the RNN backward
+    kernels' rows of the ``{"kernels": [...]}`` line."""
+    import numpy as np
+    import torch
+    from xsmm_tpu_torch.bindings import XsmmLSTM
+    from xsmm_tpu_torch.dnn import (CellType, Kind, RnnDesc, create_rnncell,
+                                    rnn_params_from_numpy)
+    from xsmm_tpu_torch.dnn import rnn_seq as rs
+    from xsmm_tpu_torch.dnn import rnncell
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    N, C, K, T = (int(v) for v in args.rnn_shape.split(","))
+    f32, bf16 = torch.float32, torch.bfloat16
+    kinds = {CellType.LSTM: ("lstm", 4, "lstm_seq"),
+             CellType.GRU: ("gru", 3, "gru_seq"),
+             CellType.RNN_RELU: ("relu", 1, "rnn_seq"),
+             CellType.RNN_SIGMOID: ("sigmoid", 1, "rnn_seq"),
+             CellType.RNN_TANH: ("tanh", 1, "rnn_seq")}
+    cases = {}   # (cell type, shape) -> inputs, dhs and f64 gold
+
+    def inputs(ct, shape):
+        """numpy inputs and dhs from the seed (weights x0.1 as
+        samples/lstm_driver.py:37-38, but for the relu cell's R; small
+        random b, h0 and c0), the same on the card, and the f64 gradients;
+        made once per cell and shape."""
+        key = (ct, shape)
+        if key not in cases:
+            name, g, _ = kinds[ct]
+            n, c, k, t = shape
+            rng = np.random.default_rng(args.seed + 100 + len(cases))
+            x = rng.standard_normal((t, n, c)).astype(np.float32)
+            w, r = ((rng.standard_normal(s) * 0.1).astype(np.float32)
+                    for s in ((c, g * k), (k, g * k)))
+            if ct == CellType.RNN_RELU:
+                # torch.nn.RNN's init bound: with x0.1 a relu recurrence
+                # of width 512 grows ~4x a step, and the rounding of bf16
+                # with it (1.2e-1 from the f64 gradients at T 8)
+                r = rng.uniform(-k ** -0.5, k ** -0.5, (k, k)).astype(
+                    np.float32)
+            b = (rng.standard_normal(g * k) * 0.1).astype(np.float32)
+            h0, c0 = ((rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+                      for _ in range(2))
+            dhs = rng.standard_normal((t, n, k)).astype(np.float32)
+            wd, rd, bd = rnn_params_from_numpy(w, r, b)
+            kind = name if g > 1 else "rnn"
+            cases[key] = dict(
+                np=(x, w, r, b, h0, c0), dhs_np=dhs,
+                dev=(torch.from_numpy(x).to(dev), wd, rd, bd,
+                     torch.from_numpy(h0).to(dev),
+                     torch.from_numpy(c0).to(dev)),
+                dhs=torch.from_numpy(dhs).to(dev),
+                gold=rnn_bwd_gold(torch, dev, kind, name, x, w, r, b, h0, c0,
+                                  dhs))
+        return cases[key]
+
+    def rel(want, got):
+        got = np.asarray(got.double().cpu().numpy() if isinstance(
+            got, torch.Tensor) else got, np.float64)
+        want = np.asarray(want.double().cpu().numpy() if isinstance(
+            want, torch.Tensor) else want, np.float64)
+        if got.shape != want.shape:
+            raise RuntimeError(f"shape {got.shape} != {want.shape}")
+        if not np.isfinite(got).all():
+            raise RuntimeError("non-finite output")
+        return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300)
+
+    def gate(label, err, tol, what="gold"):
+        ok = err <= tol
+        print(f"{what:5s} {label:52s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: {err:.3e} > {tol:g} against {what}")
+
+    def check_grads(label, gold, grads, tol, what="gold"):
+        """Each of the six gradients against ``gold``; one that is zero in
+        ``gold`` (dc0 of the GRU and the RNN) must be exactly zero."""
+        errs = []
+        for name, want, got in zip(GRAD_NAMES, gold, grads):
+            if not np.any(want):
+                if got.shape != want.shape or bool(got.any()):
+                    raise RuntimeError(f"{label}: {name} is not zero")
+                continue
+            errs.append(rel(want, got))
+        gate(label, max(errs), tol, what)
+
+    def nonzero(counts):
+        return {k_: v for k_, v in counts.items() if v}
+
+    # -- 21. the training path through its entry points, counted ------------
+    full, ragged = (N, C, K, T), (100, 200, 300, 5)
+    drive = []   # (cell type, dtype, shape, call, numpy inputs)
+    calls = ("backward_from_saved", "backward_weight_update", "execute",
+             "autograd")
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        for dt in ("float32", "bfloat16"):
+            drive += [(ct, dt, full, cl, False) for cl in calls]
+    for ct in (CellType.RNN_RELU, CellType.RNN_SIGMOID):
+        for dt in ("float32", "bfloat16"):
+            drive.append((ct, dt, (N, C, K, 8), calls[0], False))
+    for ct in CellType:
+        drive.append((ct, "float32", ragged, calls[0], True))
+    for ct in (CellType.LSTM, CellType.GRU):
+        drive.append((ct, "bfloat16", ragged, calls[0], True))
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        drive.append((ct, "float32", (N, C, K, 1), calls[0], False))
+    drive.append((CellType.LSTM, "float32", full, "XsmmLSTM", False))
+
+    totals = dict.fromkeys(RNN_BWD_REPLACES, 0)
+    t0 = time.perf_counter()
+    for ct, dt, shape, call, numpy_in in drive:
+        name, g, kname = kinds[ct]
+        n, c, k, t = shape
+        case = inputs(ct, shape)
+        cell = create_rnncell(RnnDesc(n=n, c=c, k=k, max_t=t, cell_type=ct,
+                                      in_dtype=dt, out_dtype=dt))
+        x, w, r, b, h0, c0 = case["np"] if numpy_in else case["dev"]
+        dhs = case["dhs_np"] if numpy_in else case["dhs"]
+        want_fwd = {kname: 1}
+        if call == "backward_from_saved":
+            _, saved = cell.forward_train(x, w, r, b, h0, c0)
+            torch.cuda.synchronize()
+            want_fwd = {}
+        leaves = [v.detach().clone().requires_grad_() for v in case["dev"]]
+        if call == "XsmmLSTM":
+            mod = XsmmLSTM(c, k)
+            with torch.no_grad():
+                for p, v in zip((mod.w, mod.r, mod.b), leaves[1:4]):
+                    p.copy_(v)
+        rs.reset_launches()
+        rnncell.reset_scan_calls()
+        if call == "backward_from_saved":
+            grads = cell.backward_from_saved(saved, dhs)
+        elif call == "backward_weight_update":
+            grads = cell.backward_weight_update(x, w, r, b, dhs, h0, c0)
+        elif call == "execute":
+            grads = cell.execute(Kind.BWD, input=x, weight=w, recur_weight=r,
+                                 bias=b, grad_hidden=dhs, h0=h0, c0=c0)
+        elif call == "autograd":
+            hs, _, _ = cell.forward(*leaves)
+            (hs.float() * dhs).sum().backward()
+            grads = [v.grad if v.grad is not None else torch.zeros_like(v)
+                     for v in leaves]
+        else:
+            hs, _ = mod(leaves[0], leaves[4], leaves[5])
+            (hs * dhs).sum().backward()
+            grads = [leaves[0].grad, mod.w.grad, mod.r.grad, mod.b.grad,
+                     leaves[4].grad, leaves[5].grad]
+        torch.cuda.synchronize()
+        got_b, got_f = nonzero(rs.bwd_launches), nonzero(rs.launches)
+        got_t = nonzero(rs.train_launches)
+        label = (f"{call} {ct.value} {dt} N{n} C{c} K{k} T{t}"
+                 + (" numpy" if numpy_in else ""))
+        if (got_b != {kname + "_bwd": 1} or got_f != want_fwd
+                or got_t != (want_fwd if g > 1 else {})
+                or any(rnncell.scan_calls.values())
+                or any(rnncell.bwd_scan_calls.values())):
+            raise RuntimeError(
+                f"{label}: backward {got_b}, forward {got_f} (train form "
+                f"{got_t}), scan routes {rnncell.scan_calls} "
+                f"{rnncell.bwd_scan_calls}")
+        totals[kname + "_bwd"] += 1
+        if any(gr.device != dev or gr.dtype != f32 for gr in grads):
+            raise RuntimeError(f"{label}: gradients not f32 on {dev}")
+        print(f"drive {label:52s} backward {got_b} forward {got_f} scan 0")
+        check_grads(label + " (6 gradients)", case["gold"], grads,
+                    RNN_GOLD_TOL[dt])
+    main_s = time.perf_counter() - t0
+    print(f"rnn training path: {len(drive)} calls in {main_s:.2f} s; "
+          f"backward launches {totals}  [{smi}]")
+    for kname, n_ in totals.items():
+        if n_ < 1:
+            raise RuntimeError(f"{kname} was not launched on the RNN path")
+
+    # -- 21b. the gradients against cuDNN's backward, outside the path -------
+    def cudnn(ct, dtype):
+        """torch.nn.LSTM/GRU/RNN with the cell's weights (the gate blocks
+        (i, g, f, o) become torch's (i, f, g, o); b into bias_ih, bias_hh
+        zero), its inputs as leaves, and a function of the six gradients of
+        sum(hs * dhs) in the cell's layout (the gate shuffle is its own
+        inverse)."""
+        name, g, _ = kinds[ct]
+        x, w, r, b, h0, c0 = cases[(ct, full)]["dev"]
+        if ct == CellType.LSTM:
+            mod, perm = torch.nn.LSTM(C, K), (0, 2, 1, 3)
+        elif ct == CellType.GRU:
+            mod, perm = torch.nn.GRU(C, K), (0, 1, 2)
+        else:
+            mod, perm = torch.nn.RNN(C, K, nonlinearity=name), (0,)
+
+        def blocks(a):
+            return torch.cat([a[..., p * K:(p + 1) * K] for p in perm], -1)
+        mod = mod.to(dev)
+        with torch.no_grad():
+            mod.weight_ih_l0.copy_(blocks(w).T)
+            mod.weight_hh_l0.copy_(blocks(r).T)
+            mod.bias_ih_l0.copy_(blocks(b))
+            mod.bias_hh_l0.zero_()
+        mod = mod.to(dtype)
+        xs = x.to(dtype).requires_grad_()
+        hx = [h0[None].to(dtype).requires_grad_()]
+        if g == 4:
+            hx.append(c0[None].to(dtype).requires_grad_())
+        params = [mod.weight_ih_l0, mod.weight_hh_l0, mod.bias_ih_l0]
+        gout = cases[(ct, full)]["dhs"].to(dtype)
+        wrt = [xs, *params, *hx]
+
+        def fwd():
+            return mod(xs, tuple(hx) if g == 4 else hx[0])[0]
+
+        def grads(out):
+            gx, gw, gr, gb, gh, *gc = torch.autograd.grad(
+                out, wrt, grad_outputs=gout, retain_graph=True)
+            return [gx, blocks(gw.T), blocks(gr.T), blocks(gb), gh[0],
+                    gc[0][0] if gc else torch.zeros_like(gh[0])]
+        return fwd, grads, wrt, gout
+
+    lib = {}
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        x, w, r, b, h0, c0 = cases[(ct, full)]["dev"]
+        for dt, dtype in (("float32", f32), ("bfloat16", bf16)):
+            cell = create_rnncell(RnnDesc(n=N, c=C, k=K, max_t=T, cell_type=ct,
+                                          in_dtype=dt, out_dtype=dt))
+            mine = cell.backward_weight_update(x, w, r, b,
+                                               cases[(ct, full)]["dhs"], h0,
+                                               c0)
+            fwd, grads, wrt, gout = cudnn(ct, dtype)
+            out = fwd()
+            theirs = grads(out)
+            torch.cuda.synchronize()
+            check_grads(f"{ct.value} {dt} gradients vs torch.nn (cuDNN) T{T}",
+                        [v.double().cpu().numpy() for v in theirs], mine,
+                        RNN_GOLD_TOL[dt], "cudnn")
+            # in bf16 both sides round on their own: cuDNN's distance from
+            # the f64 gradients says how much of the gap above is its own
+            own = max(rel(want, got) for want, got in
+                      zip(cases[(ct, full)]["gold"], theirs) if np.any(want))
+            print(f"cudnn {ct.value} {dt} cuDNN's own gradients vs gold "
+                  f"rel-Frobenius {own:.3e}")
+
+            def bwd_only(out=out, wrt=wrt, gout=gout):
+                torch.autograd.grad(out, wrt, grad_outputs=gout,
+                                    retain_graph=True)
+
+            def step(fwd=fwd, wrt=wrt, gout=gout):
+                torch.autograd.grad(fwd(), wrt, grad_outputs=gout)
+            lib[(ct, dt)] = (cuda_time_ms(bwd_only, warmup=3, iters=20),
+                             cuda_time_ms(step, warmup=3, iters=20))
+            del out
+
+    # -- 21c. repeatability: the case of a card test that once missed its
+    # tolerance (RNN_TANH f32, N 37 C 50 K 70 T 4), 1000 times ---------------
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.ops.smm import _matmul
+    n, c, k, t = 37, 50, 70, 4
+    rng = np.random.default_rng(34)
+    x = rng.standard_normal((t, n, c)).astype(np.float32)
+    w, r = ((rng.standard_normal(s) * 0.1).astype(np.float32)
+            for s in ((c, k), (k, k)))
+    b = rng.standard_normal(k).astype(np.float32)
+    h0 = rng.standard_normal((n, k)).astype(np.float32) * 0.1
+    desc = RnnDesc(n=n, c=c, k=k, max_t=t, cell_type=CellType.RNN_TANH)
+    cell = create_rnncell(desc)
+    xd = torch.from_numpy(x).to(dev).reshape(t * n, c)
+    wd = torch.from_numpy(w).to(dev)
+    hs0, zx0 = cell.forward(x, w, r, b, h0)[0].clone(), _matmul(xd, wd)
+    hs_var = zx_var = 0
+    for _ in range(1000):
+        hs_var += not torch.equal(cell.forward(x, w, r, b, h0)[0], hs0)
+        zx_var += not torch.equal(_matmul(xd, wd), zx0)
+    target = xp.get_config().target
+    xp.set_config(target="cpu")
+    cpu = create_rnncell(desc).forward(x, w, r, b, h0)[0]
+    xp.set_config(target=target)
+    err = rel(cpu, hs0)
+    print(f"repeat rnn_tanh f32 N{n} C{c} K{k} T{t}: hs differed in {hs_var} "
+          f"of 1000 calls, x@W in {zx_var} of 1000; card vs CPU "
+          f"rel-Frobenius {err:.3e}")
+    if hs_var or zx_var or err > 1e-5:
+        raise RuntimeError("the RNN forward is not repeatable on the card")
+
+    # -- 22. each backward kernel against its plain version ------------------
+    ops = {}
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        name, g, kname = kinds[ct]
+        for dt, rdt in (("float32", f32), ("bfloat16", bf16)):
+            cell = create_rnncell(RnnDesc(n=N, c=C, k=K, max_t=T, cell_type=ct,
+                                          in_dtype=dt, out_dtype=dt))
+            _, saved = cell.forward_train(*cases[(ct, full)]["dev"])
+            xt_f, w_or_wr = saved[0], saved[1]
+            r = w_or_wr[C:] if g == 4 else saved[2]
+            rt = r.t().to(rdt).contiguous()
+            z = torch.zeros((N, K), device=dev)
+            dhs = cases[(ct, full)]["dhs"]
+            if g == 4:
+                _, _, h0, c0, hs, (cs, i, gg, f, o) = saved
+                args_ = (dhs, i, gg, f, o, cs, c0, z, z, rt)
+            elif g == 3:
+                _, _, _, h0, hs, res = saved
+                args_ = (dhs, *res, hs, h0, z, rt)
+            else:
+                args_ = (dhs, saved[4], z, rt)
+            ops[(kname, rdt)] = args_
+
+    def call(kname, rdt, plain=False):
+        fn = getattr(rs, kname + "_bwd" + ("_plain" if plain else ""))
+        kw = {"act": "tanh"} if kname == "rnn_seq" else {}
+        return fn(*ops[(kname, rdt)], dz_dt=rdt, **kw)
+
+    max_abs = dict.fromkeys(RNN_BWD_REPLACES, 0.0)
+    for kname in ("lstm_seq", "gru_seq", "rnn_seq"):
+        for dt, rdt in (("float32", f32), ("bfloat16", bf16)):
+            got = call(kname, rdt)
+            want = call(kname, rdt, plain=True)
+            torch.cuda.synchronize()
+            err = max((g_.double() - w_.double()).abs().max().item()
+                      for g_, w_ in zip(got, want))
+            relf = max(rel(w_, g_) for g_, w_ in zip(got, want))
+            exact = [torch.equal(g_, w_) for g_, w_ in zip(got, want)]
+            max_abs[kname + "_bwd"] = max(max_abs[kname + "_bwd"], err)
+            print(f"plain {kname + '_bwd':12s} R {dt:8s} max_abs_err "
+                  f"{err:.3e}; bit-exact by output {exact}")
+            gate(f"{kname}_bwd R {dt} vs plain", relf, RNN_PLAIN_TOL[dt],
+                 "plain")
+            del got, want
+
+    # -- 23. times: kernels, plain versions, the whole calls, cuDNN ----------
+    def bound(g, rdt):
+        """(bound ms, bound by) at the full shape: dhs and the residuals
+        (LSTM i, g, f, o, cs; GRU ri, zi, gi, zr_g, hs; RNN hs), the states
+        and R^T read once; dz (GRU also dgiri) in R's dtype, dh0 (dc0) and
+        db written once; dz @ R^T's 2*T*N*G*K*K operations at the FP32 or
+        bf16 peak."""
+        nres, nstate = {4: (5, 3), 3: (5, 2), 1: (1, 1)}[g]
+        nout = 2 if g == 4 else 1
+        nbytes = (4 * T * N * K * (1 + nres) + 4 * N * K * nstate
+                  + rdt.itemsize * g * K * K
+                  + rdt.itemsize * T * N * K * (g + (g == 3))
+                  + 4 * N * K * nout + 4 * g * K)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        peak = FP32_FLOP_PER_S if rdt == f32 else BF16_FLOP_PER_S
+        t_ops = 2 * T * N * g * K * K / peak * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    rows = []
+    for ct in (CellType.LSTM, CellType.GRU, CellType.RNN_TANH):
+        name, g, kname = kinds[ct]
+        module = {"lstm": "LSTM", "gru": "GRU"}.get(name, "RNN")
+        row = {"name": kname + "_bwd", "route": "cuda", "source": RNN_SOURCE,
+               "replaces": RNN_BWD_REPLACES[kname + "_bwd"],
+               "launches": totals[kname + "_bwd"],
+               "max_abs_err": max_abs[kname + "_bwd"], "check": "pass",
+               "shape": f"N{N} C{C} K{K} T{T}",
+               "library": f"torch.nn.{module} (cuDNN) backward alone"}
+        flops = 2 * T * N * (C + K) * g * K
+        for dt, rdt in (("float32", f32), ("bfloat16", bf16)):
+            ms = cuda_time_ms(call, kname, rdt, warmup=3, iters=20)
+            plain_ms = cuda_time_ms(call, kname, rdt, True, warmup=1,
+                                    iters=3 if rdt == f32 else 1)
+            bound_ms, bound_by = bound(g, rdt)
+            cell = create_rnncell(RnnDesc(n=N, c=C, k=K, max_t=T,
+                                          cell_type=ct, in_dtype=dt,
+                                          out_dtype=dt))
+            ins, dhs = cases[(ct, full)]["dev"], cases[(ct, full)]["dhs"]
+            _, saved = cell.forward_train(*ins)
+            bfs_ms = cuda_time_ms(cell.backward_from_saved, saved, dhs,
+                                  warmup=3, iters=20)
+            fwd_ms = cuda_time_ms(cell.forward_train, *ins, warmup=3,
+                                  iters=20)
+
+            def train_step(cell=cell, ins=ins, dhs=dhs):
+                cell.backward_from_saved(cell.forward_train(*ins)[1], dhs)
+            step_ms = cuda_time_ms(train_step, warmup=3, iters=20)
+            bwu_ms = cuda_time_ms(cell.backward_weight_update, *ins[:4], dhs,
+                                  *ins[4:], warmup=3, iters=20)
+            dz = call(kname, rdt)[0]
+            hs = saved[4]
+            w = saved[1][:C] if g == 4 else saved[1]
+            flat_ms = cuda_time_ms(rnncell._flat_grads, saved[0], w,
+                                   ins[4], hs, dz, dz, warmup=3, iters=20)
+            lib_bwd, lib_step = lib[(ct, dt)]
+            print(f"time  {kname + '_bwd':12s} {dt:8s} kernel {ms:.4f} ms "
+                  f"({ms * 1e3 / T:.2f} us/step), bound {bound_ms:.4f} ms "
+                  f"({bound_by}), share {bound_ms / ms:.3f}; plain "
+                  f"{plain_ms:.3f} ms; cuDNN backward {lib_bwd:.4f} ms  "
+                  f"[{smi}]")
+            print(f"call  {ct.value:11s} {dt:8s} backward_from_saved "
+                  f"{bfs_ms:.4f} ms = {3 * flops / bfs_ms / 1e9:.2f} TFLOP/s "
+                  f"(3x the forward's); backward_weight_update {bwu_ms:.4f} "
+                  f"ms = {3 * flops / bwu_ms / 1e9:.2f}; training step "
+                  f"{step_ms:.4f} ms = forward_train {fwd_ms:.4f} + backward "
+                  f"kernel {ms:.4f} + dx/dw/dr products {flat_ms:.4f} + rest "
+                  f"{step_ms - fwd_ms - ms - flat_ms:.4f}; {4 * flops / step_ms / 1e9:.2f} "
+                  f"TFLOP/s; cuDNN forward+backward {lib_step:.4f} ms = "
+                  f"{4 * flops / lib_step / 1e9:.2f} TFLOP/s  [{smi}]")
+            sfx = "" if dt == "float32" else "_bf16"
+            row.update({f"ms{sfx}": ms, f"us_per_step{sfx}": ms * 1e3 / T,
+                        f"plain_ms{sfx}": plain_ms,
+                        f"bound_ms{sfx}": bound_ms,
+                        f"bound_by{sfx}": bound_by,
+                        f"library_ms{sfx}": lib_bwd,
+                        f"backward_from_saved_ms{sfx}": bfs_ms,
+                        f"train_step_ms{sfx}": step_ms,
+                        f"cudnn_step_ms{sfx}": lib_step})
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
@@ -1681,6 +2157,8 @@ def main() -> int:
     rows += packed_phase(args, dev, smi)
     torch.cuda.empty_cache()
     rows += rnn_phase(args, dev, smi)
+    torch.cuda.empty_cache()
+    rows += rnn_bwd_phase(args, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -452,7 +452,8 @@ def test_import_has_no_jax_and_builds_nothing(tmp_path):
     spgemm_kernels, fsspmdm, spmdm and utils.mtx, and the dense path's
     tiled_gemm, tiled_gemm_kernels, xcopy, xcopy_kernels, blocked_gemm and
     mmbatch, and the packed path's packed and packed_kernels, and the RNN
-    forward path's dnn.types, dnn.rnn_seq and dnn.rnncell among them) pulls
+    path's dnn.types, dnn.rnn_seq and dnn.rnncell, and bindings and
+    bindings.torch_lstm among them) pulls
     in neither jax nor xsmm_tpu, imports no triton, and starts no build."""
     before = sorted(p.name for p in cuda_build.BUILD_DIR.glob("*")) \
         if cuda_build.BUILD_DIR.exists() else []
@@ -464,7 +465,8 @@ def test_import_has_no_jax_and_builds_nothing(tmp_path):
               "utils.mtx", "ops.tiled_gemm", "ops.tiled_gemm_kernels",
               "ops.xcopy", "ops.xcopy_kernels", "ops.blocked_gemm",
               "ops.mmbatch", "ops.packed", "ops.packed_kernels", "dnn",
-              "dnn.types", "dnn.rnn_seq", "dnn.rnncell"):
+              "dnn.types", "dnn.rnn_seq", "dnn.rnncell", "bindings",
+              "bindings.torch_lstm"):
         assert "xsmm_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -490,3 +492,63 @@ def test_sources_never_name_jax():
             if s.startswith(("import ", "from ")):
                 s = s.replace("xsmm_tpu_torch", "")
                 assert "jax" not in s and "xsmm_tpu" not in s, (p, line)
+
+
+# ---------------------------------------------------------------------------
+# f32 products leave the caller's TF32 and matmul-precision settings alone
+# ---------------------------------------------------------------------------
+
+
+def _port_f32_calls():
+    """mmdispatch, xgemm and gemm_batch in f32, an RNN forward and an RNN
+    backward_from_saved; returns the mmdispatch product and its f64 gold."""
+    rng = np.random.default_rng(40)
+    a, b = (rng.standard_normal((96, 96)).astype(np.float32) for _ in "ab")
+    got = xp.mmdispatch(96, 96, 96, beta=0.0)(a, b)
+    xp.xgemm(a, b)
+    xp.gemm_batch([a[:8, :8]] * 3, [b[:8, :8]] * 3)
+    from xsmm_tpu_torch.dnn import RnnDesc, create_rnncell
+    cell = create_rnncell(RnnDesc(n=4, c=5, k=6, max_t=3))
+    x = rng.standard_normal((3, 4, 5)).astype(np.float32)
+    w, r = (rng.standard_normal(s).astype(np.float32) * 0.3
+            for s in ((5, 24), (6, 24)))
+    cell.forward(x, w, r, np.zeros(24, np.float32))
+    _, saved = cell.forward_train(x, w, r, np.zeros(24, np.float32))
+    cell.backward_from_saved(saved, np.ones((3, 4, 6), np.float32))
+    return got, a.astype(np.float64) @ b.astype(np.float64)
+
+
+def test_f32_products_restore_tf32_settings():
+    """With TF32 on and the f32 matmul precision "high", every port call
+    leaves both as they were set (the JAX package's precision=HIGHEST is
+    one call's), and its products still run in full f32."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        got, gold = _port_f32_calls()
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    assert xp.matdiff(gold, got.numpy()).normf_rel <= 1e-6
+
+
+def test_f32_products_restore_per_backend_precision():
+    """The same for a caller who sets the per-backend ``fp32_precision``
+    (whose state the legacy getters refuse to read), in a process of its
+    own so that the setting leaves no trace in this one."""
+    code = ("import numpy as np, torch, xsmm_tpu_torch as xp\n"
+            "import tests.test_torch_core as t\n"
+            "xp.set_config(target='cpu')\n"
+            "torch.backends.cuda.matmul.fp32_precision = 'tf32'\n"
+            "torch.backends.mkldnn.matmul.fp32_precision = 'bf16'\n"
+            "got, gold = t._port_f32_calls()\n"
+            "assert torch.backends.cuda.matmul.fp32_precision == 'tf32'\n"
+            "assert torch.backends.mkldnn.matmul.fp32_precision == 'bf16'\n"
+            "assert xp.matdiff(gold, got.numpy()).normf_rel <= 1e-6\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]

@@ -628,3 +628,227 @@ def test_rnncell_card_equals_cpu(cuda, ct, dt):
     for got, want in zip(out["cuda"], out["cpu"]):
         assert got.dtype == want.dtype
         assert _rel(got, want) <= tol
+
+
+# ---------------------------------------------------------------------------
+# The three RNN backward kernels (ops/csrc/rnn_seq.cu), and the repeatability
+# of the six RNN kernels
+# ---------------------------------------------------------------------------
+
+from xsmm_tpu_torch.ops.smm import _matmul  # noqa: E402
+
+# (T, N, K): lstm_driver's N and K; ragged N and K; T = 1; K below a block's
+# 16 units; N = 4100 needs several 32-row passes a block
+RNN_BWD_SHAPES = [(4, 128, 512), (5, 100, 300), (1, 3, 7), (3, 33, 65),
+                  (2, 4100, 512)]
+
+
+def _bwd_operands(dev, seed, t, n, k, gates, r_dt, act="tanh"):
+    """dhs, the residuals of a forward (gates in their ranges), the states
+    and R^T [G*K, K] in r_dt."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    dhs = f(t, n, k)
+    if gates == 4:
+        res = [torch.sigmoid(f(t, n, k)), torch.tanh(f(t, n, k)),
+               torch.sigmoid(f(t, n, k)), torch.sigmoid(f(t, n, k)),
+               f(t, n, k)]
+    elif gates == 3:
+        res = [torch.sigmoid(f(t, n, k)), torch.sigmoid(f(t, n, k)),
+               torch.tanh(f(t, n, k)), f(t, n, k), torch.tanh(f(t, n, k))]
+    else:
+        res = [rs.ACTS[act][1](f(t, n, k))]
+    states = [f(n, k) * 0.5 for _ in range(3)]
+    rt = (f(gates * k, k) / k ** 0.5).to(r_dt).contiguous()
+    return dhs, res, states, rt
+
+
+def _bwd_call(gates, ops, dz_dt, plain=False, act="tanh"):
+    dhs, res, st, rt = ops
+    sfx = "_plain" if plain else ""
+    if gates == 4:
+        return getattr(rs, "lstm_seq_bwd" + sfx)(dhs, *res, *st, rt,
+                                                 dz_dt=dz_dt)
+    if gates == 3:
+        return getattr(rs, "gru_seq_bwd" + sfx)(dhs, *res, *st[:2], rt,
+                                                dz_dt=dz_dt)
+    return getattr(rs, "rnn_seq_bwd" + sfx)(dhs, *res, st[0], rt, act=act,
+                                            dz_dt=dz_dt)
+
+
+@pytest.mark.parametrize("t,n,k", RNN_BWD_SHAPES)
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
+@pytest.mark.parametrize("r_dt", [torch.float32, torch.bfloat16])
+def test_rnn_seq_bwd_matches_plain(cuda, t, n, k, cell, r_dt):
+    """Each backward kernel against its plain version, dz in R's dtype as
+    the cell emits it (the simple RNN with sigmoid): f32 to 1e-5 (the
+    product sums in another order than cuBLAS), bf16 to 1e-3 (dz, dh0 and
+    dc0 are built to agree bit for bit; db sums in another order)."""
+    gates = RNN_GATES[cell]
+    ops = _bwd_operands(cuda, 40, t, n, k, gates, r_dt, "sigmoid")
+    name = cell + "_seq_bwd"
+    before = rs.bwd_launches[name]
+    got = _bwd_call(gates, ops, r_dt, act="sigmoid")
+    torch.cuda.synchronize()
+    assert rs.bwd_launches[name] == before + 1
+    want = _bwd_call(gates, ops, r_dt, plain=True, act="sigmoid")
+    assert len(got) == len(want)
+    tol = 1e-5 if r_dt == torch.float32 else 1e-3
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and g_.dtype == w_.dtype
+        assert torch.isfinite(g_.float()).all()
+        assert _rel(g_, w_) <= tol
+
+
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("dz_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r_dt", [torch.float32, torch.bfloat16])
+def test_rnn_seq_bwd_dz_dtypes(cuda, act, dz_dt, r_dt):
+    """dz emitted in either dtype with either R: the product's operand is
+    dz rounded to R's dtype, whatever dz is emitted in."""
+    for gates in (4, 3, 1):
+        ops = _bwd_operands(cuda, 41, 3, 50, 40, gates, r_dt, act)
+        got = _bwd_call(gates, ops, dz_dt, act=act)
+        want = _bwd_call(gates, ops, dz_dt, plain=True, act=act)
+        torch.cuda.synchronize()
+        tol = 1e-5 if r_dt == torch.float32 else 1e-3
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == w_.dtype
+            assert _rel(g_, w_) <= (1e-2 if g_.dtype == torch.bfloat16
+                                    else tol)
+
+
+def test_rnn_bwd_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+    for name in ("lstm_seq_bwd_plain", "gru_seq_bwd_plain",
+                 "rnn_seq_bwd_plain"):
+        monkeypatch.setattr(rs, name, boom)
+    for gates in (4, 3, 1):
+        _bwd_call(gates, _bwd_operands(cuda, 42, 3, 16, 24, gates,
+                                       torch.float32), torch.float32)
+    torch.cuda.synchronize()
+
+
+def test_rnn_seq_bwd_beyond_envelope(cuda):
+    """The LSTM with f32 R at K = 1024 needs a 256 KB R^T slice: the
+    backward envelope says no, the wrapper refuses before any launch, and
+    the cell's backward takes its scan route (its forward, with bf16 R at
+    the same K, fits)."""
+    k = 1024
+    assert not rs.seq_bwd_kernel_ok(8, k, 4, 4)
+    assert rs.seq_bwd_kernel_ok(8, k, 4, 2)
+    assert rs.seq_bwd_kernel_ok(128, 512, 4, 4)    # samples/lstm_driver.py
+    ops = _bwd_operands(cuda, 43, 2, 8, k, 4, torch.float32)
+    before = dict(rs.bwd_launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        _bwd_call(4, ops, torch.float32)
+    assert rs.bwd_launches == before
+    rnncell.reset_scan_calls()
+    rng = np.random.default_rng(44)
+    cell = create_rnncell(RnnDesc(n=8, c=16, k=k, max_t=2))
+    x = rng.standard_normal((2, 8, 16)).astype(np.float32)
+    w = (rng.standard_normal((16, 4 * k)) * 0.1).astype(np.float32)
+    rw = (rng.standard_normal((k, 4 * k)) * 0.1).astype(np.float32)
+    grads = cell.backward_weight_update(x, w, rw, np.zeros(4 * k, np.float32),
+                                        np.ones((2, 8, k), np.float32))
+    torch.cuda.synchronize()
+    assert rnncell.bwd_scan_calls["lstm"] == 1 and rs.bwd_launches == before
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("ct", list(CellType))
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_rnncell_bwd_card_equals_cpu(cuda, ct, dt):
+    """backward_from_saved and autograd through forward on the card (one
+    backward launch each, no scan route) against the same calls with
+    target="cpu"."""
+    g = {CellType.LSTM: 4, CellType.GRU: 3}.get(ct, 1)
+    n, c, k, t = 37, 50, 70, 4
+    rng = np.random.default_rng(45)
+    x = rng.standard_normal((t, n, c)).astype(np.float32)
+    w, r = ((rng.standard_normal(s) * 0.1).astype(np.float32)
+            for s in ((c, g * k), (k, g * k)))
+    b = rng.standard_normal(g * k).astype(np.float32)
+    h0, c0 = (rng.standard_normal((n, k)).astype(np.float32) * 0.1
+              for _ in range(2))
+    dhs = rng.standard_normal((t, n, k)).astype(np.float32)
+    desc = RnnDesc(n=n, c=c, k=k, max_t=t, cell_type=ct, in_dtype=dt,
+                   out_dtype=dt)
+    out = {}
+    for target in ("cuda", "cpu"):
+        xp.set_config(target=target)
+        dev = xp.platform.device()
+        cell = create_rnncell(desc)
+        rs.reset_launches()
+        rnncell.reset_scan_calls()
+        _, saved = cell.forward_train(x, w, r, b, h0, c0)
+        grads = list(cell.backward_from_saved(saved, dhs))
+        leaves = [torch.from_numpy(v).to(dev).requires_grad_()
+                  for v in (x, w, r, b, h0, c0)]
+        hs, h_t, _ = cell.forward(*leaves)
+        loss = (hs.float() * torch.from_numpy(dhs).to(dev)).sum() + h_t.sum()
+        grads += torch.autograd.grad(loss, leaves[:5])
+        if target == "cuda":
+            torch.cuda.synchronize()
+            assert sum(rs.bwd_launches.values()) == 2
+            assert not any(rnncell.bwd_scan_calls.values())
+        out[target] = [v.cpu() for v in grads]
+    tol = 1e-5 if dt == "float32" else 1e-2
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == want.dtype
+        assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("t,n,k", [(4, 37, 70), (32, 128, 512)])
+@pytest.mark.parametrize("gates", [4, 3, 1])
+def test_rnn_kernels_repeat_bit_identical(cuda, t, n, k, gates):
+    """Every forward and backward kernel gives the same bits on every one
+    of 50 launches: the grid barrier and the L2 exchange leave no race."""
+    dhs, res, st, rt = _bwd_operands(cuda, 46, t, n, k, gates, torch.float32)
+    zx = torch.randn(t, n, gates * k, device=cuda)
+    r = rt.t().contiguous()
+
+    def fwd():
+        if gates == 4:
+            return rs.lstm_seq(zx, r, st[0], st[1], train=True)
+        if gates == 3:
+            return rs.gru_seq(zx, r, st[0], train=True)
+        return rs.rnn_seq(zx, r, st[0], act="tanh")
+
+    for fn in (fwd, lambda: _bwd_call(gates, (dhs, res, st, rt),
+                                      torch.float32)):
+        ref = [v.clone() for v in fn()]
+        for _ in range(50):
+            for a, b in zip(fn(), ref):
+                assert torch.equal(a, b)
+
+
+def test_rnn_tanh_card_case_repeats_bit_identical(cuda):
+    """The case of test_rnncell_card_equals_cpu[float32-RNN_TANH] (which
+    once gave 1.44e-5 against its 1e-5), 1000 times: the hs of the whole
+    forward call and the x@W product, bit for bit against the first call,
+    and the card against the CPU within the test's tolerance."""
+    n, c, k, t = 37, 50, 70, 4
+    rng = np.random.default_rng(34)
+    x = rng.standard_normal((t, n, c)).astype(np.float32)
+    w, r = ((rng.standard_normal(s) * 0.1).astype(np.float32)
+            for s in ((c, k), (k, k)))
+    b = rng.standard_normal(k).astype(np.float32)
+    h0 = rng.standard_normal((n, k)).astype(np.float32) * 0.1
+    cell = create_rnncell(RnnDesc(n=n, c=c, k=k, max_t=t,
+                                  cell_type=CellType.RNN_TANH))
+    xd = torch.from_numpy(x).to(cuda).reshape(t * n, c)
+    wd = torch.from_numpy(w).to(cuda)
+    hs0 = cell.forward(x, w, r, b, h0)[0].clone()
+    zx0 = _matmul(xd, wd).clone()
+    hs_var = zx_var = 0
+    for _ in range(1000):
+        hs_var += not torch.equal(cell.forward(x, w, r, b, h0)[0], hs0)
+        zx_var += not torch.equal(_matmul(xd, wd), zx0)
+    xp.set_config(target="cpu")
+    cpu = create_rnncell(RnnDesc(n=n, c=c, k=k, max_t=t,
+                                 cell_type=CellType.RNN_TANH)
+                         ).forward(x, w, r, b, h0)[0]
+    assert (hs_var, zx_var) == (0, 0)
+    assert _rel(hs0.cpu(), cpu) <= 1e-5

@@ -476,23 +476,6 @@ def test_cpu_counts_no_launch():
     assert rs.seq_kernel_ok(10 ** 6, 10 ** 5, 4, 4)   # the CPU takes any shape
 
 
-def test_backward_raises_not_implemented():
-    x, w, r, b, h0, c0 = _cell_inputs(13, CellType.LSTM, 3, 4, 5, 6)
-    cell = create_rnncell(RnnDesc(n=4, c=5, k=6, max_t=3))
-    dhs = np.zeros((3, 4, 6), np.float32)
-    args = dict(input=x, weight=w, recur_weight=r, bias=b, grad_hidden=dhs)
-    for kind in (Kind.BWD, Kind.UPD):
-        with pytest.raises(NotImplementedError, match="16, 18 and 20"):
-            cell.execute(kind, **args)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cell.backward_weight_update(x, w, r, b, dhs)
-    _, saved = cell.forward_train(x, w, r, b)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cell.backward_from_saved(saved, dhs)
-    with pytest.raises(ValueError):
-        cell.execute("fwd", **args)
-
-
 def test_execute_fwd_matches_forward():
     x, w, r, b, h0, c0 = _cell_inputs(14, CellType.GRU, 3, 4, 5, 6)
     cell = create_rnncell(RnnDesc(n=4, c=5, k=6, max_t=3,
@@ -502,6 +485,8 @@ def test_execute_fwd_matches_forward():
     want = cell.forward(x, w, r, b, h0)
     for a, bb in zip(got, want):
         assert torch.equal(a, bb)
+    with pytest.raises(ValueError):
+        cell.execute("fwd", input=x, weight=w, recur_weight=r, bias=b)
     assert cell.num_gates == 3
     assert create_rnncell(RnnDesc(n=1, c=1, k=1, max_t=1)).num_gates == 4
     assert create_rnncell(RnnDesc(n=1, c=1, k=1, max_t=1,
@@ -566,14 +551,17 @@ def test_types_match_the_jax_package():
 
 def test_seq_profile_instruments_the_source():
     """The card profiler (python -m xsmm_tpu_torch.dnn.seq_profile) finds
-    its anchors in ops/csrc/rnn_seq.cu, and its variants rewrite one
-    constant each; nothing is built here."""
+    its anchors in ops/csrc/rnn_seq.cu, the forward's and the backward's,
+    and its variants rewrite one constant each; nothing is built here."""
     from xsmm_tpu_torch.dnn import seq_profile as sp
     src = sp.SOURCE.read_text()
     out = sp.instrument(src)
     assert len(re.findall(r"STAMP\(t, \d\);", out)) == 5
+    assert len(re.findall(r"STAMP\(s, \d\);", out)) == 5
     assert "xsmm_prof_read" in out
-    assert out.count("g_start[blockIdx.x * 2") == 2
+    assert out.count("g_start[blockIdx.x * 2") == 4
+    assert sp.apply_settings(src, {"BKT": 64}).count(
+        "constexpr int BKT = 64;") == 1
     v = sp.apply_settings(src, sp.parse_variant("THREADS=256,RM=2,RB=8"))
     for line in ("constexpr int THREADS = 256;", "constexpr int RM = 2;",
                  "constexpr int RB = 8;"):

@@ -1,8 +1,9 @@
-"""The three RNN forward sequence kernels (LSTM, GRU, simple RNN): wrappers,
-plain versions, counts.
+"""The RNN sequence kernels (LSTM, GRU, simple RNN), forward and backward:
+wrappers, plain versions, counts.
 
-The counterpart of the forward side of ``xsmm_tpu/dnn/rnn_seq.py``, with its
-signatures and return tuples.  Operands, all contiguous, on one device:
+The counterpart of ``xsmm_tpu/dnn/rnn_seq.py``, with its signatures and
+return tuples (``k`` and ``prec`` follow from the operands' shapes and R's
+dtype).  The forward's operands, all contiguous, on one device:
 ``zx [T, N, G*K]`` f32 (``x @ W + b`` for every step, computed by the
 caller), ``r [K, G*K]`` f32 or bf16, ``h0`` (and ``c0``) ``[N, K]`` f32;
 T, N, K >= 1.  G = 4 gates (i, g, f, o) for the LSTM, 3 (r, z, g) for the
@@ -31,6 +32,16 @@ on its own.  A recurrence over bf16-rounded h amplifies any difference of
 one f32 ulp into a different bf16 rounding a few steps later, so kernel and
 plain version are built to agree bit for bit in the bf16 cells, not merely
 to f32 rounding.
+
+The backward wrappers (``lstm_seq_bwd``, ``gru_seq_bwd``, ``rnn_seq_bwd``)
+walk t = T-1 .. 0 over the forward's residuals ([T, N, K] f32) and R^T
+``rt [G*K, K]`` f32 or bf16, emit dz in ``dz_dt`` (f32 or bf16) and sum db
+in f32 from the unrounded dz; they are counted in ``bwd_launches`` and
+routed by ``seq_bwd_kernel_ok``.  Their product dz @ R^T rounds dz to R's
+dtype, as the JAX ``_dot``; with bf16 R the exact products are summed in
+f32 in the kernel's order (``_dz_rt``), so kernel and plain version agree
+bit for bit on dz, dh0 and dc0, and to f32 rounding on db (summed in
+another order).
 """
 
 from __future__ import annotations
@@ -49,6 +60,13 @@ from ..ops.smm import _matmul
 # counts the launches of the residual-emitting form among them
 launches: Dict[str, int] = {"lstm_seq": 0, "gru_seq": 0, "rnn_seq": 0}
 train_launches: Dict[str, int] = {"lstm_seq": 0, "gru_seq": 0}
+bwd_launches: Dict[str, int] = {"lstm_seq_bwd": 0, "gru_seq_bwd": 0,
+                                "rnn_seq_bwd": 0}
+
+# the backward kernels' order of the sum over k = 0 .. G*K-1 (rnn_seq.cu:
+# BKT, KGROUPS): k belongs to partial sum (k % 128) // 32, each partial sums
+# its k in increasing order, and the four are added in order
+BWD_KT, BWD_GROUPS = 128, 4
 
 # the simple RNN's activations: name -> (the kernel's code, torch function)
 ACTS = {"relu": (0, torch.relu), "sigmoid": (1, torch.sigmoid),
@@ -58,7 +76,7 @@ _LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for counts in (launches, train_launches):
+    for counts in (launches, train_launches, bwd_launches):
         for name in counts:
             counts[name] = 0
 
@@ -73,19 +91,30 @@ def _lib() -> ctypes.CDLL:
         lib.xsmm_gru_seq.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, i, i,
                                      i, i, p]
         lib.xsmm_rnn_seq.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, i, p]
+        lib.xsmm_lstm_seq_bwd.argtypes = [p] * 10 + [i, p, i] + [p] * 6 + [
+            i, i, i, i, p]
+        lib.xsmm_gru_seq_bwd.argtypes = [p] * 9 + [i, p, p, i] + [p] * 6 + [
+            i, i, i, i, p]
+        lib.xsmm_rnn_seq_bwd.argtypes = [p, p, p, p, i, p, i, i] + [p] * 5 + [
+            i, i, i, i, p]
         lib.xsmm_rnn_seq_fits.argtypes = [i, i, i, i, i]
+        lib.xsmm_rnn_seq_bwd_fits.argtypes = [i, i, i, i, i]
         for fn in (lib.xsmm_lstm_seq, lib.xsmm_gru_seq, lib.xsmm_rnn_seq,
-                   lib.xsmm_rnn_seq_fits):
+                   lib.xsmm_lstm_seq_bwd, lib.xsmm_gru_seq_bwd,
+                   lib.xsmm_rnn_seq_bwd, lib.xsmm_rnn_seq_fits,
+                   lib.xsmm_rnn_seq_bwd_fits):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 @functools.lru_cache(maxsize=256)
-def _fits(n: int, k: int, gates: int, r_itemsize: int, device: int) -> bool:
-    rc = _lib().xsmm_rnn_seq_fits(n, k, gates, r_itemsize, device)
+def _fits(n: int, k: int, gates: int, r_itemsize: int, device: int,
+          bwd: bool = False) -> bool:
+    fn = (_lib().xsmm_rnn_seq_bwd_fits if bwd else _lib().xsmm_rnn_seq_fits)
+    rc = fn(n, k, gates, r_itemsize, device)
     if rc < 0 or rc > 1:
-        raise RuntimeError(f"xsmm_rnn_seq_fits({n}, {k}, {gates}, "
+        raise RuntimeError(f"{fn.__name__}({n}, {k}, {gates}, "
                            f"{r_itemsize}) failed (code {rc})")
     return rc == 1
 
@@ -102,6 +131,16 @@ def seq_kernel_ok(n: int, k: int, gates: int, r_itemsize: int) -> bool:
     return _fits(n, k, gates, r_itemsize, dev.index)
 
 
+def seq_bwd_kernel_ok(n: int, k: int, gates: int, r_itemsize: int) -> bool:
+    """The same decision for the backward kernels, from their own envelope
+    (``xsmm_rnn_seq_bwd_fits``: a block holds G*K rows of R^T, G times the
+    forward's)."""
+    if platform.interpret_mode():
+        return True
+    dev = platform.device()
+    return _fits(n, k, gates, r_itemsize, dev.index, True)
+
+
 def _check(name: str, t, dtypes, dim: int,
            device: Optional[torch.device] = None) -> None:
     if not isinstance(t, torch.Tensor):
@@ -109,7 +148,8 @@ def _check(name: str, t, dtypes, dim: int,
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"rnn_seq kernels run on cuda or cpu, not {t.device}")
     if device is not None and t.device != device:
-        raise ValueError(f"{name} is on {t.device}, zx is on {device}")
+        raise ValueError(f"{name} is on {t.device}, the first operand on "
+                         f"{device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
     if t.dim() != dim:
@@ -318,3 +358,221 @@ def rnn_seq(zx: torch.Tensor, r: torch.Tensor, h0: torch.Tensor, *,
                       hbuf.data_ptr(), bar.data_ptr(), t, n, k)
     launches["rnn_seq"] += 1
     return hs, ht
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels 16, 18, 20: the reverse scan over the residuals
+# ---------------------------------------------------------------------------
+
+
+def _dz_rt(dz: torch.Tensor, rt32: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """dz @ R^T as the JAX kernel's ``_dot`` (``rt32`` is R^T [G*K, K] in
+    f32).  f32: the full-f32 product.  bf16: dz rounded to bf16, and the
+    exact products summed in f32 in the backward kernels' order: k goes to
+    partial sum (k % BWD_KT) // (BWD_KT // BWD_GROUPS), one addcmul a k in
+    increasing k, then the partials added in order."""
+    if not bf16:
+        return _matmul(dz, rt32)
+    dzb = dz.to(torch.bfloat16).float()
+    parts = [torch.zeros((dz.shape[0], rt32.shape[1]), dtype=torch.float32,
+                         device=dz.device) for _ in range(BWD_GROUPS)]
+    for k in range(rt32.shape[0]):
+        parts[(k % BWD_KT) // (BWD_KT // BWD_GROUPS)].addcmul_(
+            dzb[:, k:k + 1], rt32[k])
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def _bwd_shapes(dhs, res, states, rt, gates: int, dz_dt) -> tuple:
+    """(T, N, K) of a backward kernel's operands, after checking them:
+    dhs and the residuals [T, N, K] f32, the states [N, K] f32, rt
+    [G*K, K] f32 or bf16."""
+    f32 = (torch.float32,)
+    _check("dhs", dhs, f32, 3)
+    t, n, k = dhs.shape
+    for i, x in enumerate(res):
+        _check(f"residual {i}", x, f32, 3, dhs.device)
+    for i, x in enumerate(states):
+        _check(f"state {i}", x, f32, 2, dhs.device)
+    _check("rt", rt, (torch.float32, torch.bfloat16), 2, dhs.device)
+    if dz_dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dz_dt {dz_dt}: expected torch.float32 or "
+                         f"torch.bfloat16")
+    if (min(t, n, k) < 1 or any(x.shape != dhs.shape for x in res)
+            or any(tuple(x.shape) != (n, k) for x in states)
+            or tuple(rt.shape) != (gates * k, k)):
+        raise ValueError(
+            f"shapes disagree ({gates} gates): dhs[T,N,K]={tuple(dhs.shape)} "
+            f"residuals {[tuple(x.shape) for x in res]} states[N,K] "
+            f"{[tuple(x.shape) for x in states]} rt[G*K,K]={tuple(rt.shape)}")
+    return t, n, k
+
+
+def _bwd_scratch(n: int, k: int, gates: int, r_dt, dev: torch.device):
+    """The backward kernels' scratch: db's row-block partials
+    [ceil(N/32), G*K], the operand exchange [2, N, round_up(G*K, 4)] in R's
+    dtype, and the barrier word (zeroed by the entry point)."""
+    gk = gates * k
+    return (torch.empty(((n + 31) // 32, gk), dtype=torch.float32, device=dev),
+            torch.empty((2, n, (gk + 3) // 4 * 4), dtype=r_dt, device=dev),
+            torch.empty((1,), dtype=torch.int32, device=dev))
+
+
+# -- Kernel 16: _lstm_bwd_kernel (xsmm_tpu/dnn/rnn_seq.py:185) --------------
+
+
+def lstm_seq_bwd_plain(dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t, rt, *,
+                       dz_dt=torch.float32):
+    """dh = dhs[t] + dh'; do = dh*tanh(c_t); dc = dc' + dh*o*(1 - tanh^2);
+    dz = [dc*g*i*(1-i), dc*i*(1-g^2), dc*c_{t-1}*f*(1-f), do*o*(1-o)];
+    dh' = dz @ R^T, dc' = dc*f."""
+    bf16 = rt.dtype == torch.bfloat16
+    rt32 = rt.float()
+    dh_n, dc_n = dh_t, dc_t
+    dzs, db = [], None
+    for t in reversed(range(dhs.shape[0])):
+        i, g, f, o = is_[t], gs[t], fs[t], os_[t]
+        tc = torch.tanh(cs[t])
+        cp = c0 if t == 0 else cs[t - 1]
+        dh = dhs[t] + dh_n
+        do = dh * tc
+        dc = dc_n + dh * o * (1.0 - tc * tc)
+        dz = torch.cat([dc * g * i * (1.0 - i), dc * i * (1.0 - g * g),
+                        dc * cp * f * (1.0 - f), do * o * (1.0 - o)], dim=1)
+        dzs.append(dz.to(dz_dt))
+        db = dz.sum(0) if db is None else db + dz.sum(0)
+        dh_n = _dz_rt(dz, rt32, bf16)
+        dc_n = dc * f
+    return torch.stack(dzs[::-1]), dh_n, dc_n, db[None]
+
+
+def lstm_seq_bwd(dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t, rt, *,
+                 dz_dt=torch.float32):
+    """Returns (dzs [T, N, 4K] dz_dt, dh0, dc0, db [1, 4K] f32)."""
+    t, n, k = _bwd_shapes(dhs, (is_, gs, fs, os_, cs), (c0, dh_t, dc_t), rt,
+                          4, dz_dt)
+    if dhs.device.type == "cpu":
+        return lstm_seq_bwd_plain(dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t,
+                                  rt, dz_dt=dz_dt)
+    dev = dhs.device
+    dz = torch.empty((t, n, 4 * k), dtype=dz_dt, device=dev)
+    dh0, dc0 = (torch.empty((n, k), dtype=torch.float32, device=dev)
+                for _ in range(2))
+    db = torch.empty((1, 4 * k), dtype=torch.float32, device=dev)
+    dbp, xbuf, bar = _bwd_scratch(n, k, 4, rt.dtype, dev)
+    cuda_build.launch(
+        _lib().xsmm_lstm_seq_bwd, dev,
+        *(x.data_ptr() for x in (dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t,
+                                 rt)),
+        int(rt.dtype == torch.bfloat16), dz.data_ptr(),
+        int(dz_dt == torch.bfloat16),
+        *(x.data_ptr() for x in (dh0, dc0, db, dbp, xbuf, bar)), t, n, k)
+    bwd_launches["lstm_seq_bwd"] += 1
+    return dz, dh0, dc0, db
+
+
+# -- Kernel 18: _gru_bwd_kernel (xsmm_tpu/dnn/rnn_seq.py:335) ---------------
+
+
+def gru_seq_bwd_plain(dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt, *,
+                      dz_dt=torch.float32):
+    """dh = dhs[t] + dh'; dzi = dh*(h_{t-1} - gi)*zi*(1-zi);
+    dgi = dh*(1-zi)*(1-gi^2); dri = dgi*zr_g*ri*(1-ri); dzx = [dri, dzi,
+    dgi]; dh' = dh*zi + [dri, dzi, dgi*ri] @ R^T."""
+    bf16 = rt.dtype == torch.bfloat16
+    rt32 = rt.float()
+    dh_n = dh_t
+    dzxs, dgiris, db = [], [], None
+    for t in reversed(range(dhs.shape[0])):
+        ri, zi, gi, zr_g = ris[t], zis[t], gis[t], zrgs[t]
+        hp = h0 if t == 0 else hs[t - 1]
+        dh = dhs[t] + dh_n
+        dzi = dh * (hp - gi) * zi * (1.0 - zi)
+        dgi = dh * (1.0 - zi) * (1.0 - gi * gi)
+        dri = dgi * zr_g * ri * (1.0 - ri)
+        dgiri = dgi * ri
+        dzx = torch.cat([dri, dzi, dgi], dim=1)
+        dzxs.append(dzx.to(dz_dt))
+        dgiris.append(dgiri.to(dz_dt))
+        db = dzx.sum(0) if db is None else db + dzx.sum(0)
+        dh_n = dh * zi + _dz_rt(torch.cat([dri, dzi, dgiri], dim=1), rt32,
+                                bf16)
+    return (torch.stack(dzxs[::-1]), torch.stack(dgiris[::-1]), dh_n,
+            db[None])
+
+
+def gru_seq_bwd(dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt, *,
+                dz_dt=torch.float32):
+    """Returns (dzxs [T, N, 3K], dgiris [T, N, K], both dz_dt, dh0,
+    db [1, 3K] f32)."""
+    t, n, k = _bwd_shapes(dhs, (ris, zis, gis, zrgs, hs), (h0, dh_t), rt, 3,
+                          dz_dt)
+    if dhs.device.type == "cpu":
+        return gru_seq_bwd_plain(dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt,
+                                 dz_dt=dz_dt)
+    dev = dhs.device
+    dzx = torch.empty((t, n, 3 * k), dtype=dz_dt, device=dev)
+    dgiri = torch.empty((t, n, k), dtype=dz_dt, device=dev)
+    dh0, carry = (torch.empty((n, k), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    db = torch.empty((1, 3 * k), dtype=torch.float32, device=dev)
+    dbp, xbuf, bar = _bwd_scratch(n, k, 3, rt.dtype, dev)
+    cuda_build.launch(
+        _lib().xsmm_gru_seq_bwd, dev,
+        *(x.data_ptr() for x in (dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt)),
+        int(rt.dtype == torch.bfloat16), dzx.data_ptr(), dgiri.data_ptr(),
+        int(dz_dt == torch.bfloat16),
+        *(x.data_ptr() for x in (dh0, carry, db, dbp, xbuf, bar)), t, n, k)
+    bwd_launches["gru_seq_bwd"] += 1
+    return dzx, dgiri, dh0, db
+
+
+# -- Kernel 20: _rnn_bwd_kernel (xsmm_tpu/dnn/rnn_seq.py:407) ---------------
+
+
+def _dact(act: str, h: torch.Tensor) -> torch.Tensor:
+    """The activation's derivative from its output: relu 1[h > 0], sigmoid
+    h(1-h), tanh 1-h^2."""
+    if act == "relu":
+        return (h > 0).float()
+    if act == "sigmoid":
+        return h * (1.0 - h)
+    return 1.0 - h * h
+
+
+def rnn_seq_bwd_plain(dhs, hs, dh_t, rt, *, act: str, dz_dt=torch.float32):
+    """dz = (dhs[t] + dh') * act'(h_t); dh' = dz @ R^T."""
+    _act(act)
+    bf16 = rt.dtype == torch.bfloat16
+    rt32 = rt.float()
+    dh_n = dh_t
+    dzs, db = [], None
+    for t in reversed(range(dhs.shape[0])):
+        dz = (dhs[t] + dh_n) * _dact(act, hs[t])
+        dzs.append(dz.to(dz_dt))
+        db = dz.sum(0) if db is None else db + dz.sum(0)
+        dh_n = _dz_rt(dz, rt32, bf16)
+    return torch.stack(dzs[::-1]), dh_n, db[None]
+
+
+def rnn_seq_bwd(dhs, hs, dh_t, rt, *, act: str, dz_dt=torch.float32):
+    """Returns (dzs [T, N, K] dz_dt, dh0, db [1, K] f32).  ``act`` is
+    "relu", "sigmoid" or "tanh" (the JAX kernel takes its derivative)."""
+    t, n, k = _bwd_shapes(dhs, (hs,), (dh_t,), rt, 1, dz_dt)
+    code = _act(act)[0]
+    if dhs.device.type == "cpu":
+        return rnn_seq_bwd_plain(dhs, hs, dh_t, rt, act=act, dz_dt=dz_dt)
+    dev = dhs.device
+    dz = torch.empty((t, n, k), dtype=dz_dt, device=dev)
+    dh0 = torch.empty((n, k), dtype=torch.float32, device=dev)
+    db = torch.empty((1, k), dtype=torch.float32, device=dev)
+    dbp, xbuf, bar = _bwd_scratch(n, k, 1, rt.dtype, dev)
+    cuda_build.launch(
+        _lib().xsmm_rnn_seq_bwd, dev, dhs.data_ptr(), hs.data_ptr(),
+        dh_t.data_ptr(), rt.data_ptr(), int(rt.dtype == torch.bfloat16),
+        dz.data_ptr(), int(dz_dt == torch.bfloat16), code,
+        *(x.data_ptr() for x in (dh0, db, dbp, xbuf, bar)), t, n, k)
+    bwd_launches["rnn_seq_bwd"] += 1
+    return dz, dh0, db

@@ -2,6 +2,7 @@
 
     python -m xsmm_tpu_torch.dnn.seq_profile [--shape 128,512,512,32]
         [--variant base] [--variant RB=8] [--variant THREADS=256,RM=2]
+        [--direction fwd|bwd|both]
 
 For every variant (``base`` is ``ops/csrc/rnn_seq.cu`` as it is; any other
 is a comma-separated list of ``NAME=VALUE`` that rewrites the source's
@@ -18,6 +19,10 @@ kernels in f32 and bf16, it
   ``product``: the h@R loop over all chunks; ``epi``: the gate epilogue;
   ``barrier``: the grid barrier), and the one-time load of the R slice,
   at the card's peak SM clock.
+
+``--direction bwd`` does the same for the backward kernels (``product``:
+dz @ R^T over all chunks and the warps' sum; ``epi``: the gate-gradient
+epilogue), on random residuals with dz in R's dtype; ``both`` runs the two.
 
 It needs a CUDA card and nvcc, and imports nothing of JAX.
 """
@@ -48,6 +53,19 @@ _STAMPS = [
     ("    if (!last) grid_barrier(p.bar", "    STAMP(t, 3);\n"),
 ]
 _AFTER_BARRIER = "    if (!last) grid_barrier(p.bar, (unsigned)(t + 1) * gridDim.x);\n"
+# the backward kernel's, indexed by its step s (t = T-1-s)
+_BWD_STAMPS = [
+    ("  // -- R^T's columns j0 .. j0+15",
+     "  if (threadIdx.x == 0) g_start[blockIdx.x * 2] = clock64();\n"),
+    ("  const int first_row = rbi * p.passes * BROWS;\n",
+     "  if (threadIdx.x == 0) g_start[blockIdx.x * 2 + 1] = clock64();\n"),
+    ("    const RT* xin = static_cast<const RT*>(p.xbuf)", "    STAMP(s, 0);\n"),
+    ("      // -- dh_prev = dz_{t+1} @ R^T", "      STAMP(s, 1);\n"),
+    ("      if (t < 0) {  // the last product: dh0", "      STAMP(s, 2);\n"),
+    ("    if (t == 0) {  // the block's partial sums of db", "    STAMP(s, 3);\n"),
+]
+_BWD_AFTER_BARRIER = ("    if (t >= 0) grid_barrier(p.bar, (unsigned)(s + 1) * "
+                      "gridDim.x);\n")
 _HEAD = """namespace {
 __device__ long long g_prof[%d];
 __device__ long long g_start[1024];
@@ -80,15 +98,17 @@ def apply_settings(src: str, settings: Dict[str, int]) -> str:
 def instrument(src: str) -> str:
     """``src`` with the clock64() stamps and the entry points that read them
     (raises if an anchor is gone from the source)."""
-    for anchor, _ in _STAMPS + [("namespace {\n", "")]:
+    stamps = _STAMPS + _BWD_STAMPS
+    for anchor, _ in stamps + [("namespace {\n", "")]:
         if src.count(anchor) != 1:
             raise ValueError(f"anchor not found once in rnn_seq.cu: {anchor!r}")
     src = src.replace("namespace {\n", _HEAD, 1)
-    for anchor, text in _STAMPS:
+    for anchor, text in stamps:
         src = src.replace(anchor, text + anchor)
-    if src.count(_AFTER_BARRIER) != 1:
-        raise ValueError("the grid barrier's call is gone from rnn_seq.cu")
-    src = src.replace(_AFTER_BARRIER, _AFTER_BARRIER + "    STAMP(t, 4);\n")
+    for line, step in ((_AFTER_BARRIER, "t"), (_BWD_AFTER_BARRIER, "s")):
+        if src.count(line) != 1:
+            raise ValueError("a grid barrier's call is gone from rnn_seq.cu")
+        src = src.replace(line, line + f"    STAMP({step}, 4);\n")
     return src + _TAIL
 
 
@@ -136,6 +156,8 @@ def main() -> int:
     ap.add_argument("--shape", default="128,512,512,32", help="N,C,K,T")
     ap.add_argument("--variant", action="append", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--direction", choices=("fwd", "bwd", "both"),
+                    default="fwd")
     args = ap.parse_args()
     variants = args.variant or ["base"]
     if not torch.cuda.is_available():
@@ -154,69 +176,108 @@ def main() -> int:
         rs._lib()
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def fwd_case(cell, gates, rdt):
+        zx = randn(t, n, gates * k)
+        r = (randn(k, gates * k) * 0.1).to(rdt)
+        h0, c0 = randn(n, k) * 0.1, randn(n, k) * 0.1
+
+        def run(plain=False):
+            sfx = "_plain" if plain else ""
+            if cell == "lstm":
+                return getattr(rs, "lstm_seq" + sfx)(zx, r, h0, c0,
+                                                     train=False)
+            if cell == "gru":
+                return getattr(rs, "gru_seq" + sfx)(zx, r, h0, train=False)
+            return getattr(rs, "rnn_seq" + sfx)(zx, r, h0, act="tanh")
+        return run
+
+    def bwd_case(cell, gates, rdt):
+        """Random residuals in their ranges, R^T scaled to keep dh bounded,
+        dz in R's dtype (as the cell emits it)."""
+        dhs = randn(t, n, k)
+        if gates == 4:
+            res = [torch.sigmoid(randn(t, n, k)), torch.tanh(randn(t, n, k)),
+                   torch.sigmoid(randn(t, n, k)),
+                   torch.sigmoid(randn(t, n, k)), randn(t, n, k)]
+        elif gates == 3:
+            res = [torch.sigmoid(randn(t, n, k)),
+                   torch.sigmoid(randn(t, n, k)), torch.tanh(randn(t, n, k)),
+                   randn(t, n, k), torch.tanh(randn(t, n, k))]
+        else:
+            res = [torch.tanh(randn(t, n, k))]
+        states = [randn(n, k) * 0.5 for _ in range(gates == 4 and 3 or 2)]
+        rt = (randn(gates * k, k) / k ** 0.5).to(rdt).contiguous()
+
+        def run(plain=False):
+            sfx = "_plain" if plain else ""
+            kw = {"act": "tanh"} if cell == "rnn" else {}
+            ops = ([dhs, *res, *states] if cell != "rnn"
+                   else [dhs, *res, states[0]])
+            return getattr(rs, f"{cell}_seq_bwd{sfx}")(*ops, rt, dz_dt=rdt,
+                                                       **kw)
+        return run
+
     zeros = np.zeros(STAMPS, np.int64)
     print(f"N{n} K{k} T{t}; SM clock taken as {clock_ghz:.2f} GHz; "
           f"{torch.cuda.get_device_name(0)}")
-    for cell, gates in (("lstm", 4), ("gru", 3), ("rnn", 1)):
-        for rdt in (torch.float32, torch.bfloat16):
-            zx = torch.randn((t, n, gates * k), generator=g, device=dev)
-            r = (torch.randn((k, gates * k), generator=g, device=dev)
-                 * 0.1).to(rdt)
-            h0, c0 = (torch.randn((n, k), generator=g, device=dev) * 0.1
-                      for _ in range(2))
-
-            def run(plain=False):
-                sfx = "_plain" if plain else ""
-                if cell == "lstm":
-                    return getattr(rs, "lstm_seq" + sfx)(zx, r, h0, c0,
-                                                         train=False)
-                if cell == "gru":
-                    return getattr(rs, "gru_seq" + sfx)(zx, r, h0,
-                                                        train=False)
-                return getattr(rs, "rnn_seq" + sfx)(zx, r, h0, act="tanh")
-
-            want = run(plain=True)
-            ms: Dict[str, list] = {v: [] for v in variants}
-            checks = {}
-            for v in variants + variants[::-1]:
-                use(libs[(v, "plain")])
-                got = run()
-                torch.cuda.synchronize()
-                checks[v] = (max((torch.linalg.vector_norm(
-                    (a - b).double()) / torch.linalg.vector_norm(
-                        b.double())).item() for a, b in zip(got, want)),
-                    all(torch.equal(a, b) for a, b in zip(got, want)))
-                ms[v].append(cuda_time_ms(run, warmup=3, iters=20))
-            print(f"{cell} {str(rdt).removeprefix('torch.')} (turns "
-                  f"{' '.join(variants + variants[::-1])})")
-            for v in variants:
-                lib = libs[(v, "prof")]
-                use(lib)
-                lib.xsmm_prof_zero.argtypes = [ctypes.c_void_p]
-                lib.xsmm_prof_read.argtypes = [ctypes.c_void_p,
-                                               ctypes.c_void_p]
-                lib.xsmm_prof_zero(zeros.ctypes.data)
-                run()
-                torch.cuda.synchronize()
-                prof, start = np.zeros(STAMPS, np.int64), np.zeros(1024,
-                                                                   np.int64)
-                lib.xsmm_prof_read(prof.ctypes.data, start.ctypes.data)
-                grid = int((start[1::2] > 0).sum())
-                p = prof.reshape(512, 64, 8)[:grid, :min(t, 64)].astype(
-                    np.float64) / (clock_ghz * 1e3)
-                phases = {"pre": p[:, :, 1] - p[:, :, 0],
-                          "product": p[:, :, 2] - p[:, :, 1],
-                          "epi": p[:, :, 3] - p[:, :, 2],
-                          "barrier": p[:, :-1, 4] - p[:, :-1, 3]}
-                r_us = ((start[1::2] - start[0::2])[:grid]
-                        / (clock_ghz * 1e3)).mean()
-                err, exact = checks[v]
-                print(f"  {v:18s} {' / '.join('%.4f' % m for m in ms[v])} ms "
-                      f"({min(ms[v]) * 1e3 / t:.2f} us/step); vs plain "
-                      f"{err:.2e}{' bit-exact' if exact else ''}; grid "
-                      f"{grid}; R slice {r_us:.1f} us; " + ", ".join(
-                          f"{name} {v_.mean():.2f}" for name, v_ in
-                          phases.items() if v_.size) + " us a step")
+    dirs = ("fwd", "bwd") if args.direction == "both" else (args.direction,)
+    for direction in dirs:
+        for cell, gates in (("lstm", 4), ("gru", 3), ("rnn", 1)):
+            for rdt in (torch.float32, torch.bfloat16):
+                run = (fwd_case if direction == "fwd" else bwd_case)(
+                    cell, gates, rdt)
+                want = run(plain=True)
+                ms: Dict[str, list] = {v: [] for v in variants}
+                checks = {}
+                for v in variants + variants[::-1]:
+                    use(libs[(v, "plain")])
+                    got = run()
+                    torch.cuda.synchronize()
+                    checks[v] = (max((torch.linalg.vector_norm(
+                        (a - b).double()) / torch.linalg.vector_norm(
+                            b.double())).item() for a, b in zip(got, want)),
+                        all(torch.equal(a, b) for a, b in zip(got, want)))
+                    ms[v].append(cuda_time_ms(run, warmup=3, iters=20))
+                print(f"{direction} {cell} {str(rdt).removeprefix('torch.')} "
+                      f"(turns {' '.join(variants + variants[::-1])})")
+                for v in variants:
+                    lib = libs[(v, "prof")]
+                    use(lib)
+                    lib.xsmm_prof_zero.argtypes = [ctypes.c_void_p]
+                    lib.xsmm_prof_read.argtypes = [ctypes.c_void_p,
+                                                   ctypes.c_void_p]
+                    lib.xsmm_prof_zero(zeros.ctypes.data)
+                    run()
+                    torch.cuda.synchronize()
+                    prof = np.zeros(STAMPS, np.int64)
+                    start = np.zeros(1024, np.int64)
+                    lib.xsmm_prof_read(prof.ctypes.data, start.ctypes.data)
+                    grid = int((start[1::2] > 0).sum())
+                    # the steps with every phase: the forward's all but the
+                    # last (no barrier); the backward's s = 1 .. T-1 (s = 0
+                    # has no product, s = T only dh0's)
+                    steps = (slice(0, min(t, 64)) if direction == "fwd"
+                             else slice(1, min(t, 64)))
+                    p = prof.reshape(512, 64, 8)[:grid, steps].astype(
+                        np.float64) / (clock_ghz * 1e3)
+                    phases = {"pre": p[:, :, 1] - p[:, :, 0],
+                              "product": p[:, :, 2] - p[:, :, 1],
+                              "epi": p[:, :, 3] - p[:, :, 2],
+                              "barrier": p[:, :-1, 4] - p[:, :-1, 3]}
+                    r_us = ((start[1::2] - start[0::2])[:grid]
+                            / (clock_ghz * 1e3)).mean()
+                    err, exact = checks[v]
+                    print(f"  {v:18s} "
+                          f"{' / '.join('%.4f' % m for m in ms[v])} ms "
+                          f"({min(ms[v]) * 1e3 / t:.2f} us/step); vs plain "
+                          f"{err:.2e}{' bit-exact' if exact else ''}; grid "
+                          f"{grid}; R slice {r_us:.1f} us; " + ", ".join(
+                              f"{name} {v_.mean():.2f}" for name, v_ in
+                              phases.items() if v_.size) + " us a step")
     return 0
 
 

@@ -1,12 +1,24 @@
-// The RNN forward sequence kernels (LSTM, GRU, simple RNN): the three Hopper
-// kernels behind xsmm_tpu_torch/dnn/rnn_seq.py, built for sm_90a with a plain
-// C interface (loaded through ctypes by ops/cuda_build.py).
+// The RNN sequence kernels (LSTM, GRU, simple RNN), forward and backward: the
+// six Hopper kernels behind xsmm_tpu_torch/dnn/rnn_seq.py, built for sm_90a
+// with a plain C interface (loaded through ctypes by ops/cuda_build.py).
 //
 // Entry points and the TPU kernels they replace:
 //   xsmm_lstm_seq <- xsmm_tpu/dnn/rnn_seq.py:112 _lstm_kernel (lstm_seq)
 //   xsmm_gru_seq  <- xsmm_tpu/dnn/rnn_seq.py:271 _gru_kernel  (gru_seq)
 //   xsmm_rnn_seq  <- xsmm_tpu/dnn/rnn_seq.py:451 _rnn_kernel  (rnn_seq)
 //   xsmm_rnn_seq_fits: the envelope of the three (dnn/rnn_seq.seq_kernel_ok)
+//   xsmm_lstm_seq_bwd <- xsmm_tpu/dnn/rnn_seq.py:185 _lstm_bwd_kernel
+//   xsmm_gru_seq_bwd  <- xsmm_tpu/dnn/rnn_seq.py:335 _gru_bwd_kernel
+//   xsmm_rnn_seq_bwd  <- xsmm_tpu/dnn/rnn_seq.py:407 _rnn_bwd_kernel
+//   xsmm_rnn_seq_bwd_fits: the envelope of the backward three
+//   (dnn/rnn_seq.seq_bwd_kernel_ok); their design is set out above seq_bwd.
+//
+// Backward bound on an H100 SXM at N 128, K 512, T 32, each input read once
+// and each output written once: LSTM dhs and five residuals 50 MB + dz 33.5
+// MB (f32) + R 4.2 MB, ~26 us of bytes against dz @ R^T's 2*T*N*4K*K = 8.6
+// GFLOP, 0.128 ms at the FP32 rate (operations); with bf16 R and dz, ~21 us
+// of bytes.  GRU 0.096 ms, RNN 0.032 ms (f32, operations).  Like the
+// forward, the product runs on FFMA and T barriers add a latency floor.
 //
 // Each computes T sequential steps of z = zx[t] + h @ R and the gate math of
 // its cell, with zx = x @ W + b precomputed for all steps by the caller:
@@ -81,7 +93,9 @@
 // Envelope: the R slice and the 8 KB h chunk must fit a block's shared
 // memory (K <= 832 with f32 R, K <= 1728 with bf16 R), and the column blocks
 // (ceil(K/16), RNN ceil(K/64)) must be co-resident.  Any N and K inside it,
-// and any T >= 1, work: rows >= N, units >= K and k >= K are masked.
+// and any T >= 1, work: rows >= N, units >= K and k >= K are masked.  The
+// backward's: its R^T slice and 16 KB dz chunk (LSTM K <= 832 f32, <= 1664
+// bf16; GRU K <= 1109 f32), and ceil(K/16) co-resident column blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -401,40 +415,393 @@ __global__ void __launch_bounds__(THREADS, 1) seq_fwd(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward kernels: the reverse scan t = T-1 .. 0 of the cell's gradient.
+//
+// Per step: dh = dhs[t] + dh_carry (and dc for the LSTM); the gate-gradient
+// math, local to the (row, unit) it belongs to; dz[t] written out; db summed;
+// then dh_prev = dz_t @ R^T, which needs all G*K columns of dz_t for every
+// unit, so it is the only part that crosses blocks.
+//   * Units.  A block owns BU = 16 hidden units j (dh, dc and the G dz columns
+//     j, K+j, ... of each) and one or more 32-row passes.
+//   * R^T.  The block's slice is columns j0 .. j0+15 of R^T [G*K, K], every
+//     row: gkr x 16 values in R's dtype, in shared memory for all T steps
+//     (128 KB in f32, 64 KB in bf16 for the LSTM at K = 512).
+//   * Exchange.  The epilogue writes the product's operand (dz rounded to R's
+//     dtype; for the GRU [dri, dzi, dgi*ri]) into a double-buffered
+//     [2, N, gkp] buffer with st.global.cg; after the grid barrier every block
+//     stages the rows of its pass, BKT columns at a time, transposed into
+//     shared memory, reading with ld.global.cg (L2, never the non-coherent
+//     path), and prefetching the next chunk into registers.  A warp loads
+//     whole lines (4 rows x 8 quads), not a row a lane: the staging costs
+//     what its requests cost, and a lane a row made the step 1.5-2x longer
+//     on the H100 (dz_at keeps the transposing stores conflict-free).  A
+//     buffer of its own rather than dz: the GRU's operand is not one output
+//     array, and dz may be emitted in another dtype than R's.
+//   * Product.  Warp w sums the chunk positions [32w, 32w + 32) of every chunk
+//     for a 4-row x 4-unit tile (16 f32 sums, one float4 of dz and one vector
+//     of 4 R^T values a k); the four warps' sums are then added in warp order
+//     through shared memory.  With bf16 R each sum is one FMA chain of exact
+//     products, which the plain version's grouped addcmul reproduces.
+//   * Carries.  dc (LSTM) and dh * zi (GRU) are kept in device memory by the
+//     thread that owns the (row, unit); the LSTM's running dc is dc0's buffer.
+//   * db.  Each thread sums its rows over all steps; at t = 0 the block sums
+//     its threads in a fixed order into a row-block partial, and after the
+//     last barrier the blocks of row block 0 add the partials in row-block
+//     order: no atomics, the same bits on every launch.
+//   * T barriers: the last product (dh0) needs all of dz_0.
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_THREADS = 128;
+constexpr int BU = 16;                        // hidden units a block owns
+constexpr int BROWS = 32;                     // rows a pass
+constexpr int BKT = 128;                      // contraction staged per chunk
+constexpr int KGROUPS = BWD_THREADS / 32;     // warp w sums quarter w of a chunk
+constexpr int KPW = BKT / KGROUPS;            // 32 chunk positions a warp
+constexpr int B_SMEM = BKT * BROWS * 4;       // 16 KB: dzT[BKT][BROWS] f32
+constexpr int BQPT = BKT / 4 * BROWS / BWD_THREADS;  // quads a thread stages a chunk
+constexpr int ERM = BROWS * BU / BWD_THREADS; // rows of a thread's epilogue
+constexpr int BRB = 32;                       // R^T loads a thread keeps in flight
+static_assert(KGROUPS * BROWS * BU * 4 <= B_SMEM, "the partial sums reuse dzT");
+static_assert(BROWS == 32 && BU == 16 && ERM * BWD_THREADS == BROWS * BU && KPW % 8 == 0,
+              "a warp's 4 x 4 tiles cover the block's 32 rows x 16 units");
+static_assert(KGROUPS * BQPT == BROWS / 4 * (BKT / 32), "the staging tiles cover a chunk");
+
+// The place of (chunk position kq, row) in dzT: the 4-row group is XORed
+// with kq / 4, so that a warp storing 4 rows x 32 positions hits all 32
+// banks, while the product's float4 of 4 rows at one kq stays whole.
+__device__ __forceinline__ int dz_at(int kq, int row) {
+  return kq * BROWS + ((((row >> 2) ^ (kq >> 2)) & 7) << 2) + (row & 3);
+}
+
+struct BwdParams {
+  const float* dhs;     // [T, N, K]
+  const float* res[5];  // residuals [T, N, K]: LSTM i, g, f, o, cs; GRU ri, zi,
+                        // gi, zr_g, hs; RNN hs
+  const float* s0;      // [N, K]: the state before step 0 (LSTM c0, GRU h0)
+  const float* dht;     // [N, K]
+  const float* dct;     // [N, K] (LSTM)
+  const void* rt;       // [G*K, K], float or bf16: R^T
+  void* dz;             // [T, N, G*K], f32 or bf16 (dz_bf16)
+  void* dgiri;          // [T, N, K] (GRU), dz's dtype
+  float* dh0;           // [N, K]
+  float* carry;         // [N, K]: LSTM the running dc (dc0 at the end); GRU dh*zi
+  float* db;            // [G*K]
+  float* dbp;           // [row blocks, G*K]: the row blocks' partial sums of db
+  void* xbuf;           // [2, N, gkp] in R's dtype: the product's operand
+  unsigned* bar;        // arrival counter, zero at launch
+  int t, n, k, gk, gkp, gkr;  // gkp: G*K rounded up to 4; gkr: to BKT
+  int cb, rb, passes;   // column blocks, row blocks, 32-row passes a block
+  int act;              // RNN: 0 relu, 1 sigmoid, 2 tanh
+  int dz_bf16;          // dz (and dgiri) in bf16, else f32
+};
+
+// Four values of row n, columns k..k+3 of the exchange buffer, read at L2 as
+// f32; zeros where n >= N or k >= G*K (lanes past G*K are zeroed where they
+// are stored: the load is a prefetch).
+__device__ __forceinline__ float4 load_q4(const float* src, int stride, int n, int k, int nn,
+                                          int kk) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n < nn && k < kk) v = __ldcg(reinterpret_cast<const float4*>(src + (size_t)n * stride + k));
+  return v;
+}
+__device__ __forceinline__ float4 load_q4(const __nv_bfloat16* src, int stride, int n, int k,
+                                          int nn, int kk) {
+  uint2 u = make_uint2(0u, 0u);
+  if (n < nn && k < kk) u = __ldcg(reinterpret_cast<const uint2*>(src + (size_t)n * stride + k));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store_cg(float* p, float v) { __stcg(p, v); }
+__device__ __forceinline__ void store_cg(__nv_bfloat16* p, float v) {
+  const unsigned short u = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  asm volatile("st.global.cg.u16 [%0], %1;" : : "l"(p), "h"(u) : "memory");
+}
+
+// element i of an output emitted in f32 or (rounded to nearest even) bf16
+__device__ __forceinline__ void store_out(void* base, int bf16, size_t i, float v) {
+  if (bf16) static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16_rn(v);
+  else static_cast<float*>(base)[i] = v;
+}
+
+template <int CELL, typename RT>
+__global__ void __launch_bounds__(BWD_THREADS, 1) seq_bwd(BwdParams p) {
+  constexpr int G = CellTraits<CELL>::G;
+  constexpr int NRES = CELL == RNN ? 1 : 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dzT = reinterpret_cast<float*>(smem);    // [BKT][BROWS], then partial sums
+  RT* rs = reinterpret_cast<RT*>(smem + B_SMEM);  // [gkr][BU]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int prg = lane / 4, pug = lane % 4;      // product: rows prg*4.., units pug*4..
+  const int eu = tid % BU, erg = tid / BU;       // epilogue: unit eu, rows erg*ERM..
+  // staging: quad i of a thread is row st_row(i), chunk positions st_col(i)..+3;
+  // a warp loads 4 rows x 8 quads at a time, whole 128-byte lines in f32
+  const auto st_row = [&](int i) { return 4 * ((warp + KGROUPS * i) % (BROWS / 4)) + lane / 8; };
+  const auto st_col = [&](int i) {
+    return 4 * (8 * ((warp + KGROUPS * i) / (BROWS / 4)) + lane % 8);
+  };
+  const int cbi = blockIdx.x % p.cb, rbi = blockIdx.x / p.cb;
+  const int j0 = cbi * BU, j = j0 + eu;
+  const int nn = p.n, kk = p.k, gk = p.gk;
+  const size_t nk = (size_t)nn * kk;
+  const RT* rtsrc = static_cast<const RT*>(p.rt);
+
+  // -- R^T's columns j0 .. j0+15, every row, once; zeros past G*K and K ------
+  const int total = p.gkr * BU;
+  for (int e0 = tid; e0 < total; e0 += BWD_THREADS * BRB) {
+    RT v[BRB];
+#pragma unroll
+    for (int u = 0; u < BRB; ++u) {
+      const int e = e0 + u * BWD_THREADS;
+      const int g = e / BU, c = e % BU;
+      v[u] = e < total && g < gk && j0 + c < kk ? rtsrc[(size_t)g * kk + j0 + c]
+                                                : from_f<RT>(0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < BRB; ++u)
+      if (e0 + u * BWD_THREADS < total) rs[e0 + u * BWD_THREADS] = v[u];
+  }
+
+  float dbacc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) dbacc[g] = 0.f;
+  const int first_row = rbi * p.passes * BROWS;
+  for (int s = 0; s <= p.t; ++s) {
+    const int t = p.t - 1 - s;  // -1: only dh0's product is left
+    const RT* xin = static_cast<const RT*>(p.xbuf) + (size_t)((t + 1) & 1) * nn * p.gkp;
+    RT* xout = static_cast<RT*>(p.xbuf) + (size_t)(t & 1) * nn * p.gkp;
+
+    for (int ps = 0; ps < p.passes; ++ps) {
+      const int n0 = first_row + ps * BROWS;
+      if (n0 >= nn) break;  // block-uniform
+
+      // the epilogue's operands, loaded before the product so that their
+      // latency hides behind it; hv: the dh carry, cv: dc (LSTM) or dh*zi (GRU)
+      float dv[ERM], pv[ERM], cv[ERM], hv[ERM], rv[ERM][NRES];
+#pragma unroll
+      for (int r = 0; r < ERM; ++r) {
+        const int n = n0 + erg * ERM + r;
+        const size_t e = (size_t)n * kk + j;
+        dv[r] = pv[r] = cv[r] = hv[r] = 0.f;
+#pragma unroll
+        for (int m = 0; m < NRES; ++m) rv[r][m] = 0.f;
+        if (n >= nn || j >= kk) continue;
+        if (t >= 0) {
+          const size_t st = (size_t)t * nk + e;
+          dv[r] = p.dhs[st];
+#pragma unroll
+          for (int m = 0; m < NRES; ++m) rv[r][m] = p.res[m][st];
+          if (CELL != RNN) pv[r] = t == 0 ? p.s0[e] : p.res[4][st - nk];
+        }
+        if (s == 0) {
+          hv[r] = p.dht[e];
+          if (CELL == LSTM) cv[r] = p.dct[e];
+        } else if (CELL != RNN) {
+          cv[r] = p.carry[e];
+        }
+      }
+
+      // -- dh_prev = dz_{t+1} @ R^T for the pass's rows and the block's units
+      if (s > 0) {
+        float acc[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+        float4 pre[BQPT];
+#pragma unroll
+        for (int i = 0; i < BQPT; ++i)
+          pre[i] = load_q4(xin, p.gkp, n0 + st_row(i), st_col(i), nn, gk);
+        for (int c0 = 0; c0 < p.gkr; c0 += BKT) {
+          __syncthreads();  // the previous chunk is consumed
+#pragma unroll
+          for (int i = 0; i < BQPT; ++i) {
+            const int q = st_col(i), kq = c0 + q, r = st_row(i);
+            dzT[dz_at(q + 0, r)] = pre[i].x;
+            dzT[dz_at(q + 1, r)] = kq + 1 < gk ? pre[i].y : 0.f;
+            dzT[dz_at(q + 2, r)] = kq + 2 < gk ? pre[i].z : 0.f;
+            dzT[dz_at(q + 3, r)] = kq + 3 < gk ? pre[i].w : 0.f;
+          }
+          __syncthreads();
+          if (c0 + BKT < p.gkr) {
+#pragma unroll
+            for (int i = 0; i < BQPT; ++i)
+              pre[i] = load_q4(xin, p.gkp, n0 + st_row(i), c0 + BKT + st_col(i), nn, gk);
+          }
+          const RT* rrow = rs + (size_t)(c0 + warp * KPW) * BU + pug * 4;
+#pragma unroll
+          for (int kq = 0; kq < KPW; ++kq) {
+            const float4 d = *reinterpret_cast<const float4*>(dzT + dz_at(warp * KPW + kq, prg * 4));
+            const float4 rq = load_r4(rrow + kq * BU);
+            const float d4[4] = {d.x, d.y, d.z, d.w};
+            const float r4[4] = {rq.x, rq.y, rq.z, rq.w};
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+              for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(d4[a], r4[b], acc[a][b]);
+          }
+        }
+        // the four warps' sums of each (row, unit), added in warp order
+        __syncthreads();
+        float* red = dzT;  // [KGROUPS][BROWS][BU]
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          *reinterpret_cast<float4*>(red + (warp * BROWS + prg * 4 + a) * BU + pug * 4) =
+              make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < ERM; ++r) {
+          const int row = erg * ERM + r;
+          float sum = red[row * BU + eu];
+#pragma unroll
+          for (int q = 1; q < KGROUPS; ++q) sum = __fadd_rn(sum, red[(q * BROWS + row) * BU + eu]);
+          hv[r] = CELL == GRU ? __fadd_rn(cv[r], sum) : sum;
+        }
+      }
+
+      if (t < 0) {  // the last product: dh0
+#pragma unroll
+        for (int r = 0; r < ERM; ++r) {
+          const int n = n0 + erg * ERM + r;
+          if (n < nn && j < kk) p.dh0[(size_t)n * kk + j] = hv[r];
+        }
+        continue;
+      }
+
+      // -- the gate-gradient epilogue of step t, in the JAX kernel's order:
+      // every product and sum rounded on its own, as the plain version's
+      // separate torch ops round them
+#pragma unroll
+      for (int r = 0; r < ERM; ++r) {
+        const int n = n0 + erg * ERM + r;
+        if (n >= nn || j >= kk) continue;
+        const size_t e = (size_t)n * kk + j;
+        const float dh = __fadd_rn(dv[r], hv[r]);
+        float dz[G];
+        float dgiri = 0.f;
+        if constexpr (CELL == LSTM) {
+          const float i = rv[r][0], g = rv[r][1], f = rv[r][2], o = rv[r][3];
+          const float tc = tanhf(rv[r][4]);
+          const float dc = __fadd_rn(
+              cv[r], __fmul_rn(__fmul_rn(dh, o), __fsub_rn(1.f, __fmul_rn(tc, tc))));
+          dz[0] = __fmul_rn(__fmul_rn(__fmul_rn(dc, g), i), __fsub_rn(1.f, i));
+          dz[1] = __fmul_rn(__fmul_rn(dc, i), __fsub_rn(1.f, __fmul_rn(g, g)));
+          dz[2] = __fmul_rn(__fmul_rn(__fmul_rn(dc, pv[r]), f), __fsub_rn(1.f, f));
+          dz[3] = __fmul_rn(__fmul_rn(__fmul_rn(dh, tc), o), __fsub_rn(1.f, o));
+          p.carry[e] = __fmul_rn(dc, f);
+        } else if constexpr (CELL == GRU) {
+          const float ri = rv[r][0], zi = rv[r][1], gi = rv[r][2], zrg = rv[r][3];
+          dz[1] = __fmul_rn(__fmul_rn(__fmul_rn(dh, __fsub_rn(pv[r], gi)), zi),
+                            __fsub_rn(1.f, zi));
+          dz[2] = __fmul_rn(__fmul_rn(dh, __fsub_rn(1.f, zi)),
+                            __fsub_rn(1.f, __fmul_rn(gi, gi)));
+          dz[0] = __fmul_rn(__fmul_rn(__fmul_rn(dz[2], zrg), ri), __fsub_rn(1.f, ri));
+          dgiri = __fmul_rn(dz[2], ri);
+          p.carry[e] = __fmul_rn(dh, zi);
+        } else {
+          const float h = rv[r][0];
+          const float d = p.act == 0   ? (h > 0.f ? 1.f : 0.f)
+                          : p.act == 1 ? __fmul_rn(h, __fsub_rn(1.f, h))
+                                       : __fsub_rn(1.f, __fmul_rn(h, h));
+          dz[0] = __fmul_rn(dh, d);
+        }
+        const size_t zrow = ((size_t)t * nn + n) * gk + j;
+        RT* xrow = xout + (size_t)n * p.gkp + j;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          store_out(p.dz, p.dz_bf16, zrow + (size_t)g * kk, dz[g]);
+          store_cg(xrow + (size_t)g * kk, CELL == GRU && g == 2 ? dgiri : dz[g]);
+          dbacc[g] = __fadd_rn(dbacc[g], dz[g]);
+        }
+        if (CELL == GRU) store_out(p.dgiri, p.dz_bf16, (size_t)t * nk + e, dgiri);
+      }
+    }
+
+    if (t == 0) {  // the block's partial sums of db, its threads in order
+      __syncthreads();
+      float* red = dzT;  // [BWD_THREADS / BU][BU][G]
+#pragma unroll
+      for (int g = 0; g < G; ++g) red[(erg * BU + eu) * G + g] = dbacc[g];
+      __syncthreads();
+      if (tid < BU * G) {
+        const int u = tid % BU, g = tid / BU;
+        if (j0 + u < kk) {
+          float sum = red[u * G + g];
+          for (int q = 1; q < BWD_THREADS / BU; ++q) sum = __fadd_rn(sum, red[(q * BU + u) * G + g]);
+          __stcg(p.dbp + (size_t)rbi * gk + (size_t)g * kk + j0 + u, sum);
+        }
+      }
+    }
+    if (t >= 0) grid_barrier(p.bar, (unsigned)(s + 1) * gridDim.x);
+  }
+
+  // db: the row blocks' partial sums, in row-block order
+  if (rbi == 0 && tid < BU * G) {
+    const int u = tid % BU, g = tid / BU;
+    if (j0 + u < kk) {
+      const size_t col = (size_t)g * kk + j0 + u;
+      float sum = __ldcg(p.dbp + col);
+      for (int b = 1; b < p.rb; ++b) sum = __fadd_rn(sum, __ldcg(p.dbp + (size_t)b * gk + col));
+      p.db[col] = sum;
+    }
+  }
+}
+
 struct Plan {
   size_t smem;
   int cb, passes, grid;
 };
 
-// The launch plan of kernel `kern` for N x K, or -2 if it cannot run: the R
-// slice does not fit a block's shared memory, the column blocks cannot all be
-// resident at once, or the card has no cooperative launch.
-template <int CELL, typename RT, bool TRAIN>
-int plan(int n, int k, int device, Plan* pl) {
-  auto kern = seq_fwd<CELL, RT, TRAIN>;
-  const int kr = (k + KT - 1) / KT * KT;
-  pl->smem = (size_t)H_SMEM + (size_t)kr * COLS * sizeof(RT);
-  if (pl->smem > (size_t)SHARED_MAX) return -2;
+// The grid of a cooperative kernel with `cb` column blocks over `rpass`
+// passes of rows, or -2 if it cannot run: `smem` exceeds a block's shared
+// memory, the column blocks cannot all be resident at once, or the card has
+// no cooperative launch.  The fewest passes a block that fit the card.
+int coop_plan(const void* kern, int threads, size_t smem, int cb, int rpass, int device,
+              Plan* pl) {
+  pl->smem = smem;
+  if (smem > (size_t)SHARED_MAX) return -2;
   int coop = 0, sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (!coop) return -2;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)pl->smem);
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, pl->smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
   if (e != cudaSuccess) return (int)e;
   const long long slots = (long long)per_sm * sms;
-  const int units = CellTraits<CELL>::UNITS;
-  pl->cb = (k + units - 1) / units;
-  if (pl->cb > slots) return -2;
-  const int rpass = (n + ROWS - 1) / ROWS;
-  const long long rb_max = slots / pl->cb;
+  pl->cb = cb;
+  if (cb > slots) return -2;
+  const long long rb_max = slots / cb;
   const int rb0 = rb_max < rpass ? (int)rb_max : rpass;
   pl->passes = (rpass + rb0 - 1) / rb0;
   const int rb = (rpass + pl->passes - 1) / pl->passes;
-  pl->grid = pl->cb * rb;
+  pl->grid = cb * rb;
   return 0;
+}
+
+// The launch plan of the forward kernel for N x K: its R slice is K x COLS.
+template <int CELL, typename RT, bool TRAIN>
+int plan(int n, int k, int device, Plan* pl) {
+  const int kr = (k + KT - 1) / KT * KT;
+  const int units = CellTraits<CELL>::UNITS;
+  return coop_plan(reinterpret_cast<const void*>(seq_fwd<CELL, RT, TRAIN>), THREADS,
+                   (size_t)H_SMEM + (size_t)kr * COLS * sizeof(RT), (k + units - 1) / units,
+                   (n + ROWS - 1) / ROWS, device, pl);
+}
+
+// The launch plan of the backward kernel for N x K: its R^T slice is
+// round_up(G*K, BKT) x BU, G times the forward's rows for as many values.
+template <int CELL, typename RT>
+int plan_bwd(int n, int k, int device, Plan* pl) {
+  const long long gkr = ((long long)CellTraits<CELL>::G * k + BKT - 1) / BKT * BKT;
+  const long long smem = B_SMEM + gkr * BU * (long long)sizeof(RT);
+  if (smem > SHARED_MAX) return -2;
+  return coop_plan(reinterpret_cast<const void*>(seq_bwd<CELL, RT>), BWD_THREADS,
+                   (size_t)smem, (k + BU - 1) / BU, (n + BROWS - 1) / BROWS, device, pl);
 }
 
 template <int CELL, typename RT, bool TRAIN>
@@ -474,6 +841,35 @@ int fits(int n, int k, int r_bf16, int device) {
     rc = r_bf16 ? plan<CELL, __nv_bfloat16, true>(n, k, device, &pl)
                 : plan<CELL, float, true>(n, k, device, &pl);
   return rc;
+}
+
+template <int CELL, typename RT>
+int launch_bwd(BwdParams p, int device, cudaStream_t st) {
+  Plan pl;
+  const int rc = plan_bwd<CELL, RT>(p.n, p.k, device, &pl);
+  if (rc) return rc;
+  if ((long long)p.t * pl.grid > 0xffffffffLL) return -2;  // the barrier's count
+  p.gk = CellTraits<CELL>::G * p.k;
+  p.gkp = (p.gk + 3) / 4 * 4;
+  p.gkr = (p.gk + BKT - 1) / BKT * BKT;
+  p.cb = pl.cb;
+  p.rb = pl.grid / pl.cb;
+  p.passes = pl.passes;
+  cudaError_t e = cudaMemsetAsync(p.bar, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(seq_bwd<CELL, RT>),
+                                  dim3(pl.grid), dim3(BWD_THREADS), args, pl.smem, st);
+  cudaGetLastError();  // clear the sticky launch error, returned below
+  return (int)e;
+}
+
+template <int CELL>
+int dispatch_bwd(const BwdParams& p, int r_bf16, int device, void* stream) {
+  cudaSetDevice(device);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return r_bf16 ? launch_bwd<CELL, __nv_bfloat16>(p, device, st)
+                : launch_bwd<CELL, float>(p, device, st);
 }
 
 }  // namespace
@@ -530,6 +926,87 @@ extern "C" int xsmm_rnn_seq_fits(int n, int k, int gates, int r_itemsize, int de
     case 4: rc = fits<LSTM>(n, k, bf, device); break;
     case 3: rc = fits<GRU>(n, k, bf, device); break;
     case 1: rc = fits<RNN>(n, k, bf, device); break;
+    default: return -1;
+  }
+  return rc == 0 ? 1 : rc == -2 ? 0 : rc;
+}
+
+// The backward entry points, as the forward's: one launch on `stream`, the
+// cudaError_t returned (-2: outside the envelope, nothing launched).  The
+// caller allocates the outputs (dz [T, N, G*K] and, for the GRU, dgiri
+// [T, N, K] in f32 or, with dz_bf16, bf16; dh0, dc0 [N, K] f32; db [G*K] f32)
+// and the scratch: dbp [ceil(N/32), G*K] f32, xbuf [2, N, round_up(G*K, 4)]
+// in R's dtype, the GRU's carry [N, K] f32, and bar, one 32-bit word.  rt is
+// R^T [G*K, K].  Residuals and states are f32; T, N, K >= 1.
+extern "C" int xsmm_lstm_seq_bwd(const float* dhs, const float* is, const float* gs,
+                                 const float* fs, const float* os, const float* cs,
+                                 const float* c0, const float* dht, const float* dct,
+                                 const void* rt, int r_bf16, void* dz, int dz_bf16, float* dh0,
+                                 float* dc0, float* db, float* dbp, void* xbuf, unsigned* bar,
+                                 int t, int n, int k, int device, void* stream) {
+  BwdParams p{};
+  p.dhs = dhs;
+  p.res[0] = is; p.res[1] = gs; p.res[2] = fs; p.res[3] = os; p.res[4] = cs;
+  p.s0 = c0; p.dht = dht; p.dct = dct; p.rt = rt;
+  p.dz = dz; p.dh0 = dh0; p.carry = dc0; p.db = db; p.dbp = dbp; p.xbuf = xbuf; p.bar = bar;
+  p.t = t; p.n = n; p.k = k; p.dz_bf16 = dz_bf16;
+  return dispatch_bwd<LSTM>(p, r_bf16, device, stream);
+}
+
+extern "C" int xsmm_gru_seq_bwd(const float* dhs, const float* ris, const float* zis,
+                                const float* gis, const float* zrgs, const float* hs,
+                                const float* h0, const float* dht, const void* rt, int r_bf16,
+                                void* dzx, void* dgiri, int dz_bf16, float* dh0, float* carry,
+                                float* db, float* dbp, void* xbuf, unsigned* bar, int t, int n,
+                                int k, int device, void* stream) {
+  BwdParams p{};
+  p.dhs = dhs;
+  p.res[0] = ris; p.res[1] = zis; p.res[2] = gis; p.res[3] = zrgs; p.res[4] = hs;
+  p.s0 = h0; p.dht = dht; p.rt = rt;
+  p.dz = dzx; p.dgiri = dgiri; p.dh0 = dh0; p.carry = carry; p.db = db; p.dbp = dbp;
+  p.xbuf = xbuf; p.bar = bar;
+  p.t = t; p.n = n; p.k = k; p.dz_bf16 = dz_bf16;
+  return dispatch_bwd<GRU>(p, r_bf16, device, stream);
+}
+
+extern "C" int xsmm_rnn_seq_bwd(const float* dhs, const float* hs, const float* dht,
+                                const void* rt, int r_bf16, void* dz, int dz_bf16, int act,
+                                float* dh0, float* db, float* dbp, void* xbuf, unsigned* bar,
+                                int t, int n, int k, int device, void* stream) {
+  if (act < 0 || act > 2) return -1;
+  BwdParams p{};
+  p.dhs = dhs;
+  p.res[0] = hs;
+  p.dht = dht; p.rt = rt;
+  p.dz = dz; p.dh0 = dh0; p.db = db; p.dbp = dbp; p.xbuf = xbuf; p.bar = bar;
+  p.t = t; p.n = n; p.k = k; p.act = act; p.dz_bf16 = dz_bf16;
+  return dispatch_bwd<RNN>(p, r_bf16, device, stream);
+}
+
+// 1 if the backward kernel of a cell with `gates` gates and R of `r_itemsize`
+// bytes runs N x K on device `device`; 0 if the shape is outside its envelope
+// (its R^T slice is G times the forward's height, so the two envelopes
+// differ); -1 for gates or itemsize it does not take; else a cudaError_t.
+extern "C" int xsmm_rnn_seq_bwd_fits(int n, int k, int gates, int r_itemsize, int device) {
+  if (r_itemsize != 2 && r_itemsize != 4) return -1;
+  if (n < 1 || k < 1) return 0;
+  cudaSetDevice(device);
+  const bool bf = r_itemsize == 2;
+  Plan pl;
+  int rc;
+  switch (gates) {
+    case 4:
+      rc = bf ? plan_bwd<LSTM, __nv_bfloat16>(n, k, device, &pl)
+              : plan_bwd<LSTM, float>(n, k, device, &pl);
+      break;
+    case 3:
+      rc = bf ? plan_bwd<GRU, __nv_bfloat16>(n, k, device, &pl)
+              : plan_bwd<GRU, float>(n, k, device, &pl);
+      break;
+    case 1:
+      rc = bf ? plan_bwd<RNN, __nv_bfloat16>(n, k, device, &pl)
+              : plan_bwd<RNN, float>(n, k, device, &pl);
+      break;
     default: return -1;
   }
   return rc == 0 ? 1 : rc == -2 ? 0 : rc;

@@ -10,11 +10,12 @@ restrictions, alpha = 1 and beta in {0, 1} (README.md:11).
 * **Large, single and integer GEMMs** (``XlaGemm``) and **batch-reduce GEMM**
   (``BatchReduceGemm``, one flattened ``[M, I*K] @ [I*K, N]`` product) are
   plain products that the JAX package leaves to XLA; here they are
-  ``torch.matmul``.  f32 products run in full f32: ``_matmul`` sets
-  ``torch.backends.cuda.matmul.allow_tf32 = False`` and
-  ``torch.set_float32_matmul_precision("highest")`` before every f32 call
-  (the reference forces ``Precision.HIGHEST``).  Integer products run in
-  f64 and are cast back, exact while |a|*|b|*K < 2**53 (int16 is).
+  ``torch.matmul``.  f32 products run in full f32: ``_matmul`` runs every
+  f32 call with ``torch.backends.cuda.matmul.allow_tf32 = False`` and the
+  f32 matmul precision "highest", and puts the caller's settings back after
+  it (the reference forces ``Precision.HIGHEST`` on one call).  Integer
+  products run in f64 and are cast back, exact while |a|*|b|*K < 2**53
+  (int16 is).
 * **FP64** follows ``XSMM_F64``: ``split2_fast`` (default), ``split2`` and
   ``float32`` carry f64 as f32 hi/lo pairs exactly as the reference does,
   split on the device; ``native`` is a real f64 ``torch.matmul`` (the JAX
@@ -27,6 +28,7 @@ arrays, as the reference does; the others return tensors on that device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -292,24 +294,52 @@ _torch_matmul = torch.matmul
 _torch_einsum = torch.einsum
 
 
-def _full_f32(dtype: torch.dtype) -> None:
-    """Switch TF32 off before an f32 product, rather than trusting
-    PyTorch's defaults."""
-    if dtype == torch.float32:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+@contextlib.contextmanager
+def _full_f32(dtype: torch.dtype):
+    """Around one f32 product: TF32 (and the CPU's reduced-precision
+    matmul) off, as the JAX package's ``precision=HIGHEST`` for one call,
+    then the caller's settings back, in the API the caller set them with:
+    ``allow_tf32`` and the f32 matmul precision, or, where those cannot be
+    read because the caller used the per-backend ``fp32_precision``, that."""
+    if dtype != torch.float32:
+        yield
+        return
+    try:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        prec = torch.get_float32_matmul_precision()
+    except RuntimeError:  # set through the per-backend API
+        backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+        saved = [b.fp32_precision for b in backends]
+        for b in backends:
+            b.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            for b, v in zip(backends, saved):
+                b.fp32_precision = v
+        return
+    if not tf32 and prec == "highest":
+        yield
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(prec)
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.matmul with f32 in full f32."""
-    _full_f32(a.dtype)
-    return _torch_matmul(a, b)
+    with _full_f32(a.dtype):
+        return _torch_matmul(a, b)
 
 
 def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.einsum of two operands with f32 in full f32."""
-    _full_f32(a.dtype)
-    return _torch_einsum(spec, a, b)
+    with _full_f32(a.dtype):
+        return _torch_einsum(spec, a, b)
 
 
 def _acc_dtype(in_dtype: str) -> torch.dtype:
