@@ -6,7 +6,8 @@ against their plain PyTorch versions.
                           [--sparse-big 1048576] [--gemm-size 4096]
                           [--copy-size 8192] [--packed-batch 131072]
                           [--packed-big-m 125] [--packed-big-batch 4096]
-                          [--rnn-shape 128,512,512,32] [--seed 0]
+                          [--rnn-shape 128,512,512,32] [--dnn-batch 64]
+                          [--seed 0]
 
 Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 
@@ -117,8 +118,40 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     training step (``forward_train`` + ``backward_from_saved``) and its
     split, and cuDNN's backward and forward + backward at the same shape,
     with the rate 3*2*T*N*(C+K)*G*K of ``samples/lstm_driver.py:42-47``;
-24. prints one ``{"kernels": [...]}`` JSON line (all twenty kernels), the
-    nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+24. drives the DNN layer handles through their entry points, with the
+    window kernel's launch count set to 0 just before each call and read
+    just after (each ``pallas_window`` backward must launch it once, every
+    other call never), and cuDNN's TF32 switched on by the caller (each
+    call must leave it so): pooling, max and avg, forward and backward, at
+    N64 C256 H56 W56 2x2/s2 (``samples/layer_driver.py:53``) in f32 and
+    bf16 on both routes (``XSMM_POOL_WINDOW_KERNEL`` unset and 1), x of
+    values rounded to 0.5 so that windows hold ties, every output against
+    numpy gold bit for bit; FC at N1024 C4096 K4096 (``layer_driver.py:35``)
+    with BIAS|RELU, FWD, BWD and UPD, f32 and bf16; fused BN at N64 C256
+    H56 W56 with RELU and with ELTWISE_RELU, forward, backward,
+    ``update_running`` and ``forward_eval``, f32 and bf16; conv at N32 C64
+    H56 W56 K64 3x3 s1 p1 (``samples/cnnlayer_driver.py:26``, the fold's
+    route) and K128 3x3 s2 p1, f32 and bf16, FWD, BWD, UPD, autograd
+    through ``forward`` and every fusion; one stage-shaped training step
+    (conv 1x1 C64->K256 with BATCH_STATS_FWD, ``forward_from_moments``
+    with RELU, max pool 2x2/s2; then the window kernel, BN backward, conv
+    BWD and UPD), each stage against f64 gold from its own inputs; quant
+    on a 64x256x56x56 f32 tensor in all five modes, round-tripped through
+    ``dequantize``; everything else against f64 gold on the card (FC and
+    conv 1e-5 in f32, which TF32 would miss, a conv's weight gradient
+    1e-4, 1e-2 in bf16; BN at the gates of ``tests/test_dnn.py``: 1e-3,
+    dx 1e-2);
+25. compares the window kernel with its plain version, bit for bit, on the
+    tied pooling input and on the stage's activations;
+26. times the window kernel beside its bound, its plain version and the
+    ``vjp`` route (``F.max_pool2d`` forward and autograd backward on
+    channels-last), the whole ``backward`` call on each route, the other
+    layers' whole calls with GB/s or TFLOP/s (the models of
+    ``layer_driver.py:11-18``), the space-to-depth fold against the direct
+    cuDNN conv at K64 in turns, the stage step and its split, and quant;
+27. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels),
+    the nvidia-smi line, and as its last line ``{"ok": true, "device":
+    {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
 also exits non-zero when ``torch.cuda.is_available()`` is false.  It imports
@@ -210,6 +243,16 @@ RNN_BWD_REPLACES = {
     "rnn_seq_bwd": "xsmm_tpu/dnn/rnn_seq.py:407",
 }
 GRAD_NAMES = ("dx", "dw", "dr", "db", "dh0", "dc0")
+
+POOL_SOURCE = "xsmm_tpu_torch/ops/csrc/pooling.cu"
+POOL_REPLACES = "xsmm_tpu/dnn/pooling.py:33"
+# the DNN layers against f64 gold: f32 1e-5 (TF32 would give ~1e-3), a
+# bf16 output 1e-2; BN at the gates of tests/test_dnn.py:20, :294-305
+DNN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# a conv's f32 weight gradient sums N*H*W (1e5 to 2e5) products in cuDNN's
+# own order: 1e-4 (TF32 would still give ~5e-4)
+UPD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BN_TOL = {"float32": (1e-3, 1e-2), "bfloat16": (1e-2, 1e-2)}  # (y, dx)
 
 
 def nvidia_smi_line() -> str:
@@ -1848,6 +1891,580 @@ def rnn_bwd_phase(args, dev, smi):
     return rows
 
 
+def pool_first_match_gold(np, x, dy):
+    """dx of 2x2/s2 max pooling in numpy: dy goes to the first element of
+    its window, in row-major order, that equals the window's max."""
+    n, h, w, c = x.shape
+    x6 = x.reshape(n, h // 2, 2, w // 2, 2, c)
+    order = ((0, 0), (0, 1), (1, 0), (1, 1))
+    m = x6.max(axis=(2, 4))
+    taken = np.zeros(m.shape, bool)
+    dx6 = np.zeros_like(x6)
+    for a, b in order:
+        hit = (x6[:, :, a, :, b] == m) & ~taken
+        dx6[:, :, a, :, b] = np.where(hit, dy, 0)
+        taken |= hit
+    return dx6.reshape(n, h, w, c)
+
+
+def dnn_phase(args, dev, smi):
+    """Steps 24 to 26 of the module docstring; returns kernel 21's row of
+    the ``{"kernels": [...]}`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    from xsmm_tpu_torch import dnn as pd
+    from xsmm_tpu_torch.dnn import conv as pconv
+    from xsmm_tpu_torch.dnn import pooling as ppool
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    # the layers switch cuDNN's TF32 off for their f32 convs and leave the
+    # caller's setting as it was: this caller has it on
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    dts = {"float32": f32, "bfloat16": bf16}
+    NB = args.dnn_batch
+    red = (0, 1, 2)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 70)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def rel(want, got):
+        got = got.double()
+        if tuple(got.shape) != tuple(want.shape):
+            raise RuntimeError(f"shape {tuple(got.shape)} != "
+                               f"{tuple(want.shape)}")
+        if not torch.isfinite(got).all():
+            raise RuntimeError("non-finite output")
+        return (torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want).clamp_min(1e-300)).item()
+
+    def gate(label, err, tol, what="gold"):
+        ok = err <= tol
+        print(f"{what:5s} {label:52s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: {err:.3e} > {tol:g} against {what}")
+
+    def equal(label, want, got, what="gold"):
+        """Bit for bit (want: a numpy array or a tensor)."""
+        want = torch.as_tensor(want).to(got.device, got.dtype)
+        ok = tuple(want.shape) == tuple(got.shape) and torch.equal(want, got)
+        print(f"{what:5s} {label:52s} bit-exact {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{label}: not bit-exact against {what}")
+
+    totals = {"maxpool2x2_bwd": 0}
+
+    def call(label, expect, fn, *a):
+        """fn(*a) with the window kernel's count set to 0 just before and
+        read just after: the call must launch it ``expect`` times, and must
+        leave cuDNN's TF32 flag as this caller set it."""
+        ppool.reset_launches()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        n_ = ppool.launches["maxpool2x2_bwd"]
+        print(f"drive {label:52s} window kernel launches {n_}")
+        if n_ != expect:
+            raise RuntimeError(f"{label}: window kernel launched {n_} times, "
+                               f"expected {expect}")
+        if torch.backends.cudnn.allow_tf32 is not True:
+            raise RuntimeError(f"{label}: left cudnn.allow_tf32 changed")
+        totals["maxpool2x2_bwd"] += n_
+        return out
+
+    def knob(on_):
+        if on_:
+            os.environ["XSMM_POOL_WINDOW_KERNEL"] = "1"
+        else:
+            os.environ.pop("XSMM_POOL_WINDOW_KERNEL", None)
+
+    def conv64(x, w, stride, pad):
+        """f64 NHWC x (*) HWIO w on the card."""
+        return F.conv2d(x.double().permute(0, 3, 1, 2),
+                        w.double().permute(3, 2, 0, 1), stride=stride,
+                        padding=pad).permute(0, 2, 3, 1)
+
+    def conv64_dx(dy, w, xshape, stride, pad):
+        n, h, w_, c = xshape
+        return conv2d_input((n, c, h, w_), w.double().permute(3, 2, 0, 1),
+                            dy.double().permute(0, 3, 1, 2), stride=stride,
+                            padding=pad).permute(0, 2, 3, 1)
+
+    def conv64_dw(x, dy, wshape, stride, pad):
+        r, s, c, k = wshape
+        return conv2d_weight(x.double().permute(0, 3, 1, 2), (k, c, r, s),
+                             dy.double().permute(0, 3, 1, 2), stride=stride,
+                             padding=pad).permute(2, 3, 1, 0)
+
+    t0 = time.perf_counter()
+    # -- 24. the DNN layers through their entry points, counted --------------
+    # pooling at N64 C256 H56 W56 2x2/s2 (samples/layer_driver.py:53): x of
+    # values rounded to 0.5, so windows hold ties; dy exact in bf16
+    PH, PC = 56, 256
+    xp_ = torch.round(randn(NB, PH, PH, PC) * 2) / 2
+    dyp = randn(NB, PH // 2, PH // 2, PC).bfloat16().float()
+    x_np, dy_np = xp_.cpu().numpy(), dyp.cpu().numpy()
+    x6 = x_np.reshape(NB, PH // 2, 2, PH // 2, 2, PC)
+    gold = {"MAX": (x6.max(axis=(2, 4)), pool_first_match_gold(np, x_np,
+                                                               dy_np)),
+            "AVG": (x6.mean(axis=(2, 4), dtype=np.float64).astype(np.float32),
+                    np.repeat(np.repeat(dy_np / 4, 2, 1), 2, 2))}
+    del x6
+    pool_layers = {}
+    for dt in ("float32", "bfloat16"):
+        for ptype, window in (("MAX", False), ("MAX", True), ("AVG", False)):
+            knob(window)
+            layer = pd.create_pooling_layer(pd.PoolingDesc(
+                n=NB, c=PC, h=PH, w=PH, r=2, s=2, u=2, v=2,
+                pool_type=pd.PoolType[ptype], dtype=dt))
+            knob(False)
+            kind_ = "pallas_window" if window else "vjp"
+            if layer.bwd_kind != kind_:
+                raise RuntimeError(f"pooling {ptype}: bwd_kind "
+                                   f"{layer.bwd_kind}, expected {kind_}")
+            pool_layers[(ptype, dt, window)] = layer
+            label = f"pooling {ptype} {dt} N{NB} C{PC} H{PH} 2x2/s2"
+            y = call(f"{label} forward", 0, layer.forward, xp_)
+            dx = call(f"{label} backward ({kind_})", int(window),
+                      layer.backward, dyp, xp_)
+            if y.dtype != dts[dt] or dx.dtype != dts[dt]:
+                raise RuntimeError(f"{label}: dtypes {y.dtype}, {dx.dtype}")
+            gy, gdx = gold[ptype]
+            if not np.array_equal(y.float().cpu().numpy(), gy):
+                raise RuntimeError(f"{label}: forward differs from gold")
+            print(f"gold  {label + ' forward':52s} equal pass")
+            equal(f"{label} dx ({kind_})", gdx, dx)
+    del gold
+
+    # fully connected at N1024 C4096 K4096, BIAS|RELU (layer_driver.py:35)
+    FN, FC_, FK = 16 * NB, 4096, 4096
+    x, w = randn(FN, FC_), randn(FC_, FK, scale=0.02)
+    b, dy = randn(FK, scale=0.1), randn(FN, FK)
+    fc_layers = {}
+    for dt in ("float32", "bfloat16"):
+        layer = pd.create_fullyconnected_layer(pd.FCDesc(
+            n=FN, c=FC_, k=FK, in_dtype=dt, out_dtype=dt,
+            fuse_ops=pd.FuseOp.BIAS | pd.FuseOp.RELU))
+        fc_layers[dt] = layer
+        label = f"fc {dt} N{FN} C{FC_} K{FK} bias+relu"
+        y, mask = call(f"{label} FWD", 0, layer.forward, x, w, b)
+        dx = call(f"{label} BWD", 0, layer.backward, dy, w, mask)
+        dw, db = call(f"{label} UPD", 0, layer.weight_update, x, dy, mask)
+        z = x.to(dts[dt]).double() @ w.to(dts[dt]).double() + b.double()
+        tol = DNN_TOL[dt]
+        gate(f"{label} FWD y", rel(torch.relu(z), y), tol)
+        agree = (mask == (z > 0)).float().mean().item()
+        print(f"gold  {label + ' FWD relu mask':52s} agrees on {agree:.6f}")
+        if agree < 0.999:
+            raise RuntimeError(f"{label}: relu mask differs from gold")
+        dym = torch.where(mask, dy, 0.0).double()
+        gate(f"{label} BWD dx", rel(dym @ w.double().t(), dx), tol)
+        gate(f"{label} UPD dw", rel(x.double().t() @ dym, dw), tol)
+        gate(f"{label} UPD db", rel(dym.sum(0), db), DNN_TOL["float32"])
+    del x, w, b, dy, y, mask, dx, dw, db, z, dym
+
+    # fused BN at N64 C256 H56 W56 with RELU and ELTWISE_RELU
+    x = randn(NB, PH, PH, PC) * 2 + 1
+    res, dy = randn(NB, PH, PH, PC), randn(NB, PH, PH, PC)
+    gamma, beta = randn(PC), randn(PC, scale=0.5)
+    nhw = NB * PH * PH
+    x64 = x.double()
+    mean64, var64 = x64.mean(red), x64.var(red, correction=0)
+    xhat64 = (x64 - mean64) / torch.sqrt(var64 + 1e-5)
+    bn_layers = {}
+    for fuse in ("RELU", "ELTWISE_RELU"):
+        r = res if fuse == "ELTWISE_RELU" else None
+        z = xhat64 * gamma.double() + beta.double()
+        if r is not None:
+            z = z + r.double()
+        gy = torch.relu(z)
+        gvar = var64 * nhw / (nhw - 1)
+        gmask = z > 0
+        ze = (x64 - mean64) / torch.sqrt(gvar + 1e-5) * gamma.double() \
+            + beta.double() + (0 if r is None else r.double())
+        for dt in ("float32", "bfloat16"):
+            bn = pd.create_fusedbatchnorm(pd.BnDesc(
+                n=NB, c=PC, h=PH, w=PH, fuse=pd.BnFuse[fuse], dtype=dt))
+            bn_layers[(fuse, dt)] = bn
+            label = f"bn {fuse} {dt} N{NB} C{PC} H{PH}"
+            y, st = call(f"{label} forward", 0, bn.forward, x, gamma, beta, r)
+            out = call(f"{label} backward", 0, bn.backward, dy, gamma, st)
+            run_ = call(f"{label} update_running", 0, bn.update_running,
+                        bn.init_running(), st)
+            ye = call(f"{label} forward_eval", 0, bn.forward_eval, x, gamma,
+                      beta, run_, r)
+            ty, tdx = BN_TOL[dt]
+            gate(f"{label} y", rel(gy, y), ty)
+            # the gradients' gold takes the layer's own ReLU mask: an
+            # element within an f32 rounding of 0 may fall on either side
+            agree = (st.relu_mask == gmask).double().mean().item()
+            print(f"gold  {label + ' relu mask':52s} agrees on {agree:.7f}")
+            if agree < 0.9999:
+                raise RuntimeError(f"{label}: relu mask differs from gold")
+            dym = torch.where(st.relu_mask, dy.double(), 0.0)
+            gdb, gdg = dym.sum(red), (dym * xhat64).sum(red)
+            gdx = (gamma.double() / torch.sqrt(var64 + 1e-5) / nhw
+                   * (nhw * dym - gdb - xhat64 * gdg))
+            gate(f"{label} dx", rel(gdx, out[0]), tdx)
+            gate(f"{label} dgamma", rel(gdg, out[1]), 1e-3)
+            gate(f"{label} dbeta", rel(gdb, out[2]), 1e-3)
+            if r is not None:
+                gate(f"{label} dresidual", rel(dym, out[3]), 1e-3)
+            gate(f"{label} running gmean", rel(mean64, run_.gmean), 1e-3)
+            gate(f"{label} running gvar", rel(gvar, run_.gvar), 1e-3)
+            if float(run_.scf) != 1.0:
+                raise RuntimeError(f"{label}: scf {float(run_.scf)} != 1")
+            gate(f"{label} forward_eval", rel(torch.relu(ze), ye), ty)
+    del x64, xhat64, z, gy, dym, gdx, ze, out, ye
+
+    # conv at N32 C64 H56 W56 K64 3x3 s1 p1 (samples/cnnlayer_driver.py:26,
+    # the fold route) and the strided K128 3x3 s2 p1, with the fusions
+    Fo = pd.FuseOp
+    CN = max(NB // 2, 1)
+    conv_cases = {}
+    for k, u in ((64, 1), (128, 2)):
+        xc = randn(CN, PH, PH, 64)
+        wc = randn(3, 3, 64, k, scale=0.05)
+        bc = randn(k, scale=0.1)
+        oh = (PH + 2 - 3) // u + 1
+        dyc = randn(CN, oh, oh, k)
+        for dt in ("float32", "bfloat16"):
+            kw = dict(n=CN, c=64, h=PH, w=PH, k=k, r=3, s=3, u=u, v=u,
+                      pad_h=1, pad_w=1, in_dtype=dt, out_dtype=dt)
+            lf = pd.create_conv_layer(pd.ConvDesc(
+                **kw, fuse_ops=Fo.BIAS | Fo.RELU | Fo.BATCH_STATS_FWD
+                | Fo.BATCHNORM_STATS | Fo.MAX_STATS))
+            lb = pd.create_conv_layer(pd.ConvDesc(
+                **kw, fuse_ops=Fo.RELU_BWD | Fo.ELTWISE_BWD
+                | Fo.BATCH_STATS_BWD | Fo.MAX_STATS))
+            lp = pd.create_conv_layer(pd.ConvDesc(**kw))
+            conv_cases[(k, dt)] = (lp, xc, wc, dyc)
+            label = f"conv {dt} N{CN} C64 H{PH} K{k} 3x3 s{u} p1"
+            tol = DNN_TOL[dt]
+            y0 = call(f"{label} FWD", 0, lp.forward, xc, wc)
+            y, st = call(f"{label} FWD bias+relu+stats", 0, lf.forward, xc,
+                         wc, bc)
+            dx0 = call(f"{label} BWD", 0, lp.backward, dyc, wc)
+            dx, delt, bst = call(f"{label} BWD relu/eltwise/stats", 0,
+                                 lb.backward, dyc, wc, y)
+            dw = call(f"{label} UPD", 0, lp.weight_update, xc, dyc)
+
+            def autograd(lp=lp, xc=xc, wc=wc, dyc=dyc):
+                xa = xc.clone().requires_grad_()
+                wa = wc.clone().requires_grad_()
+                ya = lp.forward(xa, wa)
+                ya.backward(dyc.to(ya.dtype))
+                return xa.grad, wa.grad
+            gxa, gwa = call(f"{label} autograd through forward", 0, autograd)
+            xr, wr = xc.to(dts[dt]), wc.to(dts[dt])
+            z = conv64(xr, wr, u, 1)
+            gate(f"{label} FWD y", rel(z, y0), tol)
+            yf = torch.relu(z + bc.double())
+            gate(f"{label} FWD y bias+relu", rel(yf, y), tol)
+            gate(f"{label} FWD sum", rel(yf.sum(red), st.sum), tol)
+            gate(f"{label} FWD sumsq", rel((yf * yf).sum(red), st.sumsq), tol)
+            gate(f"{label} FWD mean", rel(yf.mean(red), st.mean), tol)
+            gate(f"{label} FWD var", rel(yf.var(red, correction=0), st.var),
+                 tol)
+            gate(f"{label} FWD absmax", rel(yf.abs().amax(red), st.absmax),
+                 tol)
+            gdx0 = conv64_dx(dyc, wc, xc.shape, u, 1)
+            gate(f"{label} BWD dx", rel(gdx0, dx0), tol)
+            dym = torch.where(y > 0, dyc, 0.0).double()
+            gdx = conv64_dx(dym, wc, xc.shape, u, 1)
+            gate(f"{label} BWD dx relu_bwd", rel(gdx, dx), tol)
+            gate(f"{label} BWD d_eltwise", rel(dym, delt), tol)
+            gate(f"{label} BWD dbeta", rel(dym.sum(red), bst.dbeta), tol)
+            gate(f"{label} BWD dgamma_y",
+                 rel((dym * y.double()).sum(red), bst.dgamma_y), tol)
+            gate(f"{label} BWD dx_absmax",
+                 rel(gdx.abs().amax(red), bst.dx_absmax), tol)
+            gate(f"{label} UPD dw", rel(conv64_dw(xc, dyc, wc.shape, u, 1),
+                                        dw), UPD_TOL[dt])
+            gate(f"{label} autograd dx",
+                 rel(conv64_dx(dyc.to(dts[dt]), wr, xc.shape, u, 1), gxa),
+                 tol)
+            gate(f"{label} autograd dw",
+                 rel(conv64_dw(xr, dyc.to(dts[dt]), wc.shape, u, 1), gwa),
+                 UPD_TOL[dt])
+            del y0, y, st, dx0, dx, delt, bst, dw, gxa, gwa, z, yf, gdx
+            del gdx0, dym
+
+    # one stage-shaped training step at the pooling shape: conv 1x1
+    # C64->K256 (BATCH_STATS_FWD) -> forward_from_moments (RELU) -> max pool
+    # 2x2/s2; then the window kernel -> BN backward -> conv BWD and UPD
+    knob(True)
+    s_pool = pd.create_pooling_layer(pd.PoolingDesc(
+        n=NB, c=PC, h=PH, w=PH, r=2, s=2, u=2, v=2))
+    knob(False)
+    s_conv = pd.create_conv_layer(pd.ConvDesc(
+        n=NB, c=64, h=PH, w=PH, k=PC, r=1, s=1,
+        fuse_ops=pd.FuseOp.BATCH_STATS_FWD))
+    s_bn = pd.create_fusedbatchnorm(pd.BnDesc(n=NB, c=PC, h=PH, w=PH,
+                                              fuse=pd.BnFuse.RELU))
+    sx, sw = randn(NB, PH, PH, 64), randn(1, 1, 64, PC, scale=0.1)
+    sg, sb = randn(PC), randn(PC, scale=0.5)
+    sdz = randn(NB, PH // 2, PH // 2, PC)
+
+    def stage_fwd():
+        y, st = s_conv.forward(sx, sw)
+        mean = st.sum / nhw
+        a, bst = s_bn.forward_from_moments(y, sg, sb, mean,
+                                           st.sumsq / nhw - mean * mean)
+        return y, st, a, bst, s_pool.forward(a)
+
+    def stage_bwd(a, bst):
+        da = s_pool.backward(sdz, a)
+        dy, dgamma, dbeta = s_bn.backward(da, sg, bst)
+        return da, dy, dgamma, dbeta, s_conv.backward(dy, sw), \
+            s_conv.weight_update(sx, dy)
+
+    def stage_step():
+        y, st, a, bst, z = stage_fwd()
+        return (y, st, a, z) + stage_bwd(a, bst)
+
+    if s_pool.bwd_kind != "pallas_window":
+        raise RuntimeError("stage: the pool's backward is not the window route")
+    label = f"stage conv1x1 C64->K{PC} + bn + maxpool N{NB} H{PH}"
+    y, st, a, z, da, dy, dgam, dbet, dx, dw = call(f"{label} step", 1,
+                                                   stage_step)
+    # each stage against f64 gold from its own inputs (the previous stage's
+    # outputs)
+    gate(f"{label} conv y", rel(conv64(sx, sw, 1, 0), y), 1e-5)
+    y64 = y.double()
+    gate(f"{label} conv sum", rel(y64.sum(red), st.sum), 1e-5)
+    gate(f"{label} conv sumsq", rel((y64 * y64).sum(red), st.sumsq), 1e-5)
+    m64, v64 = y64.mean(red), y64.var(red, correction=0)
+    xh64 = (y64 - m64) / torch.sqrt(v64 + 1e-5)
+    za = xh64 * sg.double() + sb.double()
+    gate(f"{label} bn from moments", rel(torch.relu(za), a), 1e-3)
+    a_np = a.cpu().numpy()
+    equal(f"{label} pool forward", a_np.reshape(
+        NB, PH // 2, 2, PH // 2, 2, PC).max(axis=(2, 4)), z)
+    equal(f"{label} pool window backward",
+          pool_first_match_gold(np, a_np, sdz.cpu().numpy()), da)
+    dam = torch.where(za > 0, da.double(), 0.0)
+    gdb, gdg = dam.sum(red), (dam * xh64).sum(red)
+    gdy = (sg.double() / torch.sqrt(v64 + 1e-5) / nhw
+           * (nhw * dam - gdb - xh64 * gdg))
+    gate(f"{label} bn dx", rel(gdy, dy), 1e-2)
+    gate(f"{label} bn dgamma", rel(gdg, dgam), 1e-3)
+    gate(f"{label} bn dbeta", rel(gdb, dbet), 1e-3)
+    gate(f"{label} conv dx", rel(conv64_dx(dy, sw, sx.shape, 1, 0), dx),
+         1e-5)
+    gate(f"{label} conv dw", rel(conv64_dw(sx, dy, sw.shape, 1, 0), dw),
+         UPD_TOL["float32"])
+    del y, st, z, dy, dx, dw, y64, xh64, za, dam, gdy, a_np
+
+    # quant on a 64x256x56x56 f32 tensor in all five modes, round-tripped
+    xq = randn(NB, PC, PH, PH, scale=3.0)
+    ax = xq.abs().max().double()
+    max_exp = int(torch.frexp(ax).exponent) + 126
+    scf_g = max(14 - (max_exp - 127), 0)
+    mag = xq.double().abs() * 2.0 ** scf_g
+    sign = torch.sign(xq.double())
+    qgold = {"NO_ROUND": torch.floor(mag), "NEAREST": torch.floor(mag + 0.5),
+             "BIAS": torch.floor(mag + 0.75), "FPHW": torch.floor(mag + 0.5)}
+    step_ = 2.0 ** -scf_g
+    for mode in pd.RoundMode:
+        key = (torch.Generator(device=dev).manual_seed(args.seed)
+               if mode == pd.RoundMode.STOCH else None)
+        label = f"quant {mode.name} {NB}x{PC}x{PH}x{PH} f32"
+        q, scf = call(f"{label} quantize", 0, pd.quantize, xq, 0, mode, key)
+        back = call(f"{label} dequantize", 0, pd.dequantize, q, scf)
+        if int(scf) != scf_g or q.dtype != torch.int16:
+            raise RuntimeError(f"{label}: scf {int(scf)} (gold {scf_g}), "
+                               f"{q.dtype}")
+        if mode.name in qgold:
+            want = torch.clamp(sign * qgold[mode.name], -32768, 32767)
+            equal(f"{label} q", want.to(torch.int16), q)
+        else:
+            up = q.double() * sign - torch.floor(mag)
+            if not ((up == 0) | (up == 1)).all():
+                raise RuntimeError(f"{label}: not a neighbour of x")
+            bias = (back.double() - xq.double()).mean().item() / step_
+            print(f"gold  {label + ' round trip':52s} mean error "
+                  f"{bias:+.2e} steps")
+            if abs(bias) > 1e-3:
+                raise RuntimeError(f"{label}: biased by {bias:.2e} steps")
+        equal(f"{label} dequantize", q.double() * step_, back.double())
+    del mag, sign, qgold, q, back
+    drive_s = time.perf_counter() - t0
+    print(f"dnn path in {drive_s:.2f} s; window kernel launches {totals}  "
+          f"[{smi}]")
+    if totals["maxpool2x2_bwd"] < 1:
+        raise RuntimeError("maxpool2x2_bwd was not launched on the DNN path")
+
+    # -- 25. the window kernel against its plain version ---------------------
+    got = ppool.maxpool2x2_bwd(dyp, xp_)
+    want = ppool.maxpool2x2_bwd_plain(dyp, xp_)
+    torch.cuda.synchronize()
+    max_abs = (got - want).abs().max().item()
+    equal(f"maxpool2x2_bwd N{NB} C{PC} H{PH} tied", want, got, "plain")
+    got = ppool.maxpool2x2_bwd(sdz, a)
+    equal(f"maxpool2x2_bwd stage activations", ppool.maxpool2x2_bwd_plain(
+        sdz, a), got, "plain")
+    del got, want
+
+    # -- 26. times ---------------------------------------------------------------
+    el = NB * PH * PH * PC
+    nbytes = 4 * (el + el // 4 + el)          # read x, dy; write dx
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 14 * el / 4 / FP32_FLOP_PER_S * 1e3
+    bound_by = "bytes" if bound_ms >= t_ops else "operations"
+    bound_ms = max(bound_ms, t_ops)
+    ms = cuda_time_ms(ppool.maxpool2x2_bwd, dyp, xp_, warmup=3, iters=50)
+    plain_ms = cuda_time_ms(ppool.maxpool2x2_bwd_plain, dyp, xp_, warmup=1,
+                            iters=5)
+    vjp = pool_layers[("MAX", "float32", False)]
+    lib_ms = cuda_time_ms(vjp._bwd, dyp, xp_, warmup=3, iters=20)
+    xr_ = xp_.permute(0, 3, 1, 2)
+    _, idx = F.max_pool2d(xr_, 2, 2, return_indices=True)
+    dyr = dyp.permute(0, 3, 1, 2)
+    alone_ms = cuda_time_ms(torch.ops.aten.max_pool2d_with_indices_backward,
+                            dyr, xr_, [2, 2], [2, 2], [0, 0], [1, 1], False,
+                            idx, warmup=3, iters=20)
+    print(f"time  maxpool2x2_bwd f32 N{NB} C{PC} H{PH} kernel {ms:.4f} ms, "
+          f"{nbytes / ms / 1e6:.1f} GB/s, bound {bound_ms:.4f} ms "
+          f"({bound_by}), share {bound_ms / ms:.3f}; plain {plain_ms:.3f} "
+          f"ms; vjp route (F.max_pool2d forward + autograd backward, "
+          f"channels-last) {lib_ms:.4f} ms; max_pool2d_with_indices_backward "
+          f"alone {alone_ms:.4f} ms  [{smi}]")
+    row = {"name": "maxpool2x2_bwd", "route": "cuda", "source": POOL_SOURCE,
+           "replaces": POOL_REPLACES,
+           "launches": totals["maxpool2x2_bwd"], "max_abs_err": max_abs,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": lib_ms, "check": "pass",
+           "shape": f"N{NB} C{PC} H{PH} W{PH} 2x2/s2 f32",
+           "library": "F.max_pool2d channels-last forward + autograd "
+                      "backward (the vjp route)",
+           "backward_alone_ms": alone_ms}
+    for dt in ("float32", "bfloat16"):
+        isz = 2 if dt == "bfloat16" else 4
+        fwd = {}
+        for ptype in ("MAX", "AVG"):
+            fwd[ptype] = cuda_time_ms(pool_layers[(ptype, dt, False)].forward,
+                                      xp_.to(dts[dt]), warmup=3, iters=20)
+        bwd = {k_: cuda_time_ms(pool_layers[("MAX", dt, k_)].backward, dyp,
+                                xp_, warmup=3, iters=20)
+               for k_ in (False, True)}
+        io = (el + el // 4) * isz
+        print(f"call  pooling {dt:8s} forward max {fwd['MAX']:.4f} ms avg "
+              f"{fwd['AVG']:.4f} ms ({io / fwd['MAX'] / 1e6:.1f} / "
+              f"{io / fwd['AVG'] / 1e6:.1f} GB/s in+out); max backward "
+              f"whole call: vjp route {bwd[False]:.4f} ms, pallas_window "
+              f"route {bwd[True]:.4f} ms  [{smi}]")
+        row[f"pool_fwd_max_ms_{dt}"] = fwd["MAX"]
+        row[f"backward_vjp_ms_{dt}"] = bwd[False]
+        row[f"backward_window_ms_{dt}"] = bwd[True]
+
+    x, w = randn(FN, FC_), randn(FC_, FK, scale=0.02)
+    b, dy = randn(FK, scale=0.1), randn(FN, FK)
+    flops = 2 * FN * FC_ * FK
+    for dt, layer in fc_layers.items():
+        _, mask = layer.forward(x, w, b)
+        t_f = cuda_time_ms(layer.forward, x, w, b)
+        t_b = cuda_time_ms(layer.backward, dy, w, mask)
+        t_u = cuda_time_ms(layer.weight_update, x, dy, mask)
+        print(f"call  fc {dt:8s} N{FN} C{FC_} K{FK} FWD {t_f:.4f} ms "
+              f"{flops / t_f / 1e9:.1f} TFLOP/s; BWD {t_b:.4f} "
+              f"{flops / t_b / 1e9:.1f}; UPD {t_u:.4f} "
+              f"{flops / t_u / 1e9:.1f}  [{smi}]")
+    del x, w, b, dy, mask
+
+    for (fuse, dt), bn in bn_layers.items():
+        if fuse != "RELU":
+            continue
+        xb = randn(NB, PH, PH, PC)
+        _, st = bn.forward(xb, gamma, beta)
+        t_f = cuda_time_ms(bn.forward, xb, gamma, beta)
+        t_b = cuda_time_ms(bn.backward, xb, gamma, st)
+        io = el * (4 + (2 if dt == "bfloat16" else 4))
+        print(f"call  bn RELU {dt:8s} N{NB} C{PC} H{PH} forward {t_f:.4f} ms "
+              f"({io / t_f / 1e6:.1f} GB/s on x read + y written); backward "
+              f"{t_b:.4f} ms  [{smi}]")
+    del xb, st
+
+    for (k, dt), (lp, xc, wc, dyc) in conv_cases.items():
+        d = lp.desc
+        flops = 2 * d.n * d.out_h * d.out_w * d.c * d.k * d.r * d.s
+        t_f = cuda_time_ms(lp.forward, xc, wc)
+        t_b = cuda_time_ms(lp.backward, dyc, wc)
+        t_u = cuda_time_ms(lp.weight_update, xc, dyc)
+        print(f"call  conv {dt:8s} N{d.n} C{d.c} H{d.h} K{d.k} 3x3 s{d.u} "
+              f"FWD {t_f:.4f} ms {flops / t_f / 1e9:.1f} TFLOP/s; BWD "
+              f"{t_b:.4f} {flops / t_b / 1e9:.1f}; UPD {t_u:.4f} "
+              f"{flops / t_u / 1e9:.1f}  [{smi}]")
+        if k != 64:
+            continue
+        # the space-to-depth fold against the direct cuDNN conv, both ways
+        xi, wi = xc.to(dts[dt]), wc.to(dts[dt])
+        dyi = dyc.float()
+        times = {}
+        saved = pconv.S2D_ON_CARD
+        try:
+            for fold in (False, True, True, False):
+                pconv.S2D_ON_CARD = fold
+                tf = cuda_time_ms(lp._core_conv, xi, wi)
+                tb = cuda_time_ms(lp._bwd_direct, dyi, wc)
+                times.setdefault(fold, []).append((tf, tb))
+            pconv.S2D_ON_CARD = True
+            yf, bf_ = lp._core_conv(xi, wi), lp._bwd_direct(dyi, wc)
+            pconv.S2D_ON_CARD = False
+            yd, bd = lp._core_conv(xi, wi), lp._bwd_direct(dyi, wc)
+        finally:
+            pconv.S2D_ON_CARD = saved
+        gate(f"fold vs direct conv {dt} K64 forward", rel(yd.double(), yf),
+             DNN_TOL[dt], "fold")
+        gate(f"fold vs direct conv {dt} K64 backward", rel(bd.double(), bf_),
+             DNN_TOL[dt], "fold")
+        (df1, db1), (df2, db2) = times[False]
+        (ff1, fb1), (ff2, fb2) = times[True]
+        print(f"call  s2d fold {dt:8s} N{d.n} C64 H{d.h} K64 3x3 s1 (in "
+              f"turns direct, fold, fold, direct): forward direct {df1:.4f} "
+              f"/ {df2:.4f} ms, fold {ff1:.4f} / {ff2:.4f}; backward dx "
+              f"direct {db1:.4f} / {db2:.4f}, fold {fb1:.4f} / {fb2:.4f}; "
+              f"S2D_ON_CARD {saved}  [{smi}]")
+        row[f"s2d_fwd_direct_fold_ms_{dt}"] = [df1, df2, ff1, ff2]
+        row[f"s2d_bwd_direct_fold_ms_{dt}"] = [db1, db2, fb1, fb2]
+
+    def timed(fn, *a):
+        return cuda_time_ms(fn, *a, warmup=2, iters=10)
+    step_ms = timed(stage_step)
+    y, st, a, bst, _ = stage_fwd()
+    da = s_pool.backward(sdz, a)
+    dy = s_bn.backward(da, sg, bst)[0]
+    mean = st.sum / nhw
+    parts = {
+        "conv fwd": timed(s_conv.forward, sx, sw),
+        "bn from moments": timed(s_bn.forward_from_moments, y, sg, sb, mean,
+                                 st.sumsq / nhw - mean * mean),
+        "pool fwd": timed(s_pool.forward, a),
+        "pool bwd (window)": timed(s_pool.backward, sdz, a),
+        "bn bwd": timed(s_bn.backward, da, sg, bst),
+        "conv bwd": timed(s_conv.backward, dy, sw),
+        "conv upd": timed(s_conv.weight_update, sx, dy)}
+    print(f"call  stage step N{NB} H{PH} conv1x1 C64->K{PC} + bn + maxpool: "
+          f"{step_ms:.4f} ms = " + " + ".join(
+              f"{k_} {v:.4f}" for k_, v in parts.items())
+          + f" (sum {sum(parts.values()):.4f})  [{smi}]")
+    row["stage_step_ms"] = step_ms
+    del y, st, a, bst, da, dy
+
+    for mode in pd.RoundMode:
+        key = (torch.Generator(device=dev).manual_seed(args.seed)
+               if mode == pd.RoundMode.STOCH else None)
+        tq = timed(pd.quantize, xq, 0, mode, key)
+        print(f"call  quantize {mode.name:8s} {NB}x{PC}x{PH}x{PH} {tq:.4f} ms "
+              f"({el * 6 / tq / 1e6:.1f} GB/s on x read + q written)  "
+              f"[{smi}]")
+    return [row]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
@@ -1860,6 +2477,9 @@ def main() -> int:
     ap.add_argument("--packed-big-batch", type=int, default=4096)
     ap.add_argument("--rnn-shape", default="128,512,512,32",
                     help="N,C,K,T of the RNN phase")
+    ap.add_argument("--dnn-batch", type=int, default=64,
+                    help="N of the DNN phase's pooling, BN and stage shapes "
+                         "(conv N/2, FC N x16)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -2159,6 +2779,8 @@ def main() -> int:
     rows += rnn_phase(args, dev, smi)
     torch.cuda.empty_cache()
     rows += rnn_bwd_phase(args, dev, smi)
+    torch.cuda.empty_cache()
+    rows += dnn_phase(args, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -852,3 +852,255 @@ def test_rnn_tanh_card_case_repeats_bit_identical(cuda):
                          ).forward(x, w, r, b, h0)[0]
     assert (hs_var, zx_var) == (0, 0)
     assert _rel(hs0.cpu(), cpu) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The max-pool window backward kernel (ops/csrc/pooling.cu) and the DNN
+# layer handles, card against CPU
+# ---------------------------------------------------------------------------
+
+from xsmm_tpu_torch import dnn as pd  # noqa: E402
+from xsmm_tpu_torch.dnn import pooling as ppool  # noqa: E402
+
+# NHWC: tied (values rounded to 0.5) and ragged (odd quad counts, one
+# window, more quads than a grid holds at once)
+POOL_SHAPES = [(2, 8, 8, 128), (3, 6, 10, 4), (1, 2, 2, 4), (5, 14, 22, 36),
+               (64, 56, 56, 256)]
+
+
+def _tied(dev, seed, *shape):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.round(torch.randn(shape, generator=g, device=dev) * 2) / 2
+
+
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+def test_maxpool2x2_bwd_matches_plain(cuda, shape):
+    n, h, w, c = shape
+    x = _tied(cuda, 1, n, h, w, c)
+    dy = torch.randn((n, h // 2, w // 2, c), device=cuda)
+    before = ppool.launches["maxpool2x2_bwd"]
+    got = ppool.maxpool2x2_bwd(dy, x)
+    torch.cuda.synchronize()
+    assert ppool.launches["maxpool2x2_bwd"] == before + 1
+    _same(got, ppool.maxpool2x2_bwd_plain(dy, x))
+    # and the library's max-pool backward on these finite, tied inputs
+    xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    (want,) = torch.autograd.grad(
+        torch.nn.functional.max_pool2d(xr, 2, 2), xr, dy.permute(0, 3, 1, 2))
+    _same(got, want.permute(0, 2, 3, 1).contiguous())
+
+
+def test_maxpool2x2_bwd_nan_window_is_zero(cuda):
+    x = torch.zeros((1, 2, 2, 4), device=cuda)
+    x[0, 1, 0, 1] = float("nan")
+    dy = torch.ones((1, 1, 1, 4), device=cuda)
+    got = ppool.maxpool2x2_bwd(dy, x)
+    _same(got, ppool.maxpool2x2_bwd_plain(dy, x))
+    assert (got[..., 1] == 0).all()
+
+
+@pytest.mark.parametrize("bad", ["odd", "c", "dtype", "dy", "misaligned",
+                                 "strided", "devices"])
+def test_maxpool2x2_bwd_refuses(cuda, bad):
+    x = torch.zeros((2, 4, 4, 8), device=cuda)
+    dy = torch.zeros((2, 2, 2, 8), device=cuda)
+    if bad == "odd":
+        x = torch.zeros((2, 5, 4, 8), device=cuda)
+    elif bad == "c":
+        x, dy = x[..., :6].contiguous(), dy[..., :6].contiguous()
+    elif bad == "dtype":
+        x, dy = x.bfloat16(), dy.bfloat16()
+    elif bad == "dy":
+        dy = torch.zeros((2, 2, 3, 8), device=cuda)
+    elif bad == "misaligned":
+        x = torch.zeros(x.numel() + 1, device=cuda)[1:].view(2, 4, 4, 8)
+    elif bad == "strided":
+        x = torch.zeros((2, 4, 8, 4), device=cuda).transpose(2, 3)
+    else:
+        dy = dy.cpu()
+    before = ppool.launches["maxpool2x2_bwd"]
+    with pytest.raises(ValueError):
+        ppool.maxpool2x2_bwd(dy, x)
+    assert ppool.launches["maxpool2x2_bwd"] == before
+
+
+def _card_and_cpu(fn):
+    """fn() on the card (numpy in: the entry points' device) and on the
+    CPU target; both results as CPU tensors (lists for tuples)."""
+    def flat(v):
+        if isinstance(v, (tuple, list)):
+            return [u for x in v for u in flat(x)]
+        return [] if v is None else [v.cpu()]
+    card = flat(fn())
+    torch.cuda.synchronize()
+    xp.set_config(target="cpu")
+    cpu = flat(fn())
+    xp.set_config(target="cuda")
+    assert len(card) == len(cpu)
+    return card, cpu
+
+
+def _agree(card, cpu, tol):
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.dtype in (torch.bool, torch.int16, torch.uint8):
+            assert (a != b).float().mean() <= 1e-3
+        else:
+            assert _rel(a.float(), b.float()) <= tol
+
+
+@pytest.mark.parametrize("ptype", ["MAX", "AVG"])
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_pooling_card_equals_cpu(cuda, monkeypatch, ptype, window, dt):
+    if window:
+        monkeypatch.setenv("XSMM_POOL_WINDOW_KERNEL", "1")
+    d = pd.PoolingDesc(n=4, c=128, h=14, w=14, r=2, s=2, u=2, v=2,
+                       pool_type=pd.PoolType[ptype], dtype=dt)
+    rng = np.random.default_rng(5)
+    x = (np.round(rng.standard_normal((4, 14, 14, 128)) * 2) / 2
+         ).astype(np.float32)
+    dy = rng.standard_normal((4, 7, 7, 128)).astype(np.float32)
+    launched = window and ptype == "MAX"
+
+    def run():
+        layer = pd.create_pooling_layer(d)
+        assert layer.bwd_kind == ("pallas_window" if launched else "vjp")
+        return layer.forward(x), layer.backward(dy, x)
+    ppool.reset_launches()
+    card, cpu = _card_and_cpu(run)
+    assert ppool.launches["maxpool2x2_bwd"] == int(launched)
+    for a, b in zip(card, cpu):
+        assert a.dtype == b.dtype
+        if ptype == "MAX":
+            assert torch.equal(a, b)
+        else:
+            assert _rel(a.float(), b.float()) <= 1e-6
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_fc_card_equals_cpu(cuda, dt):
+    d = pd.FCDesc(n=64, c=96, k=80, in_dtype=dt, out_dtype=dt,
+                  fuse_ops=pd.FuseOp.BIAS | pd.FuseOp.RELU)
+    rng = np.random.default_rng(6)
+    x, w = (rng.standard_normal(s).astype(np.float32) for s in
+            ((64, 96), (96, 80)))
+    b = rng.standard_normal(80).astype(np.float32)
+    dy = rng.standard_normal((64, 80)).astype(np.float32)
+
+    def run():
+        layer = pd.create_fullyconnected_layer(d)
+        y, mask = layer.forward(x, w, b)
+        m = mask.cpu().numpy()   # one mask for both devices
+        return y, layer.backward(dy, w, m), layer.weight_update(x, dy, m)
+    card, cpu = _card_and_cpu(run)
+    _agree(card, cpu, 1e-5 if dt == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("fuse", ["RELU", "ELTWISE_RELU"])
+def test_batchnorm_card_equals_cpu(cuda, fuse):
+    d = pd.BnDesc(n=8, c=64, h=7, w=7, fuse=pd.BnFuse[fuse])
+    rng = np.random.default_rng(7)
+    x, res, dy = (rng.standard_normal((8, 7, 7, 64)).astype(np.float32)
+                  for _ in range(3))
+    gamma, beta = (rng.standard_normal(64).astype(np.float32)
+                   for _ in range(2))
+    r = res if "ELTWISE" in fuse else None
+
+    def run():
+        bn = pd.create_fusedbatchnorm(d)
+        y, st = bn.forward(x, gamma, beta, r)
+        grads = bn.backward(dy, gamma, st)
+        running = bn.update_running(bn.init_running(), st)
+        return (y, grads, running,
+                bn.forward_eval(x, gamma, beta, running, r),
+                bn.forward_from_moments(x, gamma, beta, st.mean, st.var,
+                                        r)[0])
+    card, cpu = _card_and_cpu(run)
+    _agree(card, cpu, 1e-4)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride,k", [(1, 64), (2, 128), (1, 16)])
+def test_conv_card_equals_cpu(cuda, dt, stride, k):
+    """FWD with the forward-stats fusions, BWD with its fusions, UPD and
+    autograd through forward (the direct backward), card against CPU
+    (the CPU runs the space-to-depth fold where it is routed)."""
+    F_ = pd.FuseOp
+    kw = dict(n=4, c=32, h=14, w=14, k=k, r=3, s=3, u=stride, v=stride,
+              pad_h=1, pad_w=1, in_dtype=dt, out_dtype=dt)
+    df = pd.ConvDesc(**kw, fuse_ops=F_.BIAS | F_.RELU | F_.BATCH_STATS_FWD
+                     | F_.BATCHNORM_STATS | F_.MAX_STATS)
+    db = pd.ConvDesc(**kw, fuse_ops=F_.RELU_BWD | F_.ELTWISE_BWD
+                     | F_.BATCH_STATS_BWD | F_.MAX_STATS)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4, 14, 14, 32)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 32, k)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(k).astype(np.float32)
+    oh = df.out_h
+    dy = rng.standard_normal((4, oh, oh, k)).astype(np.float32)
+    # one forward activation for both devices' fused backward: a y near 0
+    # may take the other side of the RELU_BWD mask on the other device
+    xp.set_config(target="cpu")
+    y_np = pd.create_conv_layer(df).forward(x, w, b)[0].float().numpy()
+    xp.set_config(target="cuda")
+
+    def run():
+        lf, lb = pd.create_conv_layer(df), pd.create_conv_layer(db)
+        y, stats = lf.forward(x, w, b)
+        dev = y.device
+        xt_ = torch.tensor(x, device=dev, requires_grad=True)
+        wt_ = torch.tensor(w, device=dev, requires_grad=True)
+        plain = pd.create_conv_layer(pd.ConvDesc(**kw))
+        (plain.forward(xt_, wt_).float() ** 2).sum().backward()
+        return (y, stats, lb.backward(dy, w, y_np), lb.weight_update(x, dy),
+                xt_.grad, wt_.grad)
+    card, cpu = _card_and_cpu(run)
+    _agree(card, cpu, 1e-5 if dt == "float32" else 1e-2)
+
+
+def test_conv_f32_runs_without_tf32_and_restores_the_flag(cuda):
+    """An f32 conv with cuDNN's TF32 switched on by the caller still runs
+    in full f32 (1e-6 of f64 gold, where TF32 gives ~1e-3), and the flag
+    is as the caller set it after each call."""
+    d = pd.ConvDesc(n=8, c=64, h=28, w=28, k=64, r=3, s=3, pad_h=1, pad_w=1)
+    layer = pd.create_conv_layer(d)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((8, 28, 28, 64), generator=g, device=cuda)
+    w = torch.randn((3, 3, 64, 64), generator=g, device=cuda) * 0.1
+    gold = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            y = layer.forward(x, w)
+            assert torch.backends.cudnn.allow_tf32 is flag
+            assert _rel(y.double(), gold) <= 1e-6
+            layer.backward(y, w)
+            layer.weight_update(x, y)
+            assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("mode", ["NO_ROUND", "NEAREST", "BIAS", "FPHW"])
+def test_quant_card_equals_cpu(cuda, mode):
+    rng = np.random.default_rng(10)
+    x = (rng.standard_normal((64, 256, 7, 7)) * 3).astype(np.float32)
+
+    def run():
+        q, scf = pd.quantize(x, 1, pd.RoundMode[mode])
+        return q, scf, pd.dequantize(q, scf)
+    card, cpu = _card_and_cpu(run)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a, b)
+
+
+def test_quant_stoch_on_card(cuda):
+    x = torch.full((1 << 16,), 0.3e-4, device=cuda)
+    q, scf = pd.quantize(x, round_mode=pd.RoundMode.STOCH,
+                         key=torch.Generator(device=cuda).manual_seed(0))
+    back = pd.dequantize(q, scf)
+    assert abs(float(back.mean()) - 0.3e-4) < 0.01e-4

@@ -33,6 +33,7 @@ SOURCES: Dict[str, tuple] = {
     "tiled_gemm": ("csrc/tiled_gemm.cu",),
     "packed": ("csrc/packed.cu",),
     "rnn_seq": ("csrc/rnn_seq.cu",),
+    "pooling": ("csrc/pooling.cu",),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -330,6 +330,39 @@ def _full_f32(dtype: torch.dtype):
         torch.set_float32_matmul_precision(prec)
 
 
+@contextlib.contextmanager
+def _full_f32_conv(dtype: torch.dtype):
+    """``_full_f32`` for one f32 convolution: cuDNN's TF32 (its default for
+    convs) off, as the JAX package's ``precision=HIGHEST``, then the
+    caller's setting back: ``torch.backends.cudnn.allow_tf32``, or, where
+    it cannot be read because the caller used the per-backend
+    ``fp32_precision``, that of cuDNN's and oneDNN's convs."""
+    if dtype != torch.float32:
+        yield
+        return
+    try:
+        tf32 = torch.backends.cudnn.allow_tf32
+    except RuntimeError:  # set through the per-backend API
+        backends = (torch.backends.cudnn.conv, torch.backends.mkldnn.conv)
+        saved = [b.fp32_precision for b in backends]
+        for b in backends:
+            b.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            for b, v in zip(backends, saved):
+                b.fp32_precision = v
+        return
+    if not tf32:
+        yield
+        return
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.matmul with f32 in full f32."""
     with _full_f32(a.dtype):
