@@ -13,8 +13,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 
 1. prints the card (name, count, power limit);
 2. builds the CUDA kernels from the sources in the checkout (one nvcc per
-   source, all started together) and prints the build time and what ptxas
-   says of each kernel;
+   source, all started together) and prints the build time, what ptxas
+   says of each kernel and the tiled GEMM's HGMMA (wgmma) instruction count
+   from ``cuobjdump -sass`` (none fails the run);
 3. drives the main path through the user entry points at batch 131072, 23^3
    (``dmmdispatch`` under split2_fast, split2 and float32, beta 0 and 1;
    ``smmdispatch`` beta 0 and 1; ``bsmmdispatch``; ``bmmdispatch``), with the
@@ -54,11 +55,16 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     that they reached the batched kernel; each result against gold (f64
     products on the card, or bit for bit for the copies);
 11. compares the three dense kernels with their plain versions on the same
-    inputs (GEMMs to f32 rounding, copies bit for bit);
+    inputs (GEMMs to f32 rounding, copies bit for bit), the tiled GEMM on
+    the route it picks and, where that is the TMA + wgmma route, on the
+    cp.async + mma.sync route forced through the route argument (the main
+    path launches every route: TMA, mma.sync for the ragged 4097-column B,
+    SIMT for f32);
 12. times them beside their bounds, their plain versions and the library
     call (``torch.matmul`` without TF32, ``clone``,
-    ``Tensor.t().contiguous()``), and the whole ``xgemm`` call at 4096^3
-    bf16 with tensors on the card;
+    ``Tensor.t().contiguous()``): the two 16-bit GEMM routes in turns at
+    4096^3 bf16, the DeepBench shapes on both; and the whole ``xgemm`` call
+    at 4096^3 bf16 with tensors on the card;
 14. drives the packed-LA path through its entry points, with the packed
     launch counts set to 0 just before and read just after each call (each
     must launch its one kernel): ``getrf_dispatch`` 16x16 at batch 131072
@@ -74,7 +80,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     same packed operands, bit for bit (tolerance 0);
 16. times them beside their bounds, their plain versions and the library
     call on the same problems in [B, M, N] (``torch.linalg.lu_factor_ex``
-    without pivoting, ``torch.linalg.solve_triangular``), and the whole
+    without pivoting, ``torch.linalg.solve_triangular``; the loop trsm in
+    turns with it, and its unit-diagonal solve), and the whole
     ``getrf_dispatch(16, 16, batch=131072)(a)`` call with a tensor on the
     card and with numpy f64 step by step;
 18. drives the RNN forward path through its entry points
@@ -676,11 +683,14 @@ def dense_phase(args, dev, smi):
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launched = dict(tk.launches, **xk.launches)
+    routes = dict(tk.route_launches)
     rerouted = smm_packed.launches["packed_f32"] - packed0
     print(f"dense path: {len(outs)} calls in {main_s:.2f} s; launches "
-          f"{launched}; packed_f32 +{rerouted} (gemm_batch and the "
-          f"mmbatch_begin reroute); recorded {len(calls)} call(s)")
-    for kname, n in launched.items():
+          f"{launched}; tiled_gemm routes {routes}; packed_f32 +{rerouted} "
+          f"(gemm_batch and the mmbatch_begin reroute); recorded "
+          f"{len(calls)} call(s)")
+    for kname, n in list(launched.items()) + [
+            (f"tiled_gemm route {r}", n) for r, n in routes.items()]:
         if n < 1:
             raise RuntimeError(f"{kname} was not launched on the dense path")
     if rerouted != 2 or len(calls) != 1:
@@ -743,12 +753,17 @@ def dense_phase(args, dev, smi):
     for label, a, b, out_dt in plain_cases:
         h = xp.gemm_handle(a.shape[0], b.shape[1], a.shape[1],
                            in_dtype=a.dtype, out_dtype=out_dt)
-        got = tk.gemm(a, b, out_dtype=out_dt)
         want = tk.gemm_plain(a, b, out_dtype=out_dt, bk=h.bk)
-        max_abs["tiled_gemm"] = max(max_abs["tiled_gemm"], (
-            got.double() - want.double()).abs().max().item())
-        gate(f"tiled_gemm {label}", rel(got, want),
-             GEMM_TOL["float32" if out_dt == f32 else "bfloat16"], "plain")
+        # the route the wrapper picks, and the mma.sync route forced where
+        # it picks TMA
+        picked = tk.pick_route(a, b)
+        for rt in [picked] + (["mma"] if picked == "tma" else []):
+            got = tk.gemm(a, b, out_dtype=out_dt, route=rt)
+            max_abs["tiled_gemm"] = max(max_abs["tiled_gemm"], (
+                got.double() - want.double()).abs().max().item())
+            gate(f"tiled_gemm {label} {rt}", rel(got, want),
+                 GEMM_TOL["float32" if out_dt == f32 else "bfloat16"],
+                 "plain")
     for label, fn, plain, src in [
             (f"copy f32 {T}^2", xk.copy, xk.copy_plain, x),
             (f"copy f32 16x{T // 8}x{T // 2}", xk.copy, xk.copy_plain, xb),
@@ -767,6 +782,21 @@ def dense_phase(args, dev, smi):
                                      else "operations")
 
     timed = {}
+    # the two 16-bit routes in turns (tma, mma, mma, tma), torch.matmul
+    # beside them
+    turns = {"tma": [], "mma": []}
+    for rt in ("tma", "mma", "mma", "tma"):
+        turns[rt].append(cuda_time_ms(lambda: tk.gemm(
+            a16, b16, out_dtype=bf16, route=rt), warmup=3, iters=20))
+    mm16 = cuda_time_ms(torch.matmul, a16, b16, warmup=3, iters=20)
+    print(f"time  tiled_gemm bf16 {S}^3 routes in turns: tma "
+          f"{turns['tma'][0]:.4f} / {turns['tma'][1]:.4f} ms, mma "
+          f"{turns['mma'][0]:.4f} / {turns['mma'][1]:.4f} ms; torch.matmul "
+          f"{mm16:.4f} ms  [{smi}]")
+    deep_mma = {}
+    for m, n, k, a, b in deep:
+        deep_mma[(m, n, k)] = cuda_time_ms(lambda: tk.gemm(
+            a, b, out_dtype=bf16, route="mma"), warmup=3, iters=20)
     for label, a, b, out_dt, lib in [
             (f"bf16->bf16 {S}^3", a16, b16, bf16, True),
             (f"f32 {S}^3", a32, b32, f32, True),
@@ -789,9 +819,12 @@ def dense_phase(args, dev, smi):
             library_ms = cuda_time_ms(torch.matmul, a, b, warmup=3, iters=20)
         timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=library_ms)
-        print(f"time  tiled_gemm {label:22s} {ms:.4f} ms, "
+        rt = tk.pick_route(a, b)
+        mma_ms = deep_mma.get((m, n, k))
+        print(f"time  tiled_gemm {label:22s} {rt:4s} {ms:.4f} ms, "
               f"{2 * m * n * k / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} "
               f"ms ({bound_by}), share {bound_ms / ms:.3f}"
+              + (f"; mma route {mma_ms:.4f} ms" if mma_ms else "")
               + (f"; plain {plain_ms:.3f} ms" if plain_ms else "")
               + (f"; torch.matmul {library_ms:.4f} ms" if lib else "")
               + f"  [{smi}]")
@@ -846,9 +879,16 @@ def dense_phase(args, dev, smi):
     return [
         row("tiled_gemm", f"bf16->bf16 {S}^3", f"{S}^3 bf16->bf16",
             "torch.matmul bf16",
-            {"ms_f32": f32_row["ms"], "plain_ms_f32": f32_row["plain_ms"],
+            {"routes": routes, "ms_tma_turns": turns["tma"], "ms_mma_turns": turns["mma"],
+             "ms_f32": f32_row["ms"], "plain_ms_f32": f32_row["plain_ms"],
              "bound_ms_f32": f32_row["bound_ms"],
-             "library_ms_f32": f32_row["library_ms"]}),
+             "library_ms_f32": f32_row["library_ms"],
+             "deepbench": {f"{m}x{n}x{k}": {
+                 "ms": timed[f"bf16 {m}x{n}x{k}"]["ms"],
+                 "ms_mma": deep_mma[(m, n, k)],
+                 "library_ms": timed[f"bf16 {m}x{n}x{k}"]["library_ms"],
+                 "bound_ms": timed[f"bf16 {m}x{n}x{k}"]["bound_ms"]}
+                 for m, n, k in DEEPBENCH}}),
         row("xcopy_copy", f"copy f32 {T}^2", f"{T}^2 f32", "torch.clone"),
         row("xcopy_trans", f"trans f32 {T}^2", f"{T}^2 f32",
             "Tensor.t().contiguous()",
@@ -1079,10 +1119,29 @@ def packed_phase(args, dev, smi):
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         fn = getattr(pk, kname)
-        ms = cuda_time_ms(fn, *ops, warmup=3, iters=20)
+        extra = {}
+        if kname == "trsm_loop":
+            # in turns with the library call (kernel, library, library,
+            # kernel), and the unit-diagonal solve
+            ms_t, lib_t = [], []
+            for what in ("k", "l", "l", "k"):
+                if what == "k":
+                    ms_t.append(cuda_time_ms(fn, *ops, warmup=3, iters=20))
+                else:
+                    lib_t.append(cuda_time_ms(*lib, warmup=2, iters=10))
+            ms, library_ms = sum(ms_t) / 2, sum(lib_t) / 2
+            extra = {"ms_turns": ms_t, "library_ms_turns": lib_t,
+                     "ms_unit": cuda_time_ms(fn, ops[0] / m, ops[1], True,
+                                             warmup=3, iters=20)}
+            print(f"time  trsm_loop {shape} in turns: kernel "
+                  f"{ms_t[0]:.4f} / {ms_t[1]:.4f} ms, {lib_name} "
+                  f"{lib_t[0]:.4f} / {lib_t[1]:.4f} ms; unit diagonal "
+                  f"{extra['ms_unit']:.4f} ms  [{smi}]")
+        else:
+            ms = cuda_time_ms(fn, *ops, warmup=3, iters=20)
+            library_ms = cuda_time_ms(*lib, warmup=2, iters=10)
         plain_ms = cuda_time_ms(getattr(pk, kname + "_plain"), *ops,
                                 warmup=1, iters=3)
-        library_ms = cuda_time_ms(*lib, warmup=2, iters=10)
         print(f"time  {kname:15s} {shape:18s} {ms:.4f} ms, "
               f"{nbytes / ms / 1e6:.1f} GB/s, {nops1 * bsz / ms / 1e9:.2f} "
               f"TFLOP/s, bound {bound_ms:.4f} ms ({bound_by}; bytes "
@@ -1095,7 +1154,7 @@ def packed_phase(args, dev, smi):
             "max_abs_err": max_abs[kname], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library": lib_name, "check": "pass",
-            "shape": shape})
+            "shape": shape, **extra})
 
     # -- 16c. the whole getrf call: tensors on the card, and numpy f64 ------
     kern = xp.getrf_dispatch(M, M, batch=B)
@@ -2516,6 +2575,12 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
+    # kernel 4's TMA route issues wgmma: HGMMA in the machine code
+    from xsmm_tpu_torch.ops.kernel_profile import sass_counts
+    sass = sass_counts(cuda_build.library_path("tiled_gemm"))
+    print(f"sass: tiled_gemm {sass if sass else 'cuobjdump not found'}")
+    if sass is not None and sass["HGMMA"] < 1:
+        raise RuntimeError("tiled_gemm has no HGMMA instruction")
 
     # -- inputs, made on the card from the seed ------------------------------
     B = args.batch

@@ -346,6 +346,68 @@ def test_dense_entry_points_card_equal_cpu(cuda):
         assert torch.equal(got, want)
 
 
+# kernel 4's routes: the GEMM shapes above, the DeepBench shapes of
+# samples/xgemm_driver.py:16-17 (split K), and TMA-aligned ragged shapes
+# (M, N and K not multiples of the 128 x 256 x 64 tile)
+ROUTE_SHAPES = GEMM_SHAPES + [(2048, 64, 2048), (2560, 64, 2560),
+                              (4096, 128, 4096), (136, 264, 1000),
+                              (1, 8, 8), (129, 520, 72)]
+
+
+def _tma_ok(a, b):
+    k, n = a.shape[1], b.shape[1]
+    return (k > 0 and k % 8 == 0 and n % 8 == 0
+            and (a.data_ptr() | b.data_ptr()) % 16 == 0)
+
+
+@pytest.mark.parametrize("m,n,k", ROUTE_SHAPES)
+@pytest.mark.parametrize("route", ["tma", "mma"])
+@pytest.mark.parametrize("in_dt,out_dt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16)])
+def test_tiled_gemm_routes_match_plain(cuda, m, n, k, route, in_dt, out_dt):
+    """Each 16-bit route forced through the route argument: against the
+    plain version and f64 gold where it runs; the TMA route refuses
+    operands it cannot address, launching nothing."""
+    a, b = _planes(cuda, 16, (m, k), (k, n), dtype=in_dt)
+    before = (tk.launches["tiled_gemm"], tk.route_launches[route])
+    if route == "tma" and not _tma_ok(a, b):
+        with pytest.raises(ValueError, match="16 bytes"):
+            tk.gemm(a, b, out_dtype=out_dt, route=route)
+        assert (tk.launches["tiled_gemm"], tk.route_launches[route]) == before
+        return
+    got = tk.gemm(a, b, out_dtype=out_dt, route=route)
+    torch.cuda.synchronize()
+    assert (tk.launches["tiled_gemm"], tk.route_launches[route]) == (
+        before[0] + 1, before[1] + 1)
+    want = tk.gemm_plain(a, b, out_dtype=out_dt, bk=512)
+    assert _rel(got, want) <= _gemm_tol(out_dt)
+    assert _rel(got, a.double() @ b.double()) <= _gemm_tol(out_dt)
+
+
+@pytest.mark.parametrize("case", ["aligned", "unaligned-K", "unaligned-N",
+                                  "offset-view"])
+def test_tiled_gemm_alignment_classes(cuda, case):
+    """The route the wrapper picks for each alignment class, counted, and
+    its result against the plain version."""
+    m, n, k = 300, 264, 136
+    if case == "unaligned-K":
+        k = 135
+    if case == "unaligned-N":
+        n = 261
+    a, b = _planes(cuda, 17, (m, k), (k, n), dtype=torch.bfloat16)
+    if case == "offset-view":
+        a = torch.cat([a.reshape(-1)[:1], a.reshape(-1)])[1:].view(m, k)
+    want = "tma" if case == "aligned" else "mma"
+    assert tk.pick_route(a, b) == want
+    before = dict(tk.route_launches)
+    got = tk.gemm(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tk.route_launches[want] == before[want] + 1
+    assert _rel(got, tk.gemm_plain(a, b, out_dtype=torch.float32,
+                                   bk=512)) <= 1e-5
+
+
 def test_dense_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version ran for a CUDA tensor")
@@ -428,9 +490,51 @@ def test_packed_launch_raises(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         pk.getrf_unrolled(torch.zeros((250, 250, 2), device=cuda))
     with pytest.raises(ValueError, match="shared memory"):
-        pk.trsm_loop(torch.zeros((230, 230, 2), device=cuda),
-                     torch.zeros((230, 8, 2), device=cuda), False)
+        pk.trsm_loop(torch.zeros((340, 340, 2), device=cuda),
+                     torch.zeros((340, 8, 2), device=cuda), False)
     assert pk.launches == before  # a refused size counts no launch
+
+
+# kernel 14 (trsm_loop) and kernel 13 above 64 (trsm_unrolled) share the
+# shared-memory template: 125 (the p = 4 hexahedron block), several 128-column
+# chunks, ragged SN, 129 and 200 rows (16 warps), one row
+SHARED_TRSM_SHAPES = [(125, 125), (125, 300), (125, 7), (125, 130),
+                      (129, 64), (200, 5), (65, 1)]
+
+
+@pytest.mark.parametrize("sm,sn", SHARED_TRSM_SHAPES)
+@pytest.mark.parametrize("kernel", ["trsm_loop", "trsm_unrolled"])
+@pytest.mark.parametrize("unit", [False, True])
+def test_trsm_shared_template_matches_plain(cuda, sm, sn, kernel, unit):
+    """Bit for bit against the unchanged plain versions; the unit-diagonal
+    solves take A scaled by 1/sm (random unit-lower matrices grow X
+    exponentially in sm)."""
+    a = _lower(cuda, 47, sm, bp=300)
+    a = a / sm if unit else a
+    b = _planes(cuda, 48, (sm, sn, 300))[0]
+    before = pk.launches[kernel]
+    got = getattr(pk, kernel)(a, b, unit)
+    torch.cuda.synchronize()
+    assert pk.launches[kernel] == before + 1
+    assert torch.isfinite(got).all()
+    _same(got, getattr(pk, kernel + "_plain")(a, b, unit))
+
+
+def test_redesigned_kernels_repeat_bit_identical(cuda):
+    """Kernel 4 on the TMA route (one block's tiles, and split K) and kernel
+    14 give the same bits on every one of 50 launches: the mbarrier ring and
+    the trsm's one barrier a step leave no race."""
+    a, b = _planes(cuda, 49, (1000, 1024), (1024, 776), dtype=torch.bfloat16)
+    da, db = _planes(cuda, 50, (1760, 1760), (1760, 128), dtype=torch.bfloat16)
+    ta = _lower(cuda, 51, 125, bp=264)
+    tb = _planes(cuda, 52, (125, 125, 264))[0]
+    cases = [lambda: tk.gemm(a, b, out_dtype=torch.float32, route="tma"),
+             lambda: tk.gemm(da, db, out_dtype=torch.bfloat16, route="tma"),
+             lambda: pk.trsm_loop(ta, tb, False)]
+    for fn in cases:
+        ref = fn().clone()
+        for _ in range(50):
+            assert torch.equal(fn(), ref)
 
 
 @pytest.mark.parametrize("knob", [64, 4])
@@ -596,11 +700,71 @@ def test_rnn_seq_beyond_envelope(cuda):
     assert torch.isfinite(hs).all()
 
 
+def _rnn_cell_gold(ct, x, w, r, b, h0, c0):
+    """The cell's recurrence in numpy f64 (``chip_smoke.rnn_gold``'s
+    arithmetic): hs, h_T and c_T (GRU and RNN return c0 as c_T)."""
+    x, w, r, b, h, c = (np.asarray(v, np.float64)
+                        for v in (x, w, r, b, h0, c0))
+    t, n, _ = x.shape
+    k = h.shape[1]
+    sig = lambda z: 1 / (1 + np.exp(-z))  # noqa: E731
+    zx = (x.reshape(t * n, -1) @ w + b).reshape(t, n, -1)
+    act = {CellType.RNN_RELU: lambda v: np.maximum(v, 0),
+           CellType.RNN_SIGMOID: sig, CellType.RNN_TANH: np.tanh}.get(ct)
+    hs = []
+    for ti in range(t):
+        if ct == CellType.LSTM:
+            z = zx[ti] + h @ r
+            i, g = sig(z[:, :k]), np.tanh(z[:, k:2 * k])
+            f, o = sig(z[:, 2 * k:3 * k]), sig(z[:, 3 * k:])
+            c = f * c + i * g
+            h = o * np.tanh(c)
+        elif ct == CellType.GRU:
+            zr = h @ r
+            ri = sig(zx[ti][:, :k] + zr[:, :k])
+            zi = sig(zx[ti][:, k:2 * k] + zr[:, k:2 * k])
+            gi = np.tanh(zx[ti][:, 2 * k:] + ri * zr[:, 2 * k:])
+            h = (1 - zi) * gi + zi * h
+        else:
+            h = act(zx[ti] + h @ r)
+        hs.append(h)
+    return np.stack(hs), h, c
+
+
+def _rnn_diagnosis(name, card, cpu, gold):
+    """Where the card and the CPU part on one tensor: each side's
+    rel-Frobenius error against the f64 gold (the side further from it is
+    the one that is off), the worst index and the three values there."""
+    card, cpu = card.double().numpy(), cpu.double().numpy()
+    idx = np.unravel_index(np.argmax(np.abs(card - cpu)), card.shape)
+    axes = "(t, n, k)" if card.ndim == 3 else "(n, k)"
+    e_card, e_cpu = (np.linalg.norm(v - gold) / np.linalg.norm(gold)
+                     for v in (card, cpu))
+    side = ("the card is off" if e_card > e_cpu else
+            "the cpu is off" if e_cpu > e_card else "both as far off")
+    # the rows (t, n) where the two part by more than f32 rounding, and the
+    # CPU's state: its threads and f32 matmul precision
+    off = np.abs(card - cpu).reshape(-1, card.shape[-1]).max(axis=1) > 1e-6
+    try:
+        prec = torch.get_float32_matmul_precision()
+    except RuntimeError:  # set through the per-backend API
+        prec = torch.backends.mkldnn.matmul.fp32_precision
+    return (f"{name}: card vs gold {e_card:.3e}, cpu vs gold {e_cpu:.3e} "
+            f"({side}); worst {axes} = "
+            f"{tuple(int(i) for i in idx)}: card {card[idx]!r}, cpu "
+            f"{cpu[idx]!r}, gold {gold[idx]!r}; rows apart "
+            f"{np.flatnonzero(off).tolist()[:16]} of {off.size}; cpu "
+            f"threads {torch.get_num_threads()}, f32 matmul {prec}")
+
+
 @pytest.mark.parametrize("ct", list(CellType))
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_rnncell_card_equals_cpu(cuda, ct, dt):
     """forward and forward_train on the card (one launch each) against the
-    same calls with target="cpu"."""
+    same calls with target="cpu"; both sides also against an f64 numpy gold
+    (the RNN gold gates: 1e-3 in f32, 5e-2 in bf16), so that a failure
+    names the tensor, the side that is off, the worst index and the
+    values."""
     g = {CellType.LSTM: 4, CellType.GRU: 3}.get(ct, 1)
     n, c, k, t = 37, 50, 70, 4
     rng = np.random.default_rng(34)
@@ -624,10 +788,22 @@ def test_rnncell_card_equals_cpu(cuda, ct, dt):
             assert sum(rs.launches.values()) == 2
             assert sum(rs.train_launches.values()) == int(g > 1)
         out[target] = [v.cpu() for v in fwd + (hs, h_t, c_t)]
+    gold = _rnn_cell_gold(ct, x, w, r, b, h0, c0) * 2  # forward, train
+    names = ("forward hs", "forward h_T", "forward c_T", "forward_train hs",
+             "forward_train h_t", "forward_train c_t")
     tol = 1e-5 if dt == "float32" else 1e-2
-    for got, want in zip(out["cuda"], out["cpu"]):
-        assert got.dtype == want.dtype
-        assert _rel(got, want) <= tol
+    gold_tol = 1e-3 if dt == "float32" else 5e-2
+    off = []
+    for name, got, want, gd in zip(names, out["cuda"], out["cpu"], gold):
+        assert got.dtype == want.dtype, name
+        for side, v in (("card", got), ("cpu", want)):
+            assert _rel(v, torch.from_numpy(gd)) <= gold_tol, (
+                f"{side} against gold: " + _rnn_diagnosis(name, got, want,
+                                                          gd))
+        if _rel(got, want) > tol:
+            off.append(f"{_rel(got, want):.3e} > {tol:g}; "
+                       + _rnn_diagnosis(name, got, want, gd))
+    assert not off, "\n".join(off)
 
 
 # ---------------------------------------------------------------------------

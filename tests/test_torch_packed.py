@@ -371,6 +371,32 @@ def test_trsm_loop_kernel_parity(rng, loop_knob, kernel_calls, variant, unit):
     _trsm_parity(rng, variant, "trsm_loop", kernel_calls)
 
 
+@pytest.mark.parametrize("unit", [False, True])
+def test_trsm_loop_125_against_jax_and_gold(rng, fresh, kernel_calls, unit):
+    """Kernel 14 at the element block of a p = 4 hexahedron (125^2,
+    ``samples/packed_driver.py:20``), where both packages take the loop
+    kernel at the default knob: the port's plain version (which the card's
+    kernel equals bit for bit) against the JAX package's ``_trsm_kernel``
+    in interpret mode (1e-6) and against numpy f64 (1e-5).  Unit-diagonal
+    solves take A scaled by 1/m: random unit-lower matrices grow X
+    exponentially in m."""
+    m = 125
+    diag = "U" if unit else "N"
+    a = dd_matrix(rng, B, m) / (m if unit else 1)
+    b = rng.standard_normal((B, m, m))
+    a32, b32 = a.astype(np.float32), b.astype(np.float32)
+    kern = pp.trsm_dispatch(m, m, diag=diag, batch=B)
+    jk = jp.trsm_dispatch(m, m, diag=diag, batch=B)
+    assert kern.kernel_name == "trsm_loop"
+    x = kern(a32, b32)
+    assert rel(x, np.asarray(jk(a32, b32))) <= PARITY
+    gold = np.linalg.solve(op_tri(a32, "L", "N", diag), b32.astype(np.float64))
+    assert rel(x, gold) <= 1e-5
+    for s in ("port", "jax"):
+        assert kernel_calls[s]["trsm_loop"] == 1
+        assert kernel_calls[s]["trsm_unrolled"] == 0
+
+
 def test_factor_then_solve(rng):
     """The slice as its users run it: factor once (getrf), then solve with
     the unit-lower and the upper factor (two trsm), in both packages."""

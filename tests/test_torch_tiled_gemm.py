@@ -14,6 +14,7 @@ Stated tolerances (rel-Frobenius):
 """
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -290,3 +291,91 @@ def test_no_card_raises(monkeypatch, rng):
         xp.xgemm(a, b)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         xp.gemm_handle(8, 8, 8)(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4's routes: which kernel a CUDA call takes, and the refusal of the
+# TMA route (the kernels run on the card only; these check the choice)
+# ---------------------------------------------------------------------------
+
+
+def _operands(case):
+    """(A, B) of one alignment class."""
+    bf16 = torch.bfloat16
+    if case == "aligned":
+        return torch.ones((64, 40), dtype=bf16), torch.ones((40, 24),
+                                                            dtype=bf16)
+    if case == "unaligned-K":    # A's rows are 42 bytes
+        return torch.ones((64, 21), dtype=bf16), torch.ones((21, 24),
+                                                            dtype=bf16)
+    if case == "unaligned-N":    # B's rows are 34 bytes
+        return torch.ones((64, 40), dtype=bf16), torch.ones((40, 17),
+                                                            dtype=bf16)
+    if case == "offset-view":    # A starts 2 bytes past a 16-byte boundary
+        base = torch.ones(64 * 40 + 1, dtype=bf16)
+        return base[1:].view(64, 40), torch.ones((40, 24), dtype=bf16)
+    if case == "zero-K":
+        return torch.ones((64, 0), dtype=bf16), torch.ones((0, 24), dtype=bf16)
+    if case == "f16":
+        return (torch.ones((64, 40), dtype=torch.float16),
+                torch.ones((40, 24), dtype=torch.float16))
+    return torch.ones((64, 40)), torch.ones((40, 24))   # f32
+
+
+@pytest.mark.parametrize("case,want", [
+    ("aligned", "tma"), ("f16", "tma"), ("unaligned-K", "mma"),
+    ("unaligned-N", "mma"), ("offset-view", "mma"), ("zero-K", "mma"),
+    ("f32", "simt")])
+def test_pick_route(case, want):
+    a, b = _operands(case)
+    assert a.is_contiguous() and b.is_contiguous()
+    assert tk.pick_route(a, b) == want
+
+
+def test_unknown_route_raises():
+    a, b = _operands("aligned")
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        tk.gemm(a, b, out_dtype=torch.float32, route="wgmma")
+
+
+class _FakeLib:
+    """The C entry points of ops/csrc/tiled_gemm.cu, recording calls; the
+    kernel refuses the TMA route for unaligned operands with -2."""
+
+    def __init__(self):
+        self.calls = []
+
+    def xsmm_tiled_gemm_splits(self, m, n, k, route, device):
+        return 1
+
+    def xsmm_tiled_gemm(self, *args):
+        self.calls.append(args)
+        a, b, m, n, k, route = args[0], args[1], args[4], args[5], args[6], \
+            args[10]
+        aligned = not ((a | b) % 16 or k % 8 or n % 8) and k > 0
+        return -2 if route == tk.ROUTES["tma"] and not aligned else 0
+
+
+@pytest.mark.parametrize("case", ["unaligned-K", "unaligned-N",
+                                  "offset-view"])
+def test_tma_route_refusal_raises(monkeypatch, case):
+    """A TMA route asked for operands TMA cannot address: the kernel's -2
+    (nothing launched) reaches the caller as ValueError and counts no
+    launch; the route the wrapper picks for them launches."""
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    lib = _FakeLib()
+    monkeypatch.setattr(tk, "_lib", lambda: lib)
+    dev = torch.device("cuda", 0)
+    a, b = _operands(case)
+    c = torch.empty((a.shape[0], b.shape[1]), dtype=torch.bfloat16)
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="16 bytes"):
+        tk._launch(a, b, c, "tma", dev)
+    assert tk.launches == {"tiled_gemm": 0}
+    assert tk.route_launches == {"simt": 0, "mma": 0, "tma": 0}
+    tk._launch(a, b, c, tk.pick_route(a, b), dev)
+    assert lib.calls[-1][10] == tk.ROUTES["mma"]
+    assert lib.calls[-1][-2:] == (0, 0)  # device index, stream
+    assert tk.launches == {"tiled_gemm": 1}
+    assert tk.route_launches == {"simt": 0, "mma": 1, "tma": 0}

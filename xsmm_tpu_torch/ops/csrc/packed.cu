@@ -53,21 +53,37 @@
 //       and the kernel ran at 0.19 of its bound (0.62 ms at 16/16, B =
 //       131072; staged: 0.18 ms).  The columns are independent after that
 //       one barrier.
-//   * Larger sizes: one block per problem (trsm: per problem and chunk of up
-//     to 128 columns of X), the matrix (and the chunk of X) in dynamic shared
-//     memory, the block's threads spread over the trailing update (getrf) or
-//     over the columns of X (trsm).  Each element read from the pack lands in
-//     a sector of its own; consecutive blockIdx are consecutive problems, so
-//     blocks that run together share lines in L2.  The same templates take
+//   * Larger sizes, getrf: one block per problem, the matrix in dynamic
+//     shared memory, the block's threads spread over the trailing update.
+//     Each element read from the pack lands in a sector of its own;
+//     consecutive blockIdx are consecutive problems, so blocks that run
+//     together share lines in L2.
+//   * Larger sizes, trsm (kernel 14; the first design, one thread a column
+//     running the left-looking sum, A and X in 126 KB of shared memory, one
+//     block an SM, ran 5.29 ms at 125/125, B = 4096): one block per problem
+//     and chunk of up to TRSM_CW columns, right-looking over a register tile
+//     (see trsm_shared), tril(A) alone in shared memory so two blocks fit an
+//     SM, and clusters of TRSM_CLUSTER neighbouring problems that load and
+//     store whole 32-byte sectors of the pack through distributed shared
+//     memory.  The same templates take
 //     kernel 11's or 13's arithmetic when the runtime knob (getrf_unroll)
 //     sends a size above 64 to them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int SHARED_MAX = 232448;  // bytes of shared memory a block may have
-constexpr int TRSM_CW = 128;        // columns of X a block of the shared trsm takes
+constexpr int TRSM_CPL = 4;         // columns of X a lane of the shared trsm
+                                    // holds (one float4)
+constexpr int TRSM_CW = 32 * TRSM_CPL;  // columns of X a block of it takes
+constexpr int TRSM_Q = 16;          // rows of X a warp of it holds
+constexpr int TRSM_CLUSTER = 8;     // neighbouring problems (blocks) a cluster
+                                    // loads and stores together
+constexpr int TRSM_LU = 8;          // its loads in flight a thread
 constexpr int GETRF_THREADS = 256;  // threads of the shared getrf
 
 // problems a block of the register getrf takes: at most 512 threads of NB rows
@@ -213,52 +229,220 @@ trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
 
 // ---------------------------------------------------------------------------
 // Kernel 14 (UNROLLED = false), and kernel 13 above the register buckets
-// (UNROLLED = true): one block per (problem, chunk of cw columns of X), A
-// [SM][SM] and the chunk X [SM][cw] in shared memory, one thread a column.
+// (UNROLLED = true): one block per (problem, chunk of up to TRSM_CW columns
+// of X), NW warps.  tril(A) is packed by columns in shared memory; the
+// chunk of B sits in shared memory [SM][cw], and row i of it is overwritten
+// by x[i] once that is solved, which publishes it to the block.  The solve
+// is right-looking over a register tile: warp w holds rows w + NW*q (q <
+// TRSM_Q) of the chunk, each lane TRSM_CPL neighbouring columns, as running
+// values v.  At step i every row r > i takes one term a[r,i] * x[i]; the
+// terms are independent across rows and columns (up to 64 chains a thread),
+// and rows are dealt to warps in turn, so the work stays even as the solve
+// moves down.  The owner of row i + 1 takes its term first and solves it
+// before its other rows, so one barrier a step publishes the next x.
+// The blocks of a cluster (TRSM_CLUSTER neighbouring problems, the same
+// chunk) load and store together: each block reads every TRSM_CLUSTER-th
+// element of tril(A), B and X for all the cluster's problems, which lie in
+// one 32-byte sector of the pack, and writes it to (or reads it from) its
+// problem's block through distributed shared memory.
+//   kernel 14: v starts at 0 and gathers s[r] = ((0 + a[r,0] x[0]) + a[r,1]
+//     x[1]) + ..., the plain version's running sum; x[i] = (b[i] - s[i]) /
+//     a[i,i];
+//   kernel 13: v starts at b and loses a[r,i] * x[i] a step; x[i] = v[i] *
+//     (1 / a[i,i]).
+// Unit diagonal: no division (no reciprocal).
 // ---------------------------------------------------------------------------
+
+// offset of a[i,i] in tril(A) packed by columns (column i: rows i .. sm-1)
+__device__ __forceinline__ int tri_col(int i, int sm) {
+  return i * sm - i * (i - 1) / 2;
+}
+
+// this lane's TRSM_CPL (four) neighbouring columns of a row of the chunk
+__device__ __forceinline__ void ld_cols(const float* p, float (&x)[TRSM_CPL]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+}
+
+__device__ __forceinline__ void st_cols(float* p, const float (&x)[TRSM_CPL]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// row r's running values less (kernel 13) or plus (kernel 14) a_ri * x
 template <bool UNROLLED>
-__global__ void __launch_bounds__(TRSM_CW)
-trsm_shared(const float* __restrict__ a, const float* __restrict__ bm,
-            float* __restrict__ xo, int sm, int sn, long long bp, bool unit) {
-  extern __shared__ float s[];
-  const int cw = blockDim.x;
-  float* as = s;            // [sm][sm]
-  float* xs = s + sm * sm;  // [sm][cw]
-  const long long b = blockIdx.x;
-  const int t = threadIdx.x, j0 = blockIdx.y * cw;
-  for (int e = t; e < sm * sm; e += cw) as[e] = a[(long long)e * bp + b];
-  for (int e = t; e < sm * cw; e += cw) {
-    const int r = e / cw, c = e % cw;
-    xs[e] = j0 + c < sn ? bm[at(r, j0 + c, sn, bp, b)] : 0.f;
-  }
-  __syncthreads();
-  if (j0 + t < sn) {
+__device__ __forceinline__ void trsm_term(float (&v)[TRSM_CPL], float a_ri,
+                                          const float (&x)[TRSM_CPL]) {
+#pragma unroll
+  for (int c = 0; c < TRSM_CPL; ++c)
+    v[c] = UNROLLED ? __fsub_rn(v[c], __fmul_rn(a_ri, x[c]))
+                    : __fadd_rn(v[c], __fmul_rn(a_ri, x[c]));
+}
+
+// x[i] of this lane's columns from row i's running values; stored over b[i]
+// in the chunk (row `row` of xs).  Only the first `real` columns are X's:
+// the padding past SN stays 0 without a division (0 / d would take the
+// division's slow path).
+template <bool UNROLLED>
+__device__ __forceinline__ void trsm_solve_row(const float (&v)[TRSM_CPL],
+                                               float* row, float d, bool unit,
+                                               int real) {
+  if (real <= 0) return;
+  float x[TRSM_CPL];
+  ld_cols(row, x);
+#pragma unroll
+  for (int c = 0; c < TRSM_CPL; ++c) {
     if (UNROLLED) {
-      for (int i = 0; i < sm; ++i) {
-        float xi = xs[i * cw + t];
-        if (!unit) {
-          xi = __fmul_rn(xi, __frcp_rn(as[i * sm + i]));
-          xs[i * cw + t] = xi;
-        }
-        for (int r = i + 1; r < sm; ++r)
-          xs[r * cw + t] = __fsub_rn(xs[r * cw + t], __fmul_rn(as[r * sm + i], xi));
-      }
+      x[c] = unit || c >= real ? v[c] : __fmul_rn(v[c], __frcp_rn(d));
     } else {
-      for (int i = 0; i < sm; ++i) {
-        float acc = 0.f;
-        for (int r = 0; r < i; ++r)
-          acc = __fadd_rn(acc, __fmul_rn(as[i * sm + r], xs[r * cw + t]));
-        float xi = __fsub_rn(xs[i * cw + t], acc);
-        if (!unit) xi = __fdiv_rn(xi, as[i * sm + i]);
-        xs[i * cw + t] = xi;
+      x[c] = __fsub_rn(x[c], v[c]);
+      if (!unit && c < real) x[c] = __fdiv_rn(x[c], d);
+    }
+  }
+  st_cols(row, x);
+}
+
+template <bool UNROLLED, int NW>
+__global__ void __cluster_dims__(TRSM_CLUSTER, 1, 1)
+__launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
+trsm_shared(const float* __restrict__ a, const float* __restrict__ bm,
+            float* __restrict__ xo, int sm, int sn, int cw, long long bp,
+            bool unit) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // [sm][cw]: B, then X
+  float* ta = xs + sm * cw;  // tril(A) packed by columns, NW * TRSM_Q pad
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const long long b = blockIdx.x, b0 = b - rank;  // the cluster's problems
+  const int tid = threadIdx.x, warp = tid >> 5, nt = NW * 32;
+  const int j0 = blockIdx.y * TRSM_CW;
+  const int c0 = (tid & 31) * TRSM_CPL;
+  // columns of X this lane holds (0: none in this chunk; its loads then
+  // read the first lane's columns and it stores nothing)
+  const int real = min(TRSM_CPL, sn - j0 - c0);
+  const int cl = c0 < cw ? c0 : 0;
+  const int ntri = sm * (sm + 1) / 2;
+
+  // -- the load: the cluster's TRSM_CLUSTER neighbouring problems share
+  // each 32-byte sector of the pack, so block `rank` reads every
+  // TRSM_CLUSTER-th element for all of them (TRSM_CLUSTER neighbouring
+  // lanes, one sector) and puts each in its problem's block
+  for (int t = tid; t < NW * TRSM_Q; t += nt) ta[ntri + t] = 0.f;
+  cluster.sync();  // every block of the cluster runs before any writes to it
+  {
+    const int p = tid % TRSM_CLUSTER;
+    float* ta_p = cluster.map_shared_rank(ta, p);
+    float* xs_p = cluster.map_shared_rank(xs, p);
+    const long long bq = b0 + p;
+    const bool on = bq < bp;
+    const int stride = nt / TRSM_CLUSTER * TRSM_CLUSTER;
+    const int first = tid / TRSM_CLUSTER * TRSM_CLUSTER + rank;
+    // TRSM_LU loads in flight a thread before their stores
+    for (int t0 = first; t0 < sm * sm; t0 += TRSM_LU * stride) {
+      float v[TRSM_LU];
+#pragma unroll
+      for (int u = 0; u < TRSM_LU; ++u) {
+        const int t = t0 + u * stride;
+        const int r = t / sm, i = t - r * sm;
+        v[u] = on && t < sm * sm && i <= r ? a[(long long)t * bp + bq] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < TRSM_LU; ++u) {
+        const int t = t0 + u * stride;
+        const int r = t / sm, i = t - r * sm;
+        if (on && t < sm * sm && i <= r) ta_p[tri_col(i, sm) + r - i] = v[u];
+      }
+    }
+    for (int t0 = first; t0 < sm * cw; t0 += TRSM_LU * stride) {
+      float v[TRSM_LU];
+#pragma unroll
+      for (int u = 0; u < TRSM_LU; ++u) {
+        const int t = t0 + u * stride;
+        const int r = t / cw, c = t - r * cw;
+        v[u] = on && t < sm * cw && j0 + c < sn ? bm[at(r, j0 + c, sn, bp, bq)]
+                                                : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < TRSM_LU; ++u) {
+        const int t = t0 + u * stride;
+        if (on && t < sm * cw) xs_p[t] = v[u];
       }
     }
   }
-  __syncthreads();
-  for (int e = t; e < sm * cw; e += cw) {
-    const int r = e / cw, c = e % cw;
-    if (j0 + c < sn) xo[at(r, j0 + c, sn, bp, b)] = xs[e];
+  cluster.sync();
+
+  // -- the solve (a block past the last problem has nothing to solve)
+  float v[TRSM_Q][TRSM_CPL];
+  if (b < bp) {
+#pragma unroll
+    for (int q = 0; q < TRSM_Q; ++q) {
+      const int r = warp + NW * q;
+#pragma unroll
+      for (int c = 0; c < TRSM_CPL; ++c)
+        v[q][c] = UNROLLED && r < sm ? xs[r * cw + cl + c] : 0.f;
+    }
+    if (warp == 0) trsm_solve_row<UNROLLED>(v[0], xs + c0, ta[0], unit, real);
+
+    // step i = q * NW + wp publishes x[i], then every row takes its term:
+    // rows already solved and rows past SM hold values nobody reads again,
+    // so the terms are taken without a test (the pad past tril(A) keeps
+    // their reads inside shared memory)
+#pragma unroll
+    for (int q = 0; q < TRSM_Q; ++q) {
+      if (q * NW >= sm) break;
+      for (int wp = 0; wp < NW; ++wp) {
+        const int i = q * NW + wp;
+        if (i >= sm) break;
+        __syncthreads();  // x[i] is in row i of xs
+        float x[TRSM_CPL];
+        ld_cols(xs + i * cw + cl, x);
+        const float* col = ta + tri_col(i, sm) - i;  // col[r] = a[r,i]
+        // row i + 1 first: warp wp + 1 holds it as its row q, or (wp = NW
+        // - 1) warp 0 as its row q + 1; its owner solves it at once
+        {
+          const int r = warp + NW * q;
+          trsm_term<UNROLLED>(v[q], col[r], x);
+          if (warp == wp + 1 && r < sm)
+            trsm_solve_row<UNROLLED>(v[q], xs + r * cw + c0,
+                                     ta[tri_col(r, sm)], unit, real);
+        }
+#pragma unroll
+        for (int q2 = q + 1; q2 < TRSM_Q; ++q2) {
+          const int r = warp + NW * q2;
+          trsm_term<UNROLLED>(v[q2], col[r], x);
+          if (q2 == q + 1 && warp == 0 && wp == NW - 1 && r < sm)
+            trsm_solve_row<UNROLLED>(v[q2], xs + r * cw + c0,
+                                     ta[tri_col(r, sm)], unit, real);
+        }
+      }
+    }
   }
+  cluster.sync();
+
+  // -- the store: block `rank` writes every TRSM_CLUSTER-th element of X
+  // for the cluster's problems, whole sectors again
+  {
+    const int p = tid % TRSM_CLUSTER;
+    const float* xs_p = cluster.map_shared_rank(xs, p);
+    const long long bq = b0 + p;
+    const bool on = bq < bp;
+    const int stride = nt / TRSM_CLUSTER * TRSM_CLUSTER;
+    for (int t0 = tid / TRSM_CLUSTER * TRSM_CLUSTER + rank; t0 < sm * cw;
+         t0 += TRSM_LU * stride) {
+      float v[TRSM_LU];
+#pragma unroll
+      for (int u = 0; u < TRSM_LU; ++u) {
+        const int t = t0 + u * stride;
+        v[u] = on && t < sm * cw ? xs_p[t] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < TRSM_LU; ++u) {
+        const int t = t0 + u * stride;
+        const int r = t / cw, c = t - r * cw;
+        if (on && t < sm * cw && j0 + c < sn) xo[at(r, j0 + c, sn, bp, bq)] = v[u];
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its X
 }
 
 int bucket(int size) {
@@ -301,14 +485,20 @@ void launch_trsm_reg(const float* a, const float* b, float* x, int sm, int sn,
 template <bool UNROLLED>
 int launch_trsm_shared(const float* a, const float* b, float* x, int sm, int sn,
                        long long bp, bool unit, cudaStream_t st) {
-  const int cw = sn >= TRSM_CW ? TRSM_CW : (sn + 31) / 32 * 32;
-  const size_t smem = ((size_t)sm * sm + (size_t)sm * cw) * sizeof(float);
-  if (smem > SHARED_MAX) return -2;
-  auto kern = trsm_shared<UNROLLED>;
+  // a chunk of up to TRSM_CW columns, TRSM_CPL a lane
+  const int cw = sn >= TRSM_CW ? TRSM_CW
+                               : (sn + TRSM_CPL - 1) / TRSM_CPL * TRSM_CPL;
+  const int nw = sm <= 8 * TRSM_Q ? 8 : 16;
+  const size_t smem = ((size_t)sm * (sm + 1) / 2 + (size_t)nw * TRSM_Q +
+                       (size_t)sm * cw) * sizeof(float);
+  if (smem > SHARED_MAX || sm > 16 * TRSM_Q) return -2;
+  // whole clusters: blocks past the last problem load and solve nothing
+  const long long gx = (bp + TRSM_CLUSTER - 1) / TRSM_CLUSTER * TRSM_CLUSTER;
+  const dim3 grid((unsigned)gx, (unsigned)((sn + TRSM_CW - 1) / TRSM_CW));
+  auto kern = nw == 8 ? trsm_shared<UNROLLED, 8> : trsm_shared<UNROLLED, 16>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  kern<<<dim3((unsigned)bp, (unsigned)((sn + cw - 1) / cw)), dim3(cw), smem,
-         st>>>(a, b, x, sm, sn, bp, unit);
+  kern<<<grid, dim3(nw * 32), smem, st>>>(a, b, x, sm, sn, cw, bp, unit);
   return 0;
 }
 

@@ -111,23 +111,24 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return paths
 
 
-def launch(fn, device, *args) -> None:
+def launch(fn, device, *args, refused: Optional[str] = None) -> None:
     """Call C entry point ``fn(*args, device index, stream)`` on the current
     stream of ``device`` (a ``torch.device``); raise if it returns non-zero
     (-1: a dtype code it does not take; -2, raised as ``ValueError``: sizes
     that need more shared memory than a block has, or more blocks than the
-    card holds at once for a cooperative kernel, refused before any launch;
-    else the ``cudaError`` of the launch)."""
+    card holds at once for a cooperative kernel, refused before any launch
+    -- or what ``refused`` says, where the entry point refuses for another
+    reason; else the ``cudaError`` of the launch)."""
     import torch
 
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, device.index if device.index is not None
             else torch.cuda.current_device(), stream)
     if rc == -2:
-        raise ValueError(f"{fn.__name__}: these sizes need more shared memory "
-                         f"than a block has (or, for a cooperative kernel, "
-                         f"more blocks than the card holds at once); nothing "
-                         f"was launched")
+        raise ValueError(f"{fn.__name__}: " + (refused or (
+            "these sizes need more shared memory than a block has (or, for "
+            "a cooperative kernel, more blocks than the card holds at "
+            "once); nothing was launched")))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: kernel launch failed (code "
                            f"{rc}: -1 = dtype not taken, else cudaError)")

@@ -1,0 +1,364 @@
+"""Where the time of the tiled GEMM (kernel 4) and the packed loop TRSM
+(kernel 14) goes, on the card.
+
+    python -m xsmm_tpu_torch.ops.kernel_profile [--kernel gemm|trsm|both]
+        [--variant base] [--variant WG_BN_WIDE=128] [--size 4096]
+        [--trsm 125,125,4096] [--quick]
+
+For every variant (``base`` is the source as it is; any other is a
+comma-separated list of ``NAME=VALUE`` that rewrites the source's
+``constexpr int NAME = ...;``) this builds two copies of
+``ops/csrc/tiled_gemm.cu`` (``--kernel gemm``) or ``ops/csrc/packed.cu``
+(``--kernel trsm``) into ``xsmm_tpu_torch/build/kernel_profile/``: one as it
+is, and one with ``clock64()`` stamps, taken by one thread of every block
+and summed over the block's loop.  It prints how many ``HGMMA`` (wgmma),
+``HMMA`` (mma.sync) and ``FFMA`` instructions ``cuobjdump -sass`` finds in
+each build, where the toolkit has ``cuobjdump``.  Then, for each variant:
+
+* gemm: holds every route (``tma`` and ``mma`` in bf16 and f16, ``simt``
+  in f32) against ``gemm_plain`` on ragged and split-K shapes (1e-5
+  rel-Frobenius with an f32 output, 1e-2 with a 16-bit one); times
+  ``--size``^3 bf16 on the ``tma`` and ``mma`` routes and f32 on ``simt``,
+  and the DeepBench shapes of ``samples/xgemm_driver.py`` in bf16, the
+  variants in turns (a, b, ..., b, a), beside ``torch.matmul`` (TF32 off);
+  prints the phases of the f32 kernel's k loop (``fetch``: the next
+  tile's global loads put in flight; ``ffma``: the products; ``store``:
+  the next tile into shared memory and the block barrier) and of the wgmma
+  consumers' (``full``:
+  waiting for TMA's stage; ``mma``: issuing the stage's wgmma; ``retire``:
+  waiting for the previous stage's products), cycles a block, mean over
+  blocks;
+* trsm: holds ``trsm_loop`` and ``trsm_unrolled`` (the shared template at
+  SM > 64) bit for bit against their plain versions at ``--trsm`` SM/SN,
+  unit diagonal and not; times ``trsm_loop`` at ``--trsm`` in turns beside
+  ``torch.linalg.solve_triangular`` on the same problems in [B, SM, SN];
+  prints the phases of a block (``load``; ``solve``, the solve's work
+  seen by warp 0; ``store``; ``barrier``, warp 0's waits at the solve's
+  barriers).
+
+``--quick`` checks and stops before the timings.  It needs a CUDA card and
+nvcc, and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+from . import cuda_build
+from ..dnn.seq_profile import apply_settings, parse_variant
+
+CSRC = Path(cuda_build.__file__).resolve().parent / "csrc"
+OUT_DIR = cuda_build.BUILD_DIR / "kernel_profile"
+PROF_BLOCKS = 8192   # blocks whose phases are kept
+CLOCK_GHZ = 1.98     # the H100 SXM's boost clock, for cycles -> us
+
+_HEAD = """namespace {
+__device__ long long g_prof[%d * 4];
+#define PROF_BEGIN long long _p0 = clock64(), _pacc[4] = {0, 0, 0, 0};
+#define PROF_MARK(i) { const long long _t = clock64(); _pacc[i] += _t - _p0; \\
+                       _p0 = _t; }
+#define PROF_END(tid) { const long long _b = blockIdx.x + (long long)gridDim.x \\
+    * (blockIdx.y + (long long)gridDim.y * blockIdx.z); \\
+  if (threadIdx.x == (tid) && _b < %d) \\
+    for (int _i = 0; _i < 4; ++_i) g_prof[_b * 4 + _i] = _pacc[_i]; }
+""" % (PROF_BLOCKS, PROF_BLOCKS)
+_TAIL = """
+extern "C" int xsmm_prof_read(long long* prof) {
+  return (int)cudaMemcpyFromSymbol(prof, g_prof, sizeof(g_prof));
+}
+extern "C" int xsmm_prof_zero(const long long* zeros) {
+  return (int)cudaMemcpyToSymbol(g_prof, zeros, sizeof(g_prof));
+}
+"""
+
+# (first line of the kernel's text, its last line, [(anchor, new text)]):
+# each anchor is replaced once inside the kernel's text
+_GEMM_STAMPS = [
+    ("gemm_f32_kernel(const float* __restrict__ A", "// bf16/f16 in: mma.sync",
+     [("  for (int kt = 0; kt < ktiles; ++kt) {\n",
+       "  PROF_BEGIN\n  for (int kt = 0; kt < ktiles; ++kt) {\n"),
+      ("               K, kend, aligned);\n",
+       "               K, kend, aligned);\n    PROF_MARK(0)\n"),
+      ("    if (more) wt_store(",
+       "    PROF_MARK(1)\n    if (more) wt_store("),
+      ("    __syncthreads();  // tile kt + 1 is in; every thread is done with kt\n"
+       "  }\n",
+       "    __syncthreads();  // tile kt + 1 is in; every thread is done with kt\n"
+       "    PROF_MARK(2)\n  }\n  PROF_END(0)\n")]),
+    ("gemm_wgmma_kernel(const __grid_constant__", "// C = sum over z of W[z]",
+     [("    for (int kt = 0; kt < ktiles; ++kt) {\n      const int s = kt % S;\n"
+       "      mbar_wait(&full[s], (kt / S) & 1);\n",
+       "    PROF_BEGIN\n"
+       "    for (int kt = 0; kt < ktiles; ++kt) {\n      const int s = kt % S;\n"
+       "      mbar_wait(&full[s], (kt / S) & 1);\n      PROF_MARK(0)\n"),
+      ("      asm volatile(\"wgmma.commit_group.sync.aligned;\\n\" ::: "
+       "\"memory\");\n",
+       "      asm volatile(\"wgmma.commit_group.sync.aligned;\\n\" ::: "
+       "\"memory\");\n      PROF_MARK(1)\n"),
+      ("        mbar_arrive(&empty[(kt - 1) % S]);\n      }\n",
+       "        mbar_arrive(&empty[(kt - 1) % S]);\n      }\n"
+       "      PROF_MARK(2)\n"),
+      ("    asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: "
+       "\"memory\");\n",
+       "    asm volatile(\"wgmma.wait_group.sync.aligned 0;\\n\" ::: "
+       "\"memory\");\n    PROF_END(128)\n")]),
+]
+_TRSM_STAMPS = [
+    ("trsm_shared(const float* __restrict__ a", "int bucket(int size)",
+     [("  // -- the load:", "  PROF_BEGIN\n  // -- the load:"),
+      ("  float v[TRSM_Q][TRSM_CPL];\n",
+       "  PROF_MARK(0)\n  float v[TRSM_Q][TRSM_CPL];\n"),
+      ("      __syncthreads();  // x[i] is in row i of xs\n",
+       "      PROF_MARK(1)\n      __syncthreads();  // x[i] is in row i of xs\n"
+       "      PROF_MARK(3)\n"),
+      ("  // -- the store:", "  PROF_MARK(1)\n  // -- the store:"),
+      ("  cluster.sync();  // no block leaves while another reads its X\n",
+       "  cluster.sync();  // no block leaves while another reads its X\n"
+       "  PROF_MARK(2)\n  PROF_END(0)\n")]),
+]
+
+
+def instrument(src: str, stamps) -> str:
+    """``src`` with the stamps inside each kernel's text and the entry points
+    that read them (raises if an anchor is gone)."""
+    for first, last, edits in stamps:
+        i = src.index(first)
+        j = src.index(last, i)
+        body = src[i:j]
+        for anchor, text in edits:
+            if body.count(anchor) != 1:
+                raise ValueError(f"anchor not found once: {anchor!r}")
+            body = body.replace(anchor, text)
+        src = src[:i] + body + src[j:]
+    if src.count("namespace {\n") < 1:
+        raise ValueError("no anonymous namespace in the source")
+    return src.replace("namespace {\n", _HEAD, 1) + _TAIL
+
+
+def build(name: str, variants: List[str], stamps) -> Dict[tuple, Path]:
+    """(variant, "plain" | "prof") -> built library; one nvcc each, all
+    started together."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    base = (CSRC / f"{name}.cu").read_text()
+    procs = {}
+    for i, v in enumerate(variants):
+        src = apply_settings(base, parse_variant(v))
+        for kind, text in (("plain", src), ("prof", instrument(src, stamps))):
+            cu = OUT_DIR / f"{name}_v{i}_{kind}.cu"
+            cu.write_text(text)
+            so = cu.with_suffix(".so")
+            cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                   str(so), str(cu)]
+            procs[(v, kind)] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    out = {}
+    for key, (proc, so) in procs.items():
+        log, _ = proc.communicate(timeout=cuda_build.BUILD_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name} {key}:\n{log}")
+        if key[1] == "plain":
+            print(f"build {name} {key[0]}: " + "; ".join(
+                line.strip() for line in log.splitlines()
+                if "registers" in line or "spill" in line.lower()
+                or "warning" in line.lower()))
+        out[key] = so
+    return out
+
+
+def sass_counts(so: Path) -> Optional[Dict[str, int]]:
+    """HGMMA / HMMA / FFMA instruction counts of a built library (None
+    without ``cuobjdump``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True).stdout
+    return {op: sass.count(op + ".") + sass.count(op + " ")
+            for op in ("HGMMA", "HMMA", "FFMA")}
+
+
+def _phases(lib, run: Callable, names, blocks: int):
+    """Run once with the stamps; mean cycles of each phase a block."""
+    import numpy as np
+    import torch
+
+    lib.xsmm_prof_zero.argtypes = [ctypes.c_void_p]
+    lib.xsmm_prof_read.argtypes = [ctypes.c_void_p]
+    zeros = np.zeros(PROF_BLOCKS * 4, np.int64)
+    lib.xsmm_prof_zero(zeros.ctypes.data)
+    run()
+    torch.cuda.synchronize()
+    prof = np.zeros(PROF_BLOCKS * 4, np.int64)
+    lib.xsmm_prof_read(prof.ctypes.data)
+    p = prof.reshape(PROF_BLOCKS, 4)[:min(blocks, PROF_BLOCKS)].astype(float)
+    tot = p[:, :len(names)].sum(axis=1).mean()
+    return ", ".join(f"{n} {p[:, i].mean():.0f} ({p[:, i].mean() / tot:.0%})"
+                     for i, n in enumerate(names)) + \
+        f" cycles a block ({tot / CLOCK_GHZ / 1e3:.1f} us)"
+
+
+def main() -> int:
+    import torch
+
+    from . import packed_kernels as pk
+    from . import tiled_gemm_kernels as tk
+    from ..utils.timer import cuda_time_ms
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("gemm", "trsm", "both"),
+                    default="both")
+    ap.add_argument("--variant", action="append", default=None)
+    ap.add_argument("--size", type=int, default=4096)
+    ap.add_argument("--trsm", default="125,125,4096", help="SM,SN,B")
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    variants = args.variant or ["base"]
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_profile needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    print(f"{torch.cuda.get_device_name(0)}; cycles at {CLOCK_GHZ} GHz")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def turns(cases: Dict[str, Callable], use: Callable):
+        """ms[variant][case], the variants in turns a, b, ..., b, a."""
+        ms = {v: {c: [] for c in cases} for v in variants}
+        for v in variants + variants[::-1]:
+            use(v, "plain")
+            for c, fn in cases.items():
+                ms[v][c].append(cuda_time_ms(fn, warmup=3, iters=20))
+        return ms
+
+    if args.kernel in ("gemm", "both"):
+        libs = build("tiled_gemm", variants, _GEMM_STAMPS)
+
+        def use(v, kind):
+            cuda_build._LIBS["tiled_gemm"] = ctypes.CDLL(str(libs[(v, kind)]))
+            tk._LIB = None
+            return tk._lib()
+
+        bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+        shapes = [(256, 256, 256), (300, 200, 136), (129, 264, 1000),
+                  (1, 8, 8), (1760, 128, 1760), (2048, 64, 2048)]
+        for v in variants:
+            print(f"gemm {v}: sass {sass_counts(libs[(v, 'plain')])}")
+            use(v, "plain")
+            for m, n, k in shapes:
+                for rt, dt in (("tma", bf16), ("tma", f16), ("mma", bf16),
+                               ("simt", f32)):
+                    a, b = randn(m, k, dtype=dt), randn(k, n, dtype=dt)
+                    for out in (f32, dt):
+                        got = tk.gemm(a, b, out_dtype=out, route=rt)
+                        want = tk.gemm_plain(a, b, out_dtype=out, bk=512)
+                        torch.cuda.synchronize()
+                        err = (torch.linalg.vector_norm((got - want).double())
+                               / torch.linalg.vector_norm(want.double())).item()
+                        tol = 1e-5 if out == f32 else 1e-2
+                        print(f"  check {rt:4s} {str(dt)[6:]:8s}->"
+                              f"{str(out)[6:]:8s} {m}x{n}x{k}: {err:.2e} "
+                              f"{'pass' if err <= tol else 'FAIL'}")
+        if not args.quick:
+            s = args.size
+            a16, b16 = randn(s, s, dtype=bf16), randn(s, s, dtype=bf16)
+            a32, b32 = randn(s, s), randn(s, s)
+            cases = {
+                f"bf16 {s}^3 tma": lambda: tk.gemm(a16, b16, out_dtype=bf16,
+                                                   route="tma"),
+                f"bf16 {s}^3 mma": lambda: tk.gemm(a16, b16, out_dtype=bf16,
+                                                   route="mma"),
+                f"f32 {s}^3 simt": lambda: tk.gemm(a32, b32, out_dtype=f32)}
+            deep = [(1760, 128, 1760), (2048, 64, 2048), (2560, 64, 2560),
+                    (4096, 128, 4096)]
+            for m, n, k in deep:
+                a, b = randn(m, k, dtype=bf16), randn(k, n, dtype=bf16)
+                for rt in ("tma", "mma"):
+                    cases[f"bf16 {m}x{n}x{k} {rt}"] = (
+                        lambda a=a, b=b, rt=rt: tk.gemm(a, b, out_dtype=bf16,
+                                                        route=rt))
+                cases[f"bf16 {m}x{n}x{k} torch.matmul"] = (
+                    lambda a=a, b=b: torch.matmul(a, b))
+            lib_ms = {f"bf16 {s}^3": cuda_time_ms(torch.matmul, a16, b16),
+                      f"f32 {s}^3": cuda_time_ms(torch.matmul, a32, b32)}
+            ms = turns(cases, use)
+            print(f"torch.matmul bf16 {s}^3 {lib_ms[f'bf16 {s}^3']:.4f} ms, "
+                  f"f32 {lib_ms[f'f32 {s}^3']:.4f} ms")
+            for v in variants:
+                for c in cases:
+                    m_, n_, k_ = (s, s, s) if "^3" in c else (
+                        int(x) for x in c.split()[1].split("x"))
+                    tf = 2 * m_ * n_ * k_ / min(ms[v][c]) / 1e9
+                    print(f"  {v:24s} {c:32s} "
+                          f"{' / '.join('%.4f' % t for t in ms[v][c])} ms "
+                          f"({tf:.1f} TFLOP/s)")
+            for v in variants:
+                lib = use(v, "prof")
+                blocks = (s // 128) * (s // 128)
+                print(f"  {v}: f32 phases: " + _phases(
+                    lib, cases[f"f32 {s}^3 simt"], ("fetch", "ffma", "store"),
+                    blocks))
+                print(f"  {v}: wgmma consumer phases: " + _phases(
+                    lib, cases[f"bf16 {s}^3 tma"], ("full", "mma", "retire"),
+                    (s // 128) * (s // 256)))
+
+    if args.kernel in ("trsm", "both"):
+        libs = build("packed", variants, _TRSM_STAMPS)
+
+        def use(v, kind):
+            cuda_build._LIBS["packed"] = ctypes.CDLL(str(libs[(v, kind)]))
+            pk._LIB = None
+            return pk._lib()
+
+        sm, sn, bsz = (int(x) for x in args.trsm.split(","))
+        a = randn(bsz, sm, sm) / sm
+        idx = torch.arange(sm, device=dev)
+        a[:, idx, idx] += 1.0
+        b = randn(bsz, sm, sn)
+        pa = a.permute(1, 2, 0).contiguous()
+        pb = b.permute(1, 2, 0).contiguous()
+        for v in variants:
+            use(v, "plain")
+            for kname in ("trsm_loop", "trsm_unrolled"):
+                for unit in (False, True):
+                    aa = pa / sm if unit else pa
+                    got = getattr(pk, kname)(aa, pb, unit)
+                    want = getattr(pk, kname + "_plain")(aa, pb, unit)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(got, want)
+                    print(f"  check {v} {kname} {sm}/{sn} unit={unit}: "
+                          f"{'bit-exact' if ok else 'FAIL'} (max "
+                          f"{(got - want).abs().max().item():.2e})")
+        if not args.quick:
+            cases = {f"trsm_loop {sm}/{sn} B={bsz}":
+                     lambda: pk.trsm_loop(pa, pb, False),
+                     f"trsm_loop unit {sm}/{sn} B={bsz}":
+                     lambda: pk.trsm_loop(pa / sm, pb, True)}
+            lib_ms = cuda_time_ms(lambda: torch.linalg.solve_triangular(
+                a, b, upper=False))
+            ms = turns(cases, use)
+            print(f"solve_triangular {sm}/{sn} B={bsz}: {lib_ms:.4f} ms")
+            for v in variants:
+                for c in cases:
+                    print(f"  {v:24s} {c:32s} "
+                          f"{' / '.join('%.4f' % t for t in ms[v][c])} ms")
+            for v in variants:
+                lib = use(v, "prof")
+                print(f"  {v}: trsm phases: " + _phases(
+                    lib, cases[f"trsm_loop {sm}/{sn} B={bsz}"],
+                    ("load", "solve", "store", "barrier"),
+                    bsz * ((sn + 127) // 128)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
