@@ -19,13 +19,17 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 3. drives the main path through the user entry points at batch 131072, 23^3
    (``dmmdispatch`` under split2_fast, split2 and float32, beta 0 and 1;
    ``smmdispatch`` beta 0 and 1; ``bsmmdispatch``; ``bmmdispatch``), with the
-   launch counts set to 0 just before and read just after, and checks each
+   launch counts set to 0 just before and read just after (every f32 plane
+   staged by TMA, the bf16 cases on the first design), and checks each
    result against numpy f64 gold on a 4096-problem subset;
-4. compares each kernel with its plain version on the same packed operands;
+4. compares each kernel with its plain version on the same packed operands,
+   and each schedule once on the cp.async staging (planes one element off
+   their alignment, Bp 4097), bit for bit;
 5. runs the non-kernel routes once each (f32 product at 256^3 without TF32,
    native f64, int16, batch-reduce);
 6. times the three kernels, their plain versions and ``torch.bmm`` on the
-   same problems with CUDA events, beside the bound of the card, and the
+   same problems with CUDA events (each kernel in turns with ``torch.bmm``:
+   kernel, library, library, kernel), beside the bound of the card, and the
    whole entry-point call (f64 split2_fast, and f32);
 7. drives the sparse path through its entry points at N = 65536 on the
    three PyFR-shaped operators of ``samples/pyfr_driver.py`` (seed 0):
@@ -72,7 +76,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     16/16 in the six variants of ``tests/test_packed.py`` and with alpha 2;
     the f64 trsm under refine None, "host" and False; getrf and trsm at
     125 (the element block of a p = 4 hexahedron) and batch 4096, which
-    take the loop kernels; ``trmm_dispatch`` f32 and f64 and
+    take the loop kernels (getrf on its "tile" route), and getrf at 140,
+    which takes the loop kernel's "shared" route (each route must be
+    launched); ``trmm_dispatch`` f32 and f64 and
     ``pgemm_dispatch`` 16^3, which reach the batched kernels 2 and 1;
     each result against f64 gold on the card (L U against A, op(A) X
     against alpha B, the refine gates of ``tests/test_packed.py``);
@@ -80,8 +86,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     same packed operands, bit for bit (tolerance 0);
 16. times them beside their bounds, their plain versions and the library
     call on the same problems in [B, M, N] (``torch.linalg.lu_factor_ex``
-    without pivoting, ``torch.linalg.solve_triangular``; the loop trsm in
-    turns with it, and its unit-diagonal solve), and the whole
+    without pivoting, ``torch.linalg.solve_triangular``; the loop getrf
+    and the loop trsm in turns with theirs (kernel, library, library,
+    kernel), and the trsm's unit-diagonal solve), and the whole
     ``getrf_dispatch(16, 16, batch=131072)(a)`` call with a tensor on the
     card and with numpy f64 step by step;
 18. drives the RNN forward path through its entry points
@@ -953,10 +960,14 @@ def packed_phase(args, dev, smi):
     a_np, b_np = a64.cpu().numpy(), b64.cpu().numpy()  # the f64 contract
     rect = {(12, 8): dd(B, 12, 8).float(), (8, 12): dd(B, 8, 12).float()}
     abig, bbig = dd(BB, BM).float(), randn(BB, BM, BM).float()
+    # kernel 12's "shared" route: beyond the tile route's 128
+    BS = 140
+    ashared = dd(BB, BS).float()
 
     # -- 14. the packed path through its entry points, counted ---------------
     counts = (pk.launches, smm_packed.launches)
     totals = dict.fromkeys(PACKED_REPLACES, 0)
+    route_totals = dict.fromkeys(pk.GETRF_ROUTES, 0)
     outs = {}
 
     def drive(label, fn, expect):
@@ -971,7 +982,11 @@ def packed_phase(args, dev, smi):
             raise RuntimeError(f"{label}: launched {got}, expected {expect}")
         for k in totals:
             totals[k] += pk.launches[k]
-        print(f"drive {label:36s} launches {got}")
+        for k in route_totals:
+            route_totals[k] += pk.getrf_route_launches[k]
+        routes = {k: v for k, v in pk.getrf_route_launches.items() if v}
+        print(f"drive {label:36s} launches {got}"
+              + (f", getrf_loop routes {routes}" if routes else ""))
         outs[label] = out
 
     t0 = time.perf_counter()
@@ -995,6 +1010,8 @@ def packed_phase(args, dev, smi):
               lambda r=refine: k64(a_np, b_np, refine=r), "trsm_unrolled")
     drive(f"getrf f32 {BM}x{BM}", lambda: xp.getrf_dispatch(
         BM, BM, batch=BB)(abig), "getrf_loop")
+    drive(f"getrf f32 {BS}x{BS}", lambda: xp.getrf_dispatch(
+        BS, BS, batch=BB)(ashared), "getrf_loop")
     drive(f"trsm f32 LLNN {BM}/{BM}", lambda: xp.trsm_dispatch(
         BM, BM, batch=BB)(abig, bbig), "trsm_loop")
     drive(f"trmm f32 {M}/{M}", lambda: xp.trmm_dispatch(M, M, batch=B)(
@@ -1004,9 +1021,11 @@ def packed_phase(args, dev, smi):
     drive(f"pgemm f32 {M}^3", lambda: xp.pgemm_dispatch(M, M, M, batch=B)(
         a32, b32), "packed_f32")
     main_s = time.perf_counter() - t0
-    print(f"packed path: {len(outs)} calls at B={B} ({M}) and B={BB} ({BM}) "
-          f"in {main_s:.2f} s; packed-LA launches {totals}")
-    for kname, n in totals.items():
+    print(f"packed path: {len(outs)} calls at B={B} ({M}) and B={BB} ({BM}, "
+          f"{BS}) in {main_s:.2f} s; packed-LA launches {totals}; "
+          f"getrf_loop routes {route_totals}")
+    for kname, n in [*totals.items(), *(
+            (f"getrf_loop route {r}", n) for r, n in route_totals.items())]:
         if n < 1:
             raise RuntimeError(f"{kname} was not launched on the packed path")
 
@@ -1015,7 +1034,8 @@ def packed_phase(args, dev, smi):
                                                    a32),
                      (f"getrf f32 12x8", rect[(12, 8)]),
                      (f"getrf f32 8x12", rect[(8, 12)]),
-                     (f"getrf f32 {BM}x{BM}", abig)]:
+                     (f"getrf f32 {BM}x{BM}", abig),
+                     (f"getrf f32 {BS}x{BS}", ashared)]:
         lu, a = sub(outs[label]), sub(a)
         if not torch.isfinite(lu).all():
             raise RuntimeError(f"{label}: non-finite output")
@@ -1061,6 +1081,7 @@ def packed_phase(args, dev, smi):
              ("getrf_unrolled", "12x8", (pack(rect[(12, 8)]),)),
              ("getrf_unrolled", "8x12", (pack(rect[(8, 12)]),)),
              ("getrf_loop", f"{BM}x{BM}", (pabig,)),
+             ("getrf_loop", f"{BS}x{BS}", (pack(ashared),)),
              ("trsm_unrolled", f"{M}/{M}", (pa, pb, False)),
              ("trsm_unrolled", f"{M}/{M} unit", (pa / M, pb, True)),
              ("trsm_loop", f"{BM}/{BM}", (pabig, pbbig, False)),
@@ -1120,7 +1141,22 @@ def packed_phase(args, dev, smi):
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         fn = getattr(pk, kname)
         extra = {}
-        if kname == "trsm_loop":
+        if kname == "getrf_loop":
+            # in turns with the library call (kernel, library, library,
+            # kernel)
+            ms_t, lib_t = [], []
+            for what in ("k", "l", "l", "k"):
+                if what == "k":
+                    ms_t.append(cuda_time_ms(fn, *ops, warmup=3, iters=20))
+                else:
+                    lib_t.append(cuda_time_ms(*lib, warmup=2, iters=10))
+            ms, library_ms = sum(ms_t) / 2, sum(lib_t) / 2
+            extra = {"getrf_route": pk.getrf_route(m, n), "ms_turns": ms_t,
+                     "library_ms_turns": lib_t, "routes": route_totals}
+            print(f"time  getrf_loop {shape} in turns: {extra['getrf_route']}"
+                  f" route {ms_t[0]:.4f} / {ms_t[1]:.4f} ms, {lib_name} "
+                  f"{lib_t[0]:.4f} / {lib_t[1]:.4f} ms  [{smi}]")
+        elif kname == "trsm_loop":
             # in turns with the library call (kernel, library, library,
             # kernel), and the unit-diagonal solve
             ms_t, lib_t = [], []
@@ -1819,6 +1855,25 @@ def rnn_bwd_phase(args, dev, smi):
     print(f"repeat rnn_tanh f32 N{n} C{c} K{k} T{t}: hs differed in {hs_var} "
           f"of 1000 calls, x@W in {zx_var} of 1000; card vs CPU "
           f"rel-Frobenius {err:.3e}")
+    if err > 1e-5:  # name the side and the CPU's products and tanh
+        gold = rnn_gold(np, "tanh", "rnn", x, w, r, b, h0,
+                        np.zeros_like(h0))[0]
+        xp.set_config(target="cpu")
+        again = create_rnncell(desc).forward(x, w, r, b, h0)[0]
+        xp.set_config(target=target)
+        xc = torch.from_numpy(x.reshape(t * n, c))
+        zx, hr = _matmul(xc, torch.from_numpy(w)), _matmul(
+            torch.from_numpy(h0), torch.from_numpy(r))
+        arg = (zx[:n] + torch.from_numpy(b)) + hr
+        tanh_err = (torch.tanh(arg).double() - torch.from_numpy(
+            np.tanh(arg.double().numpy()))).abs().max().item()
+        print(f"  card vs gold {rel(torch.from_numpy(gold), hs0.cpu()):.3e}, "
+              f"cpu vs gold {rel(torch.from_numpy(gold), cpu):.3e}, cpu "
+              f"again vs gold {rel(torch.from_numpy(gold), again):.3e}; cpu "
+              f"x@W vs f64 {rel(torch.from_numpy(x.reshape(t * n, c) @ w.astype(np.float64)), zx):.3e}, "
+              f"h0@R vs f64 {rel(torch.from_numpy(h0 @ r.astype(np.float64)), hr):.3e}, "
+              f"tanh worst abs {tanh_err:.3e}; threads "
+              f"{torch.get_num_threads()}")
     if hs_var or zx_var or err > 1e-5:
         raise RuntimeError("the RNN forward is not repeatable on the card")
 
@@ -2640,11 +2695,19 @@ def main() -> int:
         kernels[label] = kern
     main_s = time.perf_counter() - t0
     main_launches = dict(smm_packed.launches)
+    main_staging = dict(smm_packed.staging_launches)
     print(f"main path: {len(cases)} dispatch calls at B={B}, {M}x{N}x{K} in "
-          f"{main_s:.2f} s; launches {main_launches}")
+          f"{main_s:.2f} s; launches {main_launches}; stagings "
+          f"{main_staging}")
     for kname, n in main_launches.items():
         if n < 1:
             raise RuntimeError(f"{kname} was not launched on the main path")
+    # f32 planes of the main path are aligned with B % 4 == 0: every one
+    # takes TMA staging, and the bf16 cases the first design
+    if (main_staging["cp.async"] or main_staging["tma"] < 1
+            or main_staging["first"] < 1):
+        raise RuntimeError(f"main path stagings {main_staging}: expected tma "
+                           f"and first, no cp.async")
 
     # gold on a subset of the problems
     for label, strategy, disp, beta, (a, b, c), kname, tol in cases:
@@ -2716,6 +2779,38 @@ def main() -> int:
             timing_ops[kname] = (kern, ops)
         del ops, got, want
     del kernels
+
+    # the cp.async staging (f32 planes TMA cannot address), once for each
+    # schedule, on planes one element past their alignment with an odd Bp
+    bp_off = 4097
+    base = torch.randn(4 * M * K * bp_off + 1, generator=g, device=dev)
+    ah, al, bh, bl = (base[1 + i * M * K * bp_off:1 + (i + 1) * M * K * bp_off]
+                      .view(M, K, bp_off) for i in range(4))
+    smm_packed.reset_launches()
+    checks = [("packed_split2", smm_packed.packed_split2(ah, al, bh, bl),
+               smm_packed.packed_split2_plain(ah, al, bh, bl)),
+              ("packed_split2_fast", smm_packed.packed_split2_fast(ah, bh, bl),
+               smm_packed.packed_split2_fast_plain(ah, bh, bl)),
+              ("packed_f32", smm_packed.packed_f32(ah, bh,
+                                                    out_dtype=torch.float32),
+               smm_packed.packed_f32_plain(ah, bh, out_dtype=torch.float32))]
+    torch.cuda.synchronize()
+    staged = dict(smm_packed.staging_launches)
+    if staged != {"tma": 0, "cp.async": 3, "first": 0}:
+        raise RuntimeError(f"offset planes took stagings {staged}")
+    for kname, got, want in checks:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max((g_.double() - w_.double()).abs().max().item()
+                  for g_, w_ in zip(got, want))
+        ok = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+        print(f"plain cp.async staging {kname:18s} {M}x{N}x{K} Bp={bp_off} "
+              f"offset planes: max_abs_err {err:.3e} (bit for bit) "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{kname} on cp.async staging: kernel and "
+                               f"plain version disagree")
+    del base, ah, al, bh, bl, checks
     torch.cuda.empty_cache()
 
     # -- 5. the non-kernel routes --------------------------------------------
@@ -2789,11 +2884,18 @@ def main() -> int:
     for kname in ("packed_split2_fast", "packed_f32", "packed_split2"):
         kern, ops = timing_ops[kname]
         la, lb = library[kname]
-        ms = cuda_time_ms(run_kernel, kname, kern, ops, warmup=3, iters=20)
+        # in turns with the library call: kernel, library, library, kernel
+        ms_t, lib_t = [], []
+        for what in ("k", "l", "l", "k"):
+            if what == "k":
+                ms_t.append(cuda_time_ms(run_kernel, kname, kern, ops,
+                                         warmup=3, iters=20))
+            else:
+                lib_t.append(cuda_time_ms(lambda: torch.bmm(la, lb), warmup=3,
+                                          iters=20))
+        ms, library_ms = sum(ms_t) / 2, sum(lib_t) / 2
         plain_ms = cuda_time_ms(run_kernel, kname, kern, ops, True, warmup=1,
                                 iters=3)
-        library_ms = cuda_time_ms(lambda: torch.bmm(la, lb), warmup=3,
-                                  iters=20)
         pa, pb, pc = planes[kname]
         nbytes = (pa * M * K + pb * K * N + pc * M * N) * B * 4
         nops = ops_per_mnk[kname] * M * N * K * B
@@ -2804,14 +2906,17 @@ def main() -> int:
         print(f"time  {kname:18s} {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
               f"bound {bound_ms:.4f} ms ({bound_by}), share "
               f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms; torch.bmm "
-              f"{la.dtype} {library_ms:.4f} ms  [{smi}]")
+              f"{la.dtype} {library_ms:.4f} ms; in turns: kernel "
+              f"{ms_t[0]:.4f} / {ms_t[1]:.4f}, torch.bmm {lib_t[0]:.4f} / "
+              f"{lib_t[1]:.4f} ms  [{smi}]")
         rows.append({
             "name": kname, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[kname], "launches": main_launches[kname],
             "max_abs_err": max_abs[kname], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "check": "pass",
-            "shape": f"B={B} {M}x{N}x{K} beta=0",
+            "shape": f"B={B} {M}x{N}x{K} beta=0", "ms_turns": ms_t,
+            "library_ms_turns": lib_t, "main_path_stagings": main_staging,
         })
 
     # the whole entry-point call at the same shape: f64 in, numpy f64 out

@@ -551,3 +551,130 @@ def test_dispatch_without_card_raises(monkeypatch):
                  lambda: pp.pgemm_dispatch(5, 7, 3, batch=3)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# Kernel 12's "tile" route (ops/csrc/packed.cu getrf_tile): its schedule,
+# emulated index for index on the CPU
+# ---------------------------------------------------------------------------
+
+GT_NW, GT_LD = 16, 128  # warps of getrf_tile; rows and columns of its tile
+
+
+def _getrf_tile_emulated(a: torch.Tensor, nw: int = GT_NW) -> torch.Tensor:
+    """getrf_tile's schedule on A [M, N, Bp]: the register tile (thread
+    (w, x) holds rows w + nw*q and columns x + 32*c of the 128 x 128 tile)
+    as a [128, 128, Bp] tensor, the shared matrix s and the two pcol
+    buffers with the pad left NaN (a published value that read the pad
+    would be NaN), one barrier a step.  Each step's reads see the state at
+    its barrier and its writes land at the next one; a location written and
+    read in the same step (a race on the card) fails the emulation."""
+    m, n, bp = a.shape
+    nan = float("nan")
+    s = torch.full((GT_LD, GT_LD, bp), nan)
+    s[:m, :n] = a
+    pcol = torch.full((2, GT_LD, bp), nan)
+    r = torch.zeros((GT_LD, GT_LD, bp))
+    r[:m, :n] = s[:m, :n]
+    kend = min(n, m - 1)
+    for i in range(1, m):  # C_0 and column 1 ahead, each thread its rows
+        s[i, 0] = s[i, 0] / s[0, 0]
+        pcol[1, i] = s[i, 1]
+    for k in range(kend):
+        reads, writes = set(), {}
+        # C_{k+1} from pcol, rows k + 2 .. M - 1
+        if k + 1 < kend:
+            pb = (k + 1) % 2
+            u = s[k, k + 1]
+            piv = pcol[pb, k + 1] - s[k + 1, k] * u
+            reads |= {("p", pb, k + 1), ("s", k + 1, k), ("s", k, k + 1)}
+            for i in range(k + 2, m):
+                reads |= {("p", pb, i), ("s", i, k)}
+                writes[("s", i, k + 1)] = (pcol[pb, i] - s[i, k] * u) / piv
+        # the trailing update over the live groups of rows and columns
+        u = s[k].clone()
+        reads |= {("s", k, j) for j in range(GT_LD)}
+        rows = range((k + 1) // nw, GT_LD // nw)  # groups not left behind
+        cols = range((k + 1) // 32, GT_LD // 32)
+        for q in rows:
+            for i in range(nw * q, nw * q + nw):
+                reads.add(("s", i, k))
+                for c in cols:
+                    js = slice(32 * c, 32 * c + 32)
+                    r[i, js] = r[i, js] - s[i, k] * u[js]
+        # R_{k+1} from its owner warp; column k + 2 ahead from its lanes
+        if k + 1 < m:
+            for j in range(k + 1, n):
+                writes[("s", k + 1, j)] = r[k + 1, j].clone()
+        if k + 2 < kend:
+            for i in range(k + 2, m):
+                writes[("p", k % 2, i)] = r[i, k + 2].clone()
+        assert not reads & set(writes), f"step {k}: {reads & set(writes)}"
+        for (arr, i, j), v in writes.items():
+            (s if arr == "s" else pcol)[i, j] = v
+    return s[:m, :n].clone()
+
+
+def _well_conditioned(rng, m, n, bp):
+    """[M, N, Bp] with entries of size 1/M and 1 + ... on the diagonal
+    (tests/test_torch_gpu.py's packed inputs)."""
+    a = rng.standard_normal((m, n, bp)).astype(np.float32) / m
+    idx = np.arange(min(m, n))
+    a[idx, idx] += 1.0
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("m,n", [(65, 65), (80, 80), (100, 70), (70, 100),
+                                 (125, 125), (128, 128)])
+def test_getrf_tile_schedule_matches_plain(rng, m, n):
+    """getrf_tile's index schedule (emulated) gives getrf_loop_plain's bits:
+    every element keeps its own chain of terms in pivot order and its
+    multiplier is divided once, from its value at its step."""
+    a = _well_conditioned(rng, m, n, 3)
+    got = _getrf_tile_emulated(a)
+    want = pk.getrf_loop_plain(a)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got - want).abs().max()
+
+
+@pytest.mark.parametrize("m,n,route", [
+    (65, 65, "tile"), (125, 125, "tile"), (128, 128, "tile"),
+    (100, 70, "tile"), (70, 100, "tile"), (128, 65, "tile"),
+    (64, 64, "shared"), (64, 100, "shared"), (129, 129, "shared"),
+    (80, 129, "shared"), (140, 140, "shared"), (16, 16, "shared")])
+def test_getrf_route(m, n, route):
+    assert pk.getrf_route(m, n) == route
+
+
+def test_getrf_loop_route_checked_and_counted(monkeypatch):
+    """An unknown route raises before any launch; on the card each launch
+    counts in launches["getrf_loop"] and in its route, and the tile route's
+    refusal (-2) raises with its own message."""
+    a = torch.zeros((70, 70, 2))
+    with pytest.raises(ValueError, match="route 'big'"):
+        pk._getrf_loop(a, "big")
+    calls = []
+
+    def entry(rc):
+        def xsmm_getrf_loop(*args):
+            calls.append(args)
+            return rc
+        return types.SimpleNamespace(xsmm_getrf_loop=xsmm_getrf_loop)
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(pk, "_lib", lambda: entry(0))
+    pk.reset_launches()
+    pk.getrf_loop(a)
+    pk._getrf_loop(a, "shared")
+    assert [c[5] for c in calls] == [1, 0]  # the route codes
+    assert pk.launches["getrf_loop"] == 2
+    assert pk.getrf_route_launches == {"shared": 1, "tile": 1}
+    monkeypatch.setattr(pk, "_lib", lambda: entry(-2))
+    with pytest.raises(ValueError, match="tile route takes"):
+        pk._getrf_loop(a, "tile")
+    with pytest.raises(ValueError, match="shared memory"):
+        pk._getrf_loop(a, "shared")
+    assert pk.launches["getrf_loop"] == 2

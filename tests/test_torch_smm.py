@@ -14,8 +14,9 @@ Stated tolerances (rel-Frobenius):
   step, so one rounding difference moves an element by a bf16 ulp).
 """
 
-import dataclasses
 import contextlib
+import dataclasses
+import types
 
 import ml_dtypes
 import numpy as np
@@ -418,3 +419,205 @@ def test_batched_rejects_f64_out_of_f32_in():
     with pytest.raises(ValueError, match="batched SMM takes"):
         xp.mmdispatch(4, 4, 4, in_dtype="float32", out_dtype="float64",
                       batch=8, beta=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The tile kernel of ops/csrc/smm_packed.cu (packed_tile_kernel): its
+# staging, ring and register tiling, emulated index for index on the CPU
+# ---------------------------------------------------------------------------
+
+# its constants: problems a group, rows and columns of C a thread, warps
+# down and across a pass, k steps a stage, stages in the ring
+TP, TR, TC, RG, CG, TKC, STAGES = 32, 6, 8, 4, 3, 4, 4
+TM, TN = RG * TR, CG * TC
+# tests/test_torch_gpu.py's SHAPES (M, N, K, Bp)
+CARD_SHAPES = [(23, 23, 23, 131), (1, 1, 1, 33), (5, 3, 7, 1000),
+               (13, 13, 13, 64), (16, 48, 8, 257), (64, 64, 64, 40),
+               (2, 70, 3, 77), (1, 2000, 1, 50)]
+
+
+def _tile_emulated(sched, a_planes, b_planes, c_in, grid, tma):
+    """packed_tile_kernel on the packed planes (A [M, K, Bp], B [K, N, Bp]):
+    ``grid`` persistent blocks, each walking its items (group of TP
+    problems, row pass, column pass) through a ring of STAGES slots of TKC
+    k steps, left NaN where cp.async stages nothing (a stored result that
+    read one would be NaN) and zero where a TMA box passes the edges.  With
+    cp.async the stage for chunk t + STAGES - 1 is written after chunk t's
+    barrier and before its arithmetic, into chunk t - 1's slot; with TMA
+    the stage for chunk t + STAGES into chunk t's slot after its arithmetic
+    and store.  Warp (rg, cg) holds a TR x TC tile of C for its 32 lanes'
+    problems."""
+    m, k_, bp = a_planes[0].shape
+    n = b_planes[0].shape[1]
+    pa, pb = len(a_planes), len(b_planes)
+    npm, npn, nk = -(-m // TM), -(-n // TN), -(-k_ // TKC)
+    nitems = -(-bp // TP) * npm * npn
+    outs = [torch.full((m, n, bp), float("nan")) for _ in range(2)]
+
+    def item(it):
+        g, rest = divmod(it, npm * npn)
+        return g, rest // npn * TM, rest % npn * TN
+
+    for blk in range(grid):
+        mine = (nitems - 1 - blk) // grid + 1 if blk < nitems else 0
+        nt = mine * nk
+        slots = torch.full((STAGES, pa + pb, max(TM, TN), TKC, TP),
+                           float("nan"))
+
+        def stage(t):
+            g, m0, n0 = item(blk + t // nk * grid)
+            k0, sl = t % nk * TKC, slots[t % STAGES]
+            bs = slice(g * TP, min(g * TP + TP, bp))
+            w = bs.stop - bs.start
+            if tma:
+                sl.zero_()
+            for kk in range(TKC):
+                if k0 + kk >= k_:
+                    continue
+                for row in range(min(TM, m - m0)):
+                    for p, pl in enumerate(a_planes):
+                        sl[p, row, kk, :w] = pl[m0 + row, k0 + kk, bs]
+                for j in range(min(TN, n - n0)):
+                    for p, pl in enumerate(b_planes):
+                        sl[pa + p, j, kk, :w] = pl[k0 + kk, n0 + j, bs]
+
+        for t in range(min(STAGES - (not tma), nt)):
+            stage(t)
+        acc = {}
+        for t in range(nt):
+            if not tma and t + STAGES - 1 < nt:
+                stage(t + STAGES - 1)
+            c, sl = t % nk, slots[t % STAGES]
+            g, m0, n0 = item(blk + t // nk * grid)
+            bs = slice(g * TP, min(g * TP + TP, bp))
+            w = bs.stop - bs.start
+            for rg in range(RG):
+                for cg in range(CG):
+                    r0, j0 = m0 + rg * TR, n0 + cg * TC
+                    if r0 >= m or j0 >= n:
+                        continue  # a dead warp: no arithmetic, no store
+                    if c == 0:
+                        acc[rg, cg] = [torch.zeros((TR, TC, TP))
+                                       for _ in range(2)]
+                        for i, ci in enumerate(c_in or ()):
+                            blk_c = ci[r0:r0 + TR, j0:j0 + TC, bs]
+                            acc[rg, cg][i][:blk_c.shape[0], :blk_c.shape[1],
+                                           :w] = blk_c
+                    a0, a1 = acc[rg, cg]
+                    for kk in range(min(TKC, k_ - c * TKC)):
+                        ah = sl[0, rg * TR:rg * TR + TR, kk, None, :]
+                        bh = sl[pa, cg * TC:cg * TC + TC, kk][None]
+                        if sched == "f32":
+                            a0 = a0 + ah * bh
+                            continue
+                        bl = sl[pa + 1, cg * TC:cg * TC + TC, kk][None]
+                        a0 = a0 + ah * bh
+                        if sched == "split2_fast":
+                            a1 = a1 + ah * bl
+                        else:
+                            al = sl[1, rg * TR:rg * TR + TR, kk, None, :]
+                            a1 = a1 + (ah * bl + al * bh)
+                    acc[rg, cg] = [a0, a1]
+                    if c == nk - 1:
+                        hr, hc = min(TR, m - r0), min(TC, n - j0)
+                        res = ([a0 + a1] if sched == "split2_fast"
+                               else [a0, a1])
+                        for o, v in zip(outs, res):
+                            o[r0:r0 + hr, j0:j0 + hc, bs] = v[:hr, :hc, :w]
+            if tma and t + STAGES < nt:
+                stage(t + STAGES)
+    return outs
+
+
+@pytest.mark.parametrize("m,n,k,bp", CARD_SHAPES)
+@pytest.mark.parametrize("beta", [0, 1])
+@pytest.mark.parametrize("tma", [False, True], ids=["cp.async", "tma"])
+def test_tile_kernel_split2_schedule_matches_plain(rng, m, n, k, bp, beta,
+                                                   tma):
+    """Kernel 3's tile schedule (emulated, three persistent blocks, either
+    staging) gives packed_split2_plain's bits: every element sums its terms
+    in k order from the staged A and B it should read."""
+    ah, al, bh, bl, ch, cl = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((m, k, bp), (m, k, bp), (k, n, bp), (k, n, bp),
+                  (m, n, bp), (m, n, bp)))
+    cins = (ch, cl) if beta else None
+    got = _tile_emulated("split2", (ah, al), (bh, bl), cins, grid=3, tma=tma)
+    want = smm_packed.packed_split2_plain(ah, al, bh, bl,
+                                          *(cins or (None, None)))
+    for g_, w_ in zip(got, want):
+        assert torch.isfinite(g_).all()
+        assert torch.equal(g_, w_), (g_ - w_).abs().max()
+
+
+@pytest.mark.parametrize("m,n,k,bp", [(23, 23, 23, 131), (5, 3, 7, 1000),
+                                      (16, 48, 8, 257), (2, 70, 3, 77)])
+@pytest.mark.parametrize("sched", ["split2_fast", "f32"])
+def test_tile_kernel_other_schedules_match_plain(rng, m, n, k, bp, sched):
+    """The same tiling under kernel 1's and kernel 2's (f32 in and out)
+    arithmetic, beta 0, TMA staging (the main path's)."""
+    ah, bh, bl = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((m, k, bp), (k, n, bp), (k, n, bp)))
+    if sched == "f32":
+        got = _tile_emulated("f32", (ah,), (bh,), None, grid=2, tma=True)[0]
+        want = smm_packed.packed_f32_plain(ah, bh, out_dtype=torch.float32)
+    else:
+        got = _tile_emulated(sched, (ah,), (bh, bl), None, grid=2,
+                             tma=True)[0]
+        want = smm_packed.packed_split2_fast_plain(ah, bh, bl)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got - want).abs().max()
+
+
+def test_packed_staging_checked_and_counted(monkeypatch):
+    """Each wrapper names the staging its planes take ("tma" for f32 planes
+    on 16 bytes with Bp % 4 == 0, "cp.async" for other f32 planes, "first"
+    for 16-bit inputs), passes its code to the C entry and counts it beside
+    ``launches``; the entry's refusal (-2) raises with nothing counted."""
+    f32 = torch.float32
+    a = torch.ones((3, 5, 8))
+    b = torch.ones((5, 4, 8))
+    a_off = torch.ones(3 * 5 * 8 + 1)[1:].view(3, 5, 8)
+    a_ragged, b_ragged = torch.ones((3, 5, 6)), torch.ones((5, 4, 6))
+    assert a.data_ptr() % 16 == 0 and a_off.data_ptr() % 16
+    assert smm_packed.staging(a, b) == "tma"
+    assert smm_packed.staging(a_off, b) == "cp.async"
+    assert smm_packed.staging(a_ragged, b_ragged) == "cp.async"
+    assert smm_packed.staging(a.bfloat16(), b.bfloat16()) == "first"
+    calls = []
+
+    def entry(rc):
+        def record(*args):
+            calls.append(args[-3])  # the staging code
+            return rc
+        return types.SimpleNamespace(xsmm_packed_f32=record,
+                                     xsmm_packed_split2_fast=record,
+                                     xsmm_packed_split2=record)
+
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *s, device=None, **kw: empty(*s, **kw))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(smm_packed, "_lib", lambda: entry(0))
+    smm_packed.reset_launches()
+    smm_packed.packed_split2(a, a, b, b)
+    smm_packed.packed_split2_fast(a_off, b, b)
+    smm_packed.packed_f32(a_ragged, b_ragged, out_dtype=f32)
+    smm_packed.packed_f32(a.bfloat16(), b.bfloat16(), out_dtype=f32)
+    assert calls == [0, 1, 1, 2]
+    assert smm_packed.launches == {"packed_f32": 2, "packed_split2_fast": 1,
+                                   "packed_split2": 1}
+    assert smm_packed.staging_launches == {"tma": 1, "cp.async": 2,
+                                           "first": 1}
+    monkeypatch.setattr(smm_packed, "_lib", lambda: entry(-2))
+    with pytest.raises(ValueError, match="staging does not fit"):
+        smm_packed.packed_split2(a, a, b, b)
+    with pytest.raises(ValueError, match="staging does not fit"):
+        smm_packed.packed_f32(a.bfloat16(), b.bfloat16(), out_dtype=f32)
+    assert sum(smm_packed.launches.values()) == 4
+    assert sum(smm_packed.staging_launches.values()) == 4
+    smm_packed.reset_launches()
+    assert set(smm_packed.staging_launches.values()) == {0}

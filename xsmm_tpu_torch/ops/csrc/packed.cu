@@ -53,11 +53,16 @@
 //       and the kernel ran at 0.19 of its bound (0.62 ms at 16/16, B =
 //       131072; staged: 0.18 ms).  The columns are independent after that
 //       one barrier.
-//   * Larger sizes, getrf: one block per problem, the matrix in dynamic
-//     shared memory, the block's threads spread over the trailing update.
-//     Each element read from the pack lands in a sector of its own;
-//     consecutive blockIdx are consecutive problems, so blocks that run
-//     together share lines in L2.
+//   * Larger sizes, getrf (kernel 12; also kernel 11 where the knob sends
+//     it): at 65 <= min(M, N), max(M, N) <= 128, the "tile" route
+//     (getrf_tile): one block per problem, right-looking over a register
+//     tile, one barrier a step, clusters for the load and store.  Every
+//     other size, and kernel 11 above 64, takes the "shared" route
+//     (getrf_shared): one block per problem, the matrix in dynamic shared
+//     memory, the block's threads spread over the trailing update.  Each
+//     element read from the pack lands in a sector of its own; consecutive
+//     blockIdx are consecutive problems, so blocks that run together share
+//     lines in L2.
 //   * Larger sizes, trsm (kernel 14; the first design, one thread a column
 //     running the left-looking sum, A and X in 126 KB of shared memory, one
 //     block an SM, ran 5.29 ms at 125/125, B = 4096): one block per problem
@@ -149,8 +154,9 @@ getrf_reg(const float* __restrict__ a, float* __restrict__ o, int m, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 12 (RECIP = false), and kernel 11 above the register buckets (RECIP
-// = true): one block per problem, the matrix in shared memory [M][N].
+// Kernel 12's "shared" route (RECIP = false), and kernel 11 above the
+// register buckets (RECIP = true): one block per problem, the matrix in
+// shared memory [M][N].
 // ---------------------------------------------------------------------------
 template <bool RECIP>
 __global__ void __launch_bounds__(GETRF_THREADS)
@@ -180,6 +186,239 @@ getrf_shared(const float* __restrict__ a, float* __restrict__ o, int m, int n,
     __syncthreads();
   }
   for (int e = tid; e < m * n; e += nt) o[(long long)e * bp + b] = s[e];
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 12 at 65 <= min(M, N), max(M, N) <= 128 (the "tile" route; the
+// first design, getrf_shared above, keeps every other size and ran 3.64 ms
+// at 125 x 125, B = 4096, three shared accesses an update and two barriers
+// a step): one block of GT_NW warps per problem, right-looking over a
+// register tile.  Thread (warp w, lane x) holds rows w + GT_NW*q (q < GT_Q)
+// and columns x + 32*c (c < GT_C) of the 128 x 128 padded matrix, so the
+// shrinking trailing block stays spread over every warp and lane.  A group
+// of rows or columns that the factorization has left behind is skipped: the
+// pair of counts is block-uniform, and a switch picks a body compiled for it
+// (getrf_tile_step), so no element of the update is tested; the dead and pad
+// elements of a live group take their terms anyway (nobody reads them
+// again).  Step k needs R_k (row k of U) and C_k (the multipliers of column
+// k): both lie in the shared matrix s, which fills with LU as its rows and
+// columns become final, so the update makes one shared load a row and one a
+// column for its GT_Q * GT_C terms, O(n) shared traffic a step.  One
+// barrier a step:
+//   * C_{k+1} is made during step k.  The owner lanes of column k+1 put it in
+//     pcol a step ahead (its values after k updates), so any thread can take
+//     its step-k term and divide: threads 0.. take rows k+2.. (pivot
+//     a[k+1,k+1] = pcol[k+1] - C_k[k+1] * R_k[k+1], the owner's own
+//     arithmetic, so the bits agree);
+//   * the owner warp of row k+1 writes R_{k+1} after its update;
+//   * the owner lanes of column k+2 write pcol for step k+1 (two buffers).
+// No location is written and read in the same step (tests/test_torch_packed
+// emulates the schedule and checks that).  The load and store go through
+// clusters of GT_CLUSTER neighbouring problems, as trsm_shared's (on the
+// H100, clusters of 2 beat 4 and 8, whose blocks wait longer for the
+// cluster's slowest, and no cluster at all, whose 4-byte loads each take a
+// sector of their own).
+// ---------------------------------------------------------------------------
+constexpr int GT_NW = 16;            // warps of the tile getrf
+constexpr int GT_Q = 128 / GT_NW;    // rows a thread holds: w + GT_NW * q
+constexpr int GT_C = 4;              // columns a lane holds: x + 32 * c
+constexpr int GT_LD = 129;           // row stride of the shared matrix (odd:
+                                     // a column is read without conflicts)
+constexpr int GT_MINB = 2;           // blocks an SM the registers must allow
+constexpr int GT_CLUSTER = 2;        // neighbouring problems (blocks) a
+                                     // cluster loads and stores together
+constexpr int GT_LU = 8;             // its loads in flight a thread
+constexpr int GT_MIN = 65;           // the tile route's min(M, N) ...
+constexpr int GT_MAX = 128;          // ... and max(M, N)
+
+// Step k's work on this thread's tile, with Q0 = (k + 1) / GT_NW row groups
+// and C0 = (k + 1) / 32 column groups left behind: both block-uniform and
+// fixed at compile time here (getrf_tile_rows picks the body), so nothing is
+// tested per element of the update:
+//   * the trailing update a[i,j] -= C_k[i] * R_k[j] (dead and pad elements
+//     of a live group take garbage);
+//   * R_{k+1} into `rownext` from its owner warp, whose row Q0 it is;
+//   * column k + 2 for step k + 1 into `pc` from its owner lane: column
+//     group C0, or C0 + 1 where k + 2 opens it.
+template <int Q0, int C0>
+__device__ __forceinline__ void getrf_tile_step(
+    float (&r)[GT_Q][GT_C], const float (&u)[GT_C], const float* col,
+    float* rownext, float* pc, int warp, int lane, int k, int m, int n,
+    int kend) {
+  float l[GT_Q];
+#pragma unroll
+  for (int q = Q0; q < GT_Q; ++q) l[q] = col[(warp + GT_NW * q) * GT_LD];
+#pragma unroll
+  for (int q = Q0; q < GT_Q; ++q) {
+#pragma unroll
+    for (int c = C0; c < GT_C; ++c)
+      r[q][c] = __fsub_rn(r[q][c], __fmul_rn(l[q], u[c]));
+  }
+  if (warp == (k + 1) % GT_NW) {
+#pragma unroll
+    for (int c = C0; c < GT_C; ++c) {
+      const int j = lane + 32 * c;
+      if ((c > C0 || j > k) && j < n) rownext[j] = r[Q0][c];
+    }
+  }
+  if (k + 2 < kend && lane == ((k + 2) & 31)) {
+    constexpr int C1 = C0 + 1 < GT_C ? C0 + 1 : C0;
+    const bool opens = ((k + 2) & 31) == 0;
+#pragma unroll
+    for (int q = Q0; q < GT_Q; ++q) {
+      const int i = warp + GT_NW * q;
+      if ((q > Q0 || i >= k + 2) && i < m) pc[i] = opens ? r[q][C1] : r[q][C0];
+    }
+  }
+}
+
+// the body of getrf_tile_step for qlo = (k + 1) / GT_NW
+template <int Q0, int C0>
+__device__ __forceinline__ void getrf_tile_rows(
+    int qlo, float (&r)[GT_Q][GT_C], const float (&u)[GT_C], const float* col,
+    float* rownext, float* pc, int warp, int lane, int k, int m, int n,
+    int kend) {
+  if constexpr (Q0 + 1 < GT_Q) {
+    if (qlo > Q0) {
+      getrf_tile_rows<Q0 + 1, C0>(qlo, r, u, col, rownext, pc, warp, lane, k,
+                                  m, n, kend);
+      return;
+    }
+  }
+  getrf_tile_step<Q0, C0>(r, u, col, rownext, pc, warp, lane, k, m, n, kend);
+}
+
+__global__ void __cluster_dims__(GT_CLUSTER, 1, 1)
+__launch_bounds__(GT_NW * 32, GT_MINB)
+getrf_tile(const float* __restrict__ a, float* __restrict__ o, int m, int n,
+           long long bp) {
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);  // [128][GT_LD]: A, then LU
+  float* pcol = s + 128 * GT_LD;               // [2][128]: a column ahead
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const long long b = blockIdx.x, b0 = b - rank;  // the cluster's problems
+  constexpr int nt = GT_NW * 32;
+  static_assert(nt >= 128, "a thread a row of the next column");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mn = m * n;
+  // the load and store: GT_CLUSTER threads share an element of the
+  // cluster's problems (neighbouring floats); block `rank` takes every
+  // GT_CLUSTER-th element
+  constexpr int stride = nt / GT_CLUSTER * GT_CLUSTER;
+  const int first = tid / GT_CLUSTER * GT_CLUSTER + rank;
+  const int p = tid % GT_CLUSTER;
+  const long long bq = b0 + p;
+  const bool on = bq < bp;
+
+  // -- the load: the cluster's problems an element at a time, each into its
+  // problem's block
+  cluster.sync();  // every block of the cluster runs before any writes to it
+  {
+    float* s_p = cluster.map_shared_rank(s, p);
+    for (int t0 = first; t0 < mn; t0 += GT_LU * stride) {
+      float v[GT_LU];
+#pragma unroll
+      for (int u = 0; u < GT_LU; ++u) {
+        const int t = t0 + u * stride;
+        v[u] = on && t < mn ? a[(long long)t * bp + bq] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < GT_LU; ++u) {
+        const int t = t0 + u * stride;
+        if (on && t < mn) {
+          const int i = t / n;
+          s_p[i * GT_LD + t - i * n] = v[u];
+        }
+      }
+    }
+  }
+  cluster.sync();
+
+  // -- the factorization (a block past the last problem has none)
+  if (b < bp) {
+    float r[GT_Q][GT_C];
+#pragma unroll
+    for (int q = 0; q < GT_Q; ++q) {
+      const int i = warp + GT_NW * q;
+#pragma unroll
+      for (int c = 0; c < GT_C; ++c) {
+        const int j = lane + 32 * c;
+        r[q][c] = i < m && j < n ? s[i * GT_LD + j] : 0.f;
+      }
+    }
+    const int kend = min(n, m - 1);  // steps k < min(M, N) with k + 1 < M
+    __syncthreads();  // every tile is read before C_0 overwrites column 0
+    // C_0 (R_0 is A's row 0, in place) and column 1 for step 0
+    for (int i = 1 + tid; i < m; i += nt) {
+      s[i * GT_LD] = __fdiv_rn(s[i * GT_LD], s[0]);
+      pcol[128 + i] = s[i * GT_LD + 1];
+    }
+    for (int k = 0; k < kend; ++k) {
+      __syncthreads();  // R_k, C_k and column k + 1 ahead are in
+      const float* rowk = s + k * GT_LD;
+      // C_{k+1}: row k + 2 + tid's step-k term, then its multiplier
+      if (const int i = k + 2 + tid; k + 1 < kend && i < m) {
+        const float* pc = pcol + ((k + 1) & 1) * 128;
+        const float u = rowk[k + 1];
+        const float piv =
+            __fsub_rn(pc[k + 1], __fmul_rn(s[(k + 1) * GT_LD + k], u));
+        const float t = __fsub_rn(pc[i], __fmul_rn(s[i * GT_LD + k], u));
+        s[i * GT_LD + k + 1] = __fdiv_rn(t, piv);
+      }
+      // the trailing update, R_{k+1} and column k + 2 ahead, over the
+      // groups of rows and columns not left behind (a group is left behind
+      // once all of it is <= k)
+      float u[GT_C];
+#pragma unroll
+      for (int c = 0; c < GT_C; ++c) u[c] = rowk[lane + 32 * c];
+      const int qlo = (k + 1) / GT_NW;
+      float* rownext = s + (k + 1) * GT_LD;
+      float* pc = pcol + (k & 1) * 128;
+      switch ((k + 1) >> 5) {
+        case 0:
+          getrf_tile_rows<0, 0>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
+                                m, n, kend);
+          break;
+        case 1:
+          getrf_tile_rows<0, 1>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
+                                m, n, kend);
+          break;
+        case 2:
+          getrf_tile_rows<0, 2>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
+                                m, n, kend);
+          break;
+        default:
+          getrf_tile_rows<0, 3>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
+                                m, n, kend);
+      }
+    }
+  }
+  cluster.sync();  // every LU is final in its block
+
+  // -- the store: as the load, whole sectors again
+  {
+    const float* s_p = cluster.map_shared_rank(s, p);
+    for (int t0 = first; t0 < mn; t0 += GT_LU * stride) {
+      float v[GT_LU];
+#pragma unroll
+      for (int u = 0; u < GT_LU; ++u) {
+        const int t = t0 + u * stride;
+        const int i = t / n;
+        v[u] = on && t < mn ? s_p[i * GT_LD + t - i * n] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < GT_LU; ++u) {
+        const int t = t0 + u * stride;
+        if (on && t < mn) o[(long long)t * bp + bq] = v[u];
+      }
+    }
+  }
+  // no block leaves while another reads its LU; the reads are done (their
+  // values went to the stores), so the arrival orders no memory and no
+  // block waits for its stores to drain
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -469,6 +708,20 @@ int launch_getrf_shared(const float* a, float* o, int m, int n, long long bp,
   return 0;
 }
 
+int launch_getrf_tile(const float* a, float* o, int m, int n, long long bp,
+                      cudaStream_t st) {
+  if ((m < n ? m : n) < GT_MIN || (m > n ? m : n) > GT_MAX) return -2;
+  const size_t smem = (128 * GT_LD + 2 * 128) * sizeof(float);
+  static_assert(GT_C == 4 && GT_Q * GT_NW == 128, "the tile is 128 x 128");
+  // whole clusters: blocks past the last problem load and factor nothing
+  const long long gx = (bp + GT_CLUSTER - 1) / GT_CLUSTER * GT_CLUSTER;
+  cudaFuncSetAttribute(getrf_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  getrf_tile<<<dim3((unsigned)gx), dim3(GT_NW * 32), smem, st>>>(a, o, m, n,
+                                                                bp);
+  return 0;
+}
+
 template <int NB>
 void launch_trsm_reg(const float* a, const float* b, float* x, int sm, int sn,
                      long long bp, bool unit, cudaStream_t st) {
@@ -524,10 +777,16 @@ extern "C" int xsmm_getrf_unrolled(const float* a, float* o, int m, int n,
   return (int)cudaGetLastError();
 }
 
+// route 0 ("shared"): getrf_shared, any size whose matrix fits a block's
+// shared memory; route 1 ("tile"): getrf_tile, -2 outside 65 <= min(M, N),
+// max(M, N) <= 128
 extern "C" int xsmm_getrf_loop(const float* a, float* o, int m, int n,
-                               long long bp, int device, void* stream) {
+                               long long bp, int route, int device,
+                               void* stream) {
   cudaSetDevice(device);
-  if (launch_getrf_shared<false>(a, o, m, n, bp, static_cast<cudaStream_t>(stream)))
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (route == 1 ? launch_getrf_tile(a, o, m, n, bp, st)
+                 : launch_getrf_shared<false>(a, o, m, n, bp, st))
     return -2;
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@
 //   A [M, K, Bp], B [K, N, Bp], C [M, N, Bp]
 // (the JAX package's packed layout, xsmm_tpu/ops/smm.py BatchedSMM).
 //
-// Kernels and the TPU kernels they replace (one template, three schedules):
+// Kernels and the TPU kernels they replace (two templates: packed_tile_kernel
+// for f32 planes, under the three schedules; packed_kernel, the first design,
+// for 16-bit inputs, under F32):
 //   F32         <- xsmm_tpu/ops/smm.py:193 _make_packed_kernel_f32
 //   SPLIT2_FAST <- xsmm_tpu/ops/smm.py:296 _make_packed_kernel_split2_fast
 //   SPLIT2      <- xsmm_tpu/ops/smm.py:251 _make_packed_kernel_split2
@@ -23,7 +25,10 @@
 //
 // Design (not the Pallas structure: no rank-1 slab updates, no lane tiles).
 // What it does about the bound is to move each A and B element from device
-// memory once, coalesced, and to write each C element once:
+// memory once, coalesced, and to write each C element once.  The tile
+// kernel (below, with its own notes) holds a 6 x 8 tile of C a thread for
+// 32 problems a warp, with a ring of TMA stages across persistent items;
+// packed_kernel, the first design, which 16-bit inputs take:
 //   * A block takes P = 16 neighbouring problems and up to MAX_ROWS rows of
 //     C, one thread per (problem b, row m): thread (b, m) owns
 //     C[m, n0:n0+NT, b] in registers.  A warp covers two rows of the 16
@@ -35,10 +40,9 @@
 //     shared memory by cp.async, double buffered, and every row warp reads
 //     it from there.
 //   * C is computed in register tiles of NT columns, looped over N (routing
-//     admits N in the thousands when M*K is small); the split schedules keep
-//     a second NT-wide tile for the lo sum.
-//   * Staging moves four neighbouring problems per cp.async (16 bytes for
-//     f32) when Bp % 4 == 0, one element at a time otherwise.
+//     admits N in the thousands when M*K is small).
+//   * Staging moves four neighbouring problems per cp.async (8 bytes) when
+//     Bp % 4 == 0, one element at a time otherwise.
 //   * Any Bp: lanes with b >= Bp stage nothing and store nothing.
 //
 // Numerics follow the Pallas kernels term by term, in the same k order:
@@ -53,12 +57,16 @@
 //   * SPLIT2: ch = sum ah*bh (+ ch_in), cl = sum (ah*bl + al*bh) (+ cl_in),
 //     both written out and joined in f64 by the caller.
 
+#include <cuda.h>  // CUtensorMap and its enums (the CUDA driver API's
+                   // entry point is taken through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -138,64 +146,52 @@ struct Planes {
   static constexpr int B = (S == F32) ? 1 : 2;
 };
 
-// Elements of one staging buffer: A planes [rows][KC][P], B planes [KC][NT][P].
-template <int S>
+// Elements of one staging buffer: A [rows][KC][P], B [KC][NT][P].
 __host__ __device__ __forceinline__ int buffer_elems(int rows) {
-  return Planes<S>::A * rows * KC * P + Planes<S>::B * KC * NT * P;
+  return rows * KC * P + KC * NT * P;
 }
 
 // Stage k chunk [k0, k0 + KC) of A (rows m0..) and B (columns n0..) for the
 // block's problems into `dst`, four problems per copy.  Out-of-range
 // elements are not written; no live thread reads them.
-template <int S, typename T>
-__device__ __forceinline__ void stage_chunk(T* dst, const T* a0, const T* a1,
-                                            const T* b0, const T* b1, int M,
-                                            int N, int K, long long Bp,
+template <typename T>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* a, const T* b,
+                                            int M, int N, int K, long long Bp,
                                             long long bbase, int m0, int n0,
                                             int k0, int rows, bool vec) {
   constexpr int V = P / 4;  // copies per row segment of P problems
   const int tid = threadIdx.y * P + threadIdx.x;
   const int nthreads = rows * P;
-  const int a_plane = rows * KC * P;
   for (int v = tid; v < rows * KC * V; v += nthreads) {
     const int row = v / (KC * V), kk = (v / V) % KC, q = 4 * (v % V);
     const int m = m0 + row, k = k0 + kk;
     if (m < M && k < K) {
       const long long g = ((long long)m * K + k) * Bp + bbase + q;
-      const int o = (row * KC + kk) * P + q;
-      stage4(dst + o, a0 + g, bbase + q, Bp, vec);
-      if constexpr (Planes<S>::A == 2)
-        stage4(dst + a_plane + o, a1 + g, bbase + q, Bp, vec);
+      stage4(dst + (row * KC + kk) * P + q, a + g, bbase + q, Bp, vec);
     }
   }
-  constexpr int b_plane = KC * NT * P;
-  T* db = dst + Planes<S>::A * a_plane;
+  T* db = dst + rows * KC * P;
   for (int v = tid; v < KC * NT * V; v += nthreads) {
     const int kk = v / (NT * V), j = (v / V) % NT, q = 4 * (v % V);
     const int k = k0 + kk, n = n0 + j;
     if (k < K && n < N) {
       const long long g = ((long long)k * N + n) * Bp + bbase + q;
-      const int o = (kk * NT + j) * P + q;
-      stage4(db + o, b0 + g, bbase + q, Bp, vec);
-      if constexpr (Planes<S>::B == 2)
-        stage4(db + b_plane + o, b1 + g, bbase + q, Bp, vec);
+      stage4(db + (kk * NT + j) * P + q, b + g, bbase + q, Bp, vec);
     }
   }
 }
 
-template <int S, typename TIn, typename TOut>
+// The first design, for 16-bit inputs under the F32 schedule
+template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(P * MAX_ROWS, MIN_BLOCKS)
-packed_kernel(const TIn* __restrict__ a0, const TIn* __restrict__ a1,
-              const TIn* __restrict__ b0, const TIn* __restrict__ b1,
-              const TOut* __restrict__ c0_in, const TOut* __restrict__ c1_in,
-              TOut* __restrict__ c0, TOut* __restrict__ c1, int M, int N,
-              int K, long long Bp, bool vec) {
+packed_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
+              const TOut* __restrict__ c_in, TOut* __restrict__ c, int M,
+              int N, int K, long long Bp, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TIn* smem = reinterpret_cast<TIn*>(smem_raw);
   const int rows = blockDim.y;
   const int a_plane = rows * KC * P;
-  constexpr int b_plane = KC * NT * P;
-  const int buf = buffer_elems<S>(rows);
+  const int buf = buffer_elems(rows);
   const long long bbase = (long long)blockIdx.x * P;
   const long long bi = bbase + threadIdx.x;
   const int nk = (K + KC - 1) / KC;
@@ -205,21 +201,18 @@ packed_kernel(const TIn* __restrict__ a0, const TIn* __restrict__ a1,
     const bool live = m < M && bi < Bp;
     for (int n0 = 0; n0 < N; n0 += NT) {
       const long long coff = ((long long)m * N + n0) * Bp + bi;
-      float acc0[NT], acc1[NT];
+      float acc[NT];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const bool in = c0_in != nullptr && live && n0 + j < N;
-        acc0[j] = in ? Num<TOut>::to_f(c0_in[coff + (long long)j * Bp]) : 0.f;
-        acc1[j] = (S == SPLIT2 && in) ? Num<TOut>::to_f(c1_in[coff + (long long)j * Bp])
-                                      : 0.f;
+        const bool in = c_in != nullptr && live && n0 + j < N;
+        acc[j] = in ? Num<TOut>::to_f(c_in[coff + (long long)j * Bp]) : 0.f;
       }
-      stage_chunk<S>(smem, a0, a1, b0, b1, M, N, K, Bp, bbase, m0, n0, 0, rows,
-                     vec);
+      stage_chunk(smem, a, b, M, N, K, Bp, bbase, m0, n0, 0, rows, vec);
       __pipeline_commit();
-      for (int c = 0; c < nk; ++c) {
-        if (c + 1 < nk) {
-          stage_chunk<S>(smem + ((c + 1) & 1) * buf, a0, a1, b0, b1, M, N, K,
-                         Bp, bbase, m0, n0, (c + 1) * KC, rows, vec);
+      for (int kc = 0; kc < nk; ++kc) {
+        if (kc + 1 < nk) {
+          stage_chunk(smem + ((kc + 1) & 1) * buf, a, b, M, N, K, Bp, bbase,
+                      m0, n0, (kc + 1) * KC, rows, vec);
           __pipeline_commit();
           __pipeline_wait_prior(1);
         } else {
@@ -227,28 +220,17 @@ packed_kernel(const TIn* __restrict__ a0, const TIn* __restrict__ a1,
         }
         __syncthreads();
         if (live) {
-          const TIn* As = smem + (c & 1) * buf + threadIdx.y * KC * P + threadIdx.x;
-          const TIn* Bs = smem + (c & 1) * buf + Planes<S>::A * a_plane + threadIdx.x;
-          const int kmax = min(KC, K - c * KC);
+          const TIn* As = smem + (kc & 1) * buf + threadIdx.y * KC * P + threadIdx.x;
+          const TIn* Bs = smem + (kc & 1) * buf + a_plane + threadIdx.x;
+          const int kmax = min(KC, K - kc * KC);
           for (int kk = 0; kk < kmax; ++kk) {
-            const float ah = Num<TIn>::to_f(As[kk * P]);
-            const float al = (S == SPLIT2) ? Num<TIn>::to_f(As[a_plane + kk * P]) : 0.f;
+            const float av = Num<TIn>::to_f(As[kk * P]);
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
               if (n0 + j < N) {
-                const float bh = Num<TIn>::to_f(Bs[(kk * NT + j) * P]);
-                if constexpr (S == F32) {
-                  const float p = Num<TOut>::round(__fmul_rn(ah, bh));
-                  acc0[j] = Num<TOut>::round(__fadd_rn(acc0[j], p));
-                } else {
-                  const float bl = Num<TIn>::to_f(Bs[b_plane + (kk * NT + j) * P]);
-                  acc0[j] = __fadd_rn(acc0[j], __fmul_rn(ah, bh));
-                  if constexpr (S == SPLIT2_FAST)
-                    acc1[j] = __fadd_rn(acc1[j], __fmul_rn(ah, bl));
-                  else
-                    acc1[j] = __fadd_rn(acc1[j], __fadd_rn(__fmul_rn(ah, bl),
-                                                           __fmul_rn(al, bh)));
-                }
+                const float p = Num<TOut>::round(
+                    __fmul_rn(av, Num<TIn>::to_f(Bs[(kk * NT + j) * P])));
+                acc[j] = Num<TOut>::round(__fadd_rn(acc[j], p));
               }
             }
           }
@@ -257,62 +239,402 @@ packed_kernel(const TIn* __restrict__ a0, const TIn* __restrict__ a1,
       }
       if (live) {
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          if (n0 + j < N) {
-            const long long o = coff + (long long)j * Bp;
-            if constexpr (S == F32) {
-              c0[o] = Num<TOut>::from_f(acc0[j]);
-            } else if constexpr (S == SPLIT2_FAST) {
-              c0[o] = __fadd_rn(acc0[j], acc1[j]);
-            } else {
-              c0[o] = acc0[j];
-              c1[o] = acc1[j];
-            }
-          }
-        }
+        for (int j = 0; j < NT; ++j)
+          if (n0 + j < N) c[coff + (long long)j * Bp] = Num<TOut>::from_f(acc[j]);
       }
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tile kernel, for f32 planes under every schedule (the first design,
+// packed_kernel above, ran kernel 3 in 0.926 ms at 23^3, B = 131072, kernel
+// 1 in 0.660 and kernel 2 in 0.480; it keeps 16-bit inputs, for which it
+// measured faster, 0.540 against 0.566 ms bf16 -> f32).  What held it back
+// was the shared-memory loads (two a term for six FP operations,
+// each thread re-reading B for its one row) and loads that did not overlap
+// the arithmetic (two stages, three k chunks a tile, the first never
+// overlapped).  Here:
+//   * a group of TP = 32 neighbouring problems is a warp's lanes, so every
+//     shared load brings 32 distinct words and every global access is a
+//     whole 128-byte line;
+//   * warp (rg, cg) of the RG x CG warps holds a TR x TC tile of C (rows
+//     m0 + rg*TR.., columns n0 + cg*TC..) for its lane's problem: per k it
+//     loads TR values of A and TC of B (each plane) for TR*TC terms;
+//   * persistent blocks walk a ring of STAGES k chunks (TKC k steps of A
+//     and B each) that runs on from one item (group, row pass, column pass)
+//     into the next, so the next item's first chunks are in flight during
+//     this item's last arithmetic and its store;
+//   * f32 planes that TMA can address (Bp % 4 == 0, planes on 16 bytes) are
+//     staged by TMA: one thread puts a chunk's boxes (A [TM][TKC][TP], B
+//     [TKC][TN][TP], zeros past the edges) in flight on the slot's mbarrier
+//     once every warp is done with the slot, and no other thread issues a
+//     load (with cp.async staging by every thread, a first version spent
+//     30 % of a block's time issuing copies, with no arithmetic beside
+//     them); other planes are staged by cp.async, one element a copy.
+// The sum of each element runs in k order as packed_kernel's, so the bits
+// are the same.
+// ---------------------------------------------------------------------------
+constexpr int TP = 32;           // problems a group: a warp's lanes
+constexpr int TR = 6;            // rows of C a thread holds
+constexpr int TC = 8;            // columns of C a thread holds
+constexpr int RG = 4;            // warps down a pass (RG * TR rows)
+constexpr int CG = 3;            // warps across a pass (CG * TC columns)
+constexpr int TKC = 4;           // k steps a stage
+constexpr int STAGES = 4;        // stages in the ring
+constexpr int TM = RG * TR, TN = CG * TC, TILE_THREADS = RG * CG * 32;
+
+// Elements of one stage: A planes [TM][TKC][TP], B planes [TKC][TN][TP].
+template <int S>
+__host__ __device__ constexpr int tile_stage_elems() {
+  return (Planes<S>::A * TM + Planes<S>::B * TN) * TKC * TP;
+}
+
+// the tensor maps of the planes for TMA (A planes [M][K][Bp], B [K][N][Bp];
+// unused planes left zero)
+struct TileMaps {
+  CUtensorMap a0, a1, b0, b1;
+};
+
+// Stage k chunk [k0, k0 + TKC) of A (rows m0..) and B (columns n0..) for
+// group g's problems into `dst` by cp.async, one element a copy (the planes
+// TMA cannot address).  Out-of-range elements are not written; no stored
+// result reads them.
+template <int S, typename T>
+__device__ __forceinline__ void tile_stage(T* dst, const T* a0, const T* a1,
+                                           const T* b0, const T* b1, int M,
+                                           int N, int K, long long Bp,
+                                           long long g, int m0, int n0,
+                                           int k0) {
+  constexpr int V = TP / 4;
+  constexpr int a_plane = TM * TKC * TP, b_plane = TKC * TN * TP;
+  const long long gb = g * TP;
+  for (int v = threadIdx.x; v < TM * TKC * V; v += TILE_THREADS) {
+    const int row = v / (TKC * V), kk = (v / V) % TKC, q = 4 * (v % V);
+    const int m = m0 + row, k = k0 + kk;
+    if (m < M && k < K) {
+      const long long o_g = ((long long)m * K + k) * Bp + gb + q;
+      const int o = (row * TKC + kk) * TP + q;
+      stage4(dst + o, a0 + o_g, gb + q, Bp, false);
+      if constexpr (Planes<S>::A == 2)
+        stage4(dst + a_plane + o, a1 + o_g, gb + q, Bp, false);
+    }
+  }
+  T* db = dst + Planes<S>::A * a_plane;
+  for (int v = threadIdx.x; v < TKC * TN * V; v += TILE_THREADS) {
+    const int kk = v / (TN * V), j = (v / V) % TN, q = 4 * (v % V);
+    const int k = k0 + kk, n = n0 + j;
+    if (k < K && n < N) {
+      const long long o_g = ((long long)k * N + n) * Bp + gb + q;
+      const int o = (kk * TN + j) * TP + q;
+      stage4(db + o, b0 + o_g, gb + q, Bp, false);
+      if constexpr (Planes<S>::B == 2)
+        stage4(db + b_plane + o, b1 + o_g, gb + q, Bp, false);
+    }
+  }
+}
+
+// The same chunk by TMA: the boxes of each plane, zeros past the edges,
+// completion counted on `bar` (one thread)
+template <int S, typename T>
+__device__ __forceinline__ void tile_stage_tma(T* dst, const TileMaps& maps,
+                                               uint64_t* bar, long long g,
+                                               int m0, int n0, int k0) {
+  constexpr int a_plane = TM * TKC * TP, b_plane = TKC * TN * TP;
+  const int gb = (int)(g * TP);
+  mbar_expect_tx(bar, tile_stage_elems<S>() * sizeof(T));
+  tma_load_3d(dst, &maps.a0, bar, gb, k0, m0);
+  if constexpr (Planes<S>::A == 2)
+    tma_load_3d(dst + a_plane, &maps.a1, bar, gb, k0, m0);
+  T* db = dst + Planes<S>::A * a_plane;
+  tma_load_3d(db, &maps.b0, bar, gb, n0, k0);
+  if constexpr (Planes<S>::B == 2)
+    tma_load_3d(db + b_plane, &maps.b1, bar, gb, n0, k0);
+}
+
+// item -> (group, m0, n0): items run group by group, row pass, column pass
+__device__ __forceinline__ void tile_item(long long item, int npm, int npn,
+                                          long long& g, int& m0, int& n0) {
+  const long long per = (long long)npm * npn;
+  g = item / per;
+  const int rest = (int)(item - g * per);
+  m0 = rest / npn * TM;
+  n0 = rest % npn * TN;
+}
+
+template <int S, typename TOut, bool TMA>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+packed_tile_kernel(const __grid_constant__ TileMaps maps,
+                   const float* __restrict__ a0, const float* __restrict__ a1,
+                   const float* __restrict__ b0, const float* __restrict__ b1,
+                   const TOut* __restrict__ c0_in,
+                   const TOut* __restrict__ c1_in, TOut* __restrict__ c0,
+                   TOut* __restrict__ c1, int M, int N, int K, long long Bp) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  constexpr int buf = tile_stage_elems<S>();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * buf);
+  constexpr int a_plane = TM * TKC * TP, b_plane = TKC * TN * TP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp / CG, cg = warp % CG;
+  const int npm = (M + TM - 1) / TM, npn = (N + TN - 1) / TN;
+  const int nk = (K + TKC - 1) / TKC;
+  const long long ngroups = (Bp + TP - 1) / TP;
+  const long long nitems = ngroups * npm * npn;
+  const long long mine =
+      blockIdx.x < nitems ? (nitems - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long nt = mine * nk;  // this block's chunks, in ring order
+
+  // chunk t of this block into its slot
+  auto stage = [&](long long t) {
+    long long g;
+    int m0, n0;
+    tile_item(blockIdx.x + t / nk * gridDim.x, npm, npn, g, m0, n0);
+    const int slot = (int)(t % STAGES);
+    if constexpr (TMA)
+      tile_stage_tma<S>(smem + slot * buf, maps, &full[slot], g, m0, n0,
+                        (int)(t % nk) * TKC);
+    else
+      tile_stage<S>(smem + slot * buf, a0, a1, b0, b1, M, N, K, Bp, g, m0, n0,
+                    (int)(t % nk) * TKC);
+  };
+  if constexpr (TMA) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int t = 0; t < STAGES && t < nt; ++t) stage(t);
+  } else {
+    for (int t = 0; t < STAGES - 1; ++t) {
+      if (t < nt) stage(t);
+      __pipeline_commit();
+    }
+  }
+
+  float acc0[TR][TC], acc1[TR][TC];
+  long long g = 0;
+  int m0 = 0, n0 = 0;
+  bool live = false;
+  for (long long t = 0; t < nt; ++t) {
+    const int slot = (int)(t % STAGES);
+    // -- the stage wait (cp.async: then the next stage's copies, into
+    // chunk t - 1's slot)
+    if constexpr (TMA) {
+      mbar_wait(&full[slot], (unsigned)(t / STAGES) & 1);
+    } else {
+      __pipeline_wait_prior(STAGES - 2);
+      __syncthreads();  // chunk t is in; every thread is done with t - 1
+      if (t + STAGES - 1 < nt) stage(t + STAGES - 1);
+      __pipeline_commit();
+    }
+    const int c = (int)(t % nk);
+    if (c == 0) {
+      tile_item(blockIdx.x + t / nk * gridDim.x, npm, npn, g, m0, n0);
+      live = m0 + rg * TR < M && n0 + cg * TC < N;  // warp-uniform
+      const long long b = g * TP + lane;
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int m = m0 + rg * TR + r, n = n0 + cg * TC + j;
+          const bool in = c0_in != nullptr && m < M && n < N && b < Bp;
+          const long long o = ((long long)m * N + n) * Bp + b;
+          acc0[r][j] = in ? Num<TOut>::to_f(c0_in[o]) : 0.f;
+          acc1[r][j] = (S == SPLIT2 && in) ? Num<TOut>::to_f(c1_in[o]) : 0.f;
+        }
+      }
+    }
+    // -- the arithmetic
+    if (live) {
+      const float* As = smem + slot * buf + rg * TR * TKC * TP + lane;
+      const float* Bs = smem + slot * buf + Planes<S>::A * a_plane +
+                      cg * TC * TP + lane;
+      const int kmax = min(TKC, K - c * TKC);
+#pragma unroll
+      for (int kk = 0; kk < TKC; ++kk) {
+        if (kk < kmax) {
+          float ah[TR], al[TR], bh[TC], bl[TC];
+#pragma unroll
+          for (int r = 0; r < TR; ++r) {
+            ah[r] = As[(r * TKC + kk) * TP];
+            al[r] = S == SPLIT2 ? As[a_plane + (r * TKC + kk) * TP] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            bh[j] = Bs[(kk * TN + j) * TP];
+            bl[j] = S != F32 ? Bs[b_plane + (kk * TN + j) * TP] : 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < TR; ++r) {
+#pragma unroll
+            for (int j = 0; j < TC; ++j) {
+              if constexpr (S == F32) {
+                const float p = Num<TOut>::round(__fmul_rn(ah[r], bh[j]));
+                acc0[r][j] = Num<TOut>::round(__fadd_rn(acc0[r][j], p));
+              } else {
+                acc0[r][j] = __fadd_rn(acc0[r][j], __fmul_rn(ah[r], bh[j]));
+                if constexpr (S == SPLIT2_FAST)
+                  acc1[r][j] = __fadd_rn(acc1[r][j], __fmul_rn(ah[r], bl[j]));
+                else
+                  acc1[r][j] = __fadd_rn(
+                      acc1[r][j], __fadd_rn(__fmul_rn(ah[r], bl[j]),
+                                            __fmul_rn(al[r], bh[j])));
+              }
+            }
+          }
+        }
+      }
+    }
+    // -- the store, after the item's last chunk
+    if (c == nk - 1 && live) {
+      const long long b = g * TP + lane;
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int m = m0 + rg * TR + r, n = n0 + cg * TC + j;
+          if (m < M && n < N && b < Bp) {
+            const long long o = ((long long)m * N + n) * Bp + b;
+            if constexpr (S == F32) {
+              c0[o] = Num<TOut>::from_f(acc0[r][j]);
+            } else if constexpr (S == SPLIT2_FAST) {
+              c0[o] = __fadd_rn(acc0[r][j], acc1[r][j]);
+            } else {
+              c0[o] = acc0[r][j];
+              c1[o] = acc1[r][j];
+            }
+          }
+        }
+      }
+    }
+    // -- TMA: the slot back to the ring once every warp is done with it
+    if constexpr (TMA) {
+      __syncthreads();
+      if (threadIdx.x == 0 && t + STAGES < nt) stage(t + STAGES);
+    }
+  }
+}
+
+// The map of an f32 plane [d2][d1][Bp] at p, boxes of [b2][b1][TP]; elements
+// past the edges read as zeros
+bool plane_map(CUtensorMap* map, const void* p, long long bp, int d1, int d2,
+               int b1, int b2) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)bp, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)bp * 4, (cuuint64_t)bp * 4 * d1};
+  const cuuint32_t box[3] = {TP, (cuuint32_t)b1, (cuuint32_t)b2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(p),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int S, typename TOut, bool TMA>
+int launch_tile_kernel(const TileMaps& maps, const float* a0, const float* a1,
+                       const float* b0, const float* b1, const TOut* c0_in,
+                       const TOut* c1_in, TOut* c0, TOut* c1, int m, int n,
+                       int k, long long bp, int device, cudaStream_t st) {
+  const size_t smem = (size_t)STAGES * tile_stage_elems<S>() * sizeof(float) +
+                      STAGES * sizeof(uint64_t);
+  auto kern = packed_tile_kernel<S, TOut, TMA>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TILE_THREADS,
+                                                smem);
+  const long long items = (bp + TP - 1) / TP * ((m + TM - 1) / TM) *
+                          ((n + TN - 1) / TN);
+  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (grid > items) grid = items;
+  kern<<<dim3((unsigned)grid), dim3(TILE_THREADS), smem, st>>>(
+      maps, a0, a1, b0, b1, c0_in, c1_in, c0, c1, m, n, k, bp);
+  return (int)cudaGetLastError();
+}
+
+// TMA where the planes are on 16 bytes with Bp % 4 == 0 (`vec`), else
+// cp.async; -2 where `vec` holds and a plane's tensor map cannot be encoded
+template <int S, typename TOut>
+int launch_tile(const float* a0, const float* a1, const float* b0,
+                const float* b1, const TOut* c0_in, const TOut* c1_in,
+                TOut* c0, TOut* c1, int m, int n, int k, long long bp,
+                bool vec, int device, cudaStream_t st) {
+  TileMaps maps = {};
+  if (!vec)
+    return launch_tile_kernel<S, TOut, false>(maps, a0, a1, b0, b1, c0_in,
+                                              c1_in, c0, c1, m, n, k, bp,
+                                              device, st);
+  if (!plane_map(&maps.a0, a0, bp, k, m, TKC, TM) ||
+      (Planes<S>::A == 2 && !plane_map(&maps.a1, a1, bp, k, m, TKC, TM)) ||
+      !plane_map(&maps.b0, b0, bp, n, k, TN, TKC) ||
+      (Planes<S>::B == 2 && !plane_map(&maps.b1, b1, bp, n, k, TN, TKC)))
+    return -2;
+  return launch_tile_kernel<S, TOut, true>(maps, a0, a1, b0, b1, c0_in, c1_in,
+                                           c0, c1, m, n, k, bp, device, st);
+}
+
+// The staging a launch takes, named by the caller (ops/smm_packed.py
+// STAGINGS) and checked here against the planes
+enum Staging { STAGE_TMA = 0, STAGE_CP_ASYNC = 1, STAGE_FIRST = 2 };
+
+// f32 planes take the tile kernel, 16-bit inputs the first design; -2 where
+// `staging` is not the one these planes take
 template <int S, typename TIn, typename TOut>
 int launch(const void* a0, const void* a1, const void* b0, const void* b1,
            const void* c0_in, const void* c1_in, void* c0, void* c1, int m,
-           int n, int k, long long bp, int device, void* stream) {
+           int n, int k, long long bp, int staging, int device, void* stream) {
   cudaSetDevice(device);
-  const int rows = m < MAX_ROWS ? m : MAX_ROWS;
-  const size_t smem = 2 * (size_t)buffer_elems<S>(rows) * sizeof(TIn);
-  // four-problem copies need Bp % 4 == 0 and planes aligned to 4 elements
+  // four-problem copies (and TMA) need Bp % 4 == 0 and planes aligned to 4
+  // elements
   const uintptr_t align = 4 * sizeof(TIn) - 1;
   const bool vec = bp % 4 == 0 &&
                    !(((uintptr_t)a0 | (uintptr_t)a1 | (uintptr_t)b0 | (uintptr_t)b1) & align);
-  auto kern = packed_kernel<S, TIn, TOut>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kern<<<dim3((unsigned)((bp + P - 1) / P)), dim3(P, rows), smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TIn*>(a0), static_cast<const TIn*>(a1),
-      static_cast<const TIn*>(b0), static_cast<const TIn*>(b1),
-      static_cast<const TOut*>(c0_in), static_cast<const TOut*>(c1_in),
-      static_cast<TOut*>(c0), static_cast<TOut*>(c1), m, n, k, bp, vec);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(TIn) == 4) {
+    if (staging != (vec ? STAGE_TMA : STAGE_CP_ASYNC)) return -2;
+    return launch_tile<S, TOut>(
+        static_cast<const float*>(a0), static_cast<const float*>(a1),
+        static_cast<const float*>(b0), static_cast<const float*>(b1),
+        static_cast<const TOut*>(c0_in), static_cast<const TOut*>(c1_in),
+        static_cast<TOut*>(c0), static_cast<TOut*>(c1), m, n, k, bp, vec,
+        device, static_cast<cudaStream_t>(stream));
+  } else {
+    static_assert(S == F32, "16-bit inputs take the F32 schedule only");
+    if (staging != STAGE_FIRST) return -2;
+    const int rows = m < MAX_ROWS ? m : MAX_ROWS;
+    const size_t smem = 2 * (size_t)buffer_elems(rows) * sizeof(TIn);
+    auto kern = packed_kernel<TIn, TOut>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    kern<<<dim3((unsigned)((bp + P - 1) / P)), dim3(P, rows), smem,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const TIn*>(a0), static_cast<const TIn*>(b0),
+        static_cast<const TOut*>(c0_in), static_cast<TOut*>(c0), m, n, k, bp,
+        vec);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename TIn>
 int launch_f32(int out_code, const void* a, const void* b, const void* cin,
-               void* c, int m, int n, int k, long long bp, int device,
-               void* stream) {
+               void* c, int m, int n, int k, long long bp, int staging,
+               int device, void* stream) {
   switch (out_code) {
     case CODE_F32:
       return launch<F32, TIn, float>(a, nullptr, b, nullptr, cin, nullptr, c,
-                                     nullptr, m, n, k, bp, device, stream);
+                                     nullptr, m, n, k, bp, staging, device,
+                                     stream);
     case CODE_BF16:
       return launch<F32, TIn, __nv_bfloat16>(a, nullptr, b, nullptr, cin,
                                              nullptr, c, nullptr, m, n, k, bp,
-                                             device, stream);
+                                             staging, device, stream);
     case CODE_F16:
       return launch<F32, TIn, __half>(a, nullptr, b, nullptr, cin, nullptr, c,
-                                      nullptr, m, n, k, bp, device, stream);
+                                      nullptr, m, n, k, bp, staging, device,
+                                      stream);
     default:
       return -1;
   }
@@ -322,20 +644,24 @@ int launch_f32(int out_code, const void* a, const void* b, const void* cin,
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t) on
 // device `device` and returns cudaGetLastError() (0 = launched); -1 means
-// a dtype code the kernel does not take.  `cin` (and `clin`) are null for
-// beta = 0.  Nothing is allocated and nothing synchronises.
+// a dtype code the kernel does not take, -2 (nothing launched) a `staging`
+// (enum Staging) other than the one the planes take, or planes whose TMA
+// tensor maps cannot be encoded.  `cin` (and `clin`) are null for beta = 0.
+// Nothing is allocated and nothing synchronises.
 extern "C" int xsmm_packed_f32(const void* a, const void* b, const void* cin,
                                void* c, int m, int n, int k, long long bp,
-                               int in_code, int out_code, int device,
-                               void* stream) {
+                               int in_code, int out_code, int staging,
+                               int device, void* stream) {
   switch (in_code) {
     case CODE_F32:
-      return launch_f32<float>(out_code, a, b, cin, c, m, n, k, bp, device, stream);
+      return launch_f32<float>(out_code, a, b, cin, c, m, n, k, bp, staging,
+                               device, stream);
     case CODE_BF16:
       return launch_f32<__nv_bfloat16>(out_code, a, b, cin, c, m, n, k, bp,
-                                       device, stream);
+                                       staging, device, stream);
     case CODE_F16:
-      return launch_f32<__half>(out_code, a, b, cin, c, m, n, k, bp, device, stream);
+      return launch_f32<__half>(out_code, a, b, cin, c, m, n, k, bp, staging,
+                                device, stream);
     default:
       return -1;
   }
@@ -344,16 +670,19 @@ extern "C" int xsmm_packed_f32(const void* a, const void* b, const void* cin,
 extern "C" int xsmm_packed_split2_fast(const float* ah, const float* bh,
                                        const float* bl, const float* cin,
                                        float* c, int m, int n, int k,
-                                       long long bp, int device, void* stream) {
+                                       long long bp, int staging, int device,
+                                       void* stream) {
   return launch<SPLIT2_FAST, float, float>(ah, nullptr, bh, bl, cin, nullptr, c,
-                                           nullptr, m, n, k, bp, device, stream);
+                                           nullptr, m, n, k, bp, staging,
+                                           device, stream);
 }
 
 extern "C" int xsmm_packed_split2(const float* ah, const float* al,
                                   const float* bh, const float* bl,
                                   const float* chin, const float* clin,
                                   float* ch, float* cl, int m, int n, int k,
-                                  long long bp, int device, void* stream) {
+                                  long long bp, int staging, int device,
+                                  void* stream) {
   return launch<SPLIT2, float, float>(ah, al, bh, bl, chin, clin, ch, cl, m, n,
-                                      k, bp, device, stream);
+                                      k, bp, staging, device, stream);
 }

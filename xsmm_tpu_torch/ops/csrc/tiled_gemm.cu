@@ -69,6 +69,8 @@
 
 #include <cstdint>
 
+#include "tma.cuh"
+
 namespace {
 
 // dtype codes of xsmm_tpu_torch/core/descriptors.py
@@ -467,9 +469,6 @@ constexpr int WG_SLAB = 64 * 128; // bytes of a 64-row (or 64-column) slab
 // of 8 k rows to the next
 constexpr int WG_B_LBO = WG_SLAB;
 constexpr int WG_B_SBO = 1024;
-// a wait that outlasts this many cycles (~9 s) traps: a lost arrival
-// fails the launch instead of hanging the card
-constexpr long long WG_WAIT_LIMIT = 1LL << 34;
 
 template <int BN>
 struct WgCfg {
@@ -481,60 +480,6 @@ struct WgCfg {
   static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES +
                                  2 * STAGES * sizeof(uint64_t) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// until the phase of parity `parity` of `bar` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_u32(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > WG_WAIT_LIMIT) __trap();
-}
-
-// the box of `map` at (c0 innermost, c1) into dst; completion counted on bar
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
 
 // wgmma's shared-memory matrix descriptor, 128-byte swizzle: start address,
 // leading and stride byte offsets, each in 16-byte units
@@ -788,27 +733,6 @@ int launch_gemm(void (*kern)(const TA*, const TA*, TOut*, int, int, int, int,
                                   split_cols(k, splits),
                                   splits > 1 ? (long long)m * n : 0LL);
   return (int)cudaGetLastError();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, once (null where it is missing)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // The tensor map of a row-major [rows, cols] 16-bit matrix at p, boxes of

@@ -66,9 +66,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where library ``name`` is built, keyed on its sources and flags."""
+    """Where library ``name`` is built, keyed on its sources, the shared
+    headers of ``csrc/`` and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES[name]:
+    for src in (*SOURCES[name], *sorted(
+            str(p.relative_to(_PKG)) for p in (_PKG / "csrc").glob("*.cuh"))):
         h.update((_PKG / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

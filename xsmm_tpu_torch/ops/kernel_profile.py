@@ -1,19 +1,23 @@
-"""Where the time of the tiled GEMM (kernel 4) and the packed loop TRSM
-(kernel 14) goes, on the card.
+"""Where the time of the tiled GEMM (kernel 4), the packed loop TRSM
+(kernel 14), the packed loop GETRF (kernel 12) and the batched SMM
+(kernels 1-3) goes, on the card.
 
-    python -m xsmm_tpu_torch.ops.kernel_profile [--kernel gemm|trsm|both]
-        [--variant base] [--variant WG_BN_WIDE=128] [--size 4096]
-        [--trsm 125,125,4096] [--quick]
+    python -m xsmm_tpu_torch.ops.kernel_profile
+        [--kernel gemm|trsm|both|getrf|smm] [--variant base]
+        [--variant WG_BN_WIDE=128] [--size 4096] [--trsm 125,125,4096]
+        [--getrf 125,125,4096] [--smm 23,23,23,131072] [--quick]
 
 For every variant (``base`` is the source as it is; any other is a
 comma-separated list of ``NAME=VALUE`` that rewrites the source's
 ``constexpr int NAME = ...;``) this builds two copies of
-``ops/csrc/tiled_gemm.cu`` (``--kernel gemm``) or ``ops/csrc/packed.cu``
-(``--kernel trsm``) into ``xsmm_tpu_torch/build/kernel_profile/``: one as it
-is, and one with ``clock64()`` stamps, taken by one thread of every block
-and summed over the block's loop.  It prints how many ``HGMMA`` (wgmma),
-``HMMA`` (mma.sync) and ``FFMA`` instructions ``cuobjdump -sass`` finds in
-each build, where the toolkit has ``cuobjdump``.  Then, for each variant:
+``ops/csrc/tiled_gemm.cu`` (``--kernel gemm``), ``ops/csrc/packed.cu``
+(``--kernel trsm`` or ``getrf``) or ``ops/csrc/smm_packed.cu`` (``--kernel
+smm``) into ``xsmm_tpu_torch/build/kernel_profile/``: one as it is, and one
+with ``clock64()`` stamps, taken by one thread of every block and summed
+over the block's loop (``both`` is gemm and trsm).  It prints how many
+``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and ``FFMA`` instructions
+``cuobjdump -sass`` finds in each build, where the toolkit has
+``cuobjdump``.  Then, for each variant:
 
 * gemm: holds every route (``tma`` and ``mma`` in bf16 and f16, ``simt``
   in f32) against ``gemm_plain`` on ragged and split-K shapes (1e-5
@@ -34,7 +38,24 @@ each build, where the toolkit has ``cuobjdump``.  Then, for each variant:
   ``torch.linalg.solve_triangular`` on the same problems in [B, SM, SN];
   prints the phases of a block (``load``; ``solve``, the solve's work
   seen by warp 0; ``store``; ``barrier``, warp 0's waits at the solve's
-  barriers).
+  barriers);
+* getrf: holds ``getrf_loop`` on each route (``tile`` and ``shared``) bit
+  for bit against ``getrf_loop_plain`` at ``--getrf`` and at every size the
+  card tests take above 64 (Bp 1000); times both routes at ``--getrf`` in
+  turns beside ``torch.linalg.lu_factor_ex(pivot=False)`` on the same
+  problems in [B, M, N]; prints the phases of the tile route's block
+  (``load``: the cluster's load; ``steps``: the tile, C_0 and the pivot
+  steps' work seen by warp 0; ``store``; ``barrier``: warp 0's waits at the
+  step barrier);
+* smm: holds the three schedules (``packed_split2``, ``packed_split2_fast``,
+  ``packed_f32`` in f32 and bf16) bit for bit against their plain versions
+  at the card tests' shapes, beta 0 and 1; times them at ``--smm`` in
+  turns (and ``packed_f32`` bf16 -> f32, bf16 -> bf16 and f32 -> bf16)
+  beside ``torch.bmm`` (f64 for the split schedules, f32 with TF32 off);
+  prints the phases of the tile kernel's persistent block (``wait``: for
+  the stage, with cp.async staging the barrier and the next stage's copies
+  too; ``arith``; ``store``; ``release``: with TMA staging the barrier
+  after a chunk and the refill of its slot).
 
 ``--quick`` checks and stops before the timings.  It needs a CUDA card and
 nvcc, and imports nothing of JAX.
@@ -123,6 +144,35 @@ _TRSM_STAMPS = [
 ]
 
 
+_GETRF_STAMPS = [
+    ("getrf_tile(const float* __restrict__ a", "// Kernel 13, SM <= NB",
+     [("  // -- the load: the cluster's problems",
+       "  PROF_BEGIN\n  // -- the load: the cluster's problems"),
+      ("  // -- the factorization", "  PROF_MARK(0)\n  // -- the factorization"),
+      ("      __syncthreads();  // R_k, C_k and column k + 1 ahead are in\n",
+       "      PROF_MARK(1)\n"
+       "      __syncthreads();  // R_k, C_k and column k + 1 ahead are in\n"
+       "      PROF_MARK(3)\n"),
+      ("  cluster.sync();  // every LU is final in its block\n",
+       "  PROF_MARK(1)\n  cluster.sync();  // every LU is final in its block\n"),
+      ("  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");\n}",
+       "  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");\n"
+       "  PROF_MARK(2)\n  PROF_END(0)\n}")]),
+]
+_SMM_STAMPS = [
+    ("packed_tile_kernel(const __grid_constant__ TileMaps maps",
+     "bool plane_map(",
+     [("  float acc0[TR][TC], acc1[TR][TC];\n",
+       "  PROF_BEGIN\n  float acc0[TR][TC], acc1[TR][TC];\n"),
+      ("    // -- the arithmetic\n", "    PROF_MARK(0)\n    // -- the arithmetic\n"),
+      ("    // -- the store, after the item's last chunk\n",
+       "    PROF_MARK(1)\n    // -- the store, after the item's last chunk\n"),
+      ("    // -- TMA: the slot back to the ring",
+       "    PROF_MARK(2)\n    // -- TMA: the slot back to the ring"),
+      ("    }\n  }\n}\n\n", "    }\n    PROF_MARK(3)\n  }\n  PROF_END(0)\n}\n\n")]),
+]
+
+
 def instrument(src: str, stamps) -> str:
     """``src`` with the stamps inside each kernel's text and the entry points
     that read them (raises if an anchor is gone)."""
@@ -152,8 +202,8 @@ def build(name: str, variants: List[str], stamps) -> Dict[tuple, Path]:
             cu = OUT_DIR / f"{name}_v{i}_{kind}.cu"
             cu.write_text(text)
             so = cu.with_suffix(".so")
-            cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                   str(so), str(cu)]
+            cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                   "-I", str(CSRC), "-o", str(so), str(cu)]
             procs[(v, kind)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), so)
@@ -166,7 +216,7 @@ def build(name: str, variants: List[str], stamps) -> Dict[tuple, Path]:
             print(f"build {name} {key[0]}: " + "; ".join(
                 line.strip() for line in log.splitlines()
                 if "registers" in line or "spill" in line.lower()
-                or "warning" in line.lower()))
+                or "warning" in line.lower() or "Compiling entry" in line))
         out[key] = so
     return out
 
@@ -197,7 +247,10 @@ def _phases(lib, run: Callable, names, blocks: int):
     prof = np.zeros(PROF_BLOCKS * 4, np.int64)
     lib.xsmm_prof_read(prof.ctypes.data)
     p = prof.reshape(PROF_BLOCKS, 4)[:min(blocks, PROF_BLOCKS)].astype(float)
-    tot = p[:, :len(names)].sum(axis=1).mean()
+    p = p[p.sum(axis=1) > 0]  # blocks that stamped (a grid may be smaller)
+    tot = p[:, :len(names)].sum(axis=1).mean() if len(p) else 0
+    if not tot:
+        return "no stamps (the stamped kernel did not run)"
     return ", ".join(f"{n} {p[:, i].mean():.0f} ({p[:, i].mean() / tot:.0%})"
                      for i, n in enumerate(names)) + \
         f" cycles a block ({tot / CLOCK_GHZ / 1e3:.1f} us)"
@@ -211,11 +264,13 @@ def main() -> int:
     from ..utils.timer import cuda_time_ms
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("gemm", "trsm", "both"),
-                    default="both")
+    ap.add_argument("--kernel", choices=("gemm", "trsm", "both", "getrf",
+                                         "smm"), default="both")
     ap.add_argument("--variant", action="append", default=None)
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--trsm", default="125,125,4096", help="SM,SN,B")
+    ap.add_argument("--getrf", default="125,125,4096", help="M,N,B")
+    ap.add_argument("--smm", default="23,23,23,131072", help="M,N,K,B")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -357,7 +412,159 @@ def main() -> int:
                     lib, cases[f"trsm_loop {sm}/{sn} B={bsz}"],
                     ("load", "solve", "store", "barrier"),
                     bsz * ((sn + 127) // 128)))
+
+    if args.kernel == "getrf":
+        profile_getrf(args, variants, randn, turns)
+    if args.kernel == "smm":
+        profile_smm(args, variants, randn, turns)
     return 0
+
+
+def _bits(label: str, got, want) -> None:
+    """Print and raise unless ``got`` equals ``want`` bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    ok = torch.equal(got, want) and bool(torch.isfinite(got).all())
+    print(f"  check {label}: {'bit-exact' if ok else 'FAIL'} (max "
+          f"{(got.double() - want.double()).abs().max().item():.2e})")
+    if not ok:
+        raise RuntimeError(f"{label}: kernel and plain version disagree")
+
+
+def profile_getrf(args, variants, randn, turns) -> None:
+    """The --kernel getrf part of the module docstring."""
+    import torch
+
+    from . import packed_kernels as pk
+
+    libs = build("packed", variants, _GETRF_STAMPS)
+
+    def use(v, kind):
+        cuda_build._LIBS["packed"] = ctypes.CDLL(str(libs[(v, kind)]))
+        pk._LIB = None
+        return pk._lib()
+
+    def lower(bsz, m, n):
+        a = randn(bsz, m, n) / m
+        idx = torch.arange(min(m, n), device=a.device)
+        a[:, idx, idx] += 1.0
+        return a
+
+    m, n, bsz = (int(x) for x in args.getrf.split(","))
+    a = lower(bsz, m, n)
+    pa = a.permute(1, 2, 0).contiguous()
+    small = {s: lower(1000, *s).permute(1, 2, 0).contiguous()
+             for s in ((65, 65), (70, 20), (80, 80), (100, 70), (70, 100),
+                       (128, 128), (140, 140))}
+    for v in variants:
+        use(v, "plain")
+        for x in [pa, *small.values()]:
+            for rt in ("tile", "shared"):
+                if rt == "tile" and pk.getrf_route(*x.shape[:2]) != "tile":
+                    continue
+                _bits(f"{v} getrf_loop {rt} {x.shape[0]}x{x.shape[1]} "
+                      f"Bp={x.shape[2]}", pk._getrf_loop(x, rt),
+                      pk.getrf_loop_plain(x))
+    if args.quick:
+        return
+    cases = {f"getrf_loop tile {m}x{n} B={bsz}":
+             lambda: pk._getrf_loop(pa, "tile"),
+             f"getrf_loop shared {m}x{n} B={bsz}":
+             lambda: pk._getrf_loop(pa, "shared"),
+             f"lu_factor_ex(pivot=False) {m}x{n} B={bsz}":
+             lambda: torch.linalg.lu_factor_ex(a, pivot=False)}
+    ms = turns(cases, use)
+    for v in variants:
+        for c in cases:
+            print(f"  {v:24s} {c:44s} "
+                  f"{' / '.join('%.4f' % t for t in ms[v][c])} ms")
+    for v in variants:
+        lib = use(v, "prof")
+        print(f"  {v}: getrf tile phases: " + _phases(
+            lib, cases[f"getrf_loop tile {m}x{n} B={bsz}"],
+            ("load", "steps", "store", "barrier"), (bsz + 7) // 8 * 8))
+
+
+def profile_smm(args, variants, randn, turns) -> None:
+    """The --kernel smm part of the module docstring."""
+    import torch
+
+    from . import smm_packed as sp
+
+    libs = build("smm_packed", variants, _SMM_STAMPS)
+
+    def use(v, kind):
+        cuda_build._LIBS["smm_packed"] = ctypes.CDLL(str(libs[(v, kind)]))
+        sp._LIB = None
+        return sp._lib()
+
+    def planes(*shapes, dtype=torch.float32):
+        return [randn(*s, dtype=dtype) for s in shapes]
+
+    shapes = [(23, 23, 23, 131), (1, 1, 1, 33), (5, 3, 7, 1000),
+              (13, 13, 13, 64), (16, 48, 8, 257), (64, 64, 64, 40),
+              (2, 70, 3, 77), (1, 2000, 1, 50)]
+    for v in variants:
+        use(v, "plain")
+        for m, n, k, bp in shapes:
+            ah, al, bh, bl, ch, cl = planes((m, k, bp), (m, k, bp), (k, n, bp),
+                                            (k, n, bp), (m, n, bp), (m, n, bp))
+            for beta in (0, 1):
+                cins = (ch, cl) if beta else (None, None)
+                got = sp.packed_split2(ah, al, bh, bl, *cins)
+                want = sp.packed_split2_plain(ah, al, bh, bl, *cins)
+                for i in range(2):
+                    _bits(f"{v} split2 {m}x{n}x{k} Bp={bp} beta={beta} "
+                          f"c{'hl'[i]}", got[i], want[i])
+                _bits(f"{v} split2_fast {m}x{n}x{k} Bp={bp} beta={beta}",
+                      sp.packed_split2_fast(ah, bh, bl, cins[0]),
+                      sp.packed_split2_fast_plain(ah, bh, bl, cins[0]))
+                for dt in (torch.float32, torch.bfloat16):
+                    x, y = ah.to(dt), bh.to(dt)
+                    c = None if not beta else ch.to(dt)
+                    _bits(f"{v} f32 {str(dt)[6:]} {m}x{n}x{k} Bp={bp} "
+                          f"beta={beta}", sp.packed_f32(x, y, c, out_dtype=dt),
+                          sp.packed_f32_plain(x, y, c, out_dtype=dt))
+    m, n, k, bsz = (int(x) for x in args.smm.split(","))
+    ah, al, bh, bl = planes((m, k, bsz), (m, k, bsz), (k, n, bsz),
+                            (k, n, bsz))
+    got = sp.packed_split2(ah, al, bh, bl)
+    want = sp.packed_split2_plain(ah, al, bh, bl)
+    for i in range(2):
+        _bits(f"split2 {m}x{n}x{k} B={bsz} c{'hl'[i]}", got[i], want[i])
+    del got, want
+    if args.quick:
+        return
+    a64, b64 = randn(bsz, m, k, dtype=torch.float64), randn(
+        bsz, k, n, dtype=torch.float64)
+    a32, b32 = a64.float(), b64.float()
+    a16, b16 = ah.bfloat16(), bh.bfloat16()
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {f"split2 {m}x{n}x{k} B={bsz}":
+             lambda: sp.packed_split2(ah, al, bh, bl),
+             f"split2_fast {m}x{n}x{k} B={bsz}":
+             lambda: sp.packed_split2_fast(ah, bh, bl),
+             f"f32 {m}x{n}x{k} B={bsz}":
+             lambda: sp.packed_f32(ah, bh, out_dtype=f32),
+             f"f32 bf16->f32 {m}x{n}x{k} B={bsz}":
+             lambda: sp.packed_f32(a16, b16, out_dtype=f32),
+             f"f32 bf16->bf16 {m}x{n}x{k} B={bsz}":
+             lambda: sp.packed_f32(a16, b16, out_dtype=bf16),
+             f"f32 f32->bf16 {m}x{n}x{k} B={bsz}":
+             lambda: sp.packed_f32(ah, bh, out_dtype=bf16),
+             "torch.bmm f64": lambda: torch.bmm(a64, b64),
+             "torch.bmm f32": lambda: torch.bmm(a32, b32)}
+    ms = turns(cases, use)
+    for v in variants:
+        for c in cases:
+            print(f"  {v:24s} {c:36s} "
+                  f"{' / '.join('%.4f' % t for t in ms[v][c])} ms")
+    for v in variants:
+        lib = use(v, "prof")
+        print(f"  {v}: split2 tile phases: " + _phases(
+            lib, cases[f"split2 {m}x{n}x{k} B={bsz}"],
+            ("wait", "arith", "store", "release"), PROF_BLOCKS))
 
 
 if __name__ == "__main__":

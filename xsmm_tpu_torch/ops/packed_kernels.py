@@ -21,6 +21,15 @@ kernels take sizes above the register buckets (64) through a block per
 problem with the matrix in shared memory; ``packed.cu`` alone decides what
 fits, and refuses sizes that do not fit a block's shared memory before any
 launch, which ``cuda_build.launch`` raises as ``ValueError``.
+
+Kernel 12 (``getrf_loop``) has two routes (``getrf_route``): "tile", a
+register tile a block, for 65 <= min(M, N) and max(M, N) <= 128 (the p = 4
+hexahedron's 125 x 125), and "shared", the matrix in shared memory, for
+every other size that fits.  ``_getrf_loop`` names the route (for the
+card tests and ``kernel_profile``, which hold each route against the plain
+version); the kernel refuses "tile" outside its sizes, which raises
+``ValueError`` with nothing launched.  Each launch also counts in
+``getrf_route_launches``.
 """
 
 from __future__ import annotations
@@ -36,12 +45,21 @@ from . import cuda_build
 launches: Dict[str, int] = {"getrf_unrolled": 0, "getrf_loop": 0,
                             "trsm_unrolled": 0, "trsm_loop": 0}
 
+# kernel 12's routes -> their codes in ops/csrc/packed.cu, and launches
+# since the last reset_launches() (each also counts in launches["getrf_loop"])
+GETRF_ROUTES = {"shared": 0, "tile": 1}
+getrf_route_launches: Dict[str, int] = dict.fromkeys(GETRF_ROUTES, 0)
+GETRF_TILE_SIZES = (65, 128)  # the tile route's min(M, N) and max(M, N)
+GETRF_TILE_REFUSED = ("the tile route takes 65 <= min(M, N) and max(M, N) <= "
+                      "128; nothing was launched")
+
 _LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, getrf_route_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -49,8 +67,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load("packed")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.xsmm_getrf_unrolled.argtypes = [p, p, i, i, ll, i, p]
+        lib.xsmm_getrf_loop.argtypes = [p, p, i, i, ll, i, i, p]
         for fn in (lib.xsmm_getrf_unrolled, lib.xsmm_getrf_loop):
-            fn.argtypes = [p, p, i, i, ll, i, p]
             fn.restype = ctypes.c_int
         for fn in (lib.xsmm_trsm_unrolled, lib.xsmm_trsm_loop):
             fn.argtypes = [p, p, p, i, i, ll, i, i, p]
@@ -142,17 +161,38 @@ def getrf_loop_plain(a: torch.Tensor) -> torch.Tensor:
     return o
 
 
+def getrf_route(m: int, n: int) -> str:
+    """The route a CUDA call of ``getrf_loop`` takes for M x N: "tile"
+    where 65 <= min(M, N) and max(M, N) <= 128, else "shared"."""
+    lo, hi = GETRF_TILE_SIZES
+    return "tile" if min(m, n) >= lo and max(m, n) <= hi else "shared"
+
+
 def getrf_loop(a: torch.Tensor) -> torch.Tensor:
-    """LU [M, N, Bp] of A [M, N, Bp], kernel 12's arithmetic."""
+    """LU [M, N, Bp] of A [M, N, Bp], kernel 12's arithmetic, on the card
+    on the route ``getrf_route(M, N)`` picks."""
+    return _getrf_loop(a, None)
+
+
+def _getrf_loop(a: torch.Tensor, route: Optional[str]) -> torch.Tensor:
+    """``getrf_loop`` on a named route (None: ``getrf_route(M, N)``); the
+    CPU ignores it."""
     _check("A", a)
+    if route is not None and route not in GETRF_ROUTES:
+        raise ValueError(f"route {route!r}: expected one of "
+                         f"{list(GETRF_ROUTES)}")
     if a.device.type == "cpu":
         return getrf_loop_plain(a)
     m, n, bp = a.shape
+    rt = route or getrf_route(m, n)
     o = torch.empty_like(a)
     if o.numel():
         cuda_build.launch(_lib().xsmm_getrf_loop, a.device, a.data_ptr(),
-                          o.data_ptr(), m, n, bp)
+                          o.data_ptr(), m, n, bp, GETRF_ROUTES[rt],
+                          refused=(GETRF_TILE_REFUSED if rt == "tile"
+                                   else None))
         launches["getrf_loop"] += 1
+        getrf_route_launches[rt] += 1
     return o
 
 

@@ -8,11 +8,19 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 
 * on CUDA tensors it allocates the outputs with ``torch.empty``, launches
   its kernel (``ops/csrc/smm_packed.cu``) on the current stream, raises if
-  the launch returned a CUDA error, and adds one to ``launches[name]``;
+  the launch returned a CUDA error, and adds one to ``launches[name]`` and
+  to ``staging_launches`` under the staging the launch took (``staging``);
 * on CPU tensors it runs its plain PyTorch version (``*_plain``), which
   repeats the kernel's arithmetic term by term in the same order.
 
 Any other device raises.  There is no fallback from a CUDA tensor.
+
+Stagings (``staging``): f32 planes take the tile kernel, staged by TMA
+("tma") where Bp % 4 == 0 and every input plane starts on 16 bytes, else by
+cp.async one element a copy ("cp.async"); 16-bit inputs take the first
+design ("first").  The wrapper names the staging and the C side checks it
+against the planes: a mismatch, or planes whose TMA tensor maps cannot be
+encoded, is refused with nothing launched and raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,13 @@ from . import cuda_build
 launches: Dict[str, int] = {"packed_f32": 0, "packed_split2_fast": 0,
                             "packed_split2": 0}
 
+# stagings -> their codes in ops/csrc/smm_packed.cu (enum Staging), and
+# launches since the last reset_launches() (each also counts in launches)
+STAGINGS = {"tma": 0, "cp.async": 1, "first": 2}
+staging_launches: Dict[str, int] = dict.fromkeys(STAGINGS, 0)
+STAGING_REFUSED = ("the staging does not fit the planes, or their TMA tensor "
+                   "maps could not be encoded; nothing was launched")
+
 # dtype codes of core/descriptors.py, for the types the f32 schedule takes
 _CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 
@@ -35,8 +50,9 @@ _LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, staging_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -44,11 +60,12 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load("smm_packed")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.xsmm_packed_f32.argtypes = [p, p, p, p, i, i, i, ll, i, i, i, p]
+        lib.xsmm_packed_f32.argtypes = [p, p, p, p, i, i, i, ll, i, i, i, i,
+                                        p]
         lib.xsmm_packed_split2_fast.argtypes = [p, p, p, p, p, i, i, i, ll,
-                                                i, p]
+                                                i, i, p]
         lib.xsmm_packed_split2.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                           ll, i, p]
+                                           ll, i, i, p]
         for fn in (lib.xsmm_packed_f32, lib.xsmm_packed_split2_fast,
                    lib.xsmm_packed_split2):
             fn.restype = ctypes.c_int
@@ -58,6 +75,27 @@ def _lib() -> ctypes.CDLL:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def staging(*planes: torch.Tensor) -> str:
+    """The staging a CUDA launch on these input planes (A and B, [.., ..,
+    Bp]) takes: "first" for 16-bit inputs; for f32 "tma" where Bp % 4 == 0
+    and every plane starts on 16 bytes, else "cp.async"."""
+    if planes[0].dtype != torch.float32:
+        return "first"
+    if planes[0].shape[2] % 4 or any(p.data_ptr() % 16 for p in planes):
+        return "cp.async"
+    return "tma"
+
+
+def _launch(fn, name: str, planes, *args) -> None:
+    """Launch ``fn(*args, staging code, ...)`` for kernel ``name`` on the
+    staging ``planes`` take, and count it."""
+    st = staging(*planes)
+    cuda_build.launch(fn, planes[0].device, *args, STAGINGS[st],
+                      refused=STAGING_REFUSED)
+    launches[name] += 1
+    staging_launches[st] += 1
 
 
 def _shapes(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -130,10 +168,9 @@ def packed_f32(a: torch.Tensor, b: torch.Tensor,
         return packed_f32_plain(a, b, cin, out_dtype=out_dtype)
     c = torch.empty((m, n, bp), dtype=out_dtype, device=a.device)
     if c.numel():
-        cuda_build.launch(_lib().xsmm_packed_f32, a.device, _ptr(a), _ptr(b),
-                          _ptr(cin), _ptr(c), m, n, k, bp, _CODES[a.dtype],
-                          _CODES[out_dtype])
-        launches["packed_f32"] += 1
+        _launch(_lib().xsmm_packed_f32, "packed_f32", (a, b), _ptr(a), _ptr(b),
+                _ptr(cin), _ptr(c), m, n, k, bp, _CODES[a.dtype],
+                _CODES[out_dtype])
     return c
 
 
@@ -165,9 +202,9 @@ def packed_split2_fast(ah: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor,
         return packed_split2_fast_plain(ah, bh, bl, cin)
     c = torch.empty((m, n, bp), dtype=f32, device=ah.device)
     if c.numel():
-        cuda_build.launch(_lib().xsmm_packed_split2_fast, ah.device, _ptr(ah),
-                          _ptr(bh), _ptr(bl), _ptr(cin), _ptr(c), m, n, k, bp)
-        launches["packed_split2_fast"] += 1
+        _launch(_lib().xsmm_packed_split2_fast, "packed_split2_fast",
+                (ah, bh, bl), _ptr(ah), _ptr(bh), _ptr(bl), _ptr(cin), _ptr(c),
+                m, n, k, bp)
     return c
 
 
@@ -208,8 +245,7 @@ def packed_split2(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,
     ch = torch.empty((m, n, bp), dtype=f32, device=ah.device)
     cl = torch.empty_like(ch)
     if ch.numel():
-        cuda_build.launch(_lib().xsmm_packed_split2, ah.device, _ptr(ah),
-                          _ptr(al), _ptr(bh), _ptr(bl), _ptr(chin), _ptr(clin),
-                          _ptr(ch), _ptr(cl), m, n, k, bp)
-        launches["packed_split2"] += 1
+        _launch(_lib().xsmm_packed_split2, "packed_split2", (ah, al, bh, bl),
+                _ptr(ah), _ptr(al), _ptr(bh), _ptr(bl), _ptr(chin), _ptr(clin),
+                _ptr(ch), _ptr(cl), m, n, k, bp)
     return ch, cl
