@@ -279,6 +279,7 @@ def test_sparse_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
 # ---------------------------------------------------------------------------
 
 from xsmm_tpu_torch.ops import tiled_gemm_kernels as tk  # noqa: E402
+from xsmm_tpu_torch.ops import cuda_build  # noqa: E402
 from xsmm_tpu_torch.ops import xcopy_kernels as xk  # noqa: E402
 
 # ragged M, N and K (1, 15, 17, 127, 129, 4095), K = 1, aligned and
@@ -353,6 +354,33 @@ def test_copy_misaligned(cuda, dtype, offset, count):
     # a byte view at an odd start: head and tail bytes around the vectors
     raw = base.view(torch.uint8)[offset * 3 + 1:]
     _same(xk.copy(raw), raw.clone())
+
+
+@pytest.mark.parametrize("count", [1, 15, 16, 17, (1 << 28) + 3])
+def test_copy_every_byte_offset(cuda, count):
+    """Kernel 9 on raw addresses: every source and destination byte offset
+    0-15 (so also pairs that share no 16-byte alignment), bit for bit
+    against ``clone`` of the same bytes, and no byte written outside the
+    destination (2^28 + 3 bytes at three offset pairs)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    src = torch.randint(0, 256, (count + 16,), generator=g, device=cuda,
+                        dtype=torch.uint8)
+    dst = torch.empty(count + 32, dtype=torch.uint8, device=cuda)
+    pairs = ([(a, b) for a in range(16) for b in range(16)]
+             if count < 1 << 20 else [(0, 0), (3, 3), (5, 12)])
+    lib = xk._lib()
+    for a, b in pairs:
+        dst.fill_(0xA5)
+        before = xk.launches["xcopy_copy"]
+        cuda_build.launch(lib.xsmm_copy, cuda, src.data_ptr() + a,
+                          dst.data_ptr() + b, count)
+        want = torch.full_like(dst, 0xA5)
+        want[b:b + count] = src[a:a + count].clone()
+        torch.cuda.synchronize()
+        assert torch.equal(dst, want), (a, b)
+        assert xk.launches["xcopy_copy"] == before   # counted by copy() only
+    del src, dst, want
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32,
@@ -713,6 +741,8 @@ def test_packed_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
 from xsmm_tpu_torch.dnn import CellType, RnnDesc, create_rnncell  # noqa: E402
 from xsmm_tpu_torch.dnn import rnn_seq as rs  # noqa: E402
 from xsmm_tpu_torch.dnn import rnncell  # noqa: E402
+from xsmm_tpu_torch.dnn.fault2_stress import (  # noqa: E402
+    cpu_products, cpu_state, rnn_cell_gold, rnn_diagnosis)
 
 # (T, N, K): lstm_driver's N and K; ragged N and K; T = 1; K below a block's
 # 16 units; N = 4100 at K = 512 needs several 32-row passes a block
@@ -800,99 +830,6 @@ def test_rnn_seq_beyond_envelope(cuda):
     assert torch.isfinite(hs).all()
 
 
-def _rnn_cell_gold(ct, x, w, r, b, h0, c0):
-    """The cell's recurrence in numpy f64 (``chip_smoke.rnn_gold``'s
-    arithmetic): hs, h_T and c_T (GRU and RNN return c0 as c_T)."""
-    x, w, r, b, h, c = (np.asarray(v, np.float64)
-                        for v in (x, w, r, b, h0, c0))
-    t, n, _ = x.shape
-    k = h.shape[1]
-    sig = lambda z: 1 / (1 + np.exp(-z))  # noqa: E731
-    zx = (x.reshape(t * n, -1) @ w + b).reshape(t, n, -1)
-    act = {CellType.RNN_RELU: lambda v: np.maximum(v, 0),
-           CellType.RNN_SIGMOID: sig, CellType.RNN_TANH: np.tanh}.get(ct)
-    hs = []
-    for ti in range(t):
-        if ct == CellType.LSTM:
-            z = zx[ti] + h @ r
-            i, g = sig(z[:, :k]), np.tanh(z[:, k:2 * k])
-            f, o = sig(z[:, 2 * k:3 * k]), sig(z[:, 3 * k:])
-            c = f * c + i * g
-            h = o * np.tanh(c)
-        elif ct == CellType.GRU:
-            zr = h @ r
-            ri = sig(zx[ti][:, :k] + zr[:, :k])
-            zi = sig(zx[ti][:, k:2 * k] + zr[:, k:2 * k])
-            gi = np.tanh(zx[ti][:, 2 * k:] + ri * zr[:, 2 * k:])
-            h = (1 - zi) * gi + zi * h
-        else:
-            h = act(zx[ti] + h @ r)
-        hs.append(h)
-    return np.stack(hs), h, c
-
-
-def _cpu_state():
-    """The CPU's threads, its f32 matmul precision in both APIs, and the
-    autocast and determinism switches."""
-    try:
-        legacy = torch.get_float32_matmul_precision()
-    except RuntimeError as e:  # the per-backend API was used
-        legacy = f"unreadable ({str(e).splitlines()[0][:60]})"
-    return (f"threads {torch.get_num_threads()}, f32 matmul precision "
-            f"{legacy}, mkldnn matmul fp32_precision "
-            f"{torch.backends.mkldnn.matmul.fp32_precision}, mkldnn "
-            f"fp32_precision {torch.backends.mkldnn.fp32_precision}, cpu "
-            f"autocast {torch.is_autocast_enabled('cpu')}, deterministic "
-            f"{torch.are_deterministic_algorithms_enabled()}")
-
-
-def _cpu_products(x, w, r, h0):
-    """The RNN's two CPU products, x@W and h0@R (the port's full-f32
-    ``_matmul``), against numpy f64, with oneDNN's and MKL's verbose output
-    on (pytest shows it with a failure), and the CPU state."""
-    t, n, c = x.shape
-    xc, wc, rc, hc = (torch.from_numpy(np.ascontiguousarray(v)) for v in
-                      (x.reshape(t * n, c), w, r, h0))
-    with torch.backends.mkldnn.verbose(torch.backends.mkldnn.VERBOSE_ON), \
-            torch.backends.mkl.verbose(torch.backends.mkl.VERBOSE_ON):
-        zx, hr = _matmul(xc, wc), _matmul(hc, rc)
-    errs = [_rel(got, torch.from_numpy(a.astype(np.float64)
-                                       @ b.astype(np.float64)))
-            for got, (a, b) in ((zx, (xc.numpy(), w)), (hr, (h0, r)))]
-    # tanh of the first step's argument (RNN_TANH), element by element
-    # against numpy's f64 tanh of the same f32 values
-    arg = zx[:n, :hr.shape[1]] + hr
-    th = (torch.tanh(arg).double() - torch.from_numpy(
-        np.tanh(arg.double().numpy()))).abs() / torch.from_numpy(
-        np.abs(np.tanh(arg.double().numpy())) + 1e-30)
-    bad = (th.max(dim=1).values > 1e-6).nonzero().flatten().tolist()
-    return (f"cpu x@W vs f64 {errs[0]:.3e}, h0@R vs f64 {errs[1]:.3e}, "
-            f"tanh worst relative {th.max().item():.3e} (rows beyond 1e-6: "
-            f"{bad[:16]}); " + _cpu_state())
-
-
-def _rnn_diagnosis(name, card, cpu, gold):
-    """Where the card and the CPU part on one tensor: each side's
-    rel-Frobenius error against the f64 gold (the side further from it is
-    the one that is off), the worst index and the three values there."""
-    card, cpu = card.double().numpy(), cpu.double().numpy()
-    idx = np.unravel_index(np.argmax(np.abs(card - cpu)), card.shape)
-    axes = "(t, n, k)" if card.ndim == 3 else "(n, k)"
-    e_card, e_cpu = (np.linalg.norm(v - gold) / np.linalg.norm(gold)
-                     for v in (card, cpu))
-    side = ("the card is off" if e_card > e_cpu else
-            "the cpu is off" if e_cpu > e_card else "both as far off")
-    # the rows (t, n) where the two part by more than f32 rounding, and the
-    # CPU's state
-    off = np.abs(card - cpu).reshape(-1, card.shape[-1]).max(axis=1) > 1e-6
-    return (f"{name}: card vs gold {e_card:.3e}, cpu vs gold {e_cpu:.3e} "
-            f"({side}); worst {axes} = "
-            f"{tuple(int(i) for i in idx)}: card {card[idx]!r}, cpu "
-            f"{cpu[idx]!r}, gold {gold[idx]!r}; {int(off.sum())} rows apart "
-            f"of {off.size}, first {np.flatnonzero(off).tolist()[:16]}; "
-            + _cpu_state())
-
-
 @pytest.mark.parametrize("ct", list(CellType))
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_rnncell_card_equals_cpu(cuda, ct, dt):
@@ -924,7 +861,7 @@ def test_rnncell_card_equals_cpu(cuda, ct, dt):
             assert sum(rs.launches.values()) == 2
             assert sum(rs.train_launches.values()) == int(g > 1)
         out[target] = [v.cpu() for v in fwd + (hs, h_t, c_t)]
-    gold = _rnn_cell_gold(ct, x, w, r, b, h0, c0) * 2  # forward, train
+    gold = rnn_cell_gold(ct, x, w, r, b, h0, c0) * 2  # forward, train
     names = ("forward hs", "forward h_T", "forward c_T", "forward_train hs",
              "forward_train h_t", "forward_train c_t")
     tol = 1e-5 if dt == "float32" else 1e-2
@@ -934,17 +871,17 @@ def test_rnncell_card_equals_cpu(cuda, ct, dt):
         assert got.dtype == want.dtype, name
         for side, v in (("card", got), ("cpu", want)):
             assert _rel(v, torch.from_numpy(gd)) <= gold_tol, (
-                f"{side} against gold: " + _rnn_diagnosis(name, got, want,
+                f"{side} against gold: " + rnn_diagnosis(name, got, want,
                                                           gd))
         if _rel(got, want) > tol:
             off.append(f"{_rel(got, want):.3e} > {tol:g}; "
-                       + _rnn_diagnosis(name, got, want, gd))
+                       + rnn_diagnosis(name, got, want, gd))
     if off:  # the CPU side again, right away, and its two products
         xp.set_config(target="cpu")
         again = create_rnncell(desc).forward(x, w, r, b, h0, c0)[0]
         off.append(f"cpu forward hs again: {_rel(again, out['cpu'][0]):.3e} "
                    f"from the first, {_rel(again, torch.from_numpy(gold[0])):.3e}"
-                   f" from gold; " + _cpu_products(x, w, r, h0))
+                   f" from gold; " + cpu_products(x, w, r, h0))
     assert not off, "\n".join(off)
 
 
@@ -957,8 +894,9 @@ from xsmm_tpu_torch.ops.smm import _matmul  # noqa: E402
 
 # (T, N, K): lstm_driver's N and K; ragged N and K; T = 1; K below a block's
 # 16 units; N = 4100 needs several 32-row passes a block
+# (3, 700, 256) and (2, 4100, 512) run the backward over several row chunks
 RNN_BWD_SHAPES = [(4, 128, 512), (5, 100, 300), (1, 3, 7), (3, 33, 65),
-                  (2, 4100, 512)]
+                  (2, 4100, 512), (3, 700, 256)]
 
 
 def _bwd_operands(dev, seed, t, n, k, gates, r_dt, act="tanh"):
@@ -1000,10 +938,14 @@ def _bwd_call(gates, ops, dz_dt, plain=False, act="tanh"):
 def test_rnn_seq_bwd_matches_plain(cuda, t, n, k, cell, r_dt):
     """Each backward kernel against its plain version, dz in R's dtype as
     the cell emits it (the simple RNN with sigmoid): f32 to 1e-5 (the
-    product sums in another order than cuBLAS), bf16 to 1e-3 (dz, dh0 and
-    dc0 are built to agree bit for bit; db sums in another order)."""
+    product sums in another order than cuBLAS), bf16 bit for bit (dz, dh0,
+    dc0 and db are summed in the kernel's order by the plain version)."""
+    _bwd_matches_plain(cuda, t, n, k, cell, r_dt)
+
+
+def _bwd_matches_plain(dev, t, n, k, cell, r_dt):
     gates = RNN_GATES[cell]
-    ops = _bwd_operands(cuda, 40, t, n, k, gates, r_dt, "sigmoid")
+    ops = _bwd_operands(dev, 40, t, n, k, gates, r_dt, "sigmoid")
     name = cell + "_seq_bwd"
     before = rs.bwd_launches[name]
     got = _bwd_call(gates, ops, r_dt, act="sigmoid")
@@ -1011,11 +953,43 @@ def test_rnn_seq_bwd_matches_plain(cuda, t, n, k, cell, r_dt):
     assert rs.bwd_launches[name] == before + 1
     want = _bwd_call(gates, ops, r_dt, plain=True, act="sigmoid")
     assert len(got) == len(want)
-    tol = 1e-5 if r_dt == torch.float32 else 1e-3
-    for g_, w_ in zip(got, want):
+    for i, (g_, w_) in enumerate(zip(got, want)):
         assert g_.shape == w_.shape and g_.dtype == w_.dtype
         assert torch.isfinite(g_.float()).all()
-        assert _rel(g_, w_) <= tol
+        if r_dt == torch.bfloat16:
+            assert torch.equal(g_, w_), (i, (g_.double() - w_.double()).abs()
+                                         .max().item())
+        else:
+            assert _rel(g_, w_) <= 1e-5
+
+
+@pytest.mark.parametrize("cell,k,r_dt", [("lstm", 832, torch.float32),
+                                         ("lstm", 1664, torch.bfloat16),
+                                         ("gru", 1109, torch.float32),
+                                         ("rnn", 2112, torch.float32)])
+def test_rnn_seq_bwd_envelope_edge_matches_plain(cuda, cell, k, r_dt):
+    """At the edge of the backward envelope: the LSTM with f32 R at K 832
+    and with bf16 R at K 1664 (its R^T slice held in bf16), the GRU with f32
+    R at K 1109, the simple RNN with f32 R at K 2112 (16 units a block,
+    where its 32-unit slice does not fit); each inside the envelope,
+    launched once, against its plain version as above."""
+    assert rs.seq_bwd_kernel_ok(40, k, RNN_GATES[cell],
+                                torch.tensor([], dtype=r_dt).element_size())
+    _bwd_matches_plain(cuda, 2, 40, k, cell, r_dt)
+
+
+@pytest.mark.parametrize("gates,k", [(4, 512), (3, 1109), (1, 2112)])
+def test_rnn_seq_bwd_scratch_is_one_row_chunk(cuda, gates, k):
+    """The backward's exchange buffer holds one row chunk of partials: the
+    same size at every N past a chunk's rows, and at most 32 MB (PBUF_MB
+    in rnn_seq.cu) or one pass of the grid, 2 x column blocks x resident
+    blocks x 512 f32 (one block an SM), whichever is larger."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sizes = [rs._bwd_scratch_floats(n, k, gates, 4, cuda.index)[1]
+             for n in (16384, 1 << 17, 1 << 20)]
+    cb = -(-k // (16 if gates > 1 or k > 1768 else 32))
+    assert sizes[0] == sizes[1] == sizes[2] <= max(
+        32 << 18, 2 * cb * sms * 512)
 
 
 @pytest.mark.parametrize("act", ["relu", "tanh"])
@@ -1452,7 +1426,7 @@ def test_rnn_tanh_cpu_forward_repeats_bit_identical(cuda):
     for target in ("cuda", "cpu"):
         xp.set_config(target=target)
         cells[target] = create_rnncell(desc)
-    gold = _rnn_cell_gold(CellType.RNN_TANH, x, w, r, b, h0, c0)[0]
+    gold = rnn_cell_gold(CellType.RNN_TANH, x, w, r, b, h0, c0)[0]
     xc, wc, rc, hc = (torch.from_numpy(v) for v in
                       (x.reshape(t * n, c), w, r, h0))
 
@@ -1463,7 +1437,7 @@ def test_rnn_tanh_cpu_forward_repeats_bit_identical(cuda):
 
     first = cpu_run()
     state0 = (f"hs vs gold {_rel(first[0], torch.from_numpy(gold)):.3e}; "
-              + _cpu_products(x, w, r, h0))
+              + cpu_products(x, w, r, h0))
     apart = []
     for rep in range(300):
         xp.set_config(target="cuda")
@@ -1480,7 +1454,7 @@ def test_rnn_tanh_cpu_forward_repeats_bit_identical(cuda):
             if name == "hs":
                 msg += (f"; vs gold: repeat {_rel(v, torch.from_numpy(gold)):.3e}"
                         f", first {_rel(v0, torch.from_numpy(gold)):.3e}")
-            apart.append(msg + f"; {_cpu_state()}")
+            apart.append(msg + f"; {cpu_state()}")
     assert not apart, (f"{len(apart)} repeats apart (first call: {state0}):\n"
                        + "\n".join(apart[:20]))
     # and the first call itself within the card test's gates (1e-5 for hs,

@@ -549,19 +549,29 @@ def test_types_match_the_jax_package():
                     for f in dataclasses.fields(getattr(pt, name))]), name
 
 
-def test_seq_profile_instruments_the_source():
+def test_seq_profile_instruments_the_source(tmp_path):
     """The card profiler (python -m xsmm_tpu_torch.dnn.seq_profile) finds
     its anchors in ops/csrc/rnn_seq.cu, the forward's and the backward's,
-    and its variants rewrite one constant each; nothing is built here."""
+    and its variants rewrite one constant each; a ``src=`` copy without the
+    anchors or the scratch entry point is timed without stamps and gets the
+    entry point; nothing is built here."""
     from xsmm_tpu_torch.dnn import seq_profile as sp
     src = sp.SOURCE.read_text()
     out = sp.instrument(src)
-    assert len(re.findall(r"STAMP\(t, \d\);", out)) == 5
-    assert len(re.findall(r"STAMP\(s, \d\);", out)) == 5
+    assert len(re.findall(r"(?<!B)STAMP\(t, \d\);", out)) == 5
+    assert len(re.findall(r"[BP]STAMP\(s, \d\);", out)) == 5
     assert "xsmm_prof_read" in out
     assert out.count("g_start[blockIdx.x * 2") == 4
-    assert sp.apply_settings(src, {"BKT": 64}).count(
-        "constexpr int BKT = 64;") == 1
+    assert sp.apply_settings(src, {"PCH": 8}).count(
+        "constexpr int PCH = 8;") == 1
+    assert sp.sources("base") == {"plain": src, "prof": out}
+    old = tmp_path / "rnn_seq.cu"
+    old.write_text(src.replace("  // -- the block's partial of dh_{t-1}",
+                               "  // partial").replace(
+        "extern \"C\" int xsmm_rnn_seq_bwd_scratch", "int unused_scratch"))
+    got = sp.sources(f"src={old}")
+    assert list(got) == ["plain"]
+    assert got["plain"].count("xsmm_rnn_seq_bwd_scratch(") == 1
     v = sp.apply_settings(src, sp.parse_variant("THREADS=256,RM=2,RB=8"))
     for line in ("constexpr int THREADS = 256;", "constexpr int RM = 2;",
                  "constexpr int RB = 8;"):
@@ -571,3 +581,6 @@ def test_seq_profile_instruments_the_source():
         sp.apply_settings(src, {"NOPE": 1})
     with pytest.raises(ValueError, match="anchor"):
         sp.instrument(src.replace("// -- the gate epilogue", "// epilogue"))
+    with pytest.raises(ValueError, match="anchor"):
+        sp.instrument(src.replace("  // -- the block's partial of dh_{t-1}",
+                                  "  // partial"))

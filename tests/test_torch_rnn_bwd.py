@@ -207,28 +207,119 @@ def test_bwd_plain_versions_match_f64_bptt():
         _close(want, got, PARITY, f"lstm_seq_bwd vs f64 {name}")
 
 
+def _f32_sum(a, b):
+    """a + b of f32 values, rounded once to f32 (through f64, exact here)."""
+    return (np.asarray(a, np.float64) + b).astype(np.float32)
+
+
 def test_bwd_bf16_product_sums_in_the_kernel_order():
     """With bf16 R^T the plain product rounds dz to bf16 and sums the exact
-    products in f32 in the backward kernels' order: k into partial sum
-    (k % 128) // 32, each in increasing k, the four added in order.  The
-    same bits as that order in f64 rounded to f32 after every step."""
+    products in f32 in the backward kernels' order: per block of 16 units
+    j0 .. j0+15 one chain over its positions g*K + j (g, then j), then the
+    blocks' partials added in block order.  The same bits as that order in
+    f64 rounded to f32 after every step (G 4, K 37: three blocks, the last
+    of 5 units)."""
     rng = np.random.default_rng(24)
-    dz = torch.from_numpy(rng.standard_normal((5, 300)).astype(np.float32))
-    rt = torch.from_numpy(rng.standard_normal((300, 7)).astype(np.float32)
+    g_, k = 4, 37
+    dz = torch.from_numpy(rng.standard_normal((5, g_ * k)).astype(np.float32))
+    rt = torch.from_numpy(rng.standard_normal((g_ * k, k)).astype(np.float32)
                           ).to(torch.bfloat16)
     got = rs._dz_rt(dz, rt.float(), True)
     dzb = dz.to(torch.bfloat16).double().numpy()
     rtb = rt.double().numpy()
-    parts = np.zeros((4, 5, 7), np.float32)
-    for k in range(300):
-        q = (k % 128) // 32
-        parts[q] = (parts[q].astype(np.float64)
-                    + dzb[:, k:k + 1] * rtb[k]).astype(np.float32)
-    want = parts[0]
-    for q in range(1, 4):
-        want = (want.astype(np.float64) + parts[q]).astype(np.float32)
+    want = None
+    for j0 in range(0, k, 16):
+        part = np.zeros((5, k), np.float32)
+        for g in range(g_):
+            for j in range(j0, min(j0 + 16, k)):
+                q = g * k + j
+                part = _f32_sum(part, dzb[:, q:q + 1] * rtb[q])
+        want = part if want is None else _f32_sum(want, part)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (rs.BWD_KT, rs.BWD_GROUPS) == (128, 4)
+
+
+# the backward kernels' (units a block owns, rows a pass) by gate count, as
+# rnn_seq.cu's BwdGeo sets them
+KERNEL_GEOMETRY = {4: (16, 32), 3: (16, 32), 1: (32, 16)}
+
+
+@pytest.mark.parametrize("gates,k", [(3, 7), (4, 20), (1, 5), (1, 33),
+                                     (1, 70)])
+def test_bwd_kernel_reduction_emulation_equals_dz_rt(gates, k):
+    """The backward kernel's product as it runs (rnn_seq.cu seq_bwd): each
+    column block's FMA chain over all of its G*BU positions in order, the
+    positions of units past K holding zeros (dz and R^T), rows padded to a
+    pass with zeros; then each block's (row, unit) adds the column blocks'
+    partials in block order, the first taken as it is.  Emulated in numpy
+    (f64, rounded to f32 after every step) at ragged shapes (G*K not a
+    multiple of the block's positions, K below one block or past it), it
+    equals ``_dz_rt`` bit for bit."""
+    rng = np.random.default_rng(46 + k)
+    n, units = 5, KERNEL_GEOMETRY[gates][0]
+    assert rs.BWD_UNITS[gates] == units
+    dz = torch.from_numpy(rng.standard_normal((n, gates * k)).astype(
+        np.float32))
+    rt = torch.from_numpy((rng.standard_normal((gates * k, k)) / 4).astype(
+        np.float32)).to(torch.bfloat16)
+    want = rs._dz_rt(dz, rt.float(), True).numpy()
+    dzb = dz.to(torch.bfloat16).double().numpy()
+    rtb = rt.double().numpy()
+    cb = -(-k // units)
+    passrows = KERNEL_GEOMETRY[gates][1]
+    rows = np.zeros((passrows, gates * k))
+    rows[:n] = dzb
+    partials = []
+    for cbi in range(cb):
+        tile = np.zeros((passrows, gates * units))  # the block's dz tile
+        rslice = np.zeros((gates * units, k))       # its R^T slice
+        for g in range(gates):
+            for u in range(units):
+                j = cbi * units + u
+                if j < k:
+                    tile[:, g * units + u] = rows[:, g * k + j]
+                    rslice[g * units + u] = rtb[g * k + j]
+        acc = np.zeros((passrows, k), np.float32)
+        for q in range(gates * units):              # the FMA chain
+            acc = _f32_sum(acc, tile[:, q:q + 1] * rslice[q])
+        partials.append(acc)
+    got = partials[0]
+    for part in partials[1:]:
+        got = _f32_sum(got, part)
+    np.testing.assert_array_equal(got[:n], want)
+
+
+@pytest.mark.parametrize("n", [5, 37, 64])
+def test_bwd_db_sums_in_the_kernel_order(n):
+    """The plain versions sum db as the backward kernels do, whatever their
+    launch plan: each step's rows by row group (a pass's rows, 16 for the
+    simple RNN; the group's rows in pairs, then the pairs in order, rows
+    past N zeros), each group over the steps t = T-1 .. 0, then the groups
+    in order.  Emulated in numpy (f64 rounded to f32 after every step) for
+    the simple RNN's plain backward at T 3, it is the same bits."""
+    rng = np.random.default_rng(47 + n)
+    t, k = 3, 6
+    dhs, hs = (torch.from_numpy(rng.standard_normal((t, n, k)).astype(
+        np.float32)) for _ in range(2))
+    hs = torch.tanh(hs)
+    rt = torch.from_numpy(rng.standard_normal((k, k)).astype(np.float32))
+    dz, _, db = rs.rnn_seq_bwd_plain(dhs, hs, torch.zeros(n, k), rt,
+                                     act="tanh")
+    rows = KERNEL_GEOMETRY[1][1]
+    groups = -(-n // rows)
+    run = None
+    for ti in reversed(range(t)):
+        x = np.zeros((groups * rows, k), np.float32)
+        x[:n] = dz[ti].numpy()
+        x = x.reshape(groups, rows // 2, 2, k)
+        pairs = _f32_sum(x[:, :, 0], x[:, :, 1])
+        step = pairs[:, 0]
+        for e in range(1, rows // 2):
+            step = _f32_sum(step, pairs[:, e])
+        run = step if run is None else _f32_sum(run, step)
+    want = run[0]
+    for row in run[1:]:
+        want = _f32_sum(want, row)
+    np.testing.assert_array_equal(db.numpy(), want[None])
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "dz_dt",

@@ -39,9 +39,9 @@ walk t = T-1 .. 0 over the forward's residuals ([T, N, K] f32) and R^T
 in f32 from the unrounded dz; they are counted in ``bwd_launches`` and
 routed by ``seq_bwd_kernel_ok``.  Their product dz @ R^T rounds dz to R's
 dtype, as the JAX ``_dot``; with bf16 R the exact products are summed in
-f32 in the kernel's order (``_dz_rt``), so kernel and plain version agree
-bit for bit on dz, dh0 and dc0, and to f32 rounding on db (summed in
-another order).
+f32 in the kernel's order (``_dz_rt``), and db is summed in the kernel's
+order at any N (``_db_groups``, ``_db``), so kernel and plain version
+agree bit for bit on dz, dh0, dc0 and db.
 """
 
 from __future__ import annotations
@@ -63,10 +63,15 @@ train_launches: Dict[str, int] = {"lstm_seq": 0, "gru_seq": 0}
 bwd_launches: Dict[str, int] = {"lstm_seq_bwd": 0, "gru_seq_bwd": 0,
                                 "rnn_seq_bwd": 0}
 
-# the backward kernels' order of the sum over k = 0 .. G*K-1 (rnn_seq.cu:
-# BKT, KGROUPS): k belongs to partial sum (k % 128) // 32, each partial sums
-# its k in increasing order, and the four are added in order
-BWD_KT, BWD_GROUPS = 128, 4
+# the backward kernels' orders (rnn_seq.cu: BwdGeo's BU, BROWS, by gate
+# count): dz @ R^T is summed per block of BWD_UNITS hidden units, over its
+# positions g*K + j (gate-major, j increasing) in one chain, and the blocks'
+# partial sums are added in block order; db sums each step's rows in groups
+# of BWD_ROWS (row pairs, then the pairs in order), each group over the
+# steps t = T-1 .. 0, then the groups in order.  (The simple RNN with f32 R
+# at K > 1768 takes 16 units x 32 rows; f32 is held to 1e-5, not its order.)
+BWD_UNITS = {4: 16, 3: 16, 1: 32}
+BWD_ROWS = {4: 32, 3: 32, 1: 16}
 
 # the simple RNN's activations: name -> (the kernel's code, torch function)
 ACTS = {"relu": (0, torch.relu), "sigmoid": (1, torch.sigmoid),
@@ -99,10 +104,11 @@ def _lib() -> ctypes.CDLL:
             i, i, i, i, p]
         lib.xsmm_rnn_seq_fits.argtypes = [i, i, i, i, i]
         lib.xsmm_rnn_seq_bwd_fits.argtypes = [i, i, i, i, i]
+        lib.xsmm_rnn_seq_bwd_scratch.argtypes = [i, i, i, i, p, i, p]
         for fn in (lib.xsmm_lstm_seq, lib.xsmm_gru_seq, lib.xsmm_rnn_seq,
                    lib.xsmm_lstm_seq_bwd, lib.xsmm_gru_seq_bwd,
                    lib.xsmm_rnn_seq_bwd, lib.xsmm_rnn_seq_fits,
-                   lib.xsmm_rnn_seq_bwd_fits):
+                   lib.xsmm_rnn_seq_bwd_fits, lib.xsmm_rnn_seq_bwd_scratch):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -368,21 +374,48 @@ def rnn_seq(zx: torch.Tensor, r: torch.Tensor, h0: torch.Tensor, *,
 def _dz_rt(dz: torch.Tensor, rt32: torch.Tensor, bf16: bool) -> torch.Tensor:
     """dz @ R^T as the JAX kernel's ``_dot`` (``rt32`` is R^T [G*K, K] in
     f32).  f32: the full-f32 product.  bf16: dz rounded to bf16, and the
-    exact products summed in f32 in the backward kernels' order: k goes to
-    partial sum (k % BWD_KT) // (BWD_KT // BWD_GROUPS), one addcmul a k in
-    increasing k, then the partials added in order."""
+    exact products summed in f32 in the backward kernels' order: for each
+    block of BWD_UNITS units j0 .. j0+15, a partial sum over its positions
+    g*K + j, one addcmul a position (g, then j, increasing), then the blocks'
+    partials added in block order."""
     if not bf16:
         return _matmul(dz, rt32)
+    k = rt32.shape[1]
+    gates = rt32.shape[0] // k
+    units = BWD_UNITS[gates]
     dzb = dz.to(torch.bfloat16).float()
-    parts = [torch.zeros((dz.shape[0], rt32.shape[1]), dtype=torch.float32,
-                         device=dz.device) for _ in range(BWD_GROUPS)]
-    for k in range(rt32.shape[0]):
-        parts[(k % BWD_KT) // (BWD_KT // BWD_GROUPS)].addcmul_(
-            dzb[:, k:k + 1], rt32[k])
-    out = parts[0]
-    for part in parts[1:]:
-        out = out + part
+    out = None
+    for j0 in range(0, k, units):
+        part = torch.zeros((dz.shape[0], k), dtype=torch.float32,
+                           device=dz.device)
+        for g in range(gates):
+            for q in range(g * k + j0, g * k + min(j0 + units, k)):
+                part.addcmul_(dzb[:, q:q + 1], rt32[q])
+        out = part if out is None else out + part
     return out
+
+
+def _db_groups(dz: torch.Tensor, gates: int) -> torch.Tensor:
+    """One step's db by row group of BWD_ROWS[G], [ceil(N/rows), G*K], in
+    the backward kernels' order: rows in pairs, then the pairs of a group in
+    order (rows past N are zeros)."""
+    n, rows = dz.shape[0], BWD_ROWS[gates]
+    x = dz.new_zeros(((n + rows - 1) // rows * rows, dz.shape[1]))
+    x[:n] = dz
+    x = x.view(-1, rows // 2, 2, dz.shape[1])
+    pairs = x[:, :, 0] + x[:, :, 1]
+    out = pairs[:, 0]
+    for e in range(1, rows // 2):
+        out = out + pairs[:, e]
+    return out
+
+
+def _db(groups: torch.Tensor) -> torch.Tensor:
+    """db [1, G*K] from the groups' sums over the steps, in group order."""
+    out = groups[0]
+    for row in groups[1:]:
+        out = out + row
+    return out[None]
 
 
 def _bwd_shapes(dhs, res, states, rt, gates: int, dz_dt) -> tuple:
@@ -410,13 +443,28 @@ def _bwd_shapes(dhs, res, states, rt, gates: int, dz_dt) -> tuple:
     return t, n, k
 
 
-def _bwd_scratch(n: int, k: int, gates: int, r_dt, dev: torch.device):
-    """The backward kernels' scratch: db's row-block partials
-    [ceil(N/32), G*K], the operand exchange [2, N, round_up(G*K, 4)] in R's
-    dtype, and the barrier word (zeroed by the entry point)."""
-    gk = gates * k
-    return (torch.empty(((n + 31) // 32, gk), dtype=torch.float32, device=dev),
-            torch.empty((2, n, (gk + 3) // 4 * 4), dtype=r_dt, device=dev),
+@functools.lru_cache(maxsize=256)
+def _bwd_scratch_floats(n: int, k: int, gates: int, r_itemsize: int,
+                        device: int) -> tuple:
+    floats = (ctypes.c_longlong * 2)()
+    cuda_build.launch(_lib().xsmm_rnn_seq_bwd_scratch,
+                      torch.device("cuda", device), n, k, gates, r_itemsize,
+                      ctypes.addressof(floats))
+    return floats[0], floats[1]
+
+
+def _bwd_scratch(n: int, k: int, gates: int, rt: torch.Tensor):
+    """The backward kernels' scratch on rt's card, of the sizes
+    ``xsmm_rnn_seq_bwd_scratch`` gives for the launch plan: db's row-group
+    sums and the column blocks' partial products of one row chunk (at most
+    32 MB, or one pass of the grid where that is larger, whatever N), flat
+    f32; and the barrier word (zeroed by the entry point).  Raises ValueError
+    outside the envelope, before any launch."""
+    dev = rt.device
+    dbp, pbuf = _bwd_scratch_floats(n, k, gates, rt.element_size(),
+                                    dev.index)
+    return (torch.empty((dbp,), dtype=torch.float32, device=dev),
+            torch.empty((pbuf,), dtype=torch.float32, device=dev),
             torch.empty((1,), dtype=torch.int32, device=dev))
 
 
@@ -442,10 +490,10 @@ def lstm_seq_bwd_plain(dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t, rt, *,
         dz = torch.cat([dc * g * i * (1.0 - i), dc * i * (1.0 - g * g),
                         dc * cp * f * (1.0 - f), do * o * (1.0 - o)], dim=1)
         dzs.append(dz.to(dz_dt))
-        db = dz.sum(0) if db is None else db + dz.sum(0)
+        db = _db_groups(dz, 4) if db is None else db + _db_groups(dz, 4)
         dh_n = _dz_rt(dz, rt32, bf16)
         dc_n = dc * f
-    return torch.stack(dzs[::-1]), dh_n, dc_n, db[None]
+    return torch.stack(dzs[::-1]), dh_n, dc_n, _db(db)
 
 
 def lstm_seq_bwd(dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t, rt, *,
@@ -461,14 +509,14 @@ def lstm_seq_bwd(dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t, rt, *,
     dh0, dc0 = (torch.empty((n, k), dtype=torch.float32, device=dev)
                 for _ in range(2))
     db = torch.empty((1, 4 * k), dtype=torch.float32, device=dev)
-    dbp, xbuf, bar = _bwd_scratch(n, k, 4, rt.dtype, dev)
+    dbp, pbuf, bar = _bwd_scratch(n, k, 4, rt)
     cuda_build.launch(
         _lib().xsmm_lstm_seq_bwd, dev,
         *(x.data_ptr() for x in (dhs, is_, gs, fs, os_, cs, c0, dh_t, dc_t,
                                  rt)),
         int(rt.dtype == torch.bfloat16), dz.data_ptr(),
         int(dz_dt == torch.bfloat16),
-        *(x.data_ptr() for x in (dh0, dc0, db, dbp, xbuf, bar)), t, n, k)
+        *(x.data_ptr() for x in (dh0, dc0, db, dbp, pbuf, bar)), t, n, k)
     bwd_launches["lstm_seq_bwd"] += 1
     return dz, dh0, dc0, db
 
@@ -496,11 +544,11 @@ def gru_seq_bwd_plain(dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt, *,
         dzx = torch.cat([dri, dzi, dgi], dim=1)
         dzxs.append(dzx.to(dz_dt))
         dgiris.append(dgiri.to(dz_dt))
-        db = dzx.sum(0) if db is None else db + dzx.sum(0)
+        db = _db_groups(dzx, 3) if db is None else db + _db_groups(dzx, 3)
         dh_n = dh * zi + _dz_rt(torch.cat([dri, dzi, dgiri], dim=1), rt32,
                                 bf16)
     return (torch.stack(dzxs[::-1]), torch.stack(dgiris[::-1]), dh_n,
-            db[None])
+            _db(db))
 
 
 def gru_seq_bwd(dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt, *,
@@ -518,13 +566,13 @@ def gru_seq_bwd(dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt, *,
     dh0, carry = (torch.empty((n, k), dtype=torch.float32, device=dev)
                   for _ in range(2))
     db = torch.empty((1, 3 * k), dtype=torch.float32, device=dev)
-    dbp, xbuf, bar = _bwd_scratch(n, k, 3, rt.dtype, dev)
+    dbp, pbuf, bar = _bwd_scratch(n, k, 3, rt)
     cuda_build.launch(
         _lib().xsmm_gru_seq_bwd, dev,
         *(x.data_ptr() for x in (dhs, ris, zis, gis, zrgs, hs, h0, dh_t, rt)),
         int(rt.dtype == torch.bfloat16), dzx.data_ptr(), dgiri.data_ptr(),
         int(dz_dt == torch.bfloat16),
-        *(x.data_ptr() for x in (dh0, carry, db, dbp, xbuf, bar)), t, n, k)
+        *(x.data_ptr() for x in (dh0, carry, db, dbp, pbuf, bar)), t, n, k)
     bwd_launches["gru_seq_bwd"] += 1
     return dzx, dgiri, dh0, db
 
@@ -552,9 +600,9 @@ def rnn_seq_bwd_plain(dhs, hs, dh_t, rt, *, act: str, dz_dt=torch.float32):
     for t in reversed(range(dhs.shape[0])):
         dz = (dhs[t] + dh_n) * _dact(act, hs[t])
         dzs.append(dz.to(dz_dt))
-        db = dz.sum(0) if db is None else db + dz.sum(0)
+        db = _db_groups(dz, 1) if db is None else db + _db_groups(dz, 1)
         dh_n = _dz_rt(dz, rt32, bf16)
-    return torch.stack(dzs[::-1]), dh_n, db[None]
+    return torch.stack(dzs[::-1]), dh_n, _db(db)
 
 
 def rnn_seq_bwd(dhs, hs, dh_t, rt, *, act: str, dz_dt=torch.float32):
@@ -568,11 +616,11 @@ def rnn_seq_bwd(dhs, hs, dh_t, rt, *, act: str, dz_dt=torch.float32):
     dz = torch.empty((t, n, k), dtype=dz_dt, device=dev)
     dh0 = torch.empty((n, k), dtype=torch.float32, device=dev)
     db = torch.empty((1, k), dtype=torch.float32, device=dev)
-    dbp, xbuf, bar = _bwd_scratch(n, k, 1, rt.dtype, dev)
+    dbp, pbuf, bar = _bwd_scratch(n, k, 1, rt)
     cuda_build.launch(
         _lib().xsmm_rnn_seq_bwd, dev, dhs.data_ptr(), hs.data_ptr(),
         dh_t.data_ptr(), rt.data_ptr(), int(rt.dtype == torch.bfloat16),
         dz.data_ptr(), int(dz_dt == torch.bfloat16), code,
-        *(x.data_ptr() for x in (dh0, db, dbp, xbuf, bar)), t, n, k)
+        *(x.data_ptr() for x in (dh0, db, dbp, pbuf, bar)), t, n, k)
     bwd_launches["rnn_seq_bwd"] += 1
     return dz, dh0, db

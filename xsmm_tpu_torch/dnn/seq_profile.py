@@ -2,15 +2,20 @@
 
     python -m xsmm_tpu_torch.dnn.seq_profile [--shape 128,512,512,32]
         [--variant base] [--variant RB=8] [--variant THREADS=256,RM=2]
-        [--direction fwd|bwd|both]
+        [--variant src=PATH] [--direction fwd|bwd|both]
 
-For every variant (``base`` is ``ops/csrc/rnn_seq.cu`` as it is; any other
-is a comma-separated list of ``NAME=VALUE`` that rewrites the source's
-``constexpr int NAME = ...;``) this builds two copies of the source into
+For every variant (``base`` is ``ops/csrc/rnn_seq.cu`` as it is; ``src=PATH``
+is another copy of that source, e.g. a parent tree's, whose entry points
+take the same arguments; any other is a comma-separated list of
+``NAME=VALUE`` that rewrites the source's ``constexpr int NAME = ...;``)
+this builds two copies of the source into
 ``xsmm_tpu_torch/build/seq_profile/``: one as it is, and one with
 ``clock64()`` stamps at the phases of every step, taken by thread 0 of every
-block.  Then, at N, C, K, T = ``--shape`` for the LSTM, GRU and simple-RNN
-kernels in f32 and bf16, it
+block (a ``src=`` copy whose anchors differ is timed without stamps; one
+without ``xsmm_rnn_seq_bwd_scratch``, from before the row-chunked backward,
+gets it with the first backward design's scratch sizes).  Then, at N, C, K,
+T = ``--shape`` for the LSTM, GRU and simple-RNN kernels in f32 and bf16,
+it
 
 * times each variant's kernel with CUDA events, the variants in turns
   (a, b, ..., b, a), and holds its output against the plain version;
@@ -20,9 +25,14 @@ kernels in f32 and bf16, it
   ``barrier``: the grid barrier), and the one-time load of the R slice,
   at the card's peak SM clock.
 
-``--direction bwd`` does the same for the backward kernels (``product``:
-dz @ R^T over all chunks and the warps' sum; ``epi``: the gate-gradient
-epilogue), on random residuals with dz in R's dtype; ``both`` runs the two.
+``--direction bwd`` does the same for the backward kernels, on random
+residuals with dz in R's dtype, with the phases ``barrier`` (the grid
+barrier before the step), ``reduction`` (the column blocks' partials of dh
+loaded and added in order), ``epi`` (the gate-gradient epilogue, the dz
+tile and db's sums), ``product`` (the block's partial of dh_{t-1} and its
+stores) and ``store`` (the stores alone), in the first pass of the first
+row chunk.
+``both`` runs the two directions.
 
 It needs a CUDA card and nvcc, and imports nothing of JAX.
 """
@@ -53,24 +63,53 @@ _STAMPS = [
     ("    if (!last) grid_barrier(p.bar", "    STAMP(t, 3);\n"),
 ]
 _AFTER_BARRIER = "    if (!last) grid_barrier(p.bar, (unsigned)(t + 1) * gridDim.x);\n"
-# the backward kernel's, indexed by its step s (t = T-1-s)
+_FWD_PHASES = [("pre", 0, 1), ("product", 1, 2), ("epi", 2, 3),
+               ("barrier", 3, 4)]
+# The backward kernel's stamps, indexed by its step s (t = T-1-s): (anchor,
+# text inserted before it), the barrier's line after which slot 1 goes, and
+# the phases printed, (name, slot a, slot b) for the time from stamp a to
+# stamp b, or (name, slot, None) for a time summed in one slot.
 _BWD_STAMPS = [
-    ("  // -- R^T's columns j0 .. j0+15",
+    ("  // -- R^T's rows g*K + j0 + u of the block's positions",
      "  if (threadIdx.x == 0) g_start[blockIdx.x * 2] = clock64();\n"),
-    ("  const int first_row = rbi * p.passes * BROWS;\n",
+    ("  // The epilogue's operands of one (step t, pass) unit",
      "  if (threadIdx.x == 0) g_start[blockIdx.x * 2 + 1] = clock64();\n"),
-    ("    const RT* xin = static_cast<const RT*>(p.xbuf)", "    STAMP(s, 0);\n"),
-    ("      // -- dh_prev = dz_{t+1} @ R^T", "      STAMP(s, 1);\n"),
-    ("      if (t < 0) {  // the last product: dh0", "      STAMP(s, 2);\n"),
-    ("    if (t == 0) {  // the block's partial sums of db", "    STAMP(s, 3);\n"),
+    ("      // every block, with rows or not", "      BSTAMP(s, 0);\n"),
+    ("        if (t < 0) {  // the last product: dh0", "        PSTAMP(s, 2);\n"),
+    ("        // -- the block's partial of dh_{t-1}",
+     "        PSTAMP(s, 3);\n        long long _sto = 0, _c0 = 0;\n"),
+    ("#pragma unroll\n          for (int a = 0; a < TR; ++a) {\n"
+     "            const int n = n0 + tr * TR + a;\n",
+     "          _c0 = clock64();\n"),
+    ("        }\n        __syncthreads();  // the dz tile is consumed",
+     "          _sto += clock64() - _c0;\n"),
+    ("        __syncthreads();  // the dz tile is consumed",
+     "        PSTAMP(s, 5);\n"
+     "        if (ch == 0 && ps == 0 && threadIdx.x == 0 && s < 64)\n"
+     "          g_prof[(blockIdx.x * 64 + s) * 8 + 6] = _sto;\n"),
 ]
-_BWD_AFTER_BARRIER = ("    if (t >= 0) grid_barrier(p.bar, (unsigned)(s + 1) * "
-                      "gridDim.x);\n")
+_BWD_BARRIER = ("      if (s > 0 || ch > 0) grid_barrier(p.bar, ++barriers * "
+                "gridDim.x);\n")
+_BWD_PHASES = [("barrier", 0, 1), ("reduction", 1, 2), ("epi", 2, 3),
+               ("product", 3, 5), ("store", 6, None)]
+# appended to a source from before the row-chunked backward (which sized
+# its scratch in Python): that design's dbp [ceil(N/32), G*K] and exchange
+# [2, N, round_up(G*K, 4)] in R's dtype, here counted in f32
+_SCRATCH_SHIM = """
+extern "C" int xsmm_rnn_seq_bwd_scratch(int n, int k, int gates, int, long long* f, int,
+                                        void*) {
+  f[0] = (n + 31) / 32 * (long long)gates * k;
+  f[1] = 2LL * n * ((gates * k + 3) / 4 * 4);
+  return 0;
+}
+"""
 _HEAD = """namespace {
 __device__ long long g_prof[%d];
 __device__ long long g_start[1024];
 #define STAMP(t, i) if (threadIdx.x == 0 && (t) < 64) \\
   g_prof[(blockIdx.x * 64 + (t)) * 8 + (i)] = clock64();
+#define BSTAMP(s, i) if (ch == 0) STAMP(s, i)  // the backward's first row chunk
+#define PSTAMP(s, i) if (ch == 0 && ps == 0) STAMP(s, i)  // and its first pass
 """ % STAMPS
 _TAIL = """
 extern "C" int xsmm_prof_read(long long* prof, long long* start) {
@@ -97,18 +136,18 @@ def apply_settings(src: str, settings: Dict[str, int]) -> str:
 
 def instrument(src: str) -> str:
     """``src`` with the clock64() stamps and the entry points that read them
-    (raises if an anchor is gone from the source)."""
-    stamps = _STAMPS + _BWD_STAMPS
-    for anchor, _ in stamps + [("namespace {\n", "")]:
+    (raises ValueError if an anchor is gone from the source)."""
+    for anchor, _ in _STAMPS + _BWD_STAMPS + [("namespace {\n", "")]:
         if src.count(anchor) != 1:
             raise ValueError(f"anchor not found once in rnn_seq.cu: {anchor!r}")
     src = src.replace("namespace {\n", _HEAD, 1)
-    for anchor, text in stamps:
+    for anchor, text in _STAMPS + _BWD_STAMPS:
         src = src.replace(anchor, text + anchor)
-    for line, step in ((_AFTER_BARRIER, "t"), (_BWD_AFTER_BARRIER, "s")):
+    for line, stamp in ((_AFTER_BARRIER, "    STAMP(t, 4);\n"),
+                        (_BWD_BARRIER, "      BSTAMP(s, 1);\n")):
         if src.count(line) != 1:
             raise ValueError("a grid barrier's call is gone from rnn_seq.cu")
-        src = src.replace(line, line + f"    STAMP({step}, 4);\n")
+        src = src.replace(line, line + stamp)
     return src + _TAIL
 
 
@@ -119,15 +158,28 @@ def parse_variant(text: str) -> Dict[str, int]:
             (item.split("=") for item in text.split(","))}
 
 
+def sources(variant: str) -> Dict[str, str]:
+    """"plain" and "prof" -> the two sources of ``variant`` ("prof" left out
+    for a ``src=`` copy whose anchors differ)."""
+    if not variant.startswith("src="):
+        src = apply_settings(SOURCE.read_text(), parse_variant(variant))
+        return {"plain": src, "prof": instrument(src)}
+    src = Path(variant[4:]).read_text()
+    if 'extern "C" int xsmm_rnn_seq_bwd_scratch(' not in src:
+        src += _SCRATCH_SHIM
+    try:
+        return {"plain": src, "prof": instrument(src)}
+    except ValueError:
+        return {"plain": src}
+
+
 def build(variants: List[str]) -> Dict[tuple, ctypes.CDLL]:
     """(variant, "plain" | "prof") -> loaded library; one nvcc each, all
     started together."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    base = SOURCE.read_text()
     procs = {}
     for i, v in enumerate(variants):
-        src = apply_settings(base, parse_variant(v))
-        for kind, text in (("plain", src), ("prof", instrument(src))):
+        for kind, text in sources(v).items():
             cu = OUT_DIR / f"v{i}_{kind}.cu"
             cu.write_text(text)
             so = cu.with_suffix(".so")
@@ -173,6 +225,7 @@ def main() -> int:
         cuda_build._LIBS["rnn_seq"] = lib
         rs._LIB = None
         rs._fits.cache_clear()
+        rs._bwd_scratch_floats.cache_clear()
         rs._lib()
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -245,7 +298,15 @@ def main() -> int:
                 print(f"{direction} {cell} {str(rdt).removeprefix('torch.')} "
                       f"(turns {' '.join(variants + variants[::-1])})")
                 for v in variants:
-                    lib = libs[(v, "prof")]
+                    err, exact = checks[v]
+                    head = (f"  {v:18s} "
+                            f"{' / '.join('%.4f' % m for m in ms[v])} ms "
+                            f"({min(ms[v]) * 1e3 / t:.2f} us/step); vs plain "
+                            f"{err:.2e}{' bit-exact' if exact else ''}")
+                    lib = libs.get((v, "prof"))
+                    if lib is None:
+                        print(head + "; no stamps (its anchors differ)")
+                        continue
                     use(lib)
                     lib.xsmm_prof_zero.argtypes = [ctypes.c_void_p]
                     lib.xsmm_prof_read.argtypes = [ctypes.c_void_p,
@@ -264,18 +325,17 @@ def main() -> int:
                              else slice(1, min(t, 64)))
                     p = prof.reshape(512, 64, 8)[:grid, steps].astype(
                         np.float64) / (clock_ghz * 1e3)
-                    phases = {"pre": p[:, :, 1] - p[:, :, 0],
-                              "product": p[:, :, 2] - p[:, :, 1],
-                              "epi": p[:, :, 3] - p[:, :, 2],
-                              "barrier": p[:, :-1, 4] - p[:, :-1, 3]}
+                    table = (_FWD_PHASES if direction == "fwd" else
+                             _BWD_PHASES)
+                    # the last step has no barrier
+                    phases = {name: (p[:, :, a] if b is None else
+                                     (p[:, :-1, b] - p[:, :-1, a]) if b == 4
+                                     else p[:, :, b] - p[:, :, a])
+                              for name, a, b in table}
                     r_us = ((start[1::2] - start[0::2])[:grid]
                             / (clock_ghz * 1e3)).mean()
-                    err, exact = checks[v]
-                    print(f"  {v:18s} "
-                          f"{' / '.join('%.4f' % m for m in ms[v])} ms "
-                          f"({min(ms[v]) * 1e3 / t:.2f} us/step); vs plain "
-                          f"{err:.2e}{' bit-exact' if exact else ''}; grid "
-                          f"{grid}; R slice {r_us:.1f} us; " + ", ".join(
+                    print(head + f"; grid {grid}; R slice {r_us:.1f} us; "
+                          + ", ".join(
                               f"{name} {v_.mean():.2f}" for name, v_ in
                               phases.items() if v_.size) + " us a step")
     return 0

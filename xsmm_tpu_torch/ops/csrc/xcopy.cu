@@ -14,12 +14,19 @@
 // (transpose) VMEM blocks; those sizes are VMEM artifacts and are not kept.
 //
 // copy.  A byte mover: one kernel serves every dtype.  What it does about
-// the bound is to keep many wide loads in flight:
+// the bound is to have the whole grid sweep the data in order, as many
+// short blocks, each with its loads in flight before its stores:
 //   * 16-byte vector loads and stores where source and destination share
 //     their offset mod 16 (else the widest of 8, 4, 2, 1 bytes that they
-//     share), grid-stride, UNROLL loads issued before the first store;
+//     share);
+//   * block b copies tile b, COPY_THREADS x VPT vectors (8 KB of 16-byte
+//     vectors), neighbouring threads on neighbouring vectors; the blocks
+//     are dispatched in index order, so the SMs stream through memory
+//     together (measured on the H100: a span per persistent block, with or
+//     without streaming cache hints, and a cp.async.bulk ring through
+//     shared memory all ran 3-7 % slower; PERF.md);
 //   * a misaligned head (until the source is aligned to the vector) and a
-//     tail shorter than one vector are copied byte by byte in the kernel;
+//     tail shorter than one vector are copied byte by byte by block 0;
 //   * byte offsets are 64-bit.
 //
 // trans.  out[N, M] = in[M, N]^T through a TILE x TILE tile in shared
@@ -37,55 +44,51 @@
 namespace {
 
 constexpr int COPY_THREADS = 256;
-constexpr int UNROLL = 4;           // vector loads in flight per thread
-constexpr int BLOCKS_PER_SM = 8;
+constexpr int VPT = 2;              // vectors a thread has in flight
 
 constexpr int TILE = 32;
 constexpr int TILE_ROWS = 8;        // threadIdx.y extent: 4 elements a thread
 
+// Block b copies the tile of vectors [b * TV, (b + 1) * TV), TV =
+// COPY_THREADS x VPT: each thread issues its VPT loads (neighbouring threads
+// on neighbouring vectors) before its first store.  Block 0 also copies the
+// head and the tail, fewer than sizeof(V) bytes each, byte by byte.
 template <typename V>
 __global__ void __launch_bounds__(COPY_THREADS)
 copy_kernel(const unsigned char* __restrict__ src, unsigned char* __restrict__ dst,
             long long head, long long nvec, long long nbytes) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nthreads = (long long)gridDim.x * blockDim.x;
   const V* s = reinterpret_cast<const V*>(src + head);
   V* d = reinterpret_cast<V*>(dst + head);
-  long long i = tid;
-  for (; i + (UNROLL - 1) * nthreads < nvec; i += UNROLL * nthreads) {
-    V r[UNROLL];
+  constexpr long long TV = (long long)COPY_THREADS * VPT;
+  const long long i = (long long)blockIdx.x * TV + threadIdx.x;
+  V r[VPT];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) r[u] = s[i + u * nthreads];
+  for (int u = 0; u < VPT; ++u)
+    if (i + u * COPY_THREADS < nvec) r[u] = s[i + u * COPY_THREADS];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) d[i + u * nthreads] = r[u];
+  for (int u = 0; u < VPT; ++u)
+    if (i + u * COPY_THREADS < nvec) d[i + u * COPY_THREADS] = r[u];
+  if (blockIdx.x == 0) {
+    const long long tid = threadIdx.x;
+    const long long tail = head + nvec * (long long)sizeof(V);
+    if (tid < head) dst[tid] = src[tid];
+    if (tid < nbytes - tail) dst[tail + tid] = src[tail + tid];
   }
-  for (; i < nvec; i += nthreads) d[i] = s[i];
-  // head and tail: fewer than sizeof(V) bytes each
-  const long long tail = head + nvec * (long long)sizeof(V);
-  if (tid < head) dst[tid] = src[tid];
-  if (tid < nbytes - tail) dst[tail + tid] = src[tail + tid];
 }
 
 template <typename V>
-int launch_copy(const void* src, void* dst, long long nbytes, int device,
-                void* stream) {
+int launch_copy(const void* src, void* dst, long long nbytes, void* stream) {
   const long long w = sizeof(V);
   long long head = (long long)((w - ((uintptr_t)src & (w - 1))) & (w - 1));
   if (head > nbytes) head = nbytes;
   const long long nvec = (nbytes - head) / w;
-  int sms = 0;
-  cudaError_t rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                          device);
-  if (rc != cudaSuccess) return (int)rc;
-  long long blocks = (nvec + (long long)COPY_THREADS * UNROLL - 1) /
-                     ((long long)COPY_THREADS * UNROLL);
-  const long long cap = (long long)sms * BLOCKS_PER_SM;
-  if (blocks > cap) blocks = cap;
+  constexpr long long TV = (long long)COPY_THREADS * VPT;
+  long long blocks = (nvec + TV - 1) / TV;
   if (blocks < 1) blocks = 1;  // the head and tail need one block
-  copy_kernel<V><<<(unsigned)blocks, COPY_THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst),
-      head, nvec, nbytes);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  copy_kernel<V><<<(unsigned)blocks, COPY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), head, nvec,
+      nbytes);
   return (int)cudaGetLastError();
 }
 
@@ -142,11 +145,11 @@ extern "C" int xsmm_copy(const void* src, void* dst, long long nbytes,
   if (rc != cudaSuccess) return (int)rc;
   // the widest vector whose alignment source and destination share
   const uintptr_t diff = (uintptr_t)src - (uintptr_t)dst;
-  if (!(diff & 15)) return launch_copy<uint4>(src, dst, nbytes, device, stream);
-  if (!(diff & 7)) return launch_copy<uint2>(src, dst, nbytes, device, stream);
-  if (!(diff & 3)) return launch_copy<uint32_t>(src, dst, nbytes, device, stream);
-  if (!(diff & 1)) return launch_copy<uint16_t>(src, dst, nbytes, device, stream);
-  return launch_copy<uint8_t>(src, dst, nbytes, device, stream);
+  if (!(diff & 15)) return launch_copy<uint4>(src, dst, nbytes, stream);
+  if (!(diff & 7)) return launch_copy<uint2>(src, dst, nbytes, stream);
+  if (!(diff & 3)) return launch_copy<uint32_t>(src, dst, nbytes, stream);
+  if (!(diff & 1)) return launch_copy<uint16_t>(src, dst, nbytes, stream);
+  return launch_copy<uint8_t>(src, dst, nbytes, stream);
 }
 
 // out[n, m] = in[m, n]^T, both row-major; elements of `elem_size` bytes.

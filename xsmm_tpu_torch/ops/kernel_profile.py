@@ -1,11 +1,12 @@
 """Where the time of the tiled GEMM (kernel 4), the packed loop TRSM
-(kernel 14), the packed loop GETRF (kernel 12) and the batched SMM
-(kernels 1-3) goes, on the card.
+(kernel 14), the packed loop GETRF (kernel 12), the batched SMM (kernels
+1-3) and the copy (kernel 9) goes, on the card.
 
     python -m xsmm_tpu_torch.ops.kernel_profile
-        [--kernel gemm|trsm|both|getrf|smm] [--variant base]
+        [--kernel gemm|trsm|both|getrf|smm|copy] [--variant base]
         [--variant WG_BN_WIDE=128] [--size 4096] [--trsm 125,125,4096]
-        [--getrf 125,125,4096] [--smm 23,23,23,131072] [--quick]
+        [--getrf 125,125,4096] [--smm 23,23,23,131072] [--copy 8192]
+        [--quick]
 
 For every variant (``base`` is the source as it is; any other is a
 comma-separated list of ``NAME=VALUE`` that rewrites the source's
@@ -55,7 +56,13 @@ over the block's loop (``both`` is gemm and trsm).  It prints how many
   prints the phases of the tile kernel's persistent block (``wait``: for
   the stage, with cp.async staging the barrier and the next stage's copies
   too; ``arith``; ``store``; ``release``: with TMA staging the barrier
-  after a chunk and the refill of its slot).
+  after a chunk and the refill of its slot);
+* copy: builds ``ops/csrc/xcopy.cu`` once per variant (no stamps), holds
+  one misaligned byte copy bit for bit (source offset 3, destination 12,
+  2^20 + 3 bytes; the card test ``test_copy_every_byte_offset`` holds every
+  offset and count), and times it at ``--copy``^2 f32 and 16 x ``--copy``/8
+  x ``--copy``/2 f32 in turns beside ``torch.clone``, with each time's
+  share of the byte bound.
 
 ``--quick`` checks and stops before the timings.  It needs a CUDA card and
 nvcc, and imports nothing of JAX.
@@ -198,7 +205,9 @@ def build(name: str, variants: List[str], stamps) -> Dict[tuple, Path]:
     procs = {}
     for i, v in enumerate(variants):
         src = apply_settings(base, parse_variant(v))
-        for kind, text in (("plain", src), ("prof", instrument(src, stamps))):
+        kinds = [("plain", src)] + ([("prof", instrument(src, stamps))]
+                                    if stamps else [])
+        for kind, text in kinds:
             cu = OUT_DIR / f"{name}_v{i}_{kind}.cu"
             cu.write_text(text)
             so = cu.with_suffix(".so")
@@ -265,12 +274,14 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("gemm", "trsm", "both", "getrf",
-                                         "smm"), default="both")
+                                         "smm", "copy"), default="both")
     ap.add_argument("--variant", action="append", default=None)
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--trsm", default="125,125,4096", help="SM,SN,B")
     ap.add_argument("--getrf", default="125,125,4096", help="M,N,B")
     ap.add_argument("--smm", default="23,23,23,131072", help="M,N,K,B")
+    ap.add_argument("--copy", type=int, default=8192, help="T: T^2 f32 and "
+                    "16 x T/8 x T/2 f32")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -417,6 +428,8 @@ def main() -> int:
         profile_getrf(args, variants, randn, turns)
     if args.kernel == "smm":
         profile_smm(args, variants, randn, turns)
+    if args.kernel == "copy":
+        profile_copy(args, variants, randn, turns)
     return 0
 
 
@@ -565,6 +578,53 @@ def profile_smm(args, variants, randn, turns) -> None:
         print(f"  {v}: split2 tile phases: " + _phases(
             lib, cases[f"split2 {m}x{n}x{k} B={bsz}"],
             ("wait", "arith", "store", "release"), PROF_BLOCKS))
+
+
+def profile_copy(args, variants, randn, turns) -> None:
+    """The --kernel copy part of the module docstring."""
+    import torch
+
+    from . import xcopy_kernels as xk
+
+    libs = build("xcopy", variants, None)
+
+    def use(v, kind):
+        cuda_build._LIBS["xcopy"] = ctypes.CDLL(str(libs[(v, kind)]))
+        xk._LIB = None
+        return xk._lib()
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    count, a, b = (1 << 20) + 3, 3, 12
+    src = torch.randint(0, 256, (count + 16,), generator=g, device=dev,
+                        dtype=torch.uint8)
+    want = torch.zeros(count + 32, dtype=torch.uint8, device=dev)
+    want[b:b + count] = src[a:a + count]
+    for v in variants:
+        dst = torch.zeros_like(want)
+        cuda_build.launch(use(v, "plain").xsmm_copy, dev, src.data_ptr() + a,
+                          dst.data_ptr() + b, count)
+        exact = torch.equal(dst, want)
+        print(f"  check {v}: {count} bytes, source offset {a}, destination "
+              f"{b}: {'bit-exact' if exact else 'FAIL'}")
+        if not exact:
+            raise RuntimeError(f"{v}: the copy kernel is wrong")
+    if args.quick:
+        return
+    t = args.copy
+    x, xb = randn(t, t), randn(16, t // 8, t // 2)
+    cases = {f"copy f32 {t}^2": lambda: xk.copy(x),
+             f"clone f32 {t}^2": lambda: torch.clone(x),
+             f"copy f32 16x{t // 8}x{t // 2}": lambda: xk.copy(xb),
+             f"clone f32 16x{t // 8}x{t // 2}": lambda: torch.clone(xb)}
+    ms = turns(cases, use)
+    bound = 2 * x.numel() * 4 / 3.35e12 * 1e3
+    print(f"copy bound (bytes, 3.35 TB/s): {bound:.4f} ms")
+    for v in variants:
+        for c in cases:
+            print(f"  {v:32s} {c:28s} "
+                  f"{' / '.join('%.4f' % m for m in ms[v][c])} ms (share "
+                  f"{bound / min(ms[v][c]):.3f})")
 
 
 if __name__ == "__main__":
