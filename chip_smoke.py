@@ -106,7 +106,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
 19. compares the three RNN kernels, in both forms, with their plain
     versions on the same zx, R, h0 and c0 (1e-5 with f32 R, 1e-3 with bf16
     R; bit-exactness reported when reached);
-20. times them beside their bounds (and per step), their plain versions,
+20. prints each forward kernel's launch plan at the full shape (blocks,
+    SMs, its form; every form runs the product on FFMA), and
+    times them beside their bounds (and per step), their plain versions,
     the whole ``forward`` call with tensors on the card and the cuDNN
     forward at the same shape, in f32 and bf16, with the FLOP rate
     2*T*N*(C+K)*G*K of the whole forward beside cuDNN's;
@@ -1521,6 +1523,15 @@ def rnn_phase(args, dev, smi):
                "library": f"torch.nn.{module} (cuDNN), the whole forward"}
         flops = 2 * T * N * (C + K) * g * K
         for dt, rdt in (("float32", f32), ("bfloat16", bf16)):
+            form = rs.seq_form(N, K, g, rdt.itemsize)
+            print(f"grid  {kname:8s} {dt:8s} {form['blocks']} blocks on "
+                  f"{min(form['blocks'], form['sms'])} of {form['sms']} SMs "
+                  f"({form['column_blocks']} column blocks x "
+                  f"{form['blocks'] // form['column_blocks']} row blocks, "
+                  f"{form['passes']} pass(es) of {form['rows']} rows), "
+                  f"{form['form']} form, product on FFMA")
+            row[f"grid{'' if rdt == f32 else '_bf16'}"] = form["blocks"]
+            row[f"form{'' if rdt == f32 else '_bf16'}"] = form["form"]
             ms = cuda_time_ms(call, kname, rdt, False, warmup=3, iters=20)
             ms_train = (cuda_time_ms(call, kname, rdt, True, warmup=3,
                                      iters=20) if g > 1 else ms)

@@ -830,6 +830,165 @@ def test_rnn_seq_beyond_envelope(cuda):
     assert torch.isfinite(hs).all()
 
 
+# (cell, K, R dtype) at the forward kernels' geometry edges: a block owns 16
+# hidden units at every K and in every cell, so K 16 is one column block and
+# K 17 two, the second ragged; with f32 R the split form (the k range split
+# over the warps, an 8 x 8 tile a lane) takes K <= 576 for the LSTM and GRU,
+# whose R slice and partial sums then fill a block, and the chain form (one
+# k-order FMA chain an output) takes 640 .. 832 (LSTM) and .. 1152 (GRU);
+# bf16 R always takes the chain form, up to K 1728 (LSTM); the simple RNN's
+# slice is a quarter of the LSTM's
+F32, BF16 = torch.float32, torch.bfloat16
+RNN_EDGES = [("lstm", 16, F32), ("rnn", 17, F32), ("gru", 17, BF16),
+             ("lstm", 576, F32), ("gru", 576, F32), ("lstm", 640, F32),
+             ("lstm", 832, F32), ("gru", 1152, F32), ("lstm", 832, BF16),
+             ("lstm", 1728, BF16), ("gru", 1216, BF16), ("rnn", 1728, F32),
+             ("rnn", 1728, BF16)]
+SPLIT_MAX_K = {"lstm": 576, "gru": 576, "rnn": 2112}
+
+
+@pytest.mark.parametrize("cell,k,r_dt", RNN_EDGES)
+def test_rnn_seq_geometry_edges_match_plain(cuda, cell, k, r_dt):
+    """Each forward kernel at a geometry edge (ragged N 37, T 2), in both
+    forms, against its plain version at the gates of
+    test_rnn_seq_matches_plain; the launch counted by the kernel's form."""
+    t, n, gates = 2, 37, RNN_GATES[cell]
+    assert rs.seq_kernel_ok(n, k, gates, r_dt.itemsize)
+    form = ("split" if r_dt == F32 and k <= SPLIT_MAX_K[cell] else "chain")
+    assert rs.seq_form(n, k, gates, r_dt.itemsize)["form"] == form
+    zx, r, h0, c0 = _rnn_operands(cuda, 35, t, n, k, gates, r_dt)
+    tol = 1e-5 if r_dt == F32 else 1e-3
+    for train in (False, True):
+        before = dict(rs.form_launches)
+        got = _rnn_call(cell, zx, r, h0, c0, train)
+        torch.cuda.synchronize()
+        before[form] += 1
+        assert rs.form_launches == before
+        want = _rnn_call(cell, zx, r, h0, c0, train, plain=True)
+        for g_, w_ in zip(got, want):
+            assert torch.isfinite(g_).all()
+            assert _rel(g_, w_) <= tol
+            if r_dt == BF16:
+                assert torch.equal(g_, w_)
+
+
+def test_rnn_seq_envelope_and_grid(cuda):
+    """The forward envelope is no smaller than the first design's (K 832
+    with f32 R, 1728 with bf16 R, in every cell); one step beyond the LSTM's
+    is refused; at lstm_driver's N 128, K 512 every cell's grid holds at
+    least 120 blocks (32 column blocks x 4 row blocks of 32 rows), f32 on
+    the split form, bf16 on the chain form; at N 4100 f32 stays on the
+    split form and bf16 takes the wide form (the first design's geometry)
+    in the LSTM and the simple RNN (the simple RNN's at every larger N
+    too); the GRU has no wide form."""
+    for gates in (4, 3, 1):
+        assert rs.seq_kernel_ok(128, 832, gates, 4)
+        assert rs.seq_kernel_ok(128, 1728, gates, 2)
+        for itemsize, form in ((4, "split"), (2, "chain")):
+            got = rs.seq_form(128, 512, gates, itemsize)
+            assert got["blocks"] >= 120, (gates, itemsize, got)
+            assert (got["column_blocks"], got["rows"]) == (32, 32)
+            assert got["form"] == form
+        assert rs.seq_form(4100, 512, gates, 4)["form"] == "split"
+        assert rs.seq_form(4100, 512, gates, 2)["form"] == (
+            "chain" if gates == 3 else "wide")
+    assert rs.seq_form(32768, 512, 3, 2)["form"] == "chain"
+    assert rs.seq_form(32768, 512, 1, 2)["form"] == "wide"
+    assert not rs.seq_kernel_ok(128, 896, 4, 4)
+    assert not rs.seq_kernel_ok(128, 1792, 4, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        rs.seq_form(128, 896, 4, 4)
+
+
+def _rnn_gold(zx, r, h0):
+    """The simple RNN (tanh) in f64: h' = tanh(zx[t] + h@R)."""
+    h, r64, hs = h0.double(), r.double(), []
+    for x in zx.double():
+        h = torch.tanh(x + h @ r64)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+@pytest.mark.parametrize("n", [128, 4100])
+@pytest.mark.parametrize("cell", ["lstm", "gru", "rnn"])
+@pytest.mark.parametrize("r_dt", [F32, BF16])
+def test_rnn_seq_long_scan_matches_plain(cuda, n, cell, r_dt):
+    """lstm_driver's T 32 and K 512 at N 128 and 4100, zx ~ N(0, 1) (as
+    the other cases and seq_profile draw it), R ~ 0.1 N(0, 1), in the train
+    form (the simple RNN's one form).  Every step against the plain
+    version's step from the kernel's own state before it: f32 to 1e-5,
+    bf16 bit for bit.  The whole scan: bf16 bit for bit; f32 LSTM and GRU
+    to 1e-5; the f32 simple RNN's tanh over R of gain ~2.3 carries a step's
+    f32 rounding further over 32 steps, whatever the order of the sums (the
+    plain version's own order is cuBLAS's), so the whole scan is held to
+    f64 gold at the 1e-3 gate and its distance from the plain version is
+    printed."""
+    t, k, gates = 32, 512, RNN_GATES[cell]
+    zx, r, h0, c0 = _rnn_operands(cuda, 36, t, n, k, gates, r_dt)
+    train = cell != "rnn"
+    got = _rnn_call(cell, zx, r, h0, c0, train)
+    torch.cuda.synchronize()
+    tol = 1e-5 if r_dt == F32 else 0.0
+    seqs = [i for i, g_ in enumerate(got) if g_.dim() == 3]
+    for ti in range(t):
+        h_prev = h0 if ti == 0 else got[0][ti - 1]
+        c_prev = None
+        if cell == "lstm":
+            c_prev = c0 if ti == 0 else got[3][ti - 1]   # cs, the running c
+        step = _rnn_call(cell, zx[ti:ti + 1].contiguous(), r,
+                         h_prev.contiguous(), c_prev, train, plain=True)
+        for i in seqs:
+            assert _rel(got[i][ti], step[i][0]) <= tol, (ti, i)
+    want = _rnn_call(cell, zx, r, h0, c0, train, plain=True)
+    dist = max(_rel(g_, w_) for g_, w_ in zip(got, want))
+    print(f"{cell} N {n} {r_dt}: whole scan {dist:.3e} from the plain "
+          f"version")
+    if r_dt == BF16:
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+    elif cell != "rnn":
+        assert dist <= 1e-5
+    else:
+        assert _rel(got[0], _rnn_gold(zx, r, h0)) <= 1e-3
+
+
+def _first_wide_passes(k, gates):
+    """The fewest 32-row passes of N at which bf16 R takes the wide form
+    for K (rnn_seq.cu plan_form), from seq_form."""
+    for m in range(1, 1024):
+        if rs.seq_form(32 * m, k, gates, 2)["form"] == "wide":
+            return m
+    raise AssertionError(f"no wide form up to N {32 * 1023} at K {k}")
+
+
+@pytest.mark.parametrize("k", [65, 300])
+@pytest.mark.parametrize("cell", ["lstm", "rnn"])
+def test_rnn_seq_wide_switch_matches_plain(cuda, cell, k):
+    """bf16 R on each side of the switch to the wide form (the fewest row
+    passes at which the kernel takes it, and one pass fewer; the LSTM and
+    the simple RNN, the cells that have the form), at ragged K:
+    65 (not a multiple of 4; the simple RNN's wide blocks own 64 units, so
+    its second holds one) and 300 (44 units in the simple RNN's last wide
+    block); ragged N on the wide side.  Bit for bit against the plain
+    version in both forms of the cell (the simple RNN's: tanh, sigmoid),
+    each launch counted under the form seq_form reports."""
+    gates = RNN_GATES[cell]
+    m = _first_wide_passes(k, gates)
+    assert m > 1
+    for n, form in ((32 * (m - 1), "chain"), (32 * (m - 1) + 5, "wide")):
+        assert rs.seq_form(n, k, gates, 2)["form"] == form
+        zx, r, h0, c0 = _rnn_operands(cuda, 37, 3, n, k, gates, BF16)
+        for train in (False, True):
+            before = dict(rs.form_launches)
+            got = _rnn_call(cell, zx, r, h0, c0, train)
+            torch.cuda.synchronize()
+            before[form] += 1
+            assert rs.form_launches == before
+            want = _rnn_call(cell, zx, r, h0, c0, train, plain=True)
+            for g_, w_ in zip(got, want):
+                assert torch.equal(g_, w_), (n, form, train)
+
+
 @pytest.mark.parametrize("ct", list(CellType))
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_rnncell_card_equals_cpu(cuda, ct, dt):

@@ -472,6 +472,7 @@ def test_cpu_counts_no_launch():
         cell.forward_train(x, w[:, :g * 6], r[:, :g * 6], b[:g * 6])
     assert rs.launches == {"lstm_seq": 0, "gru_seq": 0, "rnn_seq": 0}
     assert rs.train_launches == {"lstm_seq": 0, "gru_seq": 0}
+    assert rs.form_launches == dict.fromkeys(rs.FORMS, 0)
     assert rnncell.scan_calls == {"lstm": 0, "gru": 0, "rnn": 0}
     assert rs.seq_kernel_ok(10 ** 6, 10 ** 5, 4, 4)   # the CPU takes any shape
 
@@ -551,17 +552,18 @@ def test_types_match_the_jax_package():
 
 def test_seq_profile_instruments_the_source(tmp_path):
     """The card profiler (python -m xsmm_tpu_torch.dnn.seq_profile) finds
-    its anchors in ops/csrc/rnn_seq.cu, the forward's and the backward's,
-    and its variants rewrite one constant each; a ``src=`` copy without the
-    anchors or the scratch entry point is timed without stamps and gets the
-    entry point; nothing is built here."""
+    its anchors in ops/csrc/rnn_seq.cu, the forward's (in both of its
+    forms' kernels) and the backward's, and its variants rewrite one
+    constant each; a ``src=`` copy without the anchors or the scratch entry
+    point is timed without stamps and gets the entry point; nothing is
+    built here."""
     from xsmm_tpu_torch.dnn import seq_profile as sp
     src = sp.SOURCE.read_text()
     out = sp.instrument(src)
-    assert len(re.findall(r"(?<!B)STAMP\(t, \d\);", out)) == 5
+    assert len(re.findall(r"(?<!B)STAMP\(t, \d\);", out)) == 5 * sp.FWD_FORMS
     assert len(re.findall(r"[BP]STAMP\(s, \d\);", out)) == 5
     assert "xsmm_prof_read" in out
-    assert out.count("g_start[blockIdx.x * 2") == 4
+    assert out.count("g_start[blockIdx.x * 2") == 2 * sp.FWD_FORMS + 2
     assert sp.apply_settings(src, {"PCH": 8}).count(
         "constexpr int PCH = 8;") == 1
     assert sp.sources("base") == {"plain": src, "prof": out}
@@ -584,3 +586,43 @@ def test_seq_profile_instruments_the_source(tmp_path):
     with pytest.raises(ValueError, match="anchor"):
         sp.instrument(src.replace("  // -- the block's partial of dh_{t-1}",
                                   "  // partial"))
+
+
+def _entry_params(src, name):
+    """The parameters of ``extern "C" int name(...)`` in ``src``, each
+    run of white space one blank."""
+    head = f'extern "C" int {name}('
+    assert src.count(head) == 1, name
+    i = src.index(head) + len(head)
+    return " ".join(src[i:src.index(")", i)].split())
+
+
+@pytest.mark.parametrize("name", ["xsmm_lstm_seq", "xsmm_gru_seq",
+                                  "xsmm_rnn_seq"])
+def test_seq_profile_shims_a_copy_without_forms(tmp_path, name):
+    """A ``src=`` copy from before the forward's forms (no form query, no
+    form pointer in the forward entry points) gets each forward entry point
+    with the parameters of ops/csrc/rnn_seq.cu's own, calling the copy's
+    own under another name, and a form query; nothing is built here."""
+    from xsmm_tpu_torch.dnn import seq_profile as sp
+    src = sp.SOURCE.read_text()
+    assert "int* form" in _entry_params(src, name)
+    old = tmp_path / "rnn_seq.cu"
+    old.write_text(src.replace("int* form, ", "").replace(
+        'extern "C" int xsmm_rnn_seq_form(', "int unused_form("))
+    got = sp.sources(f"src={old}")["plain"]
+    assert _entry_params(got, name) == _entry_params(src, name)
+    assert _entry_params(got, name + "_v0") == _entry_params(
+        src, name).replace("int* form, ", "")
+    assert got.count('extern "C" int xsmm_rnn_seq_form(') == 1
+
+
+def test_forms_match_the_source():
+    """FORMS, the wrapper's names of the forward kernel's forms, stand in
+    the order of rnn_seq.cu's Form codes, which its entry points and
+    xsmm_rnn_seq_form return."""
+    from xsmm_tpu_torch.dnn import seq_profile as sp
+    body = re.search(r"enum Form \{([^}]*)\}", sp.SOURCE.read_text()).group(1)
+    codes = {name.strip(): int(code) for name, code in
+             (item.split("=") for item in body.split(","))}
+    assert codes == {f"FORM_{f.upper()}": i for i, f in enumerate(rs.FORMS)}

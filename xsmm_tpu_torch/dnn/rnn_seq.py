@@ -24,14 +24,22 @@ outside the kernel's envelope is refused before any launch
 (``cuda_build.launch`` raises ``ValueError``); ``seq_kernel_ok`` tells the
 caller beforehand, from the envelope ``rnn_seq.cu`` itself reports.
 
-Numerics, as the JAX kernel's ``_dot``: with f32 R the product is full f32;
-with bf16 R, h is rounded to bf16 before the product and the products of
-the bf16 values, exact in f32, are summed in f32 (in k order, by kernel and
-plain version alike).  The gate math is f32, each product and sum rounded
-on its own.  A recurrence over bf16-rounded h amplifies any difference of
-one f32 ulp into a different bf16 rounding a few steps later, so kernel and
-plain version are built to agree bit for bit in the bf16 cells, not merely
-to f32 rounding.
+Numerics, as the JAX kernel's ``_dot``: with f32 R the product is full f32
+(the kernel's split form sums each output in another order than the plain
+version's product, whose own order is cuBLAS's and changes with the shape:
+the two agree to f32 rounding a step; a recurrence that expands, such as
+the simple RNN's tanh over R of gain above 1, carries that difference
+further over many steps, as it carries any other order's); with bf16 R, h
+is rounded to bf16 before the product and the products of the bf16 values,
+exact in f32, are summed in f32 in k order, by kernel (its chain and wide
+forms, on FFMA) and plain version alike.  The gate math is f32, each
+product and sum rounded on its own.  A recurrence over bf16-rounded h
+amplifies any difference of one f32 ulp into a different bf16 rounding a
+few steps later, so kernel and plain version are built to agree bit for
+bit in the bf16 cells, not merely to f32 rounding; a tensor-core product,
+which sums in blocks of 16 k, measured at or past the 1e-3 gate and is not
+used.  ``form_launches`` counts the form of each forward launch, as the
+entry point returns it.
 
 The backward wrappers (``lstm_seq_bwd``, ``gru_seq_bwd``, ``rnn_seq_bwd``)
 walk t = T-1 .. 0 over the forward's residuals ([T, N, K] f32) and R^T
@@ -62,6 +70,15 @@ launches: Dict[str, int] = {"lstm_seq": 0, "gru_seq": 0, "rnn_seq": 0}
 train_launches: Dict[str, int] = {"lstm_seq": 0, "gru_seq": 0}
 bwd_launches: Dict[str, int] = {"lstm_seq_bwd": 0, "gru_seq_bwd": 0,
                                 "rnn_seq_bwd": 0}
+# the forward launches by the kernel's form, its own choice (rnn_seq.cu
+# fwd_form), as its entry point returns it: "split" (f32 R where it fits:
+# the k range split over a block's warps, their partial sums added in warp
+# order), "chain" (bf16 R, and f32 R beyond the split form's envelope: one
+# FMA chain in k order per output, 16 units a block) or "wide" (bf16 R
+# where the first design's geometry, 4 x 4 tiles on 4 warps, fills the card:
+# k order too)
+FORMS = ("chain", "split", "wide")
+form_launches: Dict[str, int] = dict.fromkeys(FORMS, 0)
 
 # the backward kernels' orders (rnn_seq.cu: BwdGeo's BU, BROWS, by gate
 # count): dz @ R^T is summed per block of BWD_UNITS hidden units, over its
@@ -81,7 +98,7 @@ _LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for counts in (launches, train_launches, bwd_launches):
+    for counts in (launches, train_launches, bwd_launches, form_launches):
         for name in counts:
             counts[name] = 0
 
@@ -92,10 +109,11 @@ def _lib() -> ctypes.CDLL:
         lib = cuda_build.load("rnn_seq")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.xsmm_lstm_seq.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p,
-                                      p, p, i, i, i, i, p]
+                                      p, p, i, i, i, p, i, p]
         lib.xsmm_gru_seq.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, i, i,
-                                     i, i, p]
-        lib.xsmm_rnn_seq.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, i, p]
+                                     i, p, i, p]
+        lib.xsmm_rnn_seq.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, p, i,
+                                     p]
         lib.xsmm_lstm_seq_bwd.argtypes = [p] * 10 + [i, p, i] + [p] * 6 + [
             i, i, i, i, p]
         lib.xsmm_gru_seq_bwd.argtypes = [p] * 9 + [i, p, p, i] + [p] * 6 + [
@@ -103,11 +121,13 @@ def _lib() -> ctypes.CDLL:
         lib.xsmm_rnn_seq_bwd.argtypes = [p, p, p, p, i, p, i, i] + [p] * 5 + [
             i, i, i, i, p]
         lib.xsmm_rnn_seq_fits.argtypes = [i, i, i, i, i]
+        lib.xsmm_rnn_seq_form.argtypes = [i, i, i, i, p, i, p]
         lib.xsmm_rnn_seq_bwd_fits.argtypes = [i, i, i, i, i]
         lib.xsmm_rnn_seq_bwd_scratch.argtypes = [i, i, i, i, p, i, p]
         for fn in (lib.xsmm_lstm_seq, lib.xsmm_gru_seq, lib.xsmm_rnn_seq,
                    lib.xsmm_lstm_seq_bwd, lib.xsmm_gru_seq_bwd,
                    lib.xsmm_rnn_seq_bwd, lib.xsmm_rnn_seq_fits,
+                   lib.xsmm_rnn_seq_form,
                    lib.xsmm_rnn_seq_bwd_fits, lib.xsmm_rnn_seq_bwd_scratch):
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -135,6 +155,28 @@ def seq_kernel_ok(n: int, k: int, gates: int, r_itemsize: int) -> bool:
         return True
     dev = platform.device()
     return _fits(n, k, gates, r_itemsize, dev.index)
+
+
+@functools.lru_cache(maxsize=256)
+def _form(n: int, k: int, gates: int, r_itemsize: int, device: int) -> tuple:
+    out = (ctypes.c_int * 6)()
+    cuda_build.launch(_lib().xsmm_rnn_seq_form, torch.device("cuda", device),
+                      n, k, gates, r_itemsize, ctypes.addressof(out))
+    return tuple(out)
+
+
+def seq_form(n: int, k: int, gates: int, r_itemsize: int,
+             device: int = 0) -> Dict[str, object]:
+    """The forward kernel's launch plan for N x K on card ``device``, as
+    its entry point makes it (``xsmm_rnn_seq_form``): ``blocks`` (the
+    grid), ``column_blocks`` (16 hidden units each; 64 for the simple RNN's
+    wide form), ``passes`` (row passes a block), ``rows`` (of a pass),
+    ``form`` (one of FORMS, as ``form_launches`` counts them) and ``sms``
+    (the card's).  Raises ValueError outside the envelope."""
+    grid, cb, passes, form, sms, rows = _form(n, k, gates, r_itemsize,
+                                              device)
+    return {"blocks": grid, "column_blocks": cb, "passes": passes,
+            "rows": rows, "form": FORMS[form], "sms": sms}
 
 
 def seq_bwd_kernel_ok(n: int, k: int, gates: int, r_itemsize: int) -> bool:
@@ -257,12 +299,14 @@ def lstm_seq(zx: torch.Tensor, r: torch.Tensor, h0: torch.Tensor,
               for _ in range(2))
     res = seqs[1:] if train else [None] * 5
     hbuf, bar = _scratch(n, k, dev)
+    form = ctypes.c_int(-1)
     cuda_build.launch(_lib().xsmm_lstm_seq, dev, zx.data_ptr(), r.data_ptr(),
                       int(r.dtype == torch.bfloat16), h0.data_ptr(),
                       c0.data_ptr(), seqs[0].data_ptr(), ht.data_ptr(),
                       ct.data_ptr(), *(_ptr(x) for x in res), hbuf.data_ptr(),
-                      bar.data_ptr(), t, n, k)
+                      bar.data_ptr(), t, n, k, ctypes.byref(form))
     launches["lstm_seq"] += 1
+    form_launches[FORMS[form.value]] += 1
     if train:
         train_launches["lstm_seq"] += 1
     return (seqs[0], ht, ct, *seqs[1:])
@@ -309,12 +353,14 @@ def gru_seq(zx: torch.Tensor, r: torch.Tensor, h0: torch.Tensor, *,
     ht = torch.empty((n, k), dtype=torch.float32, device=dev)
     res = seqs[1:] if train else [None] * 4
     hbuf, bar = _scratch(n, k, dev)
+    form = ctypes.c_int(-1)
     cuda_build.launch(_lib().xsmm_gru_seq, dev, zx.data_ptr(), r.data_ptr(),
                       int(r.dtype == torch.bfloat16), h0.data_ptr(),
                       seqs[0].data_ptr(), ht.data_ptr(),
                       *(_ptr(x) for x in res), hbuf.data_ptr(),
-                      bar.data_ptr(), t, n, k)
+                      bar.data_ptr(), t, n, k, ctypes.byref(form))
     launches["gru_seq"] += 1
+    form_launches[FORMS[form.value]] += 1
     if train:
         train_launches["gru_seq"] += 1
     return (seqs[0], ht, *seqs[1:])
@@ -358,11 +404,14 @@ def rnn_seq(zx: torch.Tensor, r: torch.Tensor, h0: torch.Tensor, *,
     hs = torch.empty((t, n, k), dtype=torch.float32, device=dev)
     ht = torch.empty((n, k), dtype=torch.float32, device=dev)
     hbuf, bar = _scratch(n, k, dev)
+    form = ctypes.c_int(-1)
     cuda_build.launch(_lib().xsmm_rnn_seq, dev, zx.data_ptr(), r.data_ptr(),
                       int(r.dtype == torch.bfloat16), h0.data_ptr(),
                       hs.data_ptr(), ht.data_ptr(), code,
-                      hbuf.data_ptr(), bar.data_ptr(), t, n, k)
+                      hbuf.data_ptr(), bar.data_ptr(), t, n, k,
+                      ctypes.byref(form))
     launches["rnn_seq"] += 1
+    form_launches[FORMS[form.value]] += 1
     return hs, ht
 
 

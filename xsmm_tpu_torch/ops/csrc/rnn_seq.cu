@@ -33,36 +33,67 @@
 // bf16 R: h is rounded to bf16 (round to nearest even) before the product,
 // as the JAX kernel's h.astype(r.dtype); a product of two bf16 values is
 // exact in f32, so FFMA on the rounded operands sums in f32 as the MXU's
-// preferred_element_type=f32.  Each sum is one FFMA chain in k order, which
-// the plain version's k-order addcmul reproduces exactly for bf16 operands.
-// Gate math in f32: sigmoid = 1/(1+expf(-x)), tanhf, and every product and
-// sum of the gate math rounded on its own, as torch's separate ops round
-// them; built without --use_fast_math.
+// preferred_element_type=f32.  With bf16 R each sum is one FFMA chain in k
+// order, which the plain version's k-order addcmul reproduces exactly; with
+// f32 R (the split form below) the sum runs in another order, as cuBLAS's
+// does, within f32 rounding of it.  Gate math in f32: sigmoid =
+// 1/(1+expf(-x)), tanhf, and every product and sum of the gate math rounded
+// on its own, as torch's separate ops round them; built without
+// --use_fast_math.
 //
-// Design: one persistent cooperative kernel over all T steps.  The TPU runs
-// the T grid in order on one core with R resident in VMEM and h, c in
-// scratch; here blocks run in parallel and only h is sequential (step t
-// needs all of h_{t-1} for every output column):
-//   * Columns.  A block owns 16 column groups of 4 gate columns: for the LSTM
-//     the 4 gates of one hidden unit j (columns j, K+j, 2K+j, 3K+j), for the
-//     GRU the 3 of one unit (and a zero column), for the RNN 4 consecutive
-//     units.  The gate epilogue is local to a thread; GRU's r * (h@R)_g
-//     needs nothing from other blocks.
-//   * R.  The block's R slice, K x 64 columns in R's dtype, is staged in
-//     shared memory once and stays there for all T steps (the counterpart of
-//     the TPU's resident R): 128 KB in f32, 64 KB in bf16 at K = 512.
-//   * Rows.  A block owns one or more passes of 32 rows; the host picks the
-//     fewest passes that keep the grid co-resident.  A thread owns 4 rows x
-//     one column group: 16 f32 accumulators, one float4 of h and one vector
-//     of 4 R values from shared memory per k.
+// Design of the forward: one persistent cooperative kernel over all T steps.
+// The TPU runs the T grid in order on one core with R resident in VMEM and
+// h, c in scratch; here blocks run in parallel and only h is sequential
+// (step t needs all of h_{t-1} for every output column):
+//   * Columns.  A block owns 16 hidden units: its G*16 gate columns (the G
+//     gates of each unit, so the gate epilogue of a (row, unit) is local to
+//     one thread; GRU's r * (h@R)_g needs nothing from other blocks).  At N
+//     128, K 512 that is 32 column blocks x 4 row blocks of 32 rows: 128 of
+//     the 132 SMs in every cell.
+//   * R.  The block's R slice stays in shared memory for all T steps (the
+//     counterpart of the TPU's resident R), loaded once 16 (bf16: 8) bytes a
+//     thread, 4 rows at a time, and transposed in registers, while step 0's
+//     first h chunk and epilogue operands are in flight.
+//   * What bounds the product.  A lane gets one 32-bit value an SM cycle
+//     from shared memory, broadcast or not (the first design's 4 x 4 tile and
+//     a 2 x 4 tile measured within 10 % of that count), so a thread's tile
+//     sets the loads an FFMA: (rows + columns) / (rows x columns).  Three
+//     forms, the kernel's own choice (fwd_form, counted by the wrapper):
+//     - split (f32 R): the 8 warps split each 64-k chunk, 8 k a warp, over
+//       the block's whole 32 x G*16 tile, a lane an 8 x 8 register tile (the
+//       simple RNN 4 x 4): one load per 4 FFMA, the FFMA issue floor's rate;
+//       the warps' partial sums meet in shared memory and are added in warp
+//       order: another order than the plain version's product (cuBLAS's),
+//       within f32 rounding a step, which the simple RNN's tanh over R of
+//       gain above 1 carries further over many steps, as it carries any
+//       other order's (PERF.md, PR 11).  It needs the slice and the 64 KB
+//       of partials in a block (LSTM, GRU K <= 576; simple RNN K <= 2112),
+//       else the chain form.
+//     - chain (bf16 R, and f32 R beyond the split form): a thread owns 2
+//       rows x its unit's G gates, one FFMA chain in k order each; per 4 k,
+//       h as one 16-byte load (bf16: the thread's two rows packed as bf16
+//       pairs, so 4 k of both in one load) and R as one 4-k vector a gate
+//       (bf16 pairs, unpacked by a shift and a mask).
+//     - wide (bf16 R, LSTM and simple RNN, where it fills the card and
+//       covers no more padded rows than the chain form, weighed by the
+//       values each tile loads an FFMA: plan_form): the first design's
+//       geometry and code (4 warps, 4 x 4 tiles, h staged transposed, three
+//       blocks an SM with the bf16 slice), which the chain form's tile
+//       cannot match once the card is full (the simple RNN from N 512, the
+//       LSTM at N 768, 1536, 3072, 4100 of those timed at K 512).
+//     A tensor-core product (mma.sync m16n8k16, bf16 -> f32) was measured
+//     and not kept: its sums leave k order, and the bf16 recurrence carried
+//     that to the 1e-3 gate or past it (PERF.md, PR 11).
+//     The form is planned once a shape (fwd_form keeps the plans) and the
+//     entry points return the form they launched.
 //   * h exchange.  Each step every block writes its h columns into a
 //     double-buffered [2, N, Kp] f32 buffer in device memory (Kp = K rounded
-//     up to 4; 512 KB at N 128, K 512, held in L2), then a grid barrier,
-//     then every block stages the rows of h_{t-1} it needs, 64 k at a time,
-//     transposed into shared memory, prefetching the next chunk into
-//     registers during the product.  The buffer is read with ld.global.cg
-//     (L2, never the non-coherent or L1 path) and written with st.global.cg,
-//     so no block reads a stale h.
+//     up to 4; 512 KB at N 128, K 512, held in L2), then a grid barrier, then
+//     every block stages the rows of h_{t-1} it needs, 64 k at a time, into
+//     shared memory (a warp reads two rows' 256 contiguous bytes),
+//     prefetching the next chunk into registers during the product.  The
+//     buffer is read with ld.global.cg (L2, never the non-coherent or L1
+//     path) and written with st.global.cg, so no block reads a stale h.
 //   * State.  c (LSTM) lives in c_T, read and written only by the thread
 //     that owns it; it leaves the SM as c_T and, in the train form, as cs.
 //   * Barrier.  Hand-written: a monotone arrival counter in device memory,
@@ -86,49 +117,53 @@
 //         The train form writes 42 MB more (five [T,N,K] streams).
 //   GRU:  0.096 ms (f32, operations), ~10.5 us (bf16, bytes).
 //   RNN:  0.032 ms (f32, operations), ~5.2 us (bf16, bytes).
-// This kernel runs the product on FFMA (no tensor cores), so the FP32 rate
-// bounds it in both dtypes; and T sequential steps add a latency floor of
-// T x (barrier + one step) that neither bound counts.  What holds it, as
-// measured with clock64() stamps at N 128, K 512, T 32: the product, ~12 us a
-// step of ~15, where a thread's 4 x 4 tile takes two 128-bit shared-memory
-// loads per 16 FFMA (32 wavefronts per k on an SM against 16 FFMA cycles a
-// scheduler); the grid barrier takes ~1.2 us a step, the epilogue ~1 us.
-// mma.sync / wgmma for the bf16 cells, and a larger register tile, are the
-// ways up.
+// The forms run the product on FFMA, so the FP32 rate bounds them in both
+// dtypes; and T sequential steps add a latency floor of T x (barrier + one
+// step) that neither bound counts.  What holds them, with clock64() stamps
+// (dnn/seq_profile.py) on the H100 at N 128, K 512, T 32, in us a step: LSTM
+// f32 (split) 10.8 = product 7.6 (h staging 0.8 of it) + epilogue with the
+// partial sums 1.1 + barrier 1.0 + operands 0.5, the product 1.9x its FFMA
+// issue floor of 4 us; LSTM bf16 (chain) 13.8 = product 10.9 + barrier 1.2
+// + epilogue 0.6 + operands 0.5, issue-bound (61 instructions a warp per 4 k
+// for 32 FFMA: the bf16 unpacking is 24 of them); simple RNN 5.2 (f32) and
+// 6.5 (bf16), the barrier a fifth of it.
 //
-// Envelope: the R slice and the 8 KB h chunk must fit a block's shared
-// memory (K <= 832 with f32 R, K <= 1728 with bf16 R), and the column blocks
-// (ceil(K/16), RNN ceil(K/64)) must be co-resident.  Any N and K inside it,
-// and any T >= 1, work: rows >= N, units >= K and k >= K are masked.  The
-// backward's: its G*16 x round_up(K, 8) R^T slice with the dz tile and db's
-// row-pair sums (LSTM K <= 832 f32, <= 1664 bf16; GRU K <= 1109 f32), and
-// ceil(K/16) co-resident column blocks.
+// Envelope: the slice and the h chunk must fit a block's shared memory
+// (K <= 832 with f32 R, K <= 1728 with bf16 R for the LSTM; the GRU's and
+// simple RNN's slices are 3/4 and 1/4 of it), and the column blocks
+// (ceil(K/16); the wide form's simple RNN ceil(K/64)) must be co-resident.
+// Any N and K inside it, and any T >= 1, work: rows >= N, units >= K and
+// k >= K are masked.  The backward's: its G*16 x round_up(K, 8) R^T slice
+// with the dz tile and db's row-pair sums (LSTM K <= 832 f32, <= 1664
+// bf16; GRU K <= 1109 f32), and ceil(K/16) co-resident column blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
 constexpr int SHARED_MAX = 232448;  // bytes of shared memory a block may have
-constexpr int THREADS = 128;
-constexpr int CG = 16;             // column groups a block owns
-constexpr int RM = 4;              // rows a thread owns in a pass
-constexpr int ROWS = THREADS / CG * RM;  // 32 rows a pass
-constexpr int COLS = CG * 4;       // gate columns a block owns
+constexpr int THREADS = 256;       // 8 warps: 2 row halves x 4 quarters of the units
+constexpr int RM = 2;              // rows a thread owns in a pass, 8 apart
+constexpr int ROWS = 16 * RM;      // rows a pass: 2 row halves x 8 lanes x RM
 constexpr int KT = 64;             // k staged per chunk of h
-constexpr int H_SMEM = KT * ROWS * 4;    // 8 KB: hT[KT][ROWS] f32
-constexpr int SQ = THREADS / ROWS;       // staging threads a row
-constexpr int QPT = KT / 4 / SQ;         // float4 quads a thread stages a chunk
-constexpr int RB = 32;                   // R loads a thread keeps in flight
+constexpr int HS = KT + 4;         // row stride of the h chunk (floats): a warp's
+                                   // 8 rows of one float4 fall on distinct banks
+constexpr int H_SMEM = ROWS * HS * 4;         // 8.5 KB: h[ROWS][HS] f32
+constexpr int QPT = ROWS * KT / 4 / THREADS;  // float4 quads a thread stages a chunk
+constexpr int RB = 4;              // R-slice tasks a thread keeps in flight (4 or G loads each)
+constexpr int QU = 16;             // k quads the chain form's product loop unrolls
+static_assert(QPT >= 1 && ROWS * KT / 4 == QPT * THREADS, "the h chunk in whole quads");
 
 enum Cell { LSTM = 0, GRU = 1, RNN = 2 };
 
 template <int CELL>
 struct CellTraits {
   static constexpr int G = CELL == LSTM ? 4 : CELL == GRU ? 3 : 1;
-  static constexpr int UNITS = CELL == RNN ? CG * 4 : CG;  // units a block owns
+  static constexpr int UNITS = 16;  // hidden units a forward block owns, every cell
 };
 
 struct Params {
@@ -143,19 +178,59 @@ struct Params {
   float* hbuf;         // [2, N, kp]
   unsigned* bar;       // arrival counter, zero at launch
   int t, n, k, kp, kr; // kp: K rounded up to 4; kr: K rounded up to KT
-  int cb, passes;      // column blocks; 32-row passes a block
+  int cb, passes;      // column blocks; ROWS-row passes a block
   int act;             // RNN: 0 relu, 1 sigmoid, 2 tanh
   int h0_vec;          // h0's rows are 16-byte aligned
+  int r_vec;           // R's rows take 4-value vector loads (K % 4 == 0, R aligned)
 };
 
-// four consecutive R values of one k row, as f32
+// The two bf16 halves of a packed u32 as f32 (exact; a shift measured faster
+// than a byte permute for the low half)
+__device__ __forceinline__ float lo_f(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// four consecutive values of a slice in shared memory (4 k of one unit and
+// gate), as f32
 __device__ __forceinline__ float4 load_r4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ float4 load_r4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  return make_float4(lo_f(u.x), hi_f(u.x), lo_f(u.y), hi_f(u.y));
+}
+
+// ... and the same four stored (bf16 values are exact in f32: no rounding)
+__device__ __forceinline__ void store_r4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store_r4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// R values j .. j+3 of one gate block of one row of R (p points at the first),
+// the first `live` of them inside K and the rest zero, as f32; one 16- or
+// 8-byte load where `vec`
+__device__ __forceinline__ void r_quad(const float* p, bool vec, int live, float (&v)[4]) {
+  if (vec && live == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = i < live ? p[i] : 0.f;
+  }
+}
+__device__ __forceinline__ void r_quad(const __nv_bfloat16* p, bool vec, int live,
+                                       float (&v)[4]) {
+  if (vec && live == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(u.x << 16); v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16); v[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = i < live ? __bfloat162float(p[i]) : 0.f;
+  }
 }
 
 template <typename RT>
@@ -164,35 +239,9 @@ __device__ __forceinline__ float to_r(float v) {
   else return v;
 }
 
-template <typename RT>
-__device__ __forceinline__ RT from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // as torch.sigmoid on the card computes it: 1 / (1 + exp(-x))
 __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
-}
-
-// Element e of a block's R slice (row k = e / COLS): its index in the
-// shared-memory slice, and in *src its index in R, or -1 for a zero (k >= K,
-// a unit >= K, the GRU's fourth column).
-template <int CELL>
-__device__ __forceinline__ int r_slot(int e, int j0, int kk, size_t gk, long long* src) {
-  const int k = e / COLS, q = e % COLS;
-  int g, c, j;
-  if (CELL == RNN) {
-    g = q / 4; c = q % 4; j = j0 + q;       // 4 consecutive units a group
-  } else {
-    c = q / CG; g = q % CG; j = j0 + g;     // gate c of unit j
-  }
-  const bool live = k < kk && j < kk && (CELL == RNN || c < CellTraits<CELL>::G);
-  *src = live ? (long long)k * (long long)gk + (CELL == RNN ? j : (long long)c * kk + j) : -1;
-  return k * COLS + g * 4 + c;
 }
 
 // Grid barrier number s (0-based): every block arrives once; returns when all
@@ -235,54 +284,195 @@ __device__ __forceinline__ float4 load_h4(const float* src, int stride, bool vec
   return v;
 }
 
-// RM consecutive f32 values of shared memory (16- or 8-byte aligned)
-template <int M>
-__device__ __forceinline__ void load_rows(const float* p, float (&v)[M]) {
-  if constexpr (M == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else {
-    static_assert(M == 2, "RM is 2 or 4");
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x; v[1] = x.y;
+// The epilogue's operands of one pass, loaded before its product so that
+// their latency hides behind it: zx of the G columns of unit j, and c (LSTM)
+// or h_{t-1} (GRU) of the unit, for the rows n0 + ra + rstep*r (r < RM).
+template <int CELL>
+__device__ __forceinline__ void load_ops(const Params& p, int t, int n0, int ra, int rstep,
+                                         int j, const float* hin, int hstride,
+                                         float (&zv)[RM][CellTraits<CELL>::G],
+                                         float (&sv)[RM]) {
+  constexpr int G = CellTraits<CELL>::G;
+  const int nn = p.n, kk = p.k;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int n = n0 + ra + rstep * r;
+    const bool live = n < nn && j < kk;
+    const float* zrow = p.zx + ((size_t)t * nn + n) * G * kk + j;
+#pragma unroll
+    for (int g = 0; g < G; ++g) zv[r][g] = live ? zrow[(size_t)g * kk] : 0.f;
+    const size_t e = (size_t)n * kk + j;
+    sv[r] = 0.f;
+    if (CELL == LSTM && live) sv[r] = t == 0 ? p.c0[e] : p.ct[e];
+    if (CELL == GRU && live) sv[r] = __ldcg(hin + (size_t)n * hstride + j);
   }
 }
 
-template <int CELL, typename RT, bool TRAIN>
+// The gate epilogue of row n, unit j at step t from z = (h@R)[n][g*K + j]:
+// every product and sum rounded on its own (no FMA contraction), as the
+// plain versions' separate torch ops round them.
+template <int CELL, bool TRAIN>
+__device__ __forceinline__ void cell_out(const Params& p, int t, int n, int j,
+                                         const float (&z)[CellTraits<CELL>::G],
+                                         const float (&zv)[CellTraits<CELL>::G], float s,
+                                         float* hout, bool last) {
+  const int nn = p.n, kk = p.k;
+  const size_t srow = ((size_t)t * nn + n) * kk;   // row n of step t, [T,N,K]
+  float h2;
+  if constexpr (CELL == RNN) {
+    const float x = __fadd_rn(zv[0], z[0]);
+    h2 = p.act == 0 ? (x > 0.f ? x : 0.f) : p.act == 1 ? sigmoid(x) : tanhf(x);
+  } else if constexpr (CELL == LSTM) {
+    const float i = sigmoid(__fadd_rn(zv[0], z[0]));
+    const float g = tanhf(__fadd_rn(zv[1], z[1]));
+    const float f = sigmoid(__fadd_rn(zv[2], z[2]));
+    const float o = sigmoid(__fadd_rn(zv[3], z[3]));
+    const float c2 = __fadd_rn(__fmul_rn(f, s), __fmul_rn(i, g));
+    h2 = __fmul_rn(o, tanhf(c2));
+    p.ct[(size_t)n * kk + j] = c2;
+    if (TRAIN) {
+      p.res[0][srow + j] = c2;
+      p.res[1][srow + j] = i;
+      p.res[2][srow + j] = g;
+      p.res[3][srow + j] = f;
+      p.res[4][srow + j] = o;
+    }
+  } else {
+    const float ri = sigmoid(__fadd_rn(zv[0], z[0]));
+    const float zi = sigmoid(__fadd_rn(zv[1], z[1]));
+    const float zrg = z[2];
+    const float gi = tanhf(__fadd_rn(zv[2], __fmul_rn(ri, zrg)));
+    h2 = __fadd_rn(__fmul_rn(__fsub_rn(1.f, zi), gi), __fmul_rn(zi, s));
+    if (TRAIN) {
+      p.res[0][srow + j] = ri;
+      p.res[1][srow + j] = zi;
+      p.res[2][srow + j] = gi;
+      p.res[3][srow + j] = zrg;
+    }
+  }
+  __stcg(hout + (size_t)n * p.kp + j, h2);
+  p.hs[srow + j] = h2;
+  if (last) p.ht[(size_t)n * kk + j] = h2;
+}
+
+// The h chunk of a pass (ROWS rows x KT k from k0), staged by the block in
+// quads: task e = threadIdx.x + THREADS*i is row e / (KT/4), quad e % (KT/4)
+// (a warp reads two rows' 256 contiguous bytes), or, with bf16 R, the row
+// pair e / (KT/4) (rows pair_row(e) and + 8) of one quad.
+__device__ __forceinline__ int pair_row(int pair) { return pair < 8 ? pair : pair + 8; }
+
+template <bool PACK>
+__device__ __forceinline__ void prefetch_h(const Params& p, const float* hin, int hstride,
+                                           bool hvec, int n0, int k0, float4 (&pre)[QPT]) {
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int e = threadIdx.x + THREADS * (PACK ? i / 2 : i);
+    const int q = k0 + 4 * (e % (KT / 4));
+    const int row = PACK ? pair_row(e / (KT / 4)) + 8 * (i % 2) : e / (KT / 4);
+    pre[i] = load_h4(hin, hstride, hvec, n0 + row, q, p.n, p.k);
+  }
+}
+
+// ... and stored: f32 rows hsm[row][HS]; or (PACK, bf16 R) rounded to bf16
+// with each row pair packed, hsm[pair][HS] as u32 (row pair_row in the low
+// half)
+template <bool PACK>
+__device__ __forceinline__ void stage_h(float* hsm, int k0, int kk, const float4 (&pre)[QPT]) {
+  // lanes k + i >= K of an aligned load are zeroed here
+  const auto lanes = [&](const float4& v, int k) {
+    return make_float4(v.x, k + 1 < kk ? v.y : 0.f, k + 2 < kk ? v.z : 0.f,
+                       k + 3 < kk ? v.w : 0.f);
+  };
+  if constexpr (PACK) {
+    static_assert(QPT % 2 == 0, "row pairs");
+    const auto pk = [](float lo, float hi) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+      return *reinterpret_cast<const unsigned*>(&v);
+    };
+#pragma unroll
+    for (int i = 0; i < QPT / 2; ++i) {
+      const int e = threadIdx.x + THREADS * i, q = 4 * (e % (KT / 4));
+      const float4 a = lanes(pre[2 * i], k0 + q), b = lanes(pre[2 * i + 1], k0 + q);
+      *reinterpret_cast<uint4*>(hsm + (e / (KT / 4)) * HS + q) =
+          make_uint4(pk(a.x, b.x), pk(a.y, b.y), pk(a.z, b.z), pk(a.w, b.w));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      const int e = threadIdx.x + THREADS * i, q = 4 * (e % (KT / 4));
+      *reinterpret_cast<float4*>(hsm + (e / (KT / 4)) * HS + q) = lanes(pre[i], k0 + q);
+    }
+  }
+}
+
+// -- The chain form: one FFMA chain in k order per output -------------------
+// bf16 R (every K), and f32 R where the split form does not fit.  A thread
+// owns rows ra and ra + 8 of a pass and the G gates of its unit u: per 4 k,
+// h as one 16-byte load (f32: one a row; bf16: the row pair's packed
+// values) and R as one 4-k vector a gate.  RS: the dtype the R slice is held
+// in (R's own).
+template <int CELL, typename RS, bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 1) seq_fwd(Params p) {
   constexpr int G = CellTraits<CELL>::G;
   constexpr int UNITS = CellTraits<CELL>::UNITS;
+  constexpr bool PACK = sizeof(RS) == 2;                  // bf16 R: h in packed row pairs
   extern __shared__ __align__(16) unsigned char smem[];
-  float* hT = reinterpret_cast<float*>(smem);            // [KT][ROWS]
-  RT* rs = reinterpret_cast<RT*>(smem + H_SMEM);          // [kr][COLS]
+  float* hsm = reinterpret_cast<float*>(smem);            // [ROWS][HS] (PACK: pairs)
+  RS* rs = reinterpret_cast<RS*>(smem + H_SMEM);          // [kr/4][G][UNITS][4]
 
   const int tid = threadIdx.x;
-  const int cg = tid % CG, rg = tid / CG;                 // compute mapping
-  const int sr = tid % ROWS, sq = tid / ROWS;             // staging mapping
+  const int warp = tid / 32, lane = tid % 32;
+  const int u = (warp % 4) * 4 + lane % 4;                // the thread's unit
+  const int ra = (warp / 4) * (ROWS / 2) + lane / 4;      // its rows ra + 8*r
+  const int pr = warp / 4 * 8 + lane / 4;                 // bf16: its row pair
   const int cbi = blockIdx.x % p.cb, rbi = blockIdx.x / p.cb;
-  const int j0 = cbi * UNITS;
+  const int j0 = cbi * UNITS, j = j0 + u;
   const int nn = p.n, kk = p.k;
   const size_t gk = (size_t)G * kk;
-  const RT* rsrc = static_cast<const RT*>(p.r);
-
-  // -- the block's R slice, once: rs[k][cg*4 + c], RB loads in flight --------
-  const int total = p.kr * COLS;
-  for (int e0 = tid; e0 < total; e0 += THREADS * RB) {
-    RT v[RB];
-    int dst[RB];
-#pragma unroll
-    for (int u = 0; u < RB; ++u) {
-      const int e = e0 + u * THREADS;
-      long long src = -1;
-      dst[u] = e < total ? r_slot<CELL>(e, j0, kk, gk, &src) : -1;
-      v[u] = src >= 0 ? rsrc[src] : from_f<RT>(0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < RB; ++u)
-      if (dst[u] >= 0) rs[dst[u]] = v[u];
-  }
+  const RS* rsrc = static_cast<const RS*>(p.r);
 
   const int row0 = rbi * p.passes * ROWS;
+  float zv[RM][G], sv[RM];
+  float4 pre[QPT];
+  // step 0's first pass: its operands and first h chunk are in flight while
+  // the R slice loads
+  load_ops<CELL>(p, 0, row0, ra, 8, j, p.h0, kk, zv, sv);
+  prefetch_h<PACK>(p, p.h0, kk, p.h0_vec != 0, row0, 0, pre);
+
+  // -- the block's R slice, once: rs[k/4][g][u][k%4] = R[k][g*K + j0 + u].
+  // A task is 4 rows k of 4 units of one gate: 4 vector loads, a 4 x 4
+  // transpose in registers, 4 vector stores; RB tasks in flight.
+  {
+    const int ntask = p.kr / 4 * G * (UNITS / 4);
+    for (int e0 = tid; e0 < ntask; e0 += THREADS * RB) {
+      float v[RB][4][4];
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        const int e = e0 + b * THREADS;
+        const int uq = e % (UNITS / 4), g = e / (UNITS / 4) % G, k4 = e / (UNITS / 4 * G);
+        const int jq = j0 + 4 * uq;
+        const int ulive = e < ntask ? min(max(kk - jq, 0), 4) : 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = 4 * k4 + i;
+          r_quad(rsrc + (size_t)k * gk + (size_t)g * kk + jq, p.r_vec != 0, k < kk ? ulive : 0,
+                 v[b][i]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        const int e = e0 + b * THREADS;
+        if (e >= ntask) break;
+        const int uq = e % (UNITS / 4), g = e / (UNITS / 4) % G, k4 = e / (UNITS / 4 * G);
+        RS* dst = rs + (((size_t)k4 * G + g) * UNITS + 4 * uq) * 4;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          store_r4(dst + 4 * c, v[b][0][c], v[b][1][c], v[b][2][c], v[b][3][c]);
+      }
+    }
+  }
+
+  // -- the steps
   for (int t = 0; t < p.t; ++t) {
     const float* hin = t == 0 ? p.h0 : p.hbuf + (size_t)((t - 1) & 1) * nn * p.kp;
     const int hstride = t == 0 ? kk : p.kp;
@@ -293,77 +483,407 @@ __global__ void __launch_bounds__(THREADS, 1) seq_fwd(Params p) {
     for (int ps = 0; ps < p.passes; ++ps) {
       const int n0 = row0 + ps * ROWS;
       if (n0 >= nn) break;  // block-uniform
+      if (t > 0 || ps > 0) {
+        load_ops<CELL>(p, t, n0, ra, 8, j, hin, hstride, zv, sv);
+        prefetch_h<PACK>(p, hin, hstride, hvec, n0, 0, pre);
+      }
 
-      // the epilogue's operands, loaded before the product so that their
-      // latency hides behind it: zx of the thread's columns, and c (LSTM) or
-      // h_{t-1} (GRU) of its units
-      float zv[RM][4], sv[RM];
+      float acc[RM][G];
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[r][g] = 0.f;
+
+      for (int k0 = 0; k0 < p.kr; k0 += KT) {
+        __syncthreads();  // the previous chunk is consumed
+        stage_h<PACK>(hsm, k0, kk, pre);
+        __syncthreads();
+        if (k0 + KT < p.kr) prefetch_h<PACK>(p, hin, hstride, hvec, n0, k0 + KT, pre);
+        const float* hrow = hsm + (PACK ? pr : ra) * HS;
+        const RS* rrow = rs + ((size_t)(k0 / 4) * G * UNITS + u) * 4;
+#pragma unroll (QU)
+        for (int q = 0; q < KT / 4; ++q) {
+          float hv[RM][4];
+          if constexpr (PACK) {
+            const uint4 x = *reinterpret_cast<const uint4*>(hrow + 4 * q);
+            const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) { hv[0][i] = lo_f(w[i]); hv[1][i] = hi_f(w[i]); }
+          } else {
+#pragma unroll
+            for (int r = 0; r < RM; ++r) {
+              const float4 x = *reinterpret_cast<const float4*>(hrow + 8 * r * HS + 4 * q);
+              hv[r][0] = x.x; hv[r][1] = x.y; hv[r][2] = x.z; hv[r][3] = x.w;
+            }
+          }
+          float4 rv[G];
+#pragma unroll
+          for (int g = 0; g < G; ++g) rv[g] = load_r4(rrow + ((size_t)q * G + g) * UNITS * 4);
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              acc[r][g] = fmaf(hv[r][0], rv[g].x, acc[r][g]);
+              acc[r][g] = fmaf(hv[r][1], rv[g].y, acc[r][g]);
+              acc[r][g] = fmaf(hv[r][2], rv[g].z, acc[r][g]);
+              acc[r][g] = fmaf(hv[r][3], rv[g].w, acc[r][g]);
+            }
+        }
+      }
+
+      // -- the gate epilogue: the thread's rows x its unit
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
-        const int n = n0 + rg * RM + r;
+        const int n = n0 + ra + 8 * r;
+        if (n < nn && j < kk) cell_out<CELL, TRAIN>(p, t, n, j, acc[r], zv[r], sv[r], hout, last);
+      }
+    }
+    if (!last) grid_barrier(p.bar, (unsigned)(t + 1) * gridDim.x);
+  }
+}
+
+// -- The split form (f32 R): the k range split over the 8 warps -------------
+// Warp w takes k 8w .. 8w+7 of every KT chunk for the block's whole tile, a
+// lane an 8 x 8 register tile (the simple RNN 4 x 4): per 4 k, 8 h loads of
+// 4 k and 8 R loads of 4 columns for 256 FFMA, one loaded value per 4 FFMA
+// (the chain form's 2 x 4 tile loads 3 per 4).  The warps' partial sums meet
+// in shared memory and are added in warp order, then the epilogue maps a
+// thread to rows er, er + 16 and unit eu.
+constexpr int SPLIT = THREADS / 32;   // the k slices of a chunk, one a warp
+constexpr int SKW = KT / SPLIT;       // k a warp a chunk
+static_assert(SKW % 4 == 0, "whole quads of k a warp");
+
+template <int CELL>
+struct SplitGeo {
+  static constexpr int S = CELL == RNN ? 1 : 4;                 // slots a unit (GRU's 4th zero)
+  static constexpr int COLS = CellTraits<CELL>::UNITS * S;      // 64 or 16
+  static constexpr int NH = CELL == RNN ? 1 : 2;                // 4-column groups a lane
+  static constexpr int CGW = COLS / 4 / NH;                     // column groups a warp
+  static constexpr int RGW = 32 / CGW;                          // row groups a warp
+  static constexpr int LR = ROWS / RGW;                         // rows a lane, RGW apart
+  static constexpr int RED = SPLIT * ROWS * COLS;               // floats of the partials
+};
+
+template <int CELL, bool TRAIN>
+__global__ void __launch_bounds__(THREADS, 1) seq_fwd_split(Params p) {
+  using Geo = SplitGeo<CELL>;
+  constexpr int G = CellTraits<CELL>::G, UNITS = CellTraits<CELL>::UNITS;
+  constexpr int S = Geo::S, COLS = Geo::COLS, NH = Geo::NH, CGW = Geo::CGW;
+  constexpr int RGW = Geo::RGW, LR = Geo::LR;
+  static_assert(ROWS == 16 * RM, "the epilogue's rows er + 16 r");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hsm = reinterpret_cast<float*>(smem);            // [ROWS][HS]
+  float* rsl = reinterpret_cast<float*>(smem + H_SMEM);   // [kr][COLS]: slot u*S + g
+  float* red = rsl + (size_t)p.kr * COLS;                 // [SPLIT][ROWS][COLS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int cg = lane % CGW, rg = lane / CGW;             // product: rows rg + RGW*i
+  const int eu = tid % UNITS, er = tid / UNITS;           // epilogue: rows er + 16*r
+  const int cbi = blockIdx.x % p.cb, rbi = blockIdx.x / p.cb;
+  const int j0 = cbi * UNITS, j = j0 + eu;
+  const int nn = p.n, kk = p.k;
+  const size_t gk = (size_t)G * kk;
+  const float* rsrc = static_cast<const float*>(p.r);
+
+  const int row0 = rbi * p.passes * ROWS;
+  float zv[RM][G], sv[RM];
+  float4 pre[QPT];
+  load_ops<CELL>(p, 0, row0, er, 16, j, p.h0, kk, zv, sv);
+  prefetch_h<false>(p, p.h0, kk, p.h0_vec != 0, row0, 0, pre);
+
+  // -- the block's R slice, once: rsl[k][u*S + g] = R[k][g*K + j0 + u].  A
+  // task is one row k of 4 units: G vector loads, 4 (RNN 1) vector stores.
+  {
+    const int ntask = p.kr * (UNITS / 4);
+    for (int e0 = tid; e0 < ntask; e0 += THREADS * RB) {
+      float v[RB][G][4];
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        const int e = e0 + b * THREADS, k = e / (UNITS / 4), jq = j0 + 4 * (e % (UNITS / 4));
+        const int live = e < ntask && k < kk ? min(max(kk - jq, 0), 4) : 0;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          r_quad(rsrc + (size_t)k * gk + (size_t)g * kk + jq, p.r_vec != 0, live, v[b][g]);
+      }
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        const int e = e0 + b * THREADS;
+        if (e >= ntask) break;
+        float* dst = rsl + (size_t)(e / (UNITS / 4)) * COLS + 4 * (e % (UNITS / 4)) * S;
+        if constexpr (S == 1) {
+          store_r4(dst, v[b][0][0], v[b][0][1], v[b][0][2], v[b][0][3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            store_r4(dst + 4 * c, v[b][0][c], v[b][1][c], v[b][2][c], G > 3 ? v[b][G - 1][c] : 0.f);
+        }
+      }
+    }
+  }
+
+  // -- the steps
+  for (int t = 0; t < p.t; ++t) {
+    const float* hin = t == 0 ? p.h0 : p.hbuf + (size_t)((t - 1) & 1) * nn * p.kp;
+    const int hstride = t == 0 ? kk : p.kp;
+    const bool hvec = t == 0 ? p.h0_vec != 0 : true;
+    float* hout = p.hbuf + (size_t)(t & 1) * nn * p.kp;
+    const bool last = t + 1 == p.t;
+
+    for (int ps = 0; ps < p.passes; ++ps) {
+      const int n0 = row0 + ps * ROWS;
+      if (n0 >= nn) break;  // block-uniform
+      if (t > 0 || ps > 0) {
+        load_ops<CELL>(p, t, n0, er, 16, j, hin, hstride, zv, sv);
+        prefetch_h<false>(p, hin, hstride, hvec, n0, 0, pre);
+      }
+
+      float acc[LR][4 * NH];
+#pragma unroll
+      for (int i = 0; i < LR; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * NH; ++c) acc[i][c] = 0.f;
+
+      for (int k0 = 0; k0 < p.kr; k0 += KT) {
+        __syncthreads();  // the previous chunk is consumed
+        stage_h<false>(hsm, k0, kk, pre);
+        __syncthreads();
+        if (k0 + KT < p.kr) prefetch_h<false>(p, hin, hstride, hvec, n0, k0 + KT, pre);
+        const float* hb = hsm + rg * HS + SKW * warp;
+        const float* rb = rsl + (size_t)(k0 + SKW * warp) * COLS + 4 * cg;
+#pragma unroll
+        for (int q = 0; q < SKW / 4; ++q) {
+          float4 hv[LR];
+#pragma unroll
+          for (int i = 0; i < LR; ++i)
+            hv[i] = *reinterpret_cast<const float4*>(hb + RGW * i * HS + 4 * q);
+#pragma unroll
+          for (int kq = 0; kq < 4; ++kq) {
+            float4 rv[NH];
+#pragma unroll
+            for (int h = 0; h < NH; ++h)
+              rv[h] = *reinterpret_cast<const float4*>(rb + (4 * q + kq) * COLS + 4 * CGW * h);
+#pragma unroll
+            for (int i = 0; i < LR; ++i) {
+              const float x = kq == 0 ? hv[i].x : kq == 1 ? hv[i].y : kq == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+              for (int h = 0; h < NH; ++h) {
+                const float r4[4] = {rv[h].x, rv[h].y, rv[h].z, rv[h].w};
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  if (S == 1 || c < G) acc[i][4 * h + c] = fmaf(x, r4[c], acc[i][4 * h + c]);
+              }
+            }
+          }
+        }
+      }
+
+      // -- the gate epilogue: the warp's partials into shared memory, their
+      // sums in warp order, then rows er + 16 r x unit eu
+      float* rw = red + (size_t)warp * ROWS * COLS;
+#pragma unroll
+      for (int i = 0; i < LR; ++i)
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          *reinterpret_cast<float4*>(rw + (rg + RGW * i) * COLS + 4 * (cg + CGW * h)) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+      __syncthreads();
+
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const int row = er + 16 * r, n = n0 + row;
+        float z[G];
+        const float* src = red + row * COLS + eu * S;
+#pragma unroll
+        for (int w = 0; w < SPLIT; ++w) {
+          float x[4];
+          if constexpr (S == 1) {
+            x[0] = src[(size_t)w * ROWS * COLS];
+          } else {
+            const float4 v = *reinterpret_cast<const float4*>(src + (size_t)w * ROWS * COLS);
+            x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g) z[g] = w == 0 ? x[g] : __fadd_rn(z[g], x[g]);
+        }
+        if (n < nn && j < kk) cell_out<CELL, TRAIN>(p, t, n, j, z, zv[r], sv[r], hout, last);
+      }
+    }
+    if (!last) grid_barrier(p.bar, (unsigned)(t + 1) * gridDim.x);
+  }
+}
+
+// -- The wide form (bf16 R at large N; LSTM, simple RNN): the first design's
+// geometry.  A block of 4 warps owns 16 column groups of 4 gate columns
+// (LSTM: the gates of one unit; simple RNN: 4 consecutive units, 64 a
+// block) and passes of 32 rows; a thread owns 4 rows x one group, each sum
+// one FFMA chain in k order over h staged transposed (one float4 of 4 rows
+// a k) and the group's 4 bf16 R values.  With the bf16 slice (64 KB at K
+// 512) three blocks share an SM.  Its 4 x 4 tile loads as many values an
+// FFMA as the LSTM's chain tile and half the simple RNN's; it loses at
+// small N, where its grid leaves SMs idle (plan_form says where it is
+// taken).  The GRU has no wide form: its fourth column would be a zero, and
+// that tile lost to the chain form at every N measured.
+constexpr int W_THREADS = 128;
+constexpr int W_CG = 16;                       // column groups a block owns
+constexpr int W_RM = 4;                        // rows a thread owns in a pass
+constexpr int W_ROWS = W_THREADS / W_CG * W_RM;  // 32 rows a pass
+constexpr int W_COLS = W_CG * 4;               // gate columns a block owns
+constexpr int W_H_SMEM = KT * W_ROWS * 4;      // 8 KB: hT[KT][W_ROWS] f32
+constexpr int W_SQ = W_THREADS / W_ROWS;       // staging threads a row
+constexpr int W_QPT = KT / 4 / W_SQ;           // float4 quads a thread stages a chunk
+constexpr int W_RB = 32;                       // R loads a thread keeps in flight
+
+// The wide form where its grid holds at least FILL tenths of a block an SM
+// and its row passes cover no more than CHAIN_COST times the rows of the
+// chain form's (CHAIN_COST: the values the chain tile loads an FFMA over
+// the wide tile's, 1 for the LSTM, 2 for the simple RNN); FILL 0: no wide
+// form.  FILL was set from a sweep of N 128 .. 4100 at K 512 (PERF.md, PR
+// 11): the simple RNN's wide form won from N 512 (grid 128) on, the
+// LSTM's where three of its blocks share an SM and its passes cover no
+// more rows.
+constexpr int WIDE_FILL_LSTM = 20;
+constexpr int WIDE_FILL_RNN = 9;
+
+template <int CELL>
+struct WideTraits {
+  static constexpr int UNITS = CELL == RNN ? W_CG * 4 : W_CG;  // units a block owns
+  static constexpr int FILL = CELL == LSTM ? WIDE_FILL_LSTM : CELL == RNN ? WIDE_FILL_RNN : 0;
+  static constexpr int CHAIN_COST = CELL == RNN ? 2 : 1;
+};
+
+// Element e of a wide block's R slice (row k = e / W_COLS): its index in the
+// shared-memory slice, and in *src its index in R, or -1 for a zero (k >= K,
+// a unit >= K).
+template <int CELL>
+__device__ __forceinline__ int w_slot(int e, int j0, int kk, size_t gk, long long* src) {
+  const int k = e / W_COLS, q = e % W_COLS;
+  int g, c, j;
+  if (CELL == RNN) {
+    g = q / 4; c = q % 4; j = j0 + q;       // 4 consecutive units a group
+  } else {
+    c = q / W_CG; g = q % W_CG; j = j0 + g; // gate c of unit j
+  }
+  const bool live = k < kk && j < kk;
+  *src = live ? (long long)k * (long long)gk + (CELL == RNN ? j : (long long)c * kk + j) : -1;
+  return k * W_COLS + g * 4 + c;
+}
+
+template <int CELL, bool TRAIN>
+__global__ void __launch_bounds__(W_THREADS, 1) seq_fwd_wide(Params p) {
+  static_assert(CELL != GRU, "the GRU has no wide form");
+  constexpr int G = CellTraits<CELL>::G;
+  constexpr int UNITS = WideTraits<CELL>::UNITS;
+  using RT = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hT = reinterpret_cast<float*>(smem);            // [KT][W_ROWS]
+  RT* rs = reinterpret_cast<RT*>(smem + W_H_SMEM);        // [kr][W_COLS]
+
+  const int tid = threadIdx.x;
+  const int cg = tid % W_CG, rg = tid / W_CG;             // compute mapping
+  const int sr = tid % W_ROWS, sq = tid / W_ROWS;         // staging mapping
+  const int cbi = blockIdx.x % p.cb, rbi = blockIdx.x / p.cb;
+  const int j0 = cbi * UNITS;
+  const int nn = p.n, kk = p.k;
+  const size_t gk = (size_t)G * kk;
+  const RT* rsrc = static_cast<const RT*>(p.r);
+
+  // -- the block's R slice, once: rs[k][cg*4 + c], W_RB loads in flight
+  const int total = p.kr * W_COLS;
+  for (int e0 = tid; e0 < total; e0 += W_THREADS * W_RB) {
+    RT v[W_RB];
+    int dst[W_RB];
+#pragma unroll
+    for (int u = 0; u < W_RB; ++u) {
+      const int e = e0 + u * W_THREADS;
+      long long src = -1;
+      dst[u] = e < total ? w_slot<CELL>(e, j0, kk, gk, &src) : -1;
+      v[u] = src >= 0 ? rsrc[src] : __float2bfloat16_rn(0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < W_RB; ++u)
+      if (dst[u] >= 0) rs[dst[u]] = v[u];
+  }
+
+  // -- the steps
+  const int row0 = rbi * p.passes * W_ROWS;
+  const auto prefetch_hw = [&](const float* hin, int hstride, bool hvec, int n0, int k0,
+                               float4 (&pre)[W_QPT]) {
+#pragma unroll
+    for (int i = 0; i < W_QPT; ++i)
+      pre[i] = load_h4(hin, hstride, hvec, n0 + sr, k0 + 4 * (sq + W_SQ * i), nn, kk);
+  };
+  for (int t = 0; t < p.t; ++t) {
+    const float* hin = t == 0 ? p.h0 : p.hbuf + (size_t)((t - 1) & 1) * nn * p.kp;
+    const int hstride = t == 0 ? kk : p.kp;
+    const bool hvec = t == 0 ? p.h0_vec != 0 : true;
+    float* hout = p.hbuf + (size_t)(t & 1) * nn * p.kp;
+    const bool last = t + 1 == p.t;
+
+    for (int ps = 0; ps < p.passes; ++ps) {
+      const int n0 = row0 + ps * W_ROWS;
+      if (n0 >= nn) break;  // block-uniform
+
+      // the epilogue's operands before the product: zx of the thread's
+      // columns, and c (LSTM) of its units
+      float zv[W_RM][4], sv[W_RM];
+#pragma unroll
+      for (int r = 0; r < W_RM; ++r) {
+        const int n = n0 + rg * W_RM + r;
         const float* zrow = p.zx + ((size_t)t * nn + n) * gk;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int j = CELL == RNN ? j0 + cg * 4 + c : j0 + cg;
-          const bool live = n < nn && j < kk && (CELL == RNN || c < G);
+          const bool live = n < nn && j < kk;
           zv[r][c] = live ? zrow[CELL == RNN ? j : c * kk + j] : 0.f;
         }
         const int j = j0 + cg;
         const size_t e = (size_t)n * kk + j;
         sv[r] = 0.f;
         if (CELL == LSTM && n < nn && j < kk) sv[r] = t == 0 ? p.c0[e] : p.ct[e];
-        if (CELL == GRU && n < nn && j < kk) sv[r] = __ldcg(hin + (size_t)n * hstride + j);
       }
 
-      float acc[RM][4];
+      float acc[W_RM][4];
 #pragma unroll
-      for (int r = 0; r < RM; ++r)
+      for (int r = 0; r < W_RM; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
-      // staging: thread (sr, sq) loads quads sq, sq+SQ, ... of row sr
-      float4 pre[QPT];
-#pragma unroll
-      for (int i = 0; i < QPT; ++i)
-        pre[i] = load_h4(hin, hstride, hvec, n0 + sr, 4 * (sq + SQ * i), nn, kk);
-
+      float4 pre[W_QPT];
+      prefetch_hw(hin, hstride, hvec, n0, 0, pre);
       for (int k0 = 0; k0 < p.kr; k0 += KT) {
         __syncthreads();  // the previous chunk is consumed
 #pragma unroll
-        for (int i = 0; i < QPT; ++i) {
-          const int q = 4 * (sq + SQ * i), kq = k0 + q;   // k in the chunk, in h
-          hT[(q + 0) * ROWS + sr] = to_r<RT>(pre[i].x);
-          hT[(q + 1) * ROWS + sr] = kq + 1 < kk ? to_r<RT>(pre[i].y) : 0.f;
-          hT[(q + 2) * ROWS + sr] = kq + 2 < kk ? to_r<RT>(pre[i].z) : 0.f;
-          hT[(q + 3) * ROWS + sr] = kq + 3 < kk ? to_r<RT>(pre[i].w) : 0.f;
+        for (int i = 0; i < W_QPT; ++i) {
+          const int q = 4 * (sq + W_SQ * i), kq = k0 + q;   // k in the chunk, in h
+          hT[(q + 0) * W_ROWS + sr] = to_r<RT>(pre[i].x);
+          hT[(q + 1) * W_ROWS + sr] = kq + 1 < kk ? to_r<RT>(pre[i].y) : 0.f;
+          hT[(q + 2) * W_ROWS + sr] = kq + 2 < kk ? to_r<RT>(pre[i].z) : 0.f;
+          hT[(q + 3) * W_ROWS + sr] = kq + 3 < kk ? to_r<RT>(pre[i].w) : 0.f;
         }
         __syncthreads();
-        if (k0 + KT < p.kr) {
-#pragma unroll
-          for (int i = 0; i < QPT; ++i)
-            pre[i] = load_h4(hin, hstride, hvec, n0 + sr, k0 + KT + 4 * (sq + SQ * i), nn, kk);
-        }
-        const RT* rrow = rs + (size_t)k0 * COLS + cg * 4;
-        const float* hrow = hT + rg * RM;
+        if (k0 + KT < p.kr) prefetch_hw(hin, hstride, hvec, n0, k0 + KT, pre);
+        const RT* rrow = rs + (size_t)k0 * W_COLS + cg * 4;
+        const float* hrow = hT + rg * W_RM;
 #pragma unroll 8
         for (int k = 0; k < KT; ++k) {
-          float hv[RM];
-          load_rows(hrow + k * ROWS, hv);
-          const float4 rv = load_r4(rrow + (size_t)k * COLS);
-          const float r4[4] = {rv.x, rv.y, rv.z, rv.w};
+          const float4 hv = *reinterpret_cast<const float4*>(hrow + k * W_ROWS);
+          const float4 rv = load_r4(rrow + (size_t)k * W_COLS);
+          const float h4[4] = {hv.x, hv.y, hv.z, hv.w}, r4[4] = {rv.x, rv.y, rv.z, rv.w};
 #pragma unroll
-          for (int r = 0; r < RM; ++r)
+          for (int r = 0; r < W_RM; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(hv[r], r4[c], acc[r][c]);
+            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(h4[r], r4[c], acc[r][c]);
         }
       }
 
-      // -- the gate epilogue: the thread's 4 rows x its column group.  Every
-      // product and sum is rounded on its own (no FMA contraction), as the
-      // plain versions' separate torch ops round them.
+      // -- the gate epilogue: the thread's 4 rows x its column group, the
+      // first design's code as it was (through cell_out it measured 2-8 %
+      // slower at N 4100)
 #pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const int n = n0 + rg * RM + r;
+      for (int r = 0; r < W_RM; ++r) {
+        const int n = n0 + rg * W_RM + r;
         if (n >= nn) continue;
         const size_t srow = ((size_t)t * nn + n) * kk;   // row n of step t, [T,N,K]
         if (CELL == RNN) {
@@ -381,34 +901,19 @@ __global__ void __launch_bounds__(THREADS, 1) seq_fwd(Params p) {
         } else {
           const int j = j0 + cg;
           if (j >= kk) continue;
-          float h2;
-          if (CELL == LSTM) {
-            const float i = sigmoid(__fadd_rn(zv[r][0], acc[r][0]));
-            const float g = tanhf(__fadd_rn(zv[r][1], acc[r][1]));
-            const float f = sigmoid(__fadd_rn(zv[r][2], acc[r][2]));
-            const float o = sigmoid(__fadd_rn(zv[r][3], acc[r][3]));
-            const float c2 = __fadd_rn(__fmul_rn(f, sv[r]), __fmul_rn(i, g));
-            h2 = __fmul_rn(o, tanhf(c2));
-            p.ct[(size_t)n * kk + j] = c2;
-            if (TRAIN) {
-              p.res[0][srow + j] = c2;
-              p.res[1][srow + j] = i;
-              p.res[2][srow + j] = g;
-              p.res[3][srow + j] = f;
-              p.res[4][srow + j] = o;
-            }
-          } else {
-            const float ri = sigmoid(__fadd_rn(zv[r][0], acc[r][0]));
-            const float zi = sigmoid(__fadd_rn(zv[r][1], acc[r][1]));
-            const float zrg = acc[r][2];
-            const float gi = tanhf(__fadd_rn(zv[r][2], __fmul_rn(ri, zrg)));
-            h2 = __fadd_rn(__fmul_rn(__fsub_rn(1.f, zi), gi), __fmul_rn(zi, sv[r]));
-            if (TRAIN) {
-              p.res[0][srow + j] = ri;
-              p.res[1][srow + j] = zi;
-              p.res[2][srow + j] = gi;
-              p.res[3][srow + j] = zrg;
-            }
+          const float i = sigmoid(__fadd_rn(zv[r][0], acc[r][0]));
+          const float g = tanhf(__fadd_rn(zv[r][1], acc[r][1]));
+          const float f = sigmoid(__fadd_rn(zv[r][2], acc[r][2]));
+          const float o = sigmoid(__fadd_rn(zv[r][3], acc[r][3]));
+          const float c2 = __fadd_rn(__fmul_rn(f, sv[r]), __fmul_rn(i, g));
+          const float h2 = __fmul_rn(o, tanhf(c2));
+          p.ct[(size_t)n * kk + j] = c2;
+          if (TRAIN) {
+            p.res[0][srow + j] = c2;
+            p.res[1][srow + j] = i;
+            p.res[2][srow + j] = g;
+            p.res[3][srow + j] = f;
+            p.res[4][srow + j] = o;
           }
           __stcg(hout + (size_t)n * p.kp + j, h2);
           p.hs[srow + j] = h2;
@@ -898,14 +1403,122 @@ int coop_plan(const void* kern, int threads, size_t smem, int cb, int rpass, int
   return 0;
 }
 
-// The launch plan of the forward kernel for N x K: its R slice is K x COLS.
-template <int CELL, typename RT, bool TRAIN>
-int plan(int n, int k, int device, Plan* pl) {
-  const int kr = (k + KT - 1) / KT * KT;
-  const int units = CellTraits<CELL>::UNITS;
-  return coop_plan(reinterpret_cast<const void*>(seq_fwd<CELL, RT, TRAIN>), THREADS,
-                   (size_t)H_SMEM + (size_t)kr * COLS * sizeof(RT), (k + units - 1) / units,
-                   (n + ROWS - 1) / ROWS, device, pl);
+// The launch plans of the forward kernel's two forms for N x K: the chain
+// form's R slice is round_up(K, KT) x G*UNITS values in R's dtype after the h
+// chunk; the split form's round_up(K, KT) x COLS f32 values, then the warps'
+// partial sums.
+template <int CELL, typename RS, bool TRAIN>
+int plan_chain(int n, int k, int device, Plan* pl) {
+  constexpr int G = CellTraits<CELL>::G, UNITS = CellTraits<CELL>::UNITS;
+  const long long kr = (k + KT - 1LL) / KT * KT;
+  const long long smem = H_SMEM + kr * G * UNITS * (long long)sizeof(RS);
+  if (smem > SHARED_MAX) return -2;
+  return coop_plan(reinterpret_cast<const void*>(seq_fwd<CELL, RS, TRAIN>), THREADS,
+                   (size_t)smem, (k + UNITS - 1) / UNITS, (n + ROWS - 1) / ROWS, device, pl);
+}
+
+template <int CELL, bool TRAIN>
+int plan_split(int n, int k, int device, Plan* pl) {
+  using Geo = SplitGeo<CELL>;
+  constexpr int UNITS = CellTraits<CELL>::UNITS;
+  const long long kr = (k + KT - 1LL) / KT * KT;
+  const long long smem = H_SMEM + (kr * Geo::COLS + Geo::RED) * 4LL;
+  if (smem > SHARED_MAX) return -2;
+  return coop_plan(reinterpret_cast<const void*>(seq_fwd_split<CELL, TRAIN>), THREADS,
+                   (size_t)smem, (k + UNITS - 1) / UNITS, (n + ROWS - 1) / ROWS, device, pl);
+}
+
+template <int CELL, bool TRAIN>
+int plan_wide(int n, int k, int device, Plan* pl) {
+  constexpr int UNITS = WideTraits<CELL>::UNITS;
+  const long long kr = (k + KT - 1LL) / KT * KT;
+  const long long smem = W_H_SMEM + kr * W_COLS * 2LL;
+  if (smem > SHARED_MAX) return -2;
+  return coop_plan(reinterpret_cast<const void*>(seq_fwd_wide<CELL, TRAIN>), W_THREADS,
+                   (size_t)smem, (k + UNITS - 1) / UNITS, (n + W_ROWS - 1) / W_ROWS, device, pl);
+}
+
+// The forward kernel's form for N x K, its own choice: with f32 R the split
+// form where it fits (its slice and partials in a block's shared memory,
+// its grid co-resident), else the chain form; with bf16 R the wide form
+// where its grid holds at least WideTraits::FILL tenths of a block an SM
+// and its row passes cover no more than WideTraits::CHAIN_COST times the
+// chain form's rows (the LSTM's two tiles load as many values an FFMA, so
+// the form with fewer rows to cover wins), else the chain form.  Both bf16
+// forms sum in k order: what the plain version sums, bit for bit.
+enum Form { FORM_CHAIN = 0, FORM_SPLIT = 1, FORM_WIDE = 2 };
+
+struct FwdForm {
+  Plan pl;
+  int form;
+  int threads;
+};
+
+// the rows a plan's passes cover, padding included
+inline long long rows_covered(const Plan& pl, int rows) {
+  return (long long)pl.passes * (pl.grid / pl.cb) * rows;
+}
+
+template <int CELL, bool TRAIN>
+int plan_form(int n, int k, int r_bf16, int device, FwdForm* f) {
+  f->form = FORM_CHAIN;
+  f->threads = THREADS;
+  if (!r_bf16) {
+    const int rc = plan_split<CELL, TRAIN>(n, k, device, &f->pl);
+    if (rc != -2) {
+      if (rc == 0) f->form = FORM_SPLIT;
+      return rc;
+    }
+    return plan_chain<CELL, float, TRAIN>(n, k, device, &f->pl);
+  }
+  const int rc = plan_chain<CELL, __nv_bfloat16, TRAIN>(n, k, device, &f->pl);
+  if (rc != 0 && rc != -2) return rc;
+  if constexpr (WideTraits<CELL>::FILL > 0) {
+    Plan w;
+    const int rw = plan_wide<CELL, TRAIN>(n, k, device, &w);
+    if (rw != 0 && rw != -2) return rw;
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rw == 0 && 10LL * w.grid >= (long long)WideTraits<CELL>::FILL * sms &&
+        (rc != 0 || rows_covered(w, W_ROWS) <=
+                        WideTraits<CELL>::CHAIN_COST * rows_covered(f->pl, ROWS))) {
+      f->pl = w;
+      f->form = FORM_WIDE;
+      f->threads = W_THREADS;
+      return 0;
+    }
+  }
+  return rc;
+}
+
+// ... made once a shape: each kernel keeps the plans of its last MEMO
+// shapes (a plan or a refusal, -2; other errors are not kept).
+constexpr int MEMO = 64;
+
+template <int CELL, bool TRAIN>
+int fwd_form(int n, int k, int r_bf16, int device, FwdForm* f) {
+  struct Entry {
+    int n, k, r_bf16, device, rc;
+    FwdForm f;
+  };
+  static std::mutex mu;
+  static Entry memo[MEMO];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = memo[i];
+    if (e.n == n && e.k == k && e.r_bf16 == r_bf16 && e.device == device) {
+      *f = e.f;
+      return e.rc;
+    }
+  }
+  const int rc = plan_form<CELL, TRAIN>(n, k, r_bf16, device, f);
+  if (rc == 0 || rc == -2) {
+    memo[next] = Entry{n, k, r_bf16, device, rc, *f};
+    next = (next + 1) % MEMO;
+    if (used < MEMO) ++used;
+  }
+  return rc;
 }
 
 // The launch plan of the backward kernel for N x K with its R^T slice held
@@ -924,43 +1537,69 @@ int plan_bwd(int n, int k, int device, Plan* pl) {
                    pl);
 }
 
-template <int CELL, typename RT, bool TRAIN>
-int launch(Params p, int device, cudaStream_t st) {
-  Plan pl;
-  const int rc = plan<CELL, RT, TRAIN>(p.n, p.k, device, &pl);
-  if (rc) return rc;
+template <typename RT>
+int launch(Params p, const FwdForm& f, const void* kern, cudaStream_t st) {
+  const Plan& pl = f.pl;
   if ((long long)p.t * pl.grid > 0xffffffffLL) return -2;  // the barrier's count
   p.kp = (p.k + 3) / 4 * 4;
   p.kr = (p.k + KT - 1) / KT * KT;
   p.cb = pl.cb;
   p.passes = pl.passes;
   p.h0_vec = p.k % 4 == 0 && reinterpret_cast<uintptr_t>(p.h0) % 16 == 0;
-  cudaError_t e = cudaMemsetAsync(p.bar, 0, sizeof(unsigned), st);
+  p.r_vec = p.k % 4 == 0 && reinterpret_cast<uintptr_t>(p.r) % (4 * sizeof(RT)) == 0;
+  // the kernel's shared-memory limit as this plan needs it (a kept plan's
+  // may have been lowered since by the plan of another shape)
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)pl.smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemsetAsync(p.bar, 0, sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(seq_fwd<CELL, RT, TRAIN>),
-                                  dim3(pl.grid), dim3(THREADS), args, pl.smem, st);
+  e = cudaLaunchCooperativeKernel(kern, dim3(pl.grid), dim3(f.threads), args, pl.smem, st);
   cudaGetLastError();  // clear the sticky launch error, returned below
   return (int)e;
 }
 
+// Launches the forward kernel of its form for p's shape and sets *form to
+// the form launched.
 template <int CELL, bool TRAIN>
-int dispatch(const Params& p, int r_bf16, int device, void* stream) {
+int dispatch(const Params& p, int r_bf16, int device, void* stream, int* form) {
   cudaSetDevice(device);
   const auto st = static_cast<cudaStream_t>(stream);
-  return r_bf16 ? launch<CELL, __nv_bfloat16, TRAIN>(p, device, st)
-                : launch<CELL, float, TRAIN>(p, device, st);
+  FwdForm f;
+  int rc = fwd_form<CELL, TRAIN>(p.n, p.k, r_bf16, device, &f);
+  if (rc) return rc;
+  if (r_bf16) {
+    const void* kern = reinterpret_cast<const void*>(seq_fwd<CELL, __nv_bfloat16, TRAIN>);
+    if constexpr (WideTraits<CELL>::FILL > 0)
+      if (f.form == FORM_WIDE) kern = reinterpret_cast<const void*>(seq_fwd_wide<CELL, TRAIN>);
+    rc = launch<__nv_bfloat16>(p, f, kern, st);
+  } else
+    rc = launch<float>(
+        p, f,
+        f.form == FORM_SPLIT ? reinterpret_cast<const void*>(seq_fwd_split<CELL, TRAIN>)
+                             : reinterpret_cast<const void*>(seq_fwd<CELL, float, TRAIN>),
+        st);
+  if (rc == 0) *form = f.form;
+  return rc;
 }
 
+// The form of both kernels of a cell (the train form's, where it has one;
+// the two share their geometry), or the first refusal.
 template <int CELL>
-int fits(int n, int k, int r_bf16, int device) {
-  Plan pl;
-  int rc = r_bf16 ? plan<CELL, __nv_bfloat16, false>(n, k, device, &pl)
-                  : plan<CELL, float, false>(n, k, device, &pl);
-  if (rc == 0 && CELL != RNN)
-    rc = r_bf16 ? plan<CELL, __nv_bfloat16, true>(n, k, device, &pl)
-                : plan<CELL, float, true>(n, k, device, &pl);
+int fits(int n, int k, int r_bf16, int device, FwdForm* f) {
+  int rc = fwd_form<CELL, false>(n, k, r_bf16, device, f);
+  if (rc == 0 && CELL != RNN) rc = fwd_form<CELL, true>(n, k, r_bf16, device, f);
   return rc;
+}
+
+int fwd_form_any(int gates, int n, int k, int r_bf16, int device, FwdForm* f) {
+  switch (gates) {
+    case 4: return fits<LSTM>(n, k, r_bf16, device, f);
+    case 3: return fits<GRU>(n, k, r_bf16, device, f);
+    case 1: return fits<RNN>(n, k, r_bf16, device, f);
+    default: return -1;
+  }
 }
 
 // The backward kernel's form for N x K: its plan, whether the R^T slice is
@@ -1065,34 +1704,36 @@ int dispatch_bwd(const BwdParams& p, int r_bf16, int device, void* stream) {
 // scratch: hbuf [2, N, round_up(K, 4)] f32 and bar, one 32-bit word, which the
 // entry point zeroes on the stream.  r_bf16 selects the dtype of R; a null
 // residual pointer (cs for the LSTM, ris for the GRU) selects the inference
-// form.  Nothing synchronises.  T, N, K >= 1.
+// form.  *form is set to the form launched (0 chain, 1 split, 2 wide, as
+// xsmm_rnn_seq_form reports it).  Nothing synchronises.  T, N, K >= 1.
 extern "C" int xsmm_lstm_seq(const float* zx, const void* r, int r_bf16, const float* h0,
                              const float* c0, float* hs, float* ht, float* ct, float* cs,
                              float* is, float* gs, float* fs, float* os, float* hbuf,
-                             unsigned* bar, int t, int n, int k, int device, void* stream) {
+                             unsigned* bar, int t, int n, int k, int* form, int device,
+                             void* stream) {
   Params p{zx, r, h0, c0, hs, ht, ct, {cs, is, gs, fs, os}, hbuf, bar, t, n, k,
            0, 0, 0, 0, 0, 0};
-  return cs ? dispatch<LSTM, true>(p, r_bf16, device, stream)
-            : dispatch<LSTM, false>(p, r_bf16, device, stream);
+  return cs ? dispatch<LSTM, true>(p, r_bf16, device, stream, form)
+            : dispatch<LSTM, false>(p, r_bf16, device, stream, form);
 }
 
 extern "C" int xsmm_gru_seq(const float* zx, const void* r, int r_bf16, const float* h0,
                             float* hs, float* ht, float* ris, float* zis, float* gis,
                             float* zrgs, float* hbuf, unsigned* bar, int t, int n, int k,
-                            int device, void* stream) {
+                            int* form, int device, void* stream) {
   Params p{zx, r, h0, nullptr, hs, ht, nullptr, {ris, zis, gis, zrgs, nullptr}, hbuf, bar,
            t, n, k, 0, 0, 0, 0, 0, 0};
-  return ris ? dispatch<GRU, true>(p, r_bf16, device, stream)
-             : dispatch<GRU, false>(p, r_bf16, device, stream);
+  return ris ? dispatch<GRU, true>(p, r_bf16, device, stream, form)
+             : dispatch<GRU, false>(p, r_bf16, device, stream, form);
 }
 
 extern "C" int xsmm_rnn_seq(const float* zx, const void* r, int r_bf16, const float* h0,
                             float* hs, float* ht, int act, float* hbuf, unsigned* bar, int t,
-                            int n, int k, int device, void* stream) {
+                            int n, int k, int* form, int device, void* stream) {
   if (act < 0 || act > 2) return -1;
   Params p{zx, r, h0, nullptr, hs, ht, nullptr, {nullptr, nullptr, nullptr, nullptr, nullptr},
            hbuf, bar, t, n, k, 0, 0, 0, 0, act, 0};
-  return dispatch<RNN, false>(p, r_bf16, device, stream);
+  return dispatch<RNN, false>(p, r_bf16, device, stream, form);
 }
 
 // 1 if the kernel of a cell with `gates` gates (4 LSTM, 3 GRU, 1 RNN) and R of
@@ -1103,15 +1744,28 @@ extern "C" int xsmm_rnn_seq_fits(int n, int k, int gates, int r_itemsize, int de
   if (r_itemsize != 2 && r_itemsize != 4) return -1;
   if (n < 1 || k < 1) return 0;
   cudaSetDevice(device);
-  const int bf = r_itemsize == 2;
-  int rc;
-  switch (gates) {
-    case 4: rc = fits<LSTM>(n, k, bf, device); break;
-    case 3: rc = fits<GRU>(n, k, bf, device); break;
-    case 1: rc = fits<RNN>(n, k, bf, device); break;
-    default: return -1;
-  }
+  FwdForm f;
+  const int rc = fwd_form_any(gates, n, k, r_itemsize == 2, device, &f);
   return rc == 0 ? 1 : rc == -2 ? 0 : rc;
+}
+
+// The forward kernel's launch plan for N x K, as the entry points make it:
+// out[0] blocks, out[1] column blocks, out[2] ROWS-row passes a block,
+// out[3] the form (0 chain, 1 split, 2 wide), out[4] the SMs of the card,
+// out[5] the rows of a pass.  0, or as xsmm_rnn_seq_fits' refusals
+// (-2: outside the envelope).
+extern "C" int xsmm_rnn_seq_form(int n, int k, int gates, int r_itemsize, int* out, int device) {
+  if (r_itemsize != 2 && r_itemsize != 4) return -1;
+  if (n < 1 || k < 1) return -2;
+  cudaSetDevice(device);
+  FwdForm f;
+  const int rc = fwd_form_any(gates, n, k, r_itemsize == 2, device, &f);
+  if (rc) return rc;
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  out[0] = f.pl.grid; out[1] = f.pl.cb; out[2] = f.pl.passes; out[3] = f.form;
+  out[4] = sms; out[5] = f.form == FORM_WIDE ? W_ROWS : ROWS;
+  return 0;
 }
 
 // The backward entry points, as the forward's: one launch on `stream`, the
