@@ -36,15 +36,20 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
    ``create_dcsr_reg`` under each f64 schedule, beta 0 and ``acc_fn``;
    ``create_csr_soa`` f32, beta 0 and ``acc_fn``; ``create_csc_soa``;
    ``dfsspmdm_create`` / ``sfsspmdm_create``; the dense strategy; and
-   ``spmdm_init`` dense and ell — with the sparse launch counts set to 0
-   just before and read just after, each result held against numpy f64
-   gold;
+   ``spmdm_init`` dense and ell — with the sparse launch counts and their
+   route counts (staging and structure) set to 0 just before and read just
+   after, each result held against numpy f64 gold;
 8. compares each sparse kernel with its plain version on the same operands,
-   then times the four kernels (f64 under split2 and fold) at N = 65536 and
-   1048576 beside their bounds, the plain versions, ``torch.sparse.mm`` /
-   ``torch.addmm`` on a CSR tensor and ``torch.matmul`` of the densified
-   operator, and the whole ``create_dcsr_reg(op, 65536)(b)`` call step by
-   step;
+   and on the 150x150 operator once on every route forced (tma, cp_async,
+   unstaged x shared, global) and at N - 3 on the cp.async ring, bit for
+   bit, each launch counted on its route; then times the
+   four kernels (f64 under split2 and fold) at N = 65536 and 1048576
+   beside their bounds,
+   routes, the plain versions, ``torch.sparse.mm`` / ``torch.addmm`` on a
+   CSR tensor and ``torch.matmul`` of the densified operator, with the line
+   through the two N's (a fixed cost a call and a stream rate) and the
+   wrapper's host time a call at N = 65536, and the whole
+   ``create_dcsr_reg(op, 65536)(b)`` call step by step;
 10. drives the dense path through its entry points, with the tiled-GEMM
     and xcopy launch counts set to 0 just before and read just after:
     ``xgemm`` at 4096^3 bf16 and f32, ``gemm_handle`` bf16 -> f32, ``xgemm``
@@ -292,6 +297,12 @@ def pyfr_operators(np):
     return out
 
 
+def _routed(fn, route):
+    """``fn``, on ``route`` where one is given."""
+    return fn if route is None else (
+        lambda *x, **kw: fn(*x, route=route, **kw))
+
+
 def sparse_phase(args, dev, smi):
     """Steps 7 and 8 of the module docstring; returns the sparse kernels'
     rows of the ``{"kernels": [...]}`` line."""
@@ -397,8 +408,9 @@ def sparse_phase(args, dev, smi):
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launched = dict(sk.launches)
+    routes = {k_: v for k_, v in sk.route_launches.items() if v}
     print(f"sparse path: N={N}, 3 PyFR-shaped operators, in {main_s:.2f} s; "
-          f"launches {launched}")
+          f"launches {launched}; routes {routes}")
     for kname, n in launched.items():
         if n < 1:
             raise RuntimeError(f"{kname} was not launched on the sparse path")
@@ -408,19 +420,25 @@ def sparse_phase(args, dev, smi):
         """(kernel name, label, wrapper call, plain call) of every kernel
         variant on operator ``op``."""
         bh, bl, ch, cl = d["bh"], d["bl"], d["ch"], d["cl"]
-        out = [("spgemm_unroll_f32", "f32", lambda p=False: (
-                    sk.unroll_f32_plain if p else sk.unroll_f32)(op, bh)),
-               ("spgemm_acc_f32", "f32", lambda p=False: (
-                   sk.acc_f32_plain if p else sk.acc_f32)(op, ch, bh))]
+
+        out = [("spgemm_unroll_f32", "f32", lambda p=False, route=None: (
+                    sk.unroll_f32_plain if p else _routed(sk.unroll_f32,
+                                                          route))(op, bh)),
+               ("spgemm_acc_f32", "f32", lambda p=False, route=None: (
+                   sk.acc_f32_plain if p else _routed(sk.acc_f32, route))(
+                       op, ch, bh))]
         for sched in scheds:
             b_lo, c_lo = F64_SCHEDULES[sched]
             bl_, cl_ = (bl if b_lo else None), (cl if c_lo else None)
-            out.append(("spgemm_unroll_f64", sched, lambda p=False, bl_=bl_,
-                        c_lo=c_lo: (sk.unroll_f64_plain if p else
-                                    sk.unroll_f64)(op, bh, bl_, c_lo=c_lo)))
-            out.append(("spgemm_acc_f64", sched, lambda p=False, bl_=bl_,
-                        cl_=cl_: (sk.acc_f64_plain if p else sk.acc_f64)(
-                            op, ch, cl_, bh, bl_)))
+            out.append(("spgemm_unroll_f64", sched,
+                        lambda p=False, route=None, bl_=bl_, c_lo=c_lo: (
+                            sk.unroll_f64_plain if p else _routed(
+                                sk.unroll_f64, route))(op, bh, bl_,
+                                                       c_lo=c_lo)))
+            out.append(("spgemm_acc_f64", sched,
+                        lambda p=False, route=None, bl_=bl_, cl_=cl_: (
+                            sk.acc_f64_plain if p else _routed(
+                                sk.acc_f64, route))(op, ch, cl_, bh, bl_)))
         return out
 
     max_abs = {kname: 0.0 for kname in SPARSE_REPLACES}
@@ -448,6 +466,32 @@ def sparse_phase(args, dev, smi):
             if not ok:
                 raise RuntimeError(f"{name} {kname} {label}: kernel and plain "
                                    f"version disagree")
+    # every route forced once on the 150x150 operator, bit for bit, and
+    # the cp.async ring on a ragged N (the main path takes tma/shared)
+    name, a = ops[2]
+    op = plain_ops[name]
+    odd = {k_: v[:, :N - 3].contiguous() for k_, v in data[name].items()
+           if k_ in ("bh", "bl", "ch", "cl")}
+    for d, rts in ((data[name], [(st, sr) for st in sk.STAGINGS
+                                 for sr in sk.STRUCTURES]),
+                   (odd, [("cp_async", "shared")])):
+        for st, sr in rts:
+            for kname, label, run in variants(d, op):
+                r0 = dict(sk.route_launches)
+                got = run(route=(st, sr))
+                want = run(True)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                ok = all(torch.equal(g_, w_) for g_, w_ in zip(got, want)) \
+                    and sk.route_launches[st] == r0[st] + 1 \
+                    and sk.route_launches[sr] == r0[sr] + 1
+                print(f"route {name:8s} N={got[0].shape[1]:<6d} {st}/{sr:6s} "
+                      f"{kname:18s} {label:11s} bit-exact and counted "
+                      f"{'pass' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"{kname} {label} on {st}/{sr}: "
+                                       f"kernel and plain version disagree")
 
     # -- 8b. times at N and at the big N, 150x150 operator in the JSON --------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -455,7 +499,7 @@ def sparse_phase(args, dev, smi):
     timed = [("spgemm_unroll_f32", None), ("spgemm_acc_f32", None),
              ("spgemm_unroll_f64", "split2"), ("spgemm_unroll_f64", "fold"),
              ("spgemm_acc_f64", "split2"), ("spgemm_acc_f64", "fold")]
-    rows = {}
+    rows, first = {}, {}
     for name, a in ops:
         m, k = a.shape
         nnz = int(np.count_nonzero(a))
@@ -505,8 +549,15 @@ def sparse_phase(args, dev, smi):
                     fn, fargs = sk.acc_f64, (op, ch, cl_, bh, bl_)
                     lib_key = "addmm f64"
                 ms = cuda_time_ms(fn, *fargs, warmup=3, iters=20)
-                plain_ms = None
+                plain_ms = host_us = None
                 if n == N:
+                    # the wrapper's host time a call, 100 calls enqueued
+                    torch.cuda.synchronize()
+                    t_h = time.perf_counter()
+                    for _ in range(100):
+                        fn(*fargs)
+                    host_us = (time.perf_counter() - t_h) * 1e4
+                    torch.cuda.synchronize()
                     plain = getattr(sk, kname.removeprefix("spgemm_")
                                     + "_plain")
                     plain_ms = cuda_time_ms(
@@ -514,11 +565,27 @@ def sparse_phase(args, dev, smi):
                         if kname == "spgemm_unroll_f64" else plain, *fargs,
                         warmup=1, iters=3)
                 label = f"{kname} {sched or 'f32'}"
+                # a fixed cost a call and a stream rate: the line through
+                # this N's (bytes, ms) and the first N's
+                fit = ""
+                if (name, label) in first and first[(name, label)][1] != ms:
+                    b0, t0 = first[(name, label)]
+                    rate = (nbytes - b0) / ((ms - t0) * 1e-3)
+                    fit = (f"; fit with N={N}: fixed "
+                           f"{(t0 * 1e-3 - b0 / rate) * 1e6:.1f} us a call, "
+                           f"stream {rate / 1e12:.2f} TB/s")
+                first.setdefault((name, label), (nbytes, ms))
+                route = "/".join(sk.pick_route(
+                    op, kname.endswith("f64"),
+                    [bh] + ([bl_] if bl_ is not None else []),
+                    (1 + c_lo) if acc else 0))
                 print(f"time  {name:8s} N={n:<8d} {label:24s} {ms:.4f} ms, "
                       f"{nbytes / ms / 1e6:.1f} GB/s, bound {bound_ms:.4f} ms "
                       f"({bound_by}), share {bound_ms / ms:.3f}"
                       + (f"; plain {plain_ms:.3f} ms" if plain_ms else "")
-                      + f"; {lib_key} {lib[lib_key]:.4f} ms  [{smi}]")
+                      + (f"; host {host_us:.1f} us a call" if host_us else "")
+                      + f"; {lib_key} {lib[lib_key]:.4f} ms; route {route}"
+                      + fit + f"  [{smi}]")
                 if name == ops[2][0] and sched in (None, "split2"):
                     row = rows.setdefault(kname, {
                         "name": kname, "route": "cuda",

@@ -273,6 +273,208 @@ def test_sparse_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
 
 
+# (M, K, density, N, B plane offset in elements) of the route cases, each
+# walking many tiles a persistent block or fewer than one: N % 4 != 0
+# (cp.async, the acc kernels' C_in staged with B, rows stored through the
+# warps' row buffers); B planes 4 bytes off 16 (cp.async); K 300
+# (TMA, two boxes a plane, the narrow tile) and 600 (cp.async, narrow;
+# split2's two planes unstaged); a structure above the shared-memory
+# budget (global, the last round cut into row slices); N below one tile
+# (TMA, every column of the tile past N but 100, cut into slices); the acc
+# kernels' C_in staged with B (TMA, 105x75 at N % 4 == 0)
+ROUTE_CASES = [(105, 75, 0.11, 65536 + 37, 0), (150, 150, 0.05, 65536, 1),
+               (40, 300, 0.05, 4100, 0), (33, 600, 0.03, 2051, 0),
+               (200, 200, 0.2, 20000, 0), (150, 150, 0.05, 100, 0),
+               (105, 75, 0.11, 65536 + 260, 0)]
+KERNELS = ["float32"] + sorted(SCHEDULES)
+
+
+def _route_operands(dev, m, k, density, n, off, seed):
+    """_sparse's operands, the B planes moved ``off`` elements into their
+    storage (off 1: 4 bytes past a 16-byte boundary)."""
+    op, bh, bl, ch, cl = _sparse(dev, m, k, density, n, seed)
+    if off:
+        def shift(t):
+            v = torch.empty(t.numel() + off, device=dev)[off:].view(t.shape)
+            return v.copy_(t)
+        bh, bl = shift(bh), shift(bl)
+    return op, bh, bl, ch, cl
+
+
+def _both(op, kernel, bh, bl, ch, cl, route=None):
+    """(kernel outputs, plain outputs) of the unroll and acc kernels under
+    ``kernel`` (f32 or an f64 schedule), as tuples of planes."""
+    kw = {} if route is None else {"route": route}
+    if kernel == "float32":
+        got = (sk.unroll_f32(op, bh, **kw), sk.acc_f32(op, ch, bh, **kw))
+        want = (sk.unroll_f32_plain(op, bh), sk.acc_f32_plain(op, ch, bh))
+        return got, want
+    b_lo, c_lo = SCHEDULES[kernel]
+    bl, clin = (bl if b_lo else None), (cl if c_lo else None)
+    got = (sk.unroll_f64(op, bh, bl, c_lo=c_lo, **kw),
+           sk.acc_f64(op, ch, clin, bh, bl, **kw))
+    want = (sk.unroll_f64_plain(op, bh, bl, c_lo=c_lo),
+            sk.acc_f64_plain(op, ch, clin, bh, bl))
+    flat = lambda xs: tuple(y for x in xs
+                            for y in (x if isinstance(x, tuple) else (x,)))
+    return flat(got), flat(want)
+
+
+def _planes_of(kernel, bh, bl):
+    return [bh, bl] if kernel != "float32" and SCHEDULES[kernel][0] else [bh]
+
+
+def _cin_planes(kernel):
+    """The C_in planes of the acc kernel under ``kernel``."""
+    return 2 if kernel != "float32" and SCHEDULES[kernel][1] else 1
+
+
+@pytest.mark.parametrize("m,k,density,n,off", ROUTE_CASES)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_spgemm_routes_match_plain(cuda, m, k, density, n, off, kernel):
+    """The unroll and acc kernels on the route pick_route names, bit for bit
+    against their plain versions, each launch counted on that route."""
+    op, bh, bl, ch, cl = _route_operands(cuda, m, k, density, n, off, 11)
+    f64, planes = kernel != "float32", _planes_of(kernel, bh, bl)
+    routes = (sk.pick_route(op, f64, planes),
+              sk.pick_route(op, f64, planes, _cin_planes(kernel)))
+    before = dict(sk.route_launches)
+    got, want = _both(op, kernel, bh, bl, ch, cl)
+    torch.cuda.synchronize()
+    for part in sk.STAGINGS + sk.STRUCTURES:
+        assert sk.route_launches[part] == before[part] + sum(
+            part in rt for rt in routes)
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("staging", ["tma", "cp_async", "unstaged"])
+@pytest.mark.parametrize("structure", ["shared", "global"])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_spgemm_forced_routes_match_plain(cuda, staging, structure, kernel):
+    """Every route forced on the 150x150 PyFR-shaped operator at a ragged
+    last tile, bit for bit against the plain versions, counted."""
+    op, bh, bl, ch, cl = _route_operands(cuda, 150, 150, 0.05, 8196, 0, 12)
+    route = (staging, structure)
+    for c_planes in (0, _cin_planes(kernel)):
+        assert sk.fits(op, kernel != "float32",
+                       len(_planes_of(kernel, bh, bl)), c_planes, route)
+    before = dict(sk.route_launches)
+    got, want = _both(op, kernel, bh, bl, ch, cl, route)
+    torch.cuda.synchronize()
+    assert sk.route_launches[staging] == before[staging] + 2
+    assert sk.route_launches[structure] == before[structure] + 2
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+def test_spgemm_route_refused(cuda):
+    """A route the kernel cannot run raises ValueError with nothing
+    launched: TMA on N % 4 != 0 and on planes off 16 bytes, a staged route
+    whose two narrow stages do not fit, a structure beyond shared memory."""
+    op, bh, bl, ch, cl = _sparse(cuda, 150, 150, 0.05, 4099, 13)
+    off = _route_operands(cuda, 150, 150, 0.05, 4096, 1, 13)
+    deep = _sparse(cuda, 20, 2000, 0.01, 512, 14)
+    big = _sparse(cuda, 400, 400, 0.2, 64, 15)  # 32000 terms, 512 KB in f64
+    before = (dict(sk.launches), dict(sk.route_launches))
+    with pytest.raises(ValueError, match="route"):
+        sk.unroll_f32(op, bh, route=("tma", "shared"))
+    with pytest.raises(ValueError, match="route"):
+        sk.acc_f64(off[0], off[3], off[4], off[1], off[2],
+                   route=("tma", "global"))
+    with pytest.raises(ValueError, match="route"):
+        sk.unroll_f64(deep[0], deep[1], deep[2], c_lo=True,
+                      route=("cp_async", "global"))
+    with pytest.raises(ValueError, match="route"):
+        sk.unroll_f64(big[0], big[1], c_lo=False, route=("unstaged", "shared"))
+    with pytest.raises(ValueError, match="route"):
+        sk.unroll_f32(op, bh, route=("tma", "somewhere"))
+    torch.cuda.synchronize()
+    assert (dict(sk.launches), dict(sk.route_launches)) == before
+
+
+@pytest.mark.parametrize("m,k,density,n,off", ROUTE_CASES[:5])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_spgemm_fits_matches_launch(cuda, m, k, density, n, off, kernel):
+    """sk.fits is the launch's own check: the cp.async ring, forced (at N %
+    4 != 0 and on planes 4 bytes off 16 too), runs bit for bit where fits
+    says it fits and raises ValueError with nothing launched where it does
+    not."""
+    op, bh, bl, ch, cl = _route_operands(cuda, m, k, density, n, off, 21)
+    f64, planes = kernel != "float32", _planes_of(kernel, bh, bl)
+    for structure in sk.STRUCTURES:
+        route = ("cp_async", structure)
+        ok = [sk.fits(op, f64, len(planes), c, route)
+              for c in (0, _cin_planes(kernel))]
+        before = dict(sk.route_launches)
+        if all(ok):
+            got, want = _both(op, kernel, bh, bl, ch, cl, route)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                _same(g, w)
+            assert sk.route_launches["cp_async"] == before["cp_async"] + 2
+            continue
+        kw = {"route": route}
+        calls = ([lambda: sk.unroll_f32(op, bh, **kw),
+                  lambda: sk.acc_f32(op, ch, bh, **kw)]
+                 if kernel == "float32" else
+                 [lambda: sk.unroll_f64(op, *planes, c_lo=True, **kw),
+                  lambda: sk.acc_f64(op, ch, cl if _cin_planes(kernel) == 2
+                                     else None, *planes, **kw)])
+        for fits_, fn in zip(ok, calls):
+            if fits_:
+                fn()
+            else:
+                with pytest.raises(ValueError, match="route"):
+                    fn()
+        torch.cuda.synchronize()
+        assert sk.route_launches["cp_async"] == before["cp_async"] + sum(ok)
+
+
+def test_spgemm_streams_bit_identical(cuda):
+    """Launches on two streams at once, each stream with its own item
+    counters, give the bits of launches on one stream: no item is lost or
+    taken twice."""
+    op, bh, bl, ch, cl = _sparse(cuda, 150, 150, 0.05, 65536, 22)
+    odd = _sparse(cuda, 105, 75, 0.11, 65536 + 37, 23)
+    want = (sk.unroll_f32(op, bh).clone(),
+            sk.acc_f64(odd[0], odd[3], odd[4], odd[1], odd[2])[1].clone())
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=cuda) for _ in range(2)]
+    got = []
+    for _ in range(20):
+        for s_ in streams:
+            with torch.cuda.stream(s_):
+                got.append((sk.unroll_f32(op, bh),
+                            sk.acc_f64(odd[0], odd[3], odd[4], odd[1],
+                                       odd[2])[1]))
+    torch.cuda.synchronize()
+    for a, b in got:
+        assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+
+
+def test_spgemm_ring_repeats_bit_identical(cuda):
+    """The persistent kernels give the same bits on every one of 50
+    launches, on the TMA ring (wide and narrow tiles, C_in staged with B)
+    and the cp.async ring: the full/empty mbarriers leave no race."""
+    op, bh, bl, ch, cl = _sparse(cuda, 150, 150, 0.05, 65536, 16)
+    deep = _sparse(cuda, 40, 300, 0.05, 4100, 17)
+    odd = _sparse(cuda, 105, 75, 0.11, 65536 + 37, 18)
+    small = _sparse(cuda, 105, 75, 0.11, 65536, 19)  # acc: C_in staged
+    cases = [lambda: sk.unroll_f32(op, bh),
+             lambda: torch.cat(sk.acc_f64(op, ch, cl, bh, bl)),
+             lambda: sk.unroll_f64(deep[0], deep[1], deep[2], c_lo=False),
+             lambda: torch.cat(sk.unroll_f64(odd[0], odd[1], odd[2],
+                                             c_lo=True)),
+             lambda: torch.cat(sk.acc_f64(small[0], small[3], small[4],
+                                          small[1], small[2])),
+             lambda: sk.acc_f32(small[0], small[3], small[1])]
+    for fn in cases:
+        ref = fn().clone()
+        for _ in range(50):
+            assert torch.equal(fn(), ref)
+
+
 # ---------------------------------------------------------------------------
 # The tiled-GEMM kernel (ops/csrc/tiled_gemm.cu) and the copy and transpose
 # kernels (ops/csrc/xcopy.cu)

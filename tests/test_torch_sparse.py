@@ -473,6 +473,199 @@ def test_kernel_wrapper_checks_operands(rng):
             sk.SparseOperator(bad, torch.device("cpu"))
 
 
+# -------------------------------------------- the kernels' route rule -----
+
+def _route_case(m, k, density, n, off=0, seed=3):
+    """An operator and its B planes on the CPU, the planes ``off`` elements
+    into their storage (planes of 2^31 elements or more: shapes only, on
+    the meta device)."""
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.random((m, k)) < density, rng.standard_normal((m, k)),
+                 0.0)
+    op = sk.SparseOperator(xp.Csr.from_dense(a), torch.device("cpu"))
+    if k * n >= 2 ** 31:
+        return op, [torch.empty((k, n), device="meta") for _ in range(2)]
+    planes = [torch.zeros(k * n + 4)[off:off + k * n].view(k, n)
+              for _ in range(2)]
+    return op, planes
+
+
+# (M, K, density, N, offset, B planes, f64, the card's answer whether the
+# ring fits) -> the route the rule names
+ROUTE_RULE = [
+    ((150, 150, 0.05, 65536, 0, 2, True, True), ("tma", "shared")),
+    ((150, 150, 0.05, 65536, 0, 1, False, True), ("tma", "shared")),
+    ((105, 75, 0.11, 65573, 0, 2, True, True), ("cp_async", "shared")),
+    ((105, 75, 0.11, 4098, 0, 1, False, True), ("cp_async", "shared")),
+    ((150, 150, 0.05, 4096, 1, 2, True, True), ("cp_async", "shared")),
+    ((150, 150, 0.05, 4096, 2, 1, False, True), ("cp_async", "shared")),
+    ((150, 150, 0.05, 4096, 4, 1, False, True), ("tma", "shared")),
+    ((40, 300, 0.05, 4100, 0, 1, False, True), ("tma", "shared")),
+    ((40, 300, 0.05, 4100, 0, 2, True, True), ("tma", "shared")),
+    ((33, 600, 0.03, 2052, 0, 1, True, True), ("tma", "shared")),
+    ((33, 600, 0.03, 2052, 0, 2, True, False), ("unstaged", "shared")),
+    ((20, 2000, 0.01, 512, 0, 1, False, False), ("unstaged", "shared")),
+    ((5, 7, 0.0, 300, 0, 2, True, True), ("unstaged", "shared")),
+    ((200, 200, 0.2, 4096, 0, 2, True, True), ("tma", "global")),
+    ((200, 200, 0.2, 4097, 0, 1, False, True), ("cp_async", "global")),
+    ((300, 1000, 0.05, 64, 0, 2, True, False), ("unstaged", "global")),
+]
+
+
+# acc: the C_in planes go to the fit too
+ROUTE_RULE_ACC = [
+    ((150, 150, 0.05, 65536, 0, 2, True, True), 2, ("tma", "shared")),
+    ((105, 75, 0.11, 65573, 0, 1, False, True), 1, ("cp_async", "shared")),
+    ((33, 600, 0.03, 2052, 0, 1, True, True), 2, ("tma", "shared")),
+    ((20, 870, 0.02, 512, 0, 1, False, True), 0, ("tma", "shared")),
+    ((20, 870, 0.02, 512, 0, 1, False, False), 1, ("unstaged", "shared")),
+]
+
+
+# planes of 2^31 floats or more (shapes only): TMA needs N % 4 == 0 and
+# no more
+ROUTE_RULE_WIDE = [
+    ((150, 150, 0.05, 2 ** 24, 0, 2, True, True), 0, ("tma", "shared")),
+    ((150, 150, 0.05, 2 ** 24 + 1, 0, 1, False, True), 0,
+     ("cp_async", "shared")),
+    ((105, 75, 0.11, 2 ** 25 + 2, 0, 2, True, False), 0,
+     ("unstaged", "shared")),
+    ((75, 105, 0.08, 2 ** 25 + 3, 0, 1, False, True), 1,
+     ("cp_async", "shared")),
+]
+
+
+@pytest.mark.parametrize("case,c_planes,want",
+                         [(c, 0, w) for c, w in ROUTE_RULE] + ROUTE_RULE_ACC
+                         + ROUTE_RULE_WIDE)
+def test_route_rule(monkeypatch, case, c_planes, want):
+    """pick_route by alignment, N % 4, nnz (the structure's bytes, and no
+    staging without a term) and the kernel's own answer whether the ring
+    fits (asked with the B and C_in planes, as on the card); on CPU
+    tensors no fit is asked and the staging is a name."""
+    m, k, density, n, off, nplanes, f64, ring_fits = case
+    op, planes = _route_case(m, k, density, n, off)
+    planes = planes[:nplanes]
+    staged = "tma" if sk.tma_addresses(planes) else "cp_async"
+    on_cpu = (staged, want[1]) if op.nnz else want
+    assert sk.pick_route(op, f64, planes, c_planes) == on_cpu
+    asked = []
+    monkeypatch.setattr(sk, "fits", lambda *a: asked.append(a[2:]) or
+                        ring_fits)
+    op.on_cpu, op.routes = False, {}  # the rule as on the card
+    assert sk.pick_route(op, f64, planes, c_planes) == want
+    assert asked == ([(nplanes, c_planes, (staged, want[1]))] if op.nnz
+                     else [])
+    if want[1] == "global":
+        assert sk.structure_bytes(op.m, op.nnz, f64) > sk.STRUCT_BUDGET
+
+
+@pytest.mark.parametrize("case,route", [
+    ((105, 75, 0.11, 4098, 0, 1, False), ("tma", "shared")),   # N % 4
+    ((150, 150, 0.05, 4096, 1, 2, True), ("tma", "global")),   # 4 bytes off
+    ((20, 2000, 0.01, 514, 0, 2, True), ("tma", "global")),    # N % 4
+    ((400, 400, 0.2, 64, 2, 2, True), ("tma", "shared")),      # 8 bytes off
+    ((5, 0, 0.0, 8, 0, 1, False), ("tma", "shared", "ring")),
+    ((12, 16, 0.3, 8, 0, 1, False), ("tma", "nowhere")),
+    ((12, 16, 0.3, 8, 0, 1, False), ("ldg",)),
+])
+def test_forced_route_that_cannot_run_raises(case, route):
+    """A forced route that cannot run by its name, or "tma" on planes TMA
+    cannot address, raises ValueError on the CPU too, before the plain
+    version runs; nothing is counted.  (The shared-memory fit is the
+    card's: tests/test_torch_gpu.py.)"""
+    m, k, density, n, off, nplanes, f64 = case
+    op, planes = _route_case(m, k, density, n, off)
+    before = (dict(sk.launches), dict(sk.route_launches))
+    with pytest.raises(ValueError, match="route"):
+        if f64:
+            sk.unroll_f64(op, *planes[:nplanes], c_lo=True, route=route)
+        else:
+            sk.unroll_f32(op, planes[0], route=route)
+    assert (dict(sk.launches), dict(sk.route_launches)) == before
+
+
+@pytest.mark.parametrize("k,n,f64", [(150, 2 ** 24 + 1, True),
+                                     (75, 2 ** 25 + 2, False)])
+def test_tma_refused_beyond_its_reach(k, n, f64):
+    """"tma" forced on planes it cannot address (N % 4 != 0, here at K * N
+    >= 2^31 too) raises ValueError; "cp_async" is taken."""
+    op, planes = _route_case(12, k, 0.2, n)
+    planes = planes[:2 if f64 else 1]
+    assert not sk.tma_addresses(planes)
+    with pytest.raises(ValueError, match="route"):
+        sk._route(op, f64, planes, 0, ("tma", "shared"))
+    assert sk._route(op, f64, planes, 0, ("cp_async", "global")) == (
+        "cp_async", "global")
+
+
+def test_route_kept_per_kind(monkeypatch):
+    """The route is picked once a kind of launch on an operator (f64, B
+    planes, C_in planes, whether TMA addresses the planes) and kept: the
+    kernel's fit is asked once a kind."""
+    op, planes = _route_case(150, 150, 0.05, 4096)
+    wide = _route_case(150, 150, 0.05, 2 ** 24 + 1)[1]
+    asked = []
+    monkeypatch.setattr(sk, "fits", lambda *a: asked.append(a[2:]) or True)
+    op.on_cpu = False
+    for _ in range(3):
+        assert sk.pick_route(op, True, planes, 2) == ("tma", "shared")
+        assert sk.pick_route(op, False, planes[:1]) == ("tma", "shared")
+        assert sk.pick_route(op, True, wide, 2) == ("cp_async", "shared")
+    assert asked == [(2, 2, ("tma", "shared")), (1, 0, ("tma", "shared")),
+                     (2, 2, ("cp_async", "shared"))]
+    assert len(op.routes) == 3
+
+
+def test_fits_is_the_cards():
+    """The ring's fit is the kernel's own check, asked on the card only."""
+    op, _ = _route_case(150, 150, 0.05, 64)
+    with pytest.raises(ValueError, match="card"):
+        sk.fits(op, True, 2, 2, ("tma", "shared"))
+
+
+def test_profile_stamps_fit_the_kernel():
+    """kernel_profile's phase stamps find each of their anchors once in
+    ops/csrc/spgemm.cu, so its profile of kernels 5-8 has stamps; a copy
+    without them is timed plain."""
+    from xsmm_tpu_torch.ops import kernel_profile as kp
+
+    src = kp.spgemm_sources("base")
+    assert src["prof"].count("PROF_MARK(") == 6
+    assert "PROF_END(0)" in src["prof"]
+    assert sorted(kp.spgemm_sources("RG=20")) == ["plain", "prof"]
+    with pytest.raises(ValueError, match="anchor"):
+        kp.instrument(src["plain"].replace("  // -- the store\n", ""),
+                      kp._SPGEMM_STAMPS)
+
+
+def test_operator_device_checked():
+    """An operator on a device other than cuda or cpu is refused when it is
+    made."""
+    a = np.eye(4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sk.SparseOperator(xp.Csr.from_dense(a), torch.device("meta"))
+
+
+@pytest.mark.parametrize("route", [(s, t) for s in sk.STAGINGS
+                                   for t in sk.STRUCTURES])
+def test_forced_route_runs_plain_on_cpu(rng, route):
+    """Every route that fits, forced on the CPU, gives the plain version's
+    bits and counts no launch."""
+    a = make_operator(rng, 15, 21, 0.3)
+    op = sk.SparseOperator(xp.Csr.from_dense(a), torch.device("cpu"))
+    _, bh, bl, ch, cl = _planes(rng, 21, 15, 96)
+    bh, bl, ch, cl = map(torch.from_numpy, (bh, bl, ch, cl))
+    before = dict(sk.route_launches)
+    got = sk.acc_f64(op, ch, cl, bh, bl, route=route)
+    want = sk.acc_f64_plain(op, ch, cl, bh, bl)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(sk.unroll_f32(op, bh, route=route),
+                       sk.unroll_f32_plain(op, bh))
+    assert sk.route_launches == before
+
+
 # ------------------------------------------------------------ fsspmdm -------
 
 def test_fsspmdm_f64(rng):

@@ -1,12 +1,14 @@
 """Where the time of the tiled GEMM (kernel 4), the packed loop TRSM
 (kernel 14), the packed loop GETRF (kernel 12), the batched SMM (kernels
-1-3) and the copy (kernel 9) goes, on the card.
+1-3), the copy (kernel 9) and the fixed-sparsity kernels (5-8) goes, on
+the card.
 
     python -m xsmm_tpu_torch.ops.kernel_profile
-        [--kernel gemm|trsm|both|getrf|smm|copy] [--variant base]
-        [--variant WG_BN_WIDE=128] [--size 4096] [--trsm 125,125,4096]
-        [--getrf 125,125,4096] [--smm 23,23,23,131072] [--copy 8192]
-        [--quick]
+        [--kernel gemm|trsm|both|getrf|smm|copy|spgemm] [--variant base]
+        [--variant WG_BN_WIDE=128] [--variant src=PATH] [--size 4096]
+        [--trsm 125,125,4096] [--getrf 125,125,4096]
+        [--smm 23,23,23,131072] [--copy 8192] [--sparse-n 65536]
+        [--sparse-big 1048576] [--turns 1] [--quick]
 
 For every variant (``base`` is the source as it is; any other is a
 comma-separated list of ``NAME=VALUE`` that rewrites the source's
@@ -63,6 +65,30 @@ over the block's loop (``both`` is gemm and trsm).  It prints how many
   offset and count), and times it at ``--copy``^2 f32 and 16 x ``--copy``/8
   x ``--copy``/2 f32 in turns beside ``torch.clone``, with each time's
   share of the byte bound.
+
+* spgemm: builds ``ops/csrc/spgemm.cu`` per variant, where ``src=PATH``
+  is another copy of it with the same entry points (e.g. the parent
+  tree's, with a shim of its own outside the package), with stamps in
+  consumer warp 0 (``wait``: the prologue and the stage waits; ``sum``;
+  ``store``; ``release``) where its anchors match.  On the three PyFR-
+  shaped operators (``samples/pyfr_driver.py:23-30``) it holds the ten
+  kernel/schedule variants bit for bit at ``--sparse-n`` and ``--sparse-n``
+  + 37, and every route that fits (the kernel's ``fits``) on the 150x150
+  operator, each launch counted on its route; then times the six variants
+  ``chip_smoke.py`` times at ``--sparse-n`` and ``--sparse-big``, at both
+  + 37 (the cp.async ring) and, on the 150x150 operator, forced on
+  cp_async/shared, unstaged/shared and tma/global, the source variants in
+  turns, and for each: the wrapper loop
+  (CUDA events, as ``chip_smoke.py``), the kernel's device time
+  (``torch.profiler``, or a CUDA graph of 20 launches where it shows
+  none), a bare launch through ctypes on preallocated outputs, a cold
+  launch (64 MB written before it, events around it), the host time a
+  call of the wrapper and of the bare launch, the bound, the route and
+  ``torch.sparse.mm`` / ``torch.addmm`` on a CSR tensor; the line through
+  the two N's of each (a fixed cost a call and a stream rate); the host
+  time of each step of the wrapper; and the phases of each case on its
+  own route, with the largest and smallest block's total against the
+  mean.
 
 ``--quick`` checks and stops before the timings.  It needs a CUDA card and
 nvcc, and imports nothing of JAX.
@@ -180,6 +206,42 @@ _SMM_STAMPS = [
 ]
 
 
+# the fixed-sparsity kernels (kernels 5-8): the persistent ring kernel's
+# consumer warp 0, a block's tiles summed ("wait": the prologue and the
+# stage waits; "sum"; "store"; "release": the slot handed back)
+_SPGEMM_STAMPS = [
+    ("spgemm_kernel(const __grid_constant__ Maps maps", "struct DevInfo {",
+     [("  // -- the consumers\n", "  PROF_BEGIN\n  // -- the consumers\n"),
+      ("    if constexpr (STAGED) mbar_wait(&full[slot], (unsigned)(i / S) & 1);\n",
+       "    if constexpr (STAGED) mbar_wait(&full[slot], (unsigned)(i / S) & 1);\n"
+       "    PROF_MARK(0)\n"),
+      ("    for (int r = r0 + warp; r < r1; r += RG) {\n",
+       "    for (int r = r0 + warp; r < r1; r += RG) {\n      PROF_MARK(2)\n"),
+      ("      // -- the store\n", "      PROF_MARK(1)\n      // -- the store\n"),
+      ("    // -- the slot back to the producer\n",
+       "    PROF_MARK(2)\n    // -- the slot back to the producer\n"),
+      ("    if (lane == 0) mbar_arrive(&empty[slot]);\n  }\n}\n",
+       "    if (lane == 0) mbar_arrive(&empty[slot]);\n    PROF_MARK(3)\n  }\n"
+       "  PROF_END(0)\n}\n")]),
+]
+
+
+def spgemm_sources(variant: str) -> Dict[str, str]:
+    """"plain" and "prof" -> the two sources of a ``--kernel spgemm``
+    variant: ``base``, ``NAME=VALUE,...`` or ``src=PATH`` (a copy with this
+    tree's entry points; one whose anchors differ is timed without
+    stamps)."""
+    if variant.startswith("src="):
+        src = Path(variant[4:]).read_text()
+    else:
+        src = apply_settings((CSRC / "spgemm.cu").read_text(),
+                             parse_variant(variant))
+    try:
+        return {"plain": src, "prof": instrument(src, _SPGEMM_STAMPS)}
+    except ValueError:
+        return {"plain": src}
+
+
 def instrument(src: str, stamps) -> str:
     """``src`` with the stamps inside each kernel's text and the entry points
     that read them (raises if an anchor is gone)."""
@@ -197,16 +259,21 @@ def instrument(src: str, stamps) -> str:
     return src.replace("namespace {\n", _HEAD, 1) + _TAIL
 
 
-def build(name: str, variants: List[str], stamps) -> Dict[tuple, Path]:
+def build(name: str, variants: List[str], stamps,
+          sources: Optional[Callable] = None) -> Dict[tuple, Path]:
     """(variant, "plain" | "prof") -> built library; one nvcc each, all
-    started together."""
+    started together.  ``sources(variant)`` gives a variant's texts by kind
+    where the stamps alone do not."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     base = (CSRC / f"{name}.cu").read_text()
     procs = {}
     for i, v in enumerate(variants):
-        src = apply_settings(base, parse_variant(v))
-        kinds = [("plain", src)] + ([("prof", instrument(src, stamps))]
-                                    if stamps else [])
+        if sources is not None:
+            kinds = list(sources(v).items())
+        else:
+            src = apply_settings(base, parse_variant(v))
+            kinds = [("plain", src)] + ([("prof", instrument(src, stamps))]
+                                        if stamps else [])
         for kind, text in kinds:
             cu = OUT_DIR / f"{name}_v{i}_{kind}.cu"
             cu.write_text(text)
@@ -242,8 +309,9 @@ def sass_counts(so: Path) -> Optional[Dict[str, int]]:
             for op in ("HGMMA", "HMMA", "FFMA")}
 
 
-def _phases(lib, run: Callable, names, blocks: int):
-    """Run once with the stamps; mean cycles of each phase a block."""
+def _phases(lib, run: Callable, names, blocks: int, spread: bool = False):
+    """Run once with the stamps; mean cycles of each phase a block (with
+    ``spread`` the largest block total over the mean too)."""
     import numpy as np
     import torch
 
@@ -260,9 +328,12 @@ def _phases(lib, run: Callable, names, blocks: int):
     tot = p[:, :len(names)].sum(axis=1).mean() if len(p) else 0
     if not tot:
         return "no stamps (the stamped kernel did not run)"
+    totals = p[:, :len(names)].sum(axis=1)
     return ", ".join(f"{n} {p[:, i].mean():.0f} ({p[:, i].mean() / tot:.0%})"
                      for i, n in enumerate(names)) + \
-        f" cycles a block ({tot / CLOCK_GHZ / 1e3:.1f} us)"
+        f" cycles a block ({tot / CLOCK_GHZ / 1e3:.1f} us)" + (
+            f"; largest block {totals.max() / tot:.3f} of the mean, "
+            f"smallest {totals.min() / tot:.3f}" if spread else "")
 
 
 def main() -> int:
@@ -274,7 +345,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("gemm", "trsm", "both", "getrf",
-                                         "smm", "copy"), default="both")
+                                         "smm", "copy", "spgemm"),
+                    default="both")
     ap.add_argument("--variant", action="append", default=None)
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--trsm", default="125,125,4096", help="SM,SN,B")
@@ -282,6 +354,10 @@ def main() -> int:
     ap.add_argument("--smm", default="23,23,23,131072", help="M,N,K,B")
     ap.add_argument("--copy", type=int, default=8192, help="T: T^2 f32 and "
                     "16 x T/8 x T/2 f32")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="rounds of turns (a, b, ..., b, a) of the timings")
+    ap.add_argument("--sparse-n", type=int, default=65536)
+    ap.add_argument("--sparse-big", type=int, default=1 << 20)
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -298,9 +374,10 @@ def main() -> int:
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     def turns(cases: Dict[str, Callable], use: Callable):
-        """ms[variant][case], the variants in turns a, b, ..., b, a."""
+        """ms[variant][case], the variants in turns a, b, ..., b, a (that
+        ``--turns`` times)."""
         ms = {v: {c: [] for c in cases} for v in variants}
-        for v in variants + variants[::-1]:
+        for v in (variants + variants[::-1]) * args.turns:
             use(v, "plain")
             for c, fn in cases.items():
                 ms[v][c].append(cuda_time_ms(fn, warmup=3, iters=20))
@@ -430,6 +507,8 @@ def main() -> int:
         profile_smm(args, variants, randn, turns)
     if args.kernel == "copy":
         profile_copy(args, variants, randn, turns)
+    if args.kernel == "spgemm":
+        profile_spgemm(args, variants, randn, turns)
     return 0
 
 
@@ -625,6 +704,395 @@ def profile_copy(args, variants, randn, turns) -> None:
             print(f"  {v:32s} {c:28s} "
                   f"{' / '.join('%.4f' % m for m in ms[v][c])} ms (share "
                   f"{bound / min(ms[v][c]):.3f})")
+
+
+# (M, K, density) of the PyFR-shaped operators, samples/pyfr_driver.py:23-30
+PYFR_SPECS = [(105, 75, 0.11), (75, 105, 0.08), (150, 150, 0.05)]
+HBM_BYTES_PER_S = 3.35e12
+# (kernel, f64 schedule) of the timed variants, as chip_smoke.py times them
+SPGEMM_TIMED = [("unroll_f32", None), ("acc_f32", None),
+                ("unroll_f64", "split2"), ("unroll_f64", "fold"),
+                ("acc_f64", "split2"), ("acc_f64", "fold")]
+SCHED_PLANES = {"split2": (True, True), "split2_fast": (True, False),
+                "split2_wout": (False, True), "fold": (False, False)}
+
+
+def device_ms(fn: Callable, key: str, iters: int = 20) -> Optional[float]:
+    """Mean device time of the kernels whose name holds ``key`` over
+    ``iters`` calls of ``fn``, from ``torch.profiler``'s ``key_averages``
+    (None where the profiler shows no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if key in e.key:
+            us += getattr(e, "device_time_total", None) or getattr(
+                e, "cuda_time_total", 0)
+            n += e.count
+    return us / n / 1e3 if n and us else None
+
+
+def graph_ms(fn: Callable, iters: int = 20) -> float:
+    """ms a call of ``iters`` calls of ``fn`` captured in one CUDA graph
+    and replayed between two events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def cold_ms(fn: Callable, flush, iters: int = 20) -> float:
+    """Median ms of one call of ``fn`` with ``flush`` (64 MB) written just
+    before it, one pair of events around each call."""
+    import torch
+
+    times = []
+    for i in range(iters + 2):
+        flush.fill_(float(i))
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def host_us(fn: Callable, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn``, enqueued back to back."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def fit(n_bytes, ms):
+    """(fixed us, stream TB/s) of the line through two (bytes, ms) points."""
+    (b0, t0), (b1, t1) = zip(n_bytes, ms)
+    rate = (b1 - b0) / ((t1 - t0) * 1e-3) if t1 != t0 else float("inf")
+    return (t0 * 1e-3 - b0 / rate) * 1e6, rate / 1e12
+
+
+def profile_spgemm(args, variants, randn, turns) -> None:
+    """The --kernel spgemm part of the module docstring."""
+    import numpy as np
+    import torch
+
+    from . import spgemm_kernels as sk
+    from ..utils.mtx import Csr
+    from ..utils.timer import cuda_time_ms
+
+    libs = build("spgemm", variants, None, spgemm_sources)
+
+    def use(v, kind):
+        cuda_build._LIBS["spgemm"] = ctypes.CDLL(str(libs[(v, kind)]))
+        sk._LIB = None
+        for _, op in ops:
+            op.routes.clear()  # a variant's own fit
+        return sk._lib()
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    ops = []
+    for m, k, dens in PYFR_SPECS:
+        a = np.where(rng.random((m, k)) < dens, rng.standard_normal((m, k)),
+                     0.0)
+        ops.append((f"{m}x{k}", sk.SparseOperator(Csr.from_dense(a), dev)))
+
+    def planes_of(kname, sched, d):
+        b_lo = SCHED_PLANES[sched][0] if sched else False
+        return [d["bh"]] + ([d["bl"]] if b_lo else [])
+
+    def call(op, kname, sched, d, bare=False, route=None):
+        """A call of kernel ``kname`` on operands ``d`` (the wrapper, on
+        ``route`` where given, or with ``bare`` its entry point through
+        ctypes on preallocated outputs)."""
+        b_lo, c_lo = SCHED_PLANES[sched] if sched else (False, False)
+        bl = d["bl"] if b_lo else None
+        cl = d["cl"] if c_lo else None
+        kw = {} if route is None else {"route": route}
+        if not bare:
+            return {"unroll_f32": lambda: sk.unroll_f32(op, d["bh"], **kw),
+                    "acc_f32": lambda: sk.acc_f32(op, d["ch"], d["bh"], **kw),
+                    "unroll_f64": lambda: sk.unroll_f64(op, d["bh"], bl,
+                                                        c_lo=c_lo, **kw),
+                    "acc_f64": lambda: sk.acc_f64(op, d["ch"], cl, d["bh"],
+                                                  bl, **kw)}[kname]
+        lib = sk._lib()
+        p = sk._ptr
+        f64 = kname.endswith("f64")
+        st, sr = route or sk.pick_route(op, f64, planes_of(kname, sched, d),
+                                        _cin_planes(kname, sched))
+        o0, o1 = d["o0"], (d["o1"] if c_lo else None)
+        head = [p(op.row_ptr), p(op.col_idx), p(op.vh)]
+        ptrs = {"unroll_f32": head + [p(d["bh"]), p(o0)],
+                "acc_f32": head + [p(d["ch"]), p(d["bh"]), p(o0)],
+                "unroll_f64": head + [p(op.vl), p(d["bh"]), p(bl), p(o0),
+                                      p(o1)],
+                "acc_f64": head + [p(op.vl), p(d["ch"]), p(cl), p(d["bh"]),
+                                   p(bl), p(o0), p(o1)]}[kname]
+        fn = getattr(lib, "xsmm_spgemm_" + kname)
+        full = (*ptrs, op.m, op.k, d["n"], op.nnz, sk.STAGINGS.index(st),
+                sk.STRUCTURES.index(sr), 0,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return lambda: fn(*full)
+
+    def operands(op, n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        bh, bl = (torch.randn((op.k, n), generator=g, device=dev)
+                  for _ in range(2))
+        ch, cl = (torch.randn((op.m, n), generator=g, device=dev)
+                  for _ in range(2))
+        return dict(n=n, bh=bh, bl=bl, ch=ch, cl=cl,
+                    o0=torch.empty_like(ch), o1=torch.empty_like(ch))
+
+    def nbytes(op, kname, sched, n):
+        b_lo, c_lo = SCHED_PLANES[sched] if sched else (False, False)
+        f64 = kname.endswith("f64")
+        c = (2 if c_lo else 1) * op.m * n * 4
+        return ((2 if b_lo else 1) * op.k * n * 4 + c
+                + (c if kname.startswith("acc") else 0) + 4 * (op.m + 1)
+                + op.nnz * (12 if f64 else 8))
+
+    # -- checks: every timed variant bit for bit at N and N + 37 (ragged),
+    # and every route that fits on the 150x150 operator at N + 37 and N
+    checks = {(name, n): operands(op, n, 5) for name, op in ops
+              for n in (args.sparse_n, args.sparse_n + 37)}
+    for v in variants:
+        use(v, "plain")
+        for (name, n), d in checks.items():
+            op = dict(ops)[name]
+            for kname, sched in [*SPGEMM_TIMED, ("unroll_f64", "split2_fast"),
+                                 ("unroll_f64", "split2_wout"),
+                                 ("acc_f64", "split2_fast"),
+                                 ("acc_f64", "split2_wout")]:
+                _spgemm_check(sk, v, name, op, kname, sched, d, None)
+        name, op = ops[2]
+        for n in (args.sparse_n + 37, args.sparse_n):
+            d = checks[(name, n)]
+            for kname, sched in SPGEMM_TIMED:
+                planes = planes_of(kname, sched, d)
+                for rt in ((st, sr) for st in sk.STAGINGS
+                           for sr in sk.STRUCTURES):
+                    if ((rt[0] != "tma" or sk.tma_addresses(planes))
+                            and sk.fits(op, kname.endswith("f64"),
+                                        len(planes),
+                                        _cin_planes(kname, sched), rt)):
+                        _spgemm_check(sk, v, name, op, kname, sched, d, rt)
+        print(f"  {v}: route launches {dict(sk.route_launches)}")
+    del checks
+    torch.cuda.empty_cache()
+    if args.quick:
+        return
+
+    # -- times: every operator at N and the big N, and at both + 37 (the
+    # cp.async ring); the 150x150 operator on each other route; the
+    # variants in turns
+    widths = [("", args.sparse_n, args.sparse_big),
+              ("odd ", args.sparse_n + 37, args.sparse_big + 37)]
+    forced = [None, ("cp_async", "shared"), ("unstaged", "shared"),
+              ("tma", "global")]
+    big, cases, meta = {}, {}, {}
+    for name, op in ops:
+        for tag, n_small, n_big in widths:
+            for n in (n_small, n_big):
+                for kname, sched in SPGEMM_TIMED:
+                    for rt in (forced if name == ops[2][0] and not tag
+                               else [None]):
+                        c = (f"{name} N={n} {kname} {sched or 'f32'}"
+                             + (f" {rt[0]}/{rt[1]}" if rt else ""))
+                        if (name, n) not in big:
+                            big[(name, n)] = operands(op, n, 6)
+                        d = big[(name, n)]
+                        cases[c] = call(op, kname, sched, d, route=rt)
+                        meta[c] = (op, kname, sched, d, name, n, rt,
+                                   (tag, n_small, n_big))
+    ms = turns(cases, use)
+    lib_ms = {}
+    for (name, n), d in big.items():
+        op = dict(ops)[name]
+        a = torch.zeros((op.m, op.k), device=dev, dtype=torch.float64)
+        rows = torch.repeat_interleave(torch.arange(op.m, device=dev),
+                                       op.row_ptr.diff().long())
+        a[rows, op.col_idx.long()] = op.vh.double() + op.vl.double()
+        csr32, csr64 = a.float().to_sparse_csr(), a.to_sparse_csr()
+        b64, c64 = d["bh"].double(), d["ch"].double()
+        lib_ms[(name, n)] = {
+            "sparse.mm f32": cuda_time_ms(torch.sparse.mm, csr32, d["bh"]),
+            "addmm f32": cuda_time_ms(torch.addmm, d["ch"], csr32, d["bh"]),
+            "sparse.mm f64": cuda_time_ms(torch.sparse.mm, csr64, b64),
+            "addmm f64": cuda_time_ms(torch.addmm, c64, csr64, b64)}
+        del b64, c64
+    smi = _smi()
+    _spgemm_host_parts(sk, ops[2][1], operands(ops[2][1], args.sparse_n, 7))
+    print(f"spgemm times, ms (turns; bound at {HBM_BYTES_PER_S / 1e12} TB/s)"
+          f"  [{smi}]")
+    flush = torch.empty(16 << 20, device=dev)
+    rows = {}
+    for v in variants:
+        use(v, "plain")
+        for c, fn in cases.items():
+            op, kname, sched, d, name, n, rt, width = meta[c]
+            nb = nbytes(op, kname, sched, n)
+            dev_t = device_ms(fn, "spgemm_kernel")
+            how = "profiler"
+            if dev_t is None:
+                dev_t, how = graph_ms(fn), "graph"
+            bare = call(op, kname, sched, d, bare=True, route=rt)
+            r = rows.setdefault((v, name, kname, sched, rt, width), {})
+            r[n] = dict(nb=nb, wrap=min(ms[v][c]), dev=dev_t,
+                        bare=cuda_time_ms(bare), cold=cold_ms(fn, flush),
+                        host=host_us(fn), host_bare=host_us(bare))
+            lib = lib_ms[(name, n)][("addmm " if kname.startswith("acc")
+                                     else "sparse.mm ")
+                                    + ("f64" if sched else "f32")]
+            route = "/".join(rt or sk.pick_route(
+                op, kname.endswith("f64"), planes_of(kname, sched, d),
+                _cin_planes(kname, sched)))
+            x = r[n]
+            print(f"  {v:24s} {c:36s} wrapper "
+                  f"{' / '.join('%.4f' % t for t in ms[v][c])}; device "
+                  f"{x['dev']:.4f} ({how}); bare {x['bare']:.4f}; cold "
+                  f"{x['cold']:.4f}; host {x['host']:.1f} us a call (bare "
+                  f"{x['host_bare']:.1f}); bound "
+                  f"{nb / HBM_BYTES_PER_S * 1e3:.4f} (share "
+                  f"{nb / HBM_BYTES_PER_S * 1e3 / min(ms[v][c]):.3f}); "
+                  f"library {lib:.4f}; route {route}")
+    print("spgemm fixed cost a call (us) and stream (TB/s), the line through "
+          "the two N of each case  [" + smi + "]")
+    for (v, name, kname, sched, rt, (tag, n0, n1)), r in rows.items():
+        if n0 not in r or n1 not in r:
+            continue
+        pts = [r[n0], r[n1]]
+        fits = {k_: fit([p["nb"] for p in pts], [p[k_] for p in pts])
+                for k_ in ("wrap", "dev", "bare", "cold")}
+        print(f"  {v:24s} {name:8s} {tag}{kname} {sched or 'f32':7s} "
+              + (f"{rt[0]}/{rt[1]} " if rt else "") + "; ".join(
+                  f"{k_} {f[0]:.1f} us {f[1]:.2f} TB/s"
+                  for k_, f in fits.items())
+              + f"; host {r[n0]['host']:.1f} us a call at N={n0} (bare "
+                f"{r[n0]['host_bare']:.1f}), device fixed "
+                f"{fits['dev'][0]:.1f} us")
+    for v in variants:
+        if (v, "prof") not in libs:
+            print(f"  {v}: no stamps (its anchors differ)")
+            continue
+        lib = use(v, "prof")
+        for c in cases:
+            op, kname, sched, d, name, n, rt, _ = meta[c]
+            if rt is not None:
+                continue
+            ct = 64 if sched == "split2" else 128
+            print(f"  {v}: {c} phases: " + _phases(
+                lib, call(op, kname, sched, d),
+                ("wait", "sum", "store", "release"), -(-n // ct),
+                spread=True))
+
+
+def _spgemm_host_parts(sk, op, d) -> None:
+    """Host microseconds a call of each step of the acc f64 split2 wrapper
+    (the most operands), each step repeated on its own."""
+    import torch
+
+    bh, bl, ch, cl = d["bh"], d["bl"], d["ch"], d["cl"]
+    n = bh.shape[1]
+    ops = {"Bh": bh, "Bl": bl, "Ch_in": ch, "Cl_in": cl}
+    lib = sk._lib()
+    parts = {
+        "_check (4 planes)": lambda: sk._check(op, ops, n),
+        "_route": lambda: sk._route(op, True, [bh, bl], 2, None),
+        "torch.empty x2": lambda: (torch.empty((op.m, n), dtype=torch.float32,
+                                               device=op.device),
+                                   torch.empty_like(ch)),
+        "current_stream": lambda: torch.cuda.current_stream(
+            op.device).cuda_stream,
+        "_lib": lambda: sk._lib(),
+        "fits (the kernel's)": lambda: lib.xsmm_spgemm_fits(
+            1, 2, 2, op.m, op.k, op.nnz, 0, 0, 0),
+        "wrapper": lambda: sk.acc_f64(op, ch, cl, bh, bl),
+    }
+    print("spgemm wrapper host steps, us a call: " + "; ".join(
+        f"{k} {host_us(f, 2000 if k != 'wrapper' else 200):.2f}"
+        for k, f in parts.items()))
+
+
+def _cin_planes(kname: str, sched: Optional[str]) -> int:
+    """The C_in planes kernel ``kname`` reads under ``sched``."""
+    if not kname.startswith("acc"):
+        return 0
+    return 2 if sched and SCHED_PLANES[sched][1] else 1
+
+
+def _spgemm_check(sk, v, name, op, kname, sched, d, route) -> None:
+    """Kernel ``kname`` against its plain version on operands ``d``, bit
+    for bit (on ``route`` where given, its launch counted there)."""
+    b_lo, c_lo = SCHED_PLANES[sched] if sched else (False, False)
+    bl = d["bl"] if b_lo else None
+    cl = d["cl"] if c_lo else None
+    kw = {} if route is None else {"route": route}
+    before = dict(sk.route_launches)
+    if kname == "unroll_f32":
+        got, want = (sk.unroll_f32(op, d["bh"], **kw),
+                     sk.unroll_f32_plain(op, d["bh"]))
+    elif kname == "acc_f32":
+        got, want = (sk.acc_f32(op, d["ch"], d["bh"], **kw),
+                     sk.acc_f32_plain(op, d["ch"], d["bh"]))
+    elif kname == "unroll_f64":
+        got = sk.unroll_f64(op, d["bh"], bl, c_lo=c_lo, **kw)
+        want = sk.unroll_f64_plain(op, d["bh"], bl, c_lo=c_lo)
+    else:
+        got = sk.acc_f64(op, d["ch"], cl, d["bh"], bl, **kw)
+        want = sk.acc_f64_plain(op, d["ch"], cl, d["bh"], bl)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rt = "" if route is None else f" route {route[0]}/{route[1]}"
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        _bits(f"{v} {name} N={d['n']} {kname} {sched or 'f32'}{rt} c{i}", g_,
+              w_)
+    if route is not None:
+        for part in route:
+            if sk.route_launches[part] != before[part] + 1:
+                raise RuntimeError(f"{rt}: launch not counted on {part}")
+
+
+def _smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return "nvidia-smi not available"
 
 
 if __name__ == "__main__":

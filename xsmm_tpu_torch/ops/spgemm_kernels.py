@@ -12,19 +12,38 @@ constants.
 Each wrapper checks device, dtype, shape and contiguity, then:
 
 * on CUDA tensors it allocates the outputs with ``torch.empty``, launches
-  its kernel (``ops/csrc/spgemm.cu``) on the current stream, raises if the
-  launch returned a CUDA error, and adds one to ``launches[name]``;
+  its kernel (``ops/csrc/spgemm.cu``) on the current stream on the route
+  ``pick_route`` names (or the one the caller forces), raises if the launch
+  returned a CUDA error, and adds one to ``launches[name]`` and to
+  ``route_launches`` of the route's staging and of its structure;
 * on CPU tensors it runs its plain PyTorch version (``*_plain``), which
   repeats the kernel's arithmetic in the same term order.  It works on all
   rows at once: step j adds term j of every row that has one.
 
 Any other device raises.  There is no fallback from a CUDA tensor.
+
+Routes (``pick_route``, the one place that picks them): a route is a
+staging and a structure.  Structure: the operator is copied to shared
+memory ("shared") up to ``STRUCT_BUDGET`` bytes, else read from device
+memory ("global").  Staging: B tiles go through a ring of at least two
+stages in shared memory, filled by TMA ("tma") where N % 4 == 0, N < 2^31
+and every B plane starts on 16 bytes (a TMA box starts on 16 bytes), else
+by cp.async ("cp_async"); B is read from device memory ("unstaged") where
+the operator has no term or the ring does not fit beside the structure
+(and the acc kernels' C_in rings).
+That fit is the kernel's own check (``xsmm_spgemm_fits``, asked once an
+operator and kind and kept), so it is known for CUDA tensors only; on CPU
+tensors the route is a name.  A caller may force a route: a name outside
+``STAGINGS`` x ``STRUCTURES``, or "tma" on planes TMA cannot address,
+raises ``ValueError`` on either device; on the card the kernel refuses a
+route that does not fit, which raises ``ValueError`` with nothing
+launched.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,15 +54,27 @@ from . import cuda_build
 launches: Dict[str, int] = {"spgemm_unroll_f32": 0, "spgemm_unroll_f64": 0,
                             "spgemm_acc_f32": 0, "spgemm_acc_f64": 0}
 
+STAGINGS = ("tma", "cp_async", "unstaged")
+STRUCTURES = ("shared", "global")
+# staging or structure -> launches on it since the last reset_launches()
+route_launches: Dict[str, int] = dict.fromkeys(STAGINGS + STRUCTURES, 0)
+ROUTE_REFUSED = ("the route does not fit this operator and kernel (a "
+                 "staged route needs two stages in shared memory beside the "
+                 "structure; the structure must fit shared memory); nothing "
+                 "was launched")
+STRUCT_BUDGET = 48 * 1024  # the operator in shared memory up to this
+
 _LIB: Optional[ctypes.CDLL] = None
 
 F32 = torch.float32
 Out64 = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+Route = Tuple[str, str]
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, route_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,14 +82,15 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load("spgemm")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.xsmm_spgemm_unroll_f32.argtypes = [p, p, p, p, p, i, i, ll, i, p]
-        lib.xsmm_spgemm_acc_f32.argtypes = [p, p, p, p, p, p, i, i, ll, i, p]
-        lib.xsmm_spgemm_unroll_f64.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                               ll, i, p]
-        lib.xsmm_spgemm_acc_f64.argtypes = [p, p, p, p, p, p, p, p, p, p, i,
-                                            i, ll, i, p]
+        tail = [i, i, ll, i, i, i, i, p]  # m k n nnz staging structure
+        lib.xsmm_spgemm_unroll_f32.argtypes = [p] * 5 + tail
+        lib.xsmm_spgemm_acc_f32.argtypes = [p] * 6 + tail
+        lib.xsmm_spgemm_unroll_f64.argtypes = [p] * 8 + tail
+        lib.xsmm_spgemm_acc_f64.argtypes = [p] * 10 + tail
+        lib.xsmm_spgemm_fits.argtypes = [i] * 9
         for fn in (lib.xsmm_spgemm_unroll_f32, lib.xsmm_spgemm_acc_f32,
-                   lib.xsmm_spgemm_unroll_f64, lib.xsmm_spgemm_acc_f64):
+                   lib.xsmm_spgemm_unroll_f64, lib.xsmm_spgemm_acc_f64,
+                   lib.xsmm_spgemm_fits):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -77,6 +109,9 @@ class SparseOperator:
     """A CSR operator's structure and values on one device."""
 
     def __init__(self, csr, device: torch.device):
+        if torch.device(device).type not in ("cuda", "cpu"):
+            raise ValueError(f"spgemm kernels run on cuda or cpu, not "
+                             f"{device}")
         self.m, self.k = int(csr.m), int(csr.k)
         row_ptr = np.asarray(csr.row_ptr, np.int64)
         cols = np.asarray(csr.col_idx, np.int64)
@@ -95,7 +130,12 @@ class SparseOperator:
         self.vh = torch.as_tensor(vh, device=device)
         self.vl = torch.as_tensor(vl, device=device)
         self.device = self.row_ptr.device  # with its index: cuda:0
+        self.on_cpu = self.device.type == "cpu"
         self.nnz = int(self.col_idx.numel())
+        self.ptrs = tuple(t.data_ptr() for t in (self.row_ptr, self.col_idx,
+                                                 self.vh, self.vl))
+        # (f64, B planes, C_in planes, TMA addresses them) -> route
+        self.routes: Dict[Tuple[bool, int, int, bool], Route] = {}
         # for the plain versions: term j of every row that has one
         lengths = np.diff(row_ptr)
         self._steps_host = [np.nonzero(lengths > j)[0]
@@ -129,11 +169,11 @@ def _check(op: SparseOperator, ops: Dict[str, Optional[torch.Tensor]],
            n: int) -> None:
     """Each named operand must be a contiguous f32 tensor on the
     operator's device: B planes [K, n], C planes [M, n]."""
-    if op.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"spgemm kernels run on cuda or cpu, not "
-                         f"{op.device}")
     for name, t in ops.items():
-        if t is None:
+        if t is None or (isinstance(t, torch.Tensor) and t.dtype == F32
+                         and t.device == op.device and t.is_contiguous()
+                         and t.shape == ((op.k if name[0] == "B" else op.m),
+                                         n)):
             continue
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
@@ -146,8 +186,86 @@ def _check(op: SparseOperator, ops: Dict[str, Optional[torch.Tensor]],
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        raise ValueError(f"{name} must be contiguous")
+
+
+def structure_bytes(m: int, nnz: int, f64: bool) -> int:
+    """Bytes of the operator in shared memory: row_ptr rounded up to 16
+    bytes, then one record a term ({col, vh}, or {col, vh, vl, pad})."""
+    return (m + 4) // 4 * 16 + nnz * (16 if f64 else 8)
+
+
+def tma_addresses(planes: Sequence[torch.Tensor]) -> bool:
+    """Whether TMA can address these [K, N] planes: N % 4 == 0, N < 2^31,
+    every plane on 16 bytes (each box, so each row, starts on 16 bytes)."""
+    n = planes[0].shape[1]
+    return (n % 4 == 0 and n < 2 ** 31
+            and not any(p.data_ptr() % 16 for p in planes))
+
+
+def fits(op: SparseOperator, f64: bool, b_planes: int, c_planes: int,
+         route: Route) -> bool:
+    """Whether the kernel with ``b_planes`` B planes and ``c_planes`` C_in
+    planes can run ``route`` on the operator: the kernel's own check
+    (``xsmm_spgemm_fits``), so CUDA operators only."""
+    if op.on_cpu:
+        raise ValueError("fits: the kernels' shared-memory fit is the "
+                         "card's; the operator is on the CPU")
+    rc = _lib().xsmm_spgemm_fits(
+        int(f64), b_planes, c_planes, op.m, op.k, op.nnz,
+        STAGINGS.index(route[0]), STRUCTURES.index(route[1]),
+        op.device.index)
+    if rc < 0:
+        raise ValueError(f"fits: codes refused for route {route!r}")
+    return bool(rc)
+
+
+def pick_route(op: SparseOperator, f64: bool,
+               planes: Sequence[torch.Tensor], c_planes: int = 0) -> Route:
+    """(staging, structure) of a launch of the operator on these B planes
+    (the f64 kernels read vl too) and ``c_planes`` C_in planes: the
+    structure in shared memory up to ``STRUCT_BUDGET``; B staged by TMA
+    where it addresses the planes, else by cp.async, where the operator has
+    a term and (on the card) the ring fits, else unstaged.  Kept a kind of
+    launch on the operator."""
+    key = (f64, len(planes), c_planes, tma_addresses(planes))
+    route = op.routes.get(key)
+    if route is None:
+        structure = ("shared" if structure_bytes(op.m, op.nnz, f64)
+                     <= STRUCT_BUDGET else "global")
+        staging = "tma" if key[3] else "cp_async"
+        if not op.nnz or (not op.on_cpu and not fits(
+                op, f64, len(planes), c_planes, (staging, structure))):
+            staging = "unstaged"
+        route = op.routes[key] = (staging, structure)
+    return route
+
+
+def _route(op: SparseOperator, f64: bool, planes: Sequence[torch.Tensor],
+           c_planes: int, route: Optional[Route]) -> Route:
+    """``route`` checked by name (and "tma" against the planes), else
+    ``pick_route``; the kernel checks the fit."""
+    if route is None:
+        return pick_route(op, f64, planes, c_planes)
+    if (len(route) != 2 or route[0] not in STAGINGS
+            or route[1] not in STRUCTURES):
+        raise ValueError(f"route {route!r}: expected (staging, structure) "
+                         f"from {STAGINGS} x {STRUCTURES}")
+    if route[0] == "tma" and not tma_addresses(planes):
+        raise ValueError(f"route {tuple(route)}: TMA needs N % 4 == 0, N < "
+                         f"2^31 and B planes on 16 bytes")
+    return tuple(route)
+
+
+def _launch(fn, name: str, op: SparseOperator, n: int, route: Route,
+            *ptrs) -> None:
+    """Launch entry point ``fn`` of kernel ``name`` on ``route``; count it."""
+    cuda_build.launch(fn, op.device, *ptrs, op.m, op.k, n, op.nnz,
+                      STAGINGS.index(route[0]), STRUCTURES.index(route[1]),
+                      refused=ROUTE_REFUSED)
+    launches[name] += 1
+    for part in route:
+        route_launches[part] += 1
 
 
 def _width(b: torch.Tensor) -> int:
@@ -229,18 +347,20 @@ def acc_f64_plain(op: SparseOperator, chin: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def unroll_f32(op: SparseOperator, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B in f32; rows of A without a term give 0."""
+def unroll_f32(op: SparseOperator, b: torch.Tensor, *,
+               route: Optional[Route] = None) -> torch.Tensor:
+    """C = A @ B in f32; rows of A without a term give 0.  ``route``
+    (each wrapper's) forces a (staging, structure); one the kernel cannot
+    run raises ``ValueError`` on either device."""
     n = _width(b)
     _check(op, {"B": b}, n)
-    if op.device.type == "cpu":
+    rt = _route(op, False, [b], 0, route)
+    if op.on_cpu:
         return unroll_f32_plain(op, b)
     c = torch.empty((op.m, n), dtype=F32, device=op.device)
     if c.numel():
-        cuda_build.launch(_lib().xsmm_spgemm_unroll_f32, op.device,
-                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
-                          _ptr(b), _ptr(c), op.m, op.k, n)
-        launches["spgemm_unroll_f32"] += 1
+        _launch(_lib().xsmm_spgemm_unroll_f32, "spgemm_unroll_f32", op, n,
+                rt, *op.ptrs[:3], _ptr(b), _ptr(c))
     return c
 
 
@@ -250,21 +370,20 @@ def unroll_f32(op: SparseOperator, b: torch.Tensor) -> torch.Tensor:
 
 
 def unroll_f64(op: SparseOperator, bh: torch.Tensor,
-               bl: Optional[torch.Tensor] = None, *, c_lo: bool) -> Out64:
+               bl: Optional[torch.Tensor] = None, *, c_lo: bool,
+               route: Optional[Route] = None) -> Out64:
     """f64 schedule on f32 planes: B-lo read when ``bl`` is given; returns
     (ch, cl) when ``c_lo``, else the folded hi + lo."""
     n = _width(bh)
     _check(op, {"Bh": bh, "Bl": bl}, n)
-    if op.device.type == "cpu":
+    rt = _route(op, True, [bh] if bl is None else [bh, bl], 0, route)
+    if op.on_cpu:
         return unroll_f64_plain(op, bh, bl, c_lo=c_lo)
     ch = torch.empty((op.m, n), dtype=F32, device=op.device)
     cl = torch.empty_like(ch) if c_lo else None
     if ch.numel():
-        cuda_build.launch(_lib().xsmm_spgemm_unroll_f64, op.device,
-                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
-                          _ptr(op.vl), _ptr(bh), _ptr(bl), _ptr(ch), _ptr(cl),
-                          op.m, op.k, n)
-        launches["spgemm_unroll_f64"] += 1
+        _launch(_lib().xsmm_spgemm_unroll_f64, "spgemm_unroll_f64", op, n,
+                rt, *op.ptrs, _ptr(bh), _ptr(bl), _ptr(ch), _ptr(cl))
     return (ch, cl) if c_lo else ch
 
 
@@ -273,20 +392,19 @@ def unroll_f64(op: SparseOperator, bh: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def acc_f32(op: SparseOperator, cin: torch.Tensor,
-            b: torch.Tensor) -> torch.Tensor:
+def acc_f32(op: SparseOperator, cin: torch.Tensor, b: torch.Tensor, *,
+            route: Optional[Route] = None) -> torch.Tensor:
     """C = C_in + A @ B in f32 (a new tensor; C_in is not written); rows of
     A without a term keep C_in."""
     n = _width(b)
     _check(op, {"B": b, "C_in": cin}, n)
-    if op.device.type == "cpu":
+    rt = _route(op, False, [b], 1, route)
+    if op.on_cpu:
         return acc_f32_plain(op, cin, b)
     c = torch.empty((op.m, n), dtype=F32, device=op.device)
     if c.numel():
-        cuda_build.launch(_lib().xsmm_spgemm_acc_f32, op.device,
-                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
-                          _ptr(cin), _ptr(b), _ptr(c), op.m, op.k, n)
-        launches["spgemm_acc_f32"] += 1
+        _launch(_lib().xsmm_spgemm_acc_f32, "spgemm_acc_f32", op, n, rt,
+                *op.ptrs[:3], _ptr(cin), _ptr(b), _ptr(c))
     return c
 
 
@@ -297,20 +415,21 @@ def acc_f32(op: SparseOperator, cin: torch.Tensor,
 
 def acc_f64(op: SparseOperator, chin: torch.Tensor,
             clin: Optional[torch.Tensor], bh: torch.Tensor,
-            bl: Optional[torch.Tensor] = None) -> Out64:
+            bl: Optional[torch.Tensor] = None, *,
+            route: Optional[Route] = None) -> Out64:
     """(ch, cl) = (ch_in + hi, cl_in + lo) when ``clin`` is given, else
     c = c_in + (hi + lo); B-lo read when ``bl`` is given.  New tensors;
     rows of A without a term keep C_in."""
     n = _width(bh)
     _check(op, {"Bh": bh, "Bl": bl, "Ch_in": chin, "Cl_in": clin}, n)
-    if op.device.type == "cpu":
+    rt = _route(op, True, [bh] if bl is None else [bh, bl],
+                1 if clin is None else 2, route)
+    if op.on_cpu:
         return acc_f64_plain(op, chin, clin, bh, bl)
     ch = torch.empty((op.m, n), dtype=F32, device=op.device)
     cl = None if clin is None else torch.empty_like(ch)
     if ch.numel():
-        cuda_build.launch(_lib().xsmm_spgemm_acc_f64, op.device,
-                          _ptr(op.row_ptr), _ptr(op.col_idx), _ptr(op.vh),
-                          _ptr(op.vl), _ptr(chin), _ptr(clin), _ptr(bh),
-                          _ptr(bl), _ptr(ch), _ptr(cl), op.m, op.k, n)
-        launches["spgemm_acc_f64"] += 1
+        _launch(_lib().xsmm_spgemm_acc_f64, "spgemm_acc_f64", op, n, rt,
+                *op.ptrs, _ptr(chin), _ptr(clin), _ptr(bh), _ptr(bl),
+                _ptr(ch), _ptr(cl))
     return ch if cl is None else (ch, cl)
