@@ -171,7 +171,33 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     layers' whole calls with GB/s or TFLOP/s (the models of
     ``layer_driver.py:11-18``), the space-to-depth fold against the direct
     cuDNN conv at K64 in turns, the stage step and its split, and quant;
-27. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels),
+28. checks that the registry's index is the native CRC32C table (built from
+    ``native/{registry,mtx,spmdm}.cpp`` with g++; its build time is printed
+    after the CUDA build) and that the main path's six dispatches, with the
+    front memo and the MRU cache dropped, are answered by it;
+29. measures the link's pinned rates (one 555 MB ``copy_`` each way);
+30. times the three whole f64 calls with numpy in and out through the
+    pinned staging pool -- batched 23^3 at B 131072 under split2_fast,
+    ``create_dcsr_reg(150x150, N)(b)`` and ``getrf_dispatch(16, 16,
+    batch=131072)`` -- first call, then five more, each in turns with the
+    same steps written out (copy in, split, pack, kernel, unpack/join, copy
+    out) through the pool and on pageable memory (the parent's path), step
+    by step beside the link bound (bytes over the measured pinned rates,
+    plus the kernel); it checks that each output is bit-identical to the
+    pageable steps', that the pool allocates its staging buffers on the
+    first call only and at most ``RESULT_BLOCKS`` pinned result blocks,
+    that a held result is unchanged after three calls on other data, that
+    overwriting the inputs right after a call leaves its result as it was,
+    and each result against gold; it also times the loop ``c = call(a,
+    b)``, each call made while the previous result is held;
+31. times kernel 1 with ``utils/timer.device_bench`` (CUDA graphs)
+    beside ``cuda_time_ms``, runs ``python -m xsmm_tpu_torch.bench`` once
+    and prints its JSON line, and records one ``trace_region`` around a
+    batched call, checking that its ``kernel_name`` range and the kernel's
+    launch are in the Chrome trace, and the host time a call of the sparse
+    entry point ``acc_fn``, with and without its trace scope, beside its
+    kernel wrapper's, with tracing off;
+32. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels),
     the nvidia-smi line, and as its last line ``{"ok": true, "device":
     {...}}``.
 
@@ -2673,6 +2699,420 @@ def dnn_phase(args, dev, smi):
     return [row]
 
 
+STEP_NAMES = ("copy in", "split", "pack", "kernel", "unpack/join", "copy out")
+RUNTIME_ROUNDS = 5   # later calls of each whole call, in turns
+
+
+def run_steps(torch, steps, x):
+    """Run ``steps`` (name -> function of the previous output) in order,
+    each synchronized; returns (output, {name: ms})."""
+    ms = {}
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        x = fn(x)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return x, ms
+
+
+def runtime_phase(args, dev, smi, native_s):
+    """Steps 28 to 31 of the module docstring (the runtime layer)."""
+    import contextlib
+    import glob
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.bench import pinned_rates
+    from xsmm_tpu_torch.ops import cuda_build, smm_packed
+    from xsmm_tpu_torch.ops import packed_kernels as pk
+    from xsmm_tpu_torch.ops import spgemm_kernels as sk
+    from xsmm_tpu_torch.ops.pack_util import pack_lanes
+    from xsmm_tpu_torch.utils import scratch, trace
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms, device_bench
+
+    f32, f64 = torch.float32, torch.float64
+    B = args.batch
+    g = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    xp.set_config(f64_strategy="split2_fast")
+
+    # -- 28. the native index ----------------------------------------------
+    reg = xp.get_registry()
+    info = xp.get_registry_info()
+    if info["native"] is not True:
+        raise RuntimeError(f"the registry's index is not native: {info}")
+    specs = [(xp.dmmdispatch, 0.0), (xp.dmmdispatch, 1.0),
+             (xp.smmdispatch, 0.0), (xp.smmdispatch, 1.0),
+             (xp.bsmmdispatch, 0.0), (xp.bmmdispatch, 0.0)]
+    first = [d(M, N, K, batch=B, beta=beta) for d, beta in specs]
+    # the main path's dispatches again with the front memo and this
+    # thread's MRU cache dropped: each must be answered by the native index
+    reg.front_memo.clear()
+    reg._tls = threading.local()
+    finds = reg.native_finds
+    again = [d(M, N, K, batch=B, beta=beta) for d, beta in specs]
+    found = reg.native_finds - finds
+    if found != len(specs) or any(a is not b for a, b in zip(first, again)):
+        raise RuntimeError(f"native index answered {found} of {len(specs)} "
+                           f"dispatches (or gave other kernels)")
+    info = xp.get_registry_info()
+    print(f"native: build {native_s:.2f} s (g++, native/{{registry,mtx,"
+          f"spmdm}}.cpp); registry {info}; {found} of {len(specs)} main-path "
+          f"dispatches answered by the native index with the memo and MRU "
+          f"cache dropped")
+
+    # -- 29. the link's pinned rates ----------------------------------------
+    h2d, d2h = pinned_rates(B * M * K * 8)
+    print(f"link: pinned copy_ of {B * M * K * 8 / 1e6:.1f} MB (CUDA events, "
+          f"min of 3): host to card {h2d / 1e9:.2f} GB/s, card to host "
+          f"{d2h / 1e9:.2f} GB/s  [{smi}]")
+
+    # -- 30. the three whole calls, through the pool and, in turns, the same
+    # steps on pageable memory ----------------------------------------------
+    scratch.release_scratch()     # a fresh pool: its first call allocates
+    pool = scratch.get_staging_pool()
+    if not pool.pinned():
+        raise RuntimeError("the staging pool is not pinned on the card")
+
+    def host_randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=f64).cpu().numpy()
+
+    def whole(label, call, inputs, others, pinned, pageable, gold, kernel,
+              bytes_in, bytes_out):
+        """Time ``call(*inputs)`` (first, then RUNTIME_ROUNDS in turns with
+        the pinned and the pageable steps) and check the pool's contract."""
+        torch.cuda.synchronize()
+        n0, r0, u0 = pool.nmallocs, pool.nresults, pool.nresult_reuse
+        t0 = time.perf_counter()
+        out = call(*inputs)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        first_mallocs = pool.nmallocs - n0
+        if first_mallocs < 1:
+            raise RuntimeError(f"{label}: the first call allocated no "
+                               f"staging buffer")
+        gold(out)
+        whole_ms, pin, page = [], [], []
+        reuse = 0
+        out_page = out_pin = None
+        for i in range(RUNTIME_ROUNDS):
+            for what in (("whole", "pinned", "pageable") if i % 2 == 0
+                         else ("whole", "pageable", "pinned")):
+                if what == "whole":
+                    torch.cuda.synchronize()
+                    n2, r2 = pool.nmallocs, pool.nreuse
+                    t0 = time.perf_counter()
+                    out = call(*inputs)
+                    whole_ms.append((time.perf_counter() - t0) * 1e3)
+                    if pool.nmallocs != n2 or pool.nreuse <= r2:
+                        raise RuntimeError(f"{label}: a later call "
+                                           f"allocated staging buffers "
+                                           f"({pool.nmallocs - n2}) or "
+                                           f"reused none")
+                    reuse += pool.nreuse - r2
+                elif what == "pinned":
+                    out_pin, ms = run_steps(torch, pinned, inputs)
+                    pin.append(ms)
+                else:
+                    out_page, ms = run_steps(torch, pageable, inputs)
+                    page.append(ms)
+            if i == 0:
+                for name, got in (("whole call", out), ("pinned steps",
+                                                        out_pin)):
+                    if (got.dtype != out_page.dtype
+                            or got.shape != out_page.shape
+                            or not np.array_equal(got, out_page)):
+                        raise RuntimeError(f"{label}: the {name}' output is "
+                                           f"not bit-identical to the "
+                                           f"pageable steps'")
+                # a result held here would keep its pinned block leased
+                del got
+            del out, out_pin
+        # a held result survives three more calls on other data
+        held = call(*inputs)
+        keep = held.copy()
+        for _ in range(3):
+            nxt = call(*others)
+            if np.shares_memory(nxt, held):
+                raise RuntimeError(f"{label}: a result shares memory with "
+                                   f"an earlier one")
+            del nxt
+        if not np.array_equal(held, keep):
+            raise RuntimeError(f"{label}: a held result changed")
+        del held, keep
+        # the usual loop, c = call(a, b): each call runs while the previous
+        # result is still held
+        held_ms = []
+        got = call(*inputs)
+        for _ in range(RUNTIME_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = call(*inputs)
+            held_ms.append((time.perf_counter() - t0) * 1e3)
+        del got
+        # the results' pinned blocks: at most RESULT_BLOCKS for the key
+        blocks = pool.nresults - r0
+        if not 1 <= blocks <= scratch.RESULT_BLOCKS:
+            raise RuntimeError(f"{label}: {blocks} pinned result blocks "
+                               f"(at most {scratch.RESULT_BLOCKS})")
+        # inputs overwritten right after the call returns leave its result
+        # as it was: bit-identical to the pageable steps on the same data
+        mine = [x.copy() for x in inputs]
+        got = call(*mine)
+        for x in mine:
+            x[...] = np.nan
+        if not np.array_equal(got, out_page):
+            raise RuntimeError(f"{label}: overwriting the inputs after the "
+                               f"call changed its result")
+        gold(got)
+        del got, mine, out_page
+        kms = cuda_time_ms(kernel, warmup=1, iters=5)
+        bound = bytes_in / h2d * 1e3 + bytes_out / d2h * 1e3 + kms
+        med = sorted(whole_ms)[len(whole_ms) // 2]
+
+        def fmt(runs):
+            return ", ".join(
+                f"{n} {np.median([r[n] for r in runs]):.3f}" if n in runs[0]
+                else f"{n} -" for n in STEP_NAMES) + (
+                f" (sum {np.median([sum(r.values()) for r in runs]):.3f})")
+        print(f"call  {label}: first {first_ms:.3f} ms; whole call "
+              f"{med:.3f} ms (median of {RUNTIME_ROUNDS}, host clock; "
+              f"{', '.join(f'{t:.3f}' for t in whole_ms)}); with the "
+              f"previous result held {sorted(held_ms)[len(held_ms) // 2]:.3f}"
+              f" ms (median of {RUNTIME_ROUNDS}; "
+              f"{', '.join(f'{t:.3f}' for t in held_ms)}); link bound "
+              f"{bound:.3f} ms ({bytes_in / 1e6:.1f} MB in, "
+              f"{bytes_out / 1e6:.1f} MB out at the pinned rates, kernel "
+              f"{kms:.4f} ms)  [{smi}]")
+        print(f"steps {label} pinned (median ms): {fmt(pin)}")
+        print(f"steps {label} pageable (median ms): {fmt(page)}")
+        print(f"pool  {label}: first call {first_mallocs} allocations, "
+              f"the {RUNTIME_ROUNDS} later calls 0 ({reuse} reuses); "
+              f"results in {blocks} pinned blocks, landed "
+              f"{pool.nresult_reuse - u0} times in a block given back; "
+              f"bit-identical to the "
+              f"pageable steps; a held result intact after 3 calls; inputs "
+              f"overwritten after the call harmless")
+
+    def gate(label, err, tol):
+        print(f"gold  {label:36s} rel-Frobenius {err:.3e} (tol {tol:g}) "
+              f"{'pass' if err < tol else 'FAIL'}")
+        if not err < tol:
+            raise RuntimeError(f"{label}: {err:.3e} >= {tol:g} against gold")
+
+    # batched f64 23^3, split2_fast, numpy f64 in and out (the README call)
+    kern = xp.dmmdispatch(M, N, K, batch=B, beta=0.0)
+    a_np, b_np = host_randn(B, M, K), host_randn(B, K, N)
+    sub = slice(0, GOLD_SUBSET)
+    gold_ab = np.einsum("bmk,bkn->bmn", a_np[sub], b_np[sub])
+
+    def split_b(x):
+        ah, b64 = x
+        bh = b64.to(f32)
+        return ah, bh, (b64 - bh.to(f64)).to(f32)
+
+    def pack_ops(x):
+        return (kern.pack_a(x[0]), kern.pack_b(x[1]), kern.pack_b(x[2]))
+
+    def join(x):
+        return kern.unpack_c(x, B).to(f64, memory_format=torch.contiguous_format)
+    tail = [("pack", pack_ops),
+            ("kernel", lambda x: smm_packed.packed_split2_fast(*x)),
+            ("unpack/join", join)]
+    ops = pack_ops(split_b((torch.from_numpy(a_np).to(dev, f32),
+                            torch.from_numpy(b_np).to(dev))))
+    whole(
+        f"dmmdispatch({M}, {N}, {K}, batch={B}) split2_fast (a, b)",
+        kern, (a_np, b_np), (-a_np, -b_np),
+        [("copy in", lambda x: (
+            scratch.host_to_device(x[0], dev, f32, "smoke_a"),
+            scratch.host_to_device(x[1], dev, f64, "smoke_b"))),
+         ("split", split_b), *tail,
+         ("copy out", scratch.device_to_host)],
+        [("copy in", lambda x: (torch.from_numpy(x[0]).to(dev),
+                                torch.from_numpy(x[1]).to(dev))),
+         ("split", lambda x: split_b((x[0].to(f32), x[1]))), *tail,
+         ("copy out", lambda x: x.cpu().numpy())],
+        lambda out: gate("whole dmmdispatch split2_fast",
+                         xp.matdiff(gold_ab, out[sub]).normf_rel, 1e-6),
+        lambda: smm_packed.packed_split2_fast(*ops),
+        a_np.size * 4 + b_np.nbytes, B * M * N * 8)
+    del a_np, b_np, ops, kern
+    torch.cuda.empty_cache()
+
+    # sparse f64 create_dcsr_reg(150x150, N)(b), split2, numpy in and out
+    N_sp = args.sparse_n
+    name, op_np = pyfr_operators(np)[2]
+    skern = xp.create_dcsr_reg(op_np, N_sp)
+    sop = skern._operand(dev)
+    bs_np = host_randn(op_np.shape[1], N_sp)
+    gold_sp = op_np @ bs_np
+
+    def split_s(b64):
+        bh = b64.to(f32)
+        return bh, (b64 - bh.to(f64)).to(f32)
+    stail = [("split", split_s),
+             ("kernel", lambda x: sk.unroll_f64(sop, x[0], x[1], c_lo=True)),
+             ("unpack/join", lambda x: x[0].to(f64) + x[1].to(f64))]
+    bhl = split_s(torch.from_numpy(bs_np).to(dev))
+    whole(
+        f"create_dcsr_reg({name}, {N_sp})(b) split2",
+        skern, (bs_np,), (-bs_np,),
+        [("copy in", lambda x: scratch.host_to_device(x[0], dev, f64,
+                                                      "smoke_b")),
+         *stail, ("copy out", scratch.device_to_host)],
+        [("copy in", lambda x: torch.from_numpy(x[0]).to(dev)), *stail,
+         ("copy out", lambda x: x.cpu().numpy())],
+        lambda out: gate("whole create_dcsr_reg split2",
+                         xp.matdiff(gold_sp, out).normf_rel,
+                         SPARSE_TOL["float64"]),
+        lambda: sk.unroll_f64(sop, bhl[0], bhl[1], c_lo=True),
+        bs_np.nbytes, op_np.shape[0] * N_sp * 8)
+    del bs_np, gold_sp, bhl, sop, skern
+    torch.cuda.empty_cache()
+
+    # packed getrf 16^2, numpy f64 in and out
+    PB, PM = args.packed_batch, 16
+    gkern = xp.getrf_dispatch(PM, PM, dtype="float64", batch=PB)
+    ad = torch.randn((PB, PM, PM), generator=g, device=dev, dtype=f64)
+    idx = torch.arange(PM, device=dev)
+    ad[:, idx, idx] += PM     # factorizable without pivoting
+    ga_np = ad.cpu().numpy()
+    del ad
+
+    def gold_lu(out):
+        lu = torch.from_numpy(np.ascontiguousarray(out[:GOLD_SUBSET])).to(dev)
+        low = torch.tril(lu, -1) + torch.eye(PM, device=dev, dtype=f64)
+        a = torch.from_numpy(ga_np[:GOLD_SUBSET]).to(dev)
+        gate("whole getrf_dispatch f64 (L U vs A)",
+             (torch.linalg.vector_norm(low @ torch.triu(lu) - a)
+              / torch.linalg.vector_norm(a)).item(), PACKED_TOL["f32"])
+    gtail = [("pack", pack_lanes), ("kernel", pk.getrf_unrolled)]
+    gap = pack_lanes(torch.from_numpy(ga_np).to(dev, f32))
+    whole(
+        f"getrf_dispatch({PM}, {PM}, batch={PB}) f64 (a)",
+        gkern, (ga_np,), (ga_np * 0.5,),
+        [("copy in", lambda x: scratch.host_to_device(x[0], dev, f32,
+                                                      "smoke_a")),
+         *gtail,
+         ("unpack/join", lambda x: x.permute(2, 0, 1).to(
+             f64, memory_format=torch.contiguous_format)),
+         ("copy out", scratch.device_to_host)],
+        [("copy in", lambda x: torch.from_numpy(
+            np.asarray(x[0], np.float32)).to(dev)), *gtail,
+         ("unpack/join", lambda x: x.permute(2, 0, 1).contiguous()),
+         ("copy out", lambda x: x.cpu().numpy().astype(np.float64))],
+        gold_lu, lambda: pk.getrf_unrolled(gap),
+        ga_np.size * 4, ga_np.nbytes)
+    del ga_np, gap, gkern
+    scratch.release_scratch()
+    torch.cuda.empty_cache()
+
+    # -- 31. the timer, the port bench and a trace ---------------------------
+    ah = torch.randn((M, K, B), generator=g, device=dev)
+    bh = torch.randn((K, N, B), generator=g, device=dev)
+    bl = bh * 1e-8
+    dt, dinfo = device_bench(smm_packed.packed_split2_fast, ah, bh, bl,
+                             iters=40, base_iters=8, stats=True)
+    ct = cuda_time_ms(smm_packed.packed_split2_fast, ah, bh, bl, warmup=3,
+                      iters=20)
+    print(f"timer packed_split2_fast B={B}: device_bench {dt * 1e3:.4f} ms "
+          f"(CUDA graphs of {dinfo['iters']} and 8 calls differenced, "
+          f"spread {dinfo['spread']:.3f}); cuda_time_ms {ct:.4f} ms; ratio "
+          f"{dt * 1e3 / ct:.3f}  [{smi}]")
+    del ah, bh, bl
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run([sys.executable, "-m", "xsmm_tpu_torch.bench"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"xsmm_tpu_torch.bench failed ({res.returncode})"
+                           f":\n{res.stderr[-4000:]}")
+    line = res.stdout.strip().splitlines()[-1]
+    bench = json.loads(line)
+    if (bench.get("metric") != "batched_f64_smm_23x23x23_gflops_per_chip"
+            or not bench.get("value", 0) > 0):
+        raise RuntimeError(f"the port bench printed {line}")
+    print(f"bench {line}")
+
+    # one batched call inside trace_region: its kernel_name range and the
+    # kernel's launch must be in the Chrome trace
+    kern = xp.dmmdispatch(M, N, K, batch=B, beta=0.0)
+    a64 = torch.randn((B, M, K), generator=g, device=dev, dtype=f64)
+    b64 = torch.randn((B, K, N), generator=g, device=dev, dtype=f64)
+    kern(a64, b64)
+    tdir = os.path.join(str(cuda_build.BUILD_DIR), "trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    with trace.trace_region(tdir):
+        kern(a64, b64)
+    files = glob.glob(os.path.join(tdir, "*.json"))
+    if len(files) != 1:
+        raise RuntimeError(f"trace_region wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("name") == kern.name]
+    launched = [e for e in events if e.get("cat") == "kernel"
+                and "packed_tile_kernel" in e.get("name", "")]
+    if not ranges or not launched:
+        raise RuntimeError(f"trace: {len(ranges)} ranges named {kern.name}, "
+                           f"{len(launched)} packed_tile_kernel launches")
+    corr = {e.get("args", {}).get("correlation") for e in launched}
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("args", {}).get("correlation") in corr]
+    r = ranges[0]
+    inside = [c for c in calls
+              if r["ts"] <= c["ts"] <= r["ts"] + r.get("dur", 0)]
+    if calls and not inside:
+        raise RuntimeError("trace: the kernel was launched outside its "
+                           "kernel_name range")
+    print(f"trace {files[0]}: {len(events)} events; range {kern.name} "
+          f"{r.get('dur', 0):.1f} us; packed_tile_kernel on the card "
+          f"{launched[0].get('dur', 0):.1f} us, launched inside the range "
+          f"({len(inside)} of {len(calls)} launch calls)")
+    del a64, b64
+
+    # the host time a call of the sparse entry point acc_fn beside its
+    # kernel wrapper's, in turns, 100 calls enqueued each: with tracing off
+    # the entry point's trace scope is one flag check
+    if trace.trace_enabled() or torch.autograd._profiler_enabled():
+        raise RuntimeError("tracing is on outside trace_region")
+    name, op_np = pyfr_operators(np)[2]
+    fk = xp.create_csr_soa(op_np, args.sparse_n, dtype="float32",
+                           strategy="unroll")
+    op = fk._operand(dev)
+    cs, bs = (torch.randn((n_, args.sparse_n), generator=g, device=dev)
+              for n_ in op_np.shape)
+    fns = {"acc_fn": lambda: fk.acc_fn(cs, bs),
+           "acc_fn without its trace scope": lambda: fk.acc_fn(cs, bs),
+           "sk.acc_f32": lambda: sk.acc_f32(op, cs, bs)}
+    if not torch.equal(fns["acc_fn"](), fns["sk.acc_f32"]()):
+        raise RuntimeError("acc_fn and its kernel wrapper disagree")
+    host = {k: [] for k in fns}
+    scope = trace.scope
+    for i in range(6):
+        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            if k == "acc_fn without its trace scope":
+                trace.scope = lambda name: contextlib.nullcontext()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    fns[k]()
+                host[k].append((time.perf_counter() - t0) * 1e4)
+            finally:
+                trace.scope = scope
+    torch.cuda.synchronize()
+    print(f"host  {name} N={args.sparse_n} f32, us a call (100 enqueued, "
+          f"median of 6 in turns, tracing off): " + "; ".join(
+              f"{k} {np.median(v):.1f} ({', '.join(f'{t:.1f}' for t in v)})"
+              for k, v in host.items()))
+    del cs, bs, op, fk
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
@@ -2730,6 +3170,13 @@ def main() -> int:
     print(f"sass: tiled_gemm {sass if sass else 'cuobjdump not found'}")
     if sass is not None and sass["HGMMA"] < 1:
         raise RuntimeError("tiled_gemm has no HGMMA instruction")
+    # the native runtime (the registry's CRC32C index, the .mtx reader, the
+    # ELL pack), built from native/*.cpp with g++
+    from xsmm_tpu_torch.core import native_bridge
+    t0 = time.perf_counter()
+    native_bridge.build()
+    native_s = time.perf_counter() - t0
+    print(f"build: native {native_s:.2f} s ({native_bridge.library_path()})")
 
     # -- inputs, made on the card from the seed ------------------------------
     B = args.batch
@@ -3045,6 +3492,8 @@ def main() -> int:
     rows += rnn_bwd_phase(args, dev, smi)
     torch.cuda.empty_cache()
     rows += dnn_phase(args, dev, smi)
+    torch.cuda.empty_cache()
+    runtime_phase(args, dev, smi, native_s)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -254,7 +254,9 @@ def test_registry_builds_once_and_counts():
     assert k1 is k2 and len(calls) == 1
     info = reg.info()
     assert (info["njit"], info["ntry"], info["size"]) == (1, 2, 1)
-    assert info["nhit"] >= 1 and info["native"] is False
+    # the index is the native CRC32C table unless XSMM_NATIVE=0
+    assert info["nhit"] >= 1
+    assert info["native"] is pcfg.get_config().use_native
     assert reg.kernel_info(_desc())["hits"] >= 1
     assert reg.release(_desc()) and not reg.release(_desc())
     assert reg.info()["size"] == 0
@@ -453,10 +455,18 @@ def test_import_has_no_jax_and_builds_nothing(tmp_path):
     tiled_gemm, tiled_gemm_kernels, xcopy, xcopy_kernels, blocked_gemm and
     mmbatch, and the packed path's packed and packed_kernels, and the RNN
     path's dnn.types, dnn.rnn_seq and dnn.rnncell, and bindings and
-    bindings.torch_lstm among them) pulls
-    in neither jax nor xsmm_tpu, imports no triton, and starts no build."""
-    before = sorted(p.name for p in cuda_build.BUILD_DIR.glob("*")) \
-        if cuda_build.BUILD_DIR.exists() else []
+    bindings.torch_lstm, and the runtime layer's bench, core.native_bridge,
+    utils.scratch, utils.timer, utils.trace, utils.mathx, utils.mhd,
+    tools.mnk and tools.generator among them) pulls in neither jax nor
+    xsmm_tpu, imports no triton, and starts no build: no CUDA library and no
+    native library is loaded, no staging pool is made, and nothing new
+    appears in the build directory (beside ``native/``, which other test
+    processes fill when they make a registry)."""
+    def listing():
+        return (sorted(p.name for p in cuda_build.BUILD_DIR.glob("*")
+                       if p.name != "native")
+                if cuda_build.BUILD_DIR.exists() else [])
+    before = listing()
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
@@ -466,22 +476,27 @@ def test_import_has_no_jax_and_builds_nothing(tmp_path):
               "ops.xcopy", "ops.xcopy_kernels", "ops.blocked_gemm",
               "ops.mmbatch", "ops.packed", "ops.packed_kernels", "dnn",
               "dnn.types", "dnn.rnn_seq", "dnn.rnncell", "bindings",
-              "bindings.torch_lstm"):
+              "bindings.torch_lstm", "bench", "core.native_bridge",
+              "utils.scratch", "utils.timer", "utils.trace", "utils.mathx",
+              "utils.mhd", "tools", "tools.mnk", "tools.generator"):
         assert "xsmm_tpu_torch." + m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'xsmm_tpu.', 'triton')) or m == 'xsmm_tpu' "
             "or m == 'ml_dtypes']\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "from xsmm_tpu_torch.ops import cuda_build\n"
+            "from xsmm_tpu_torch.core import native_bridge\n"
+            "assert not cuda_build._LIBS and native_bridge._lib is None\n"
+            "from xsmm_tpu_torch.utils import scratch\n"
+            "assert scratch._staging is None\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    after = sorted(p.name for p in cuda_build.BUILD_DIR.glob("*")) \
-        if cuda_build.BUILD_DIR.exists() else []
-    assert after == before
+    assert listing() == before
 
 
 def test_sources_never_name_jax():

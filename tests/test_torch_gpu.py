@@ -1767,6 +1767,180 @@ def test_quant_stoch_on_card(cuda):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# The runtime layer: the pinned staging pool on the three whole f64 calls,
+# and the timer
+# ---------------------------------------------------------------------------
+
+from xsmm_tpu_torch.ops import packed_kernels as ppk  # noqa: E402
+from xsmm_tpu_torch.ops import spgemm_kernels as psk  # noqa: E402
+from xsmm_tpu_torch.ops.pack_util import pack_lanes  # noqa: E402
+from xsmm_tpu_torch.utils import scratch  # noqa: E402
+from xsmm_tpu_torch.utils.timer import cuda_time_ms, device_bench  # noqa: E402
+
+
+def _pageable_batched(kern, a, b):
+    """The parent's steps of a split2_fast call on pageable memory."""
+    dev = torch.device("cuda", 0)
+    a64, b64 = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    bh = b64.float()
+    bl = (b64 - bh.double()).float()
+    out = smm_packed.packed_split2_fast(kern.pack_a(a64.float()),
+                                        kern.pack_b(bh), kern.pack_b(bl))
+    return kern.unpack_c(out, a.shape[0]).double().cpu().numpy()
+
+
+def _pageable_sparse(kern, b):
+    dev = torch.device("cuda", 0)
+    b64 = torch.from_numpy(b).to(dev)
+    bh = b64.float()
+    ch, cl = psk.unroll_f64(kern._operand(dev), bh, (b64 - bh.double()).float(),
+                            c_lo=True)
+    return (ch.double() + cl.double()).cpu().numpy()
+
+
+def _pageable_getrf(a):
+    dev = torch.device("cuda", 0)
+    ad = torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    lu = ppk.getrf_unrolled(pack_lanes(ad))
+    return lu.permute(2, 0, 1).contiguous().cpu().numpy().astype(np.float64)
+
+
+def _whole_calls(seed):
+    """(label, call, inputs, other inputs, pageable steps) of the three
+    whole f64 calls at sizes above the staging threshold, several chunks
+    for the batched call."""
+    rng = np.random.default_rng(seed)
+    xp.set_config(f64_strategy="split2_fast")
+    bk = xp.dmmdispatch(23, 23, 23, batch=9000, beta=0.0)
+    a, b = rng.standard_normal((2, 9000, 23, 23))
+    op = np.where(rng.random((150, 150)) < 0.05,
+                  rng.standard_normal((150, 150)), 0.0)
+    sk = xp.create_dcsr_reg(op, 8192)
+    bs = rng.standard_normal((150, 8192))
+    gk = xp.getrf_dispatch(16, 16, dtype="float64", batch=16384)
+    ga = rng.standard_normal((16384, 16, 16)) + 16 * np.eye(16)
+    return [("batched", bk, (a, b), (-a, -b),
+             lambda x: _pageable_batched(bk, *x)),
+            ("sparse", sk, (bs,), (-bs,), lambda x: _pageable_sparse(sk, *x)),
+            ("getrf", gk, (ga,), (ga * 0.5,),
+             lambda x: _pageable_getrf(*x))]
+
+
+@pytest.mark.parametrize("which", ["batched", "sparse", "getrf"])
+def test_pool_whole_call_is_bit_identical_to_pageable(cuda, which):
+    scratch.release_scratch()
+    pool = scratch.get_staging_pool()
+    label, call, inputs, _, pageable = next(
+        c for c in _whole_calls(71) if c[0] == which)
+    first = call(*inputs)
+    n = pool.nmallocs
+    assert n >= 1 and pool.pinned()
+    again = call(*inputs)
+    assert pool.nmallocs == n and pool.nreuse >= 1
+    want = pageable(inputs)
+    for got in (first, again):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(got, want), label
+
+
+@pytest.mark.parametrize("which", ["batched", "sparse", "getrf"])
+def test_pool_held_result_survives_later_calls(cuda, which):
+    label, call, inputs, others, _ = next(
+        c for c in _whole_calls(72) if c[0] == which)
+    held = call(*inputs)
+    keep = held.copy()
+    for _ in range(3):
+        nxt = call(*others)
+        assert not np.shares_memory(nxt, held)
+    assert np.array_equal(held, keep), label
+
+
+@pytest.mark.parametrize("which", ["batched", "sparse", "getrf"])
+def test_pool_inputs_overwritten_after_return_are_harmless(cuda, which):
+    label, call, inputs, _, pageable = next(
+        c for c in _whole_calls(73) if c[0] == which)
+    want = pageable(inputs)
+    mine = [x.copy() for x in inputs]
+    got = call(*mine)
+    for x in mine:
+        x[...] = np.nan
+    torch.cuda.synchronize()
+    assert np.array_equal(got, want), label
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_device_to_host_leases_bounded_blocks_and_keeps_held_results(
+        cuda, dtype):
+    """Below the staging threshold, one chunk, a ragged tail and several
+    chunks: the first two results of a key land in pinned blocks, a third
+    while both are held comes back pageable through the ring, a block is
+    reused once its array and every view of it are gone, and no result a
+    caller holds is ever written again."""
+    scratch.release_scratch()
+    pool = scratch.get_staging_pool()
+    step = scratch.CHUNK_BYTES // (torch.finfo(dtype).bits // 8)
+    g = torch.Generator(device=cuda).manual_seed(75)
+    sizes = (1000, step, 2 * step + 7, 5 * step + 1)
+    for n in sizes:
+        ts = [torch.randn(n, generator=g, device=cuda, dtype=dtype)
+              for _ in range(5)]
+        want = [t.cpu().numpy() for t in ts]
+        held = [scratch.device_to_host(t) for t in ts[:3]]
+        pinned = [torch.from_numpy(h).is_pinned() for h in held]
+        assert pinned == ([False] * 3 if n == 1000 else [True, True, False])
+        view = held[0][1:]
+        del held[0]
+        fourth = scratch.device_to_host(ts[3])   # the view keeps its block
+        del view
+        fifth = scratch.device_to_host(ts[4])    # now it is free
+        assert torch.from_numpy(fifth).is_pinned() == (n != 1000)
+        assert not torch.from_numpy(fourth).is_pinned()
+        live = held + [fourth, fifth]
+        for got, w in zip(live, want[1:]):
+            assert got.dtype == w.dtype and np.array_equal(got, w)
+        for x in range(len(live)):
+            for y in range(x):
+                assert not np.shares_memory(live[x], live[y])
+        for buf in pool._bufs.values():
+            assert not any(np.shares_memory(r, buf.numpy()) for r in live)
+    assert pool.nresults == 2 * (len(sizes) - 1)
+    assert pool.nresult_reuse == len(sizes) - 1
+
+
+def test_device_bench_of_kernel1_agrees_with_cuda_events(cuda):
+    g = torch.Generator(device=cuda).manual_seed(74)
+    ah = torch.randn((23, 23, 131072), generator=g, device=cuda)
+    bh = torch.randn((23, 23, 131072), generator=g, device=cuda)
+    bl = bh * 1e-8
+    dt, info = device_bench(smm_packed.packed_split2_fast, ah, bh, bl,
+                            iters=40, base_iters=8, stats=True)
+    ms = cuda_time_ms(smm_packed.packed_split2_fast, ah, bh, bl, warmup=3,
+                      iters=20)
+    assert set(info) == {"dts", "median", "spread", "iters", "repeats"}
+    assert abs(dt * 1e3 / ms - 1) <= 0.10, (dt * 1e3, ms, info)
+
+
+def test_device_bench_refuses_what_cannot_be_captured(cuda):
+    """A function that synchronizes with the host cannot be captured:
+    device_bench raises naming it.  Run in its own process, since a failed
+    capture may leave the stream's allocator state behind."""
+    import subprocess
+    import sys
+    code = ("import torch, pytest\n"
+            "from xsmm_tpu_torch.utils.timer import device_bench\n"
+            "def item_of_sum(t):\n    return t.sum().item()\n"
+            "x = torch.ones(4, device='cuda')\n"
+            "with pytest.raises(RuntimeError, match='item_of_sum.*cannot be "
+            "captured'):\n    device_bench(item_of_sum, x)\n"
+            "print('refused')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=str(__import__("pathlib").Path(
+                             __file__).resolve().parents[1]))
+    assert res.returncode == 0 and "refused" in res.stdout, res.stderr
+
+
 def test_rnn_tanh_cpu_forward_repeats_bit_identical(cuda):
     """The failing case's target="cpu" forward (RNN_TANH f32, N 37, C 50,
     K 70, T 4, seed 34), 300 times, each after the card's forward as in

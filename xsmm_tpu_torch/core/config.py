@@ -12,8 +12,10 @@ What differs in this package:
 * ``interpret``: kept for parity and has no effect here.  A CUDA kernel has
   no interpreter; the plain versions run exactly when the tensors lie on
   the CPU (``target="cpu"``).
-* ``use_native``: kept for parity; the registry index is the Python dict
-  until the port's bridge to ``native/registry.cpp`` lands.
+* ``use_native`` (``XSMM_NATIVE``, default 1): the registry index, the .mtx
+  reader and spmdm's ELL pack run in the C++ runtime of ``native/``, which
+  ``core/native_bridge`` builds at first use; a failed build raises.  0
+  selects the Python paths.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class Config:
     # Parity only; see the module docstring.
     interpret: Optional[bool] = None
 
-    # Parity only; see the module docstring.
+    # The C++ runtime of native/; see the module docstring.
     use_native: bool = True
 
     @staticmethod

@@ -8,9 +8,12 @@ under LIBXSMM_VERBOSE (internal_print_statistic, libxsmm_main.c:278-348).
 
 The port of ``xsmm_tpu/core/registry.py``.  A "kernel" is a built callable
 (a ``BatchedSMM``, say, whose CUDA library is built at first launch).  The
-index is a Python dict keyed by ``descriptor.pack()`` bytes, so
-``info()["native"]`` is False; the C++ CRC32C table (``native/registry.cpp``)
-is not bridged in this package yet.
+hash probe runs in the C++ CRC32C open-addressing table
+(``native/registry.cpp``, through ``core/native_bridge``; ``info()["native"]``
+is True) unless ``XSMM_NATIVE=0``, which selects a Python dict with the same
+semantics.  Either way the kernels live in a Python-side table indexed by
+slot, and the dict stays authoritative for release and introspection.  A
+failed native build raises; it does not fall back to the dict.
 """
 
 from __future__ import annotations
@@ -20,6 +23,15 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .config import get_config
+
+
+def _make_native(capacity: int):
+    """The native index, or None under ``XSMM_NATIVE=0``; raises when the
+    library cannot be built or loaded."""
+    if not get_config().use_native:
+        return None
+    from . import native_bridge
+    return native_bridge.load(capacity)
 
 
 class Stats:
@@ -110,11 +122,15 @@ class Registry:
         cfg = get_config()
         self.capacity = capacity or cfg.registry_capacity
         self._table: Dict[bytes, RegistryEntry] = {}
+        self._entries: List[Optional[RegistryEntry]] = []  # slot-indexed
         # Reentrant: dispatch() holds this lock across builder(), and a
         # builder may dispatch another kernel.
         self._build_lock = threading.RLock()
         self._tls = threading.local()
         self.stats = Stats()
+        # the native CRC32C probe table as the fast index; None => the dict
+        self._native = _make_native(self.capacity)
+        self.native_finds = 0   # lookups answered by the native index
         # Front memo for the typed dispatch frontends (ops/smm.mmdispatch):
         # raw-args tuple -> (kernel, stats row, bucket, entry).  Cleared by
         # release()/clear().
@@ -150,7 +166,13 @@ class Registry:
             self.stats.ncache_hit += 1
             e.hits += 1
             return e
-        e = self._table.get(key)
+        if self._native is not None:
+            slot = self._native.find(key)
+            e = self._entries[slot] if slot >= 0 else None
+            if e is not None:
+                self.native_finds += 1
+        else:
+            e = self._table.get(key)
         if e is not None:
             e.hits += 1
             self._cache_insert(key, e)
@@ -190,6 +212,20 @@ class Registry:
             self._cache_insert(key, entry)
             return entry
         self._table[key] = entry
+        self._entries.append(entry)
+        if self._native is not None:
+            try:
+                slot = self._native.insert(key, len(self._entries) - 1)
+            except RuntimeError:
+                # the native table never removes keys, so release/insert
+                # churn can fill it while the dict is below capacity: the
+                # dict takes over as the index (as in the JAX package)
+                self._native = None
+                self.stats.ncol += 1
+            else:
+                if slot != len(self._entries) - 1:
+                    # stale slot of a released key: repoint it
+                    self._entries[slot] = entry
         self._cache_insert(key, entry)
         return entry
 
@@ -237,6 +273,13 @@ class Registry:
         key = descriptor.pack()
         with self._build_lock:
             e = self._table.pop(key, None)
+            if e is not None:
+                # tombstone the slot (native keys are not removable; the
+                # slot is repointed on re-insert of the same key)
+                for i, ent in enumerate(self._entries):
+                    if ent is e:
+                        self._entries[i] = None
+                        break
             self._tls = threading.local()  # drop MRU references
             self.front_memo.clear()
             return e is not None
@@ -247,7 +290,7 @@ class Registry:
             "capacity": self.capacity,
             "size": len(self._table),
             "nbytes": sum(e.nbytes_est for e in self._table.values()),
-            "native": False,
+            "native": self._native is not None,
             "ntry": self.stats.ntry,
             "njit": self.stats.njit,
             "nsta": self.stats.nsta,
@@ -258,6 +301,9 @@ class Registry:
     def clear(self):
         with self._build_lock:
             self._table.clear()
+            self._entries.clear()
+            if self._native is not None:
+                self._native.clear()
             self._tls = threading.local()
             self.front_memo.clear()
 

@@ -96,9 +96,24 @@ def rnn_cell_gold(ct, x, w, r, b, h0, c0):
     return np.stack(hs), h, c
 
 
+def staging_state() -> str:
+    """The pinned staging pool of this process (``utils/scratch``): none, or
+    its counts and the copies still on the link.  The failing case's
+    inputs are below ``STAGE_MIN_BYTES``, so the pool is not on its path;
+    this says whether it had run at all."""
+    from ..utils import scratch
+
+    pool = scratch._staging
+    if pool is None:
+        return "staging pool none"
+    pending = sum(not ev.query() for ev in list(pool._in_flight.values()))
+    return (f"staging pool {pool.nmallocs} buffers ({pool.nreuse} reuses), "
+            f"{pool.nresults} result blocks, {pending} copies in flight")
+
+
 def cpu_state() -> str:
-    """The CPU's threads, its f32 matmul precision in both APIs, and the
-    autocast and determinism switches."""
+    """The CPU's threads, its f32 matmul precision in both APIs, the
+    autocast and determinism switches, and the staging pool."""
     import torch
 
     try:
@@ -110,7 +125,8 @@ def cpu_state() -> str:
             f"{torch.backends.mkldnn.matmul.fp32_precision}, mkldnn "
             f"fp32_precision {torch.backends.mkldnn.fp32_precision}, cpu "
             f"autocast {torch.is_autocast_enabled('cpu')}, deterministic "
-            f"{torch.are_deterministic_algorithms_enabled()}")
+            f"{torch.are_deterministic_algorithms_enabled()}; "
+            + staging_state())
 
 
 def cpu_products(x, w, r, h0) -> str:

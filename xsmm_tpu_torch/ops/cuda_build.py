@@ -2,7 +2,8 @@
 
 Each library in ``SOURCES`` is compiled by ``nvcc`` for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), at first use, into ``xsmm_tpu_torch/build/``.  The file name
+seconds), at first use, into ``xsmm_tpu_torch/build/`` (or the directory that
+``xsmm_tpu_torch.enable_compile_cache`` names).  The file name
 carries a hash of the sources and flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is.  ``build_all()`` starts one ``nvcc`` for
 every library at once and waits for all of them.
@@ -23,7 +24,9 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent
-BUILD_DIR = _PKG.parent / "build"
+DEFAULT_BUILD_DIR = _PKG.parent / "build"
+# where the libraries are built; ``enable_compile_cache`` may move it
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 # library name -> CUDA sources, relative to this directory
 SOURCES: Dict[str, tuple] = {

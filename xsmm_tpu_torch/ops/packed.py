@@ -33,6 +33,7 @@ from ..core import platform
 from ..core.config import get_config
 from ..core.descriptors import TORCH_DTYPES, PackedDescriptor, dtype_name
 from ..core.registry import get_registry
+from ..utils import trace
 from . import packed_kernels
 from .pack_util import LANES, pack_lanes
 from .smm import _matmul, _to_numpy_f64, as_tensor, mmdispatch, split_f64
@@ -60,23 +61,27 @@ def _unroll_max() -> int:
     return get_config().getrf_unroll
 
 
-def _f32(x, device: torch.device) -> torch.Tensor:
-    """A float32 tensor on ``device``; numpy data is rounded to f32 on the
-    host, as the JAX package's ``np.asarray(a, np.float32)``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    return as_tensor(np.asarray(x, np.float32), device)
+def _f32(x, device: torch.device, slot: str = "") -> torch.Tensor:
+    """A float32 tensor on ``device``; numpy f64 data is rounded to f32 on
+    the host, as the JAX package's ``np.asarray(a, np.float32)`` (for the
+    card while it fills the pinned staging buffer, so only f32 crosses)."""
+    return as_tensor(x, device, torch.float32, slot=slot)
 
 
 def _host_f64(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float64).numpy()
+        return _to_numpy_f64(x.detach().to(torch.float64))
     return np.asarray(x, np.float64)
 
 
 def _f32_to_numpy_f64(t: torch.Tensor) -> np.ndarray:
-    """An f32 result as numpy f64: copied as f32, widened on the host."""
-    return t.contiguous().cpu().numpy().astype(np.float64)
+    """An f32 result as numpy f64: on the CPU widened by numpy; from the
+    card widened there (exact either way) and copied through a pinned
+    block."""
+    if t.device.type == "cuda":
+        return _to_numpy_f64(t.to(torch.float64,
+                                  memory_format=torch.contiguous_format))
+    return t.contiguous().numpy().astype(np.float64)
 
 
 def _check_shape(x: torch.Tensor, shape, what: str) -> None:
@@ -103,6 +108,7 @@ class GetrfKernel:
         m, n = desc.m, desc.n
         self.is_f64 = desc.dtype == "float64"
         self.bt = _lane_tile(2 * 2 * m * n * 4)
+        self.name = trace.kernel_name("getrf", desc)
         self.kernel_name = ("getrf_unrolled" if min(m, n) <= _unroll_max()
                             else "getrf_loop")
         platform.device()  # raises without a card and without target="cpu"
@@ -110,16 +116,18 @@ class GetrfKernel:
     def packed(self, ap) -> torch.Tensor:
         """LU [M, N, Bp] of a packed A [M, N, Bp] (f32, on the device);
         numpy data such as the JAX package's pack is taken as well."""
-        ap = _f32(ap, platform.device()).contiguous()
-        return getattr(packed_kernels, self.kernel_name)(ap)
+        with trace.scope(self.name + "_packed"):
+            ap = _f32(ap, platform.device(), slot="ap").contiguous()
+            return getattr(packed_kernels, self.kernel_name)(ap)
 
     def __call__(self, a):
         """[B, M, N] -> LU [B, M, N]: a tensor on the device, or numpy f64
         for an f64 descriptor (computed in f32)."""
-        a = _f32(a, platform.device())
-        _check_shape(a, (self.desc.m, self.desc.n), "getrf")
-        out = self.packed(pack_lanes(a)).permute(2, 0, 1)
-        return _f32_to_numpy_f64(out) if self.is_f64 else out
+        with trace.scope(self.name):
+            a = _f32(a, platform.device(), slot="a")
+            _check_shape(a, (self.desc.m, self.desc.n), "getrf")
+            out = self.packed(pack_lanes(a)).permute(2, 0, 1)
+            return _f32_to_numpy_f64(out) if self.is_f64 else out
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +150,7 @@ class TrsmKernel:
         sm = m if self.side == "L" else n
         sn = n if self.side == "L" else m
         self.am = sm
+        self.name = trace.kernel_name("trsm", desc)
         self.bt = _lane_tile(2 * (sm * sm + 2 * sm * sn) * 4)
         self.kernel_name = ("trsm_unrolled" if sm <= _unroll_max()
                             else "trsm_loop")
@@ -194,22 +203,27 @@ class TrsmKernel:
         f64 residual on the host (~1e-9 rel, two more host round trips);
         False = plain f32 solve (~1e-6 rel).
         """
+        with trace.scope(self.name):
+            return self._call(a, b, alpha, refine)
+
+    def _call(self, a, b, alpha, refine):
         dev = platform.device()
         if self.is_f64 and refine == "host":
             a64 = _host_f64(a)
             b64 = _host_f64(b) * alpha
-            a32 = _f32(a64, dev)
-            x0 = _f32_to_numpy_f64(self._solve(a32, _f32(b64, dev)))
+            a32 = _f32(a64, dev, slot="a")
+            x0 = _f32_to_numpy_f64(self._solve(a32, _f32(b64, dev, slot="b")))
             opa = self._op_a(a64, np.tril, np.triu)
             if self.unit:
                 idx = np.arange(opa.shape[-1])
                 opa[..., idx, idx] = 1.0
             r = b64 - opa @ x0 if self.side == "L" else b64 - x0 @ opa
-            dx = _f32_to_numpy_f64(self._solve(a32, _f32(r, dev)))
+            dx = _f32_to_numpy_f64(self._solve(a32, _f32(r, dev, slot="r")))
             return x0 + dx
         if self.is_f64 and (refine or refine is None):
-            ah, al = split_f64(a, dev)
-            bh, bl = split_f64(as_tensor(b, dev, torch.float64) * alpha, dev)
+            ah, al = split_f64(a, dev, slot="a")
+            bh, bl = split_f64(as_tensor(b, dev, torch.float64, slot="b")
+                               * alpha, dev)
             x0 = self._solve(ah, bh)
             opa_h = self._op_a(ah, torch.tril, torch.triu)
             opa_l = self._op_a(al, torch.tril, torch.triu)
@@ -225,7 +239,8 @@ class TrsmKernel:
             r = ((bh - ax_h) + bl) - ax_l
             dx = self._solve(ah, r)
             return _to_numpy_f64(x0.to(torch.float64) + dx.to(torch.float64))
-        out = self._solve(_f32(a, dev), _f32(b, dev), alpha)
+        out = self._solve(_f32(a, dev, slot="a"), _f32(b, dev, slot="b"),
+                          alpha)
         return _f32_to_numpy_f64(out) if self.is_f64 else out
 
 

@@ -39,6 +39,7 @@ from ..core.config import config_generation, get_config
 from ..core.descriptors import (ITEMSIZE, TORCH_DTYPES, GemmDescriptor,
                                 dtype_name, gemm_flags, is_integer)
 from ..core.registry import Stats, get_registry
+from ..utils import scratch, trace
 from . import smm_packed
 from .pack_util import LANES
 
@@ -48,10 +49,17 @@ from .pack_util import LANES
 
 
 def as_tensor(x, device: torch.device,
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              dtype: Optional[torch.dtype] = None,
+              slot: str = "") -> torch.Tensor:
     """A tensor on ``device`` from a tensor or an array-like.  numpy bf16
     arrays (ml_dtypes) cross through a uint16 view, so ml_dtypes is never
-    imported here."""
+    imported here.
+
+    On the CPU target a numpy array becomes a tensor on its own memory
+    (zero-copy).  For the card, a numpy array is read in full before this
+    returns and staged through the pinned pool
+    (``utils/scratch.host_to_device``; ``slot`` names the operand within a
+    call, so two same-shape operands do not share a buffer)."""
     if not isinstance(x, torch.Tensor):
         arr = np.asarray(x)
         if arr.dtype.name == "bfloat16":
@@ -60,6 +68,8 @@ def as_tensor(x, device: torch.device,
         else:
             if not arr.flags.writeable or not arr.flags.c_contiguous:
                 arr = np.array(arr, copy=True, order="C")
+            if device.type == "cuda":
+                return scratch.host_to_device(arr, device, dtype, slot)
             x = torch.from_numpy(arr)
     if dtype is None:
         return x.to(device=device)
@@ -77,27 +87,35 @@ def packed_from_numpy(arr, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def split_f64(x, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def split_f64(x, device=None,
+              slot: str = "x") -> Tuple[torch.Tensor, torch.Tensor]:
     """Split float64 data into (hi, lo) float32 tensors on the device:
-    hi = f32(x), lo = f32(x - hi) (the residual is exact in f64)."""
+    hi = f32(x), lo = f32(x - hi) (the residual is exact in f64).  numpy
+    data goes to the card as f64 through the pinned pool under ``slot``
+    and is split there."""
     x = as_tensor(x, platform.device() if device is None else device,
-                  torch.float64)
+                  torch.float64, slot=f"split_{slot}")
     hi = x.to(torch.float32)
     lo = (x - hi.to(torch.float64)).to(torch.float32)
     return hi, lo
 
 
 def join_f64(hi, lo=None) -> np.ndarray:
-    """hi (+ lo) in f64, as a numpy array."""
+    """hi (+ lo) in f64, as a numpy array (a new one, never pool memory)."""
     out = torch.as_tensor(hi).to(torch.float64)
     if lo is not None:
         out = out + torch.as_tensor(lo).to(device=out.device,
                                            dtype=torch.float64)
-    return out.cpu().numpy()
+    return _to_numpy_f64(out)
 
 
 def _to_numpy_f64(t: torch.Tensor) -> np.ndarray:
-    return t.contiguous().cpu().numpy()
+    """A tensor as numpy: on the CPU its own memory; from the card in a
+    pinned block leased from the pool (``scratch.device_to_host``),
+    synchronized before it is returned."""
+    if t.device.type == "cuda":
+        return scratch.device_to_host(t)
+    return t.contiguous().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +166,8 @@ class _Kernel:
         self.desc = desc
         self.is_f64 = desc.in_dtype == "float64"
         self.strategy = get_config().f64_strategy if self.is_f64 else None
+        # the profiler's name of this kernel's calls (utils/trace)
+        self.name = trace.kernel_name("smm", desc)
         platform.device()
 
     @property
@@ -212,24 +232,26 @@ class BatchedSMM(_Kernel):
             raise ValueError(f"packed() takes {n_in + n_c} operands for "
                              f"strategy {self.strategy} beta={self.desc.beta}"
                              f", got {len(ops)}")
-        ops = [as_tensor(o, self.device,
-                         self.in_dt if i < n_in else self.out_dt)
-               for i, o in enumerate(ops)]
-        if self.strategy == "split2":
-            return smm_packed.packed_split2(*ops)
-        if self.strategy == "split2_fast":
-            return smm_packed.packed_split2_fast(*ops)
-        return smm_packed.packed_f32(*ops, out_dtype=self.out_dt)
+        with trace.scope(self.name + "_packed"):
+            ops = [as_tensor(o, self.device,
+                             self.in_dt if i < n_in else self.out_dt,
+                             slot=f"packed{i}")
+                   for i, o in enumerate(ops)]
+            if self.strategy == "split2":
+                return smm_packed.packed_split2(*ops)
+            if self.strategy == "split2_fast":
+                return smm_packed.packed_split2_fast(*ops)
+            return smm_packed.packed_f32(*ops, out_dtype=self.out_dt)
 
     # -- convenience full path ----------------------------------------------
     def _full(self, a, b, c=None):
         dev = self.device
-        ops = [self.pack_a(as_tensor(a, dev, self.in_dt)),
-               self.pack_b(as_tensor(b, dev, self.in_dt))]
+        ops = [self.pack_a(as_tensor(a, dev, self.in_dt, slot="a")),
+               self.pack_b(as_tensor(b, dev, self.in_dt, slot="b"))]
         if self.desc.beta:
             if c is None:
                 raise ValueError("beta=1 kernel requires c operand")
-            ops.append(self.pack_c(as_tensor(c, dev, self.out_dt)))
+            ops.append(self.pack_c(as_tensor(c, dev, self.out_dt, slot="c")))
         return self.unpack_c(self.packed(*ops), ops[0].shape[-1])
 
     def __call__(self, a, b, c=None):
@@ -239,36 +261,41 @@ class BatchedSMM(_Kernel):
         on the device and the result is a float64 numpy array (hi + lo
         joined in f64).
         """
-        if not self.is_f64:
-            return self._full(a, b, c)
+        with trace.scope(self.name):
+            if not self.is_f64:
+                return self._full(a, b, c)
+            return self._call_f64(a, b, c)
+
+    def _call_f64(self, a, b, c):
         if self.desc.beta and c is None:
             raise ValueError("beta=1 kernel requires c operand")
-        dev = self.device
-        a64 = as_tensor(a, dev, torch.float64)
-        b64 = as_tensor(b, dev, torch.float64)
-        # split only the halves the schedule reads
+        dev, f32 = self.device, torch.float32
+        # split only the halves the schedule reads; an operand read as hi
+        # alone crosses from numpy as f32 (rounded by the host, the same
+        # bits as on the card), one that is split crosses as f64
         if self.strategy == "split2":
-            ah, al = split_f64(a64, dev)
-            bh, bl = split_f64(b64, dev)
+            ah, al = split_f64(a, dev, slot="a")
+            bh, bl = split_f64(b, dev, slot="b")
             ops = [self.pack_a(ah), self.pack_a(al),
                    self.pack_b(bh), self.pack_b(bl)]
         elif self.strategy == "split2_fast":
-            bh, bl = split_f64(b64, dev)
-            ops = [self.pack_a(a64.to(torch.float32)), self.pack_b(bh),
-                   self.pack_b(bl)]
+            ah = as_tensor(a, dev, f32, slot="a")
+            bh, bl = split_f64(b, dev, slot="b")
+            ops = [self.pack_a(ah), self.pack_b(bh), self.pack_b(bl)]
         else:  # float32: hi-only compute
-            ops = [self.pack_a(a64.to(torch.float32)),
-                   self.pack_b(b64.to(torch.float32))]
+            ah = as_tensor(a, dev, f32, slot="a")
+            ops = [self.pack_a(ah), self.pack_b(as_tensor(b, dev, f32,
+                                                          slot="b"))]
         cl = None
         if self.desc.beta:
-            ch, cl = split_f64(c, dev)
+            ch, cl = split_f64(c, dev, slot="c")
             if self.strategy == "split2":
                 ops += [self.pack_c(ch), self.pack_c(cl)]
                 cl = None  # consumed in-kernel by the dual-output path
             else:
                 ops.append(self.pack_c(ch))
         out = self.packed(*ops)
-        batch = a64.shape[0]
+        batch = ah.shape[0]
         if isinstance(out, tuple):
             res = (self.unpack_c(out[0], batch).to(torch.float64)
                    + self.unpack_c(out[1], batch).to(torch.float64))
@@ -400,21 +427,23 @@ class XlaGemm(_Kernel):
         dev = self.device
         if not self.is_f64:
             acc = _acc_dtype(self.desc.in_dtype)
-            out = self._mm(as_tensor(a, dev, acc), as_tensor(b, dev, acc))
+            out = self._mm(as_tensor(a, dev, acc, slot="a"),
+                           as_tensor(b, dev, acc, slot="b"))
             if c is not None:
-                out = out + as_tensor(c, dev, acc)
+                out = out + as_tensor(c, dev, acc, slot="c")
             return out.to(TORCH_DTYPES[self.desc.out_dtype])
         f64 = torch.float64
-        a64, b64 = as_tensor(a, dev, f64), as_tensor(b, dev, f64)
+        a64 = as_tensor(a, dev, f64, slot="a")
+        b64 = as_tensor(b, dev, f64, slot="b")
         if self.strategy == "native":
             out = self._mm(a64, b64)
             if c is not None:
-                out = out + as_tensor(c, dev, f64)
+                out = out + as_tensor(c, dev, f64, slot="c")
             return _to_numpy_f64(out)
         ah, bh = a64.to(torch.float32), b64.to(torch.float32)
         ch = cl = None
         if c is not None:
-            ch, cl = split_f64(c, dev)
+            ch, cl = split_f64(c, dev, slot="c")
         lo = None
         if self.strategy == "split2":
             al = (a64 - ah.to(f64)).to(torch.float32)
@@ -461,10 +490,12 @@ class BatchReduceGemm(_Kernel):
     def __call__(self, a, b, c=None):
         dev = self.device
         if not self.is_f64:
-            c = None if c is None else as_tensor(c, dev)
-            return self._fn(as_tensor(a, dev), as_tensor(b, dev), c)
+            c = None if c is None else as_tensor(c, dev, slot="c")
+            return self._fn(as_tensor(a, dev, slot="a"),
+                            as_tensor(b, dev, slot="b"), c)
         f64 = torch.float64
-        a64, b64 = as_tensor(a, dev, f64), as_tensor(b, dev, f64)
+        a64 = as_tensor(a, dev, f64, slot="a")
+        b64 = as_tensor(b, dev, f64, slot="b")
         ah, bh = a64.to(torch.float32), b64.to(torch.float32)
         out = self._fn(ah, bh).to(f64)
         if self.strategy in ("split2", "split2_fast"):
@@ -474,7 +505,7 @@ class BatchReduceGemm(_Kernel):
             al = (a64 - ah.to(f64)).to(torch.float32)
             out = out + self._fn(al, bh).to(f64)
         if c is not None:
-            out = out + as_tensor(c, dev, f64)
+            out = out + as_tensor(c, dev, f64, slot="c")
         return _to_numpy_f64(out)
 
 

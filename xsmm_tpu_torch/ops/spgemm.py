@@ -42,7 +42,8 @@ from ..core.registry import get_registry
 from ..utils.mtx import Csc, Csr
 from . import spgemm_kernels as sk
 from .pack_util import round_up
-from .smm import _matmul, as_tensor
+from ..utils import trace
+from .smm import _matmul, _to_numpy_f64, as_tensor
 
 UNROLL_MAX = int(os.environ.get("XSMM_SPARSE_UNROLL_MAX", 8192))
 _SUB = 8  # sublanes of the JAX package's SOA view; sets the bn unit
@@ -110,6 +111,10 @@ class CsrSpgemm:
         self.bn = (lane_block(csr.m, csr.k, n, self.is_f64)
                    if strategy == "unroll" else None)
         self._on: Dict[torch.device, object] = {}
+        # the profiler's name of this kernel's calls (utils/trace)
+        self.name = trace.kernel_name("spgemm", SparseDescriptor(
+            kind="csr_asparse", m=csr.m, n=n, k=csr.k, dtype=self.dtype,
+            structure_digest=b""))
         self._operand(platform.device())  # to the device once; raises w/o card
 
     @property
@@ -145,7 +150,8 @@ class CsrSpgemm:
         (ch, cl) or the folded C, per schedule."""
         dev = platform.device()
         op = self._operand(dev)
-        bs = [as_tensor(b, dev, F32).contiguous() for b in bs]
+        bs = [as_tensor(b, dev, F32, slot=f"b{i}").contiguous()
+              for i, b in enumerate(bs)]
         if self.strategy == "unroll":
             if not self.is_f64:
                 return sk.unroll_f32(op, bs[0]).to(TORCH_DTYPES[self.dtype])
@@ -161,20 +167,23 @@ class CsrSpgemm:
 
     # -- accumulate (beta = 1) ------------------------------------------------
     def _acc(self, *ops):
-        dev = platform.device()
-        n_c = 2 if self.c_lo else 1
-        if self.strategy != "unroll":
-            cs = [as_tensor(c, dev, F32) for c in ops[:n_c]]
-            r = self._fn(*ops[n_c:])
-            if not self.is_f64 or not self.c_lo:
-                return cs[0] + r
-            return cs[0] + r[0], cs[1] + r[1]
-        op = self._operand(dev)
-        ops = [as_tensor(x, dev, F32).contiguous() for x in ops]
-        if not self.is_f64:
-            return sk.acc_f32(op, *ops)
-        cs, bs = ops[:n_c], ops[n_c:]
-        return sk.acc_f64(op, cs[0], cs[1] if self.c_lo else None, *bs)
+        with trace.scope(self.name + "_acc"):
+            dev = platform.device()
+            n_c = 2 if self.c_lo else 1
+            if self.strategy != "unroll":
+                cs = [as_tensor(c, dev, F32, slot=f"c{i}")
+                      for i, c in enumerate(ops[:n_c])]
+                r = self._fn(*ops[n_c:])
+                if not self.is_f64 or not self.c_lo:
+                    return cs[0] + r
+                return cs[0] + r[0], cs[1] + r[1]
+            op = self._operand(dev)
+            ops = [as_tensor(x, dev, F32, slot=f"acc{i}").contiguous()
+                   for i, x in enumerate(ops)]
+            if not self.is_f64:
+                return sk.acc_f32(op, *ops)
+            cs, bs = ops[:n_c], ops[n_c:]
+            return sk.acc_f64(op, cs[0], cs[1] if self.c_lo else None, *bs)
 
     @property
     def acc_fn(self):
@@ -183,18 +192,20 @@ class CsrSpgemm:
         return self._acc
 
     def __call__(self, b):
-        if self.is_f64:
+        with trace.scope(self.name):
+            if not self.is_f64:
+                return self._fn(b)
             dev = platform.device()
-            b64 = as_tensor(b, dev, F64)
-            bh = b64.to(F32)
-            bs = [bh]
-            if self.b_lo:
-                bs.append((b64 - bh.to(F64)).to(F32))
+            if self.b_lo:   # split on the card: B crosses as f64
+                b64 = as_tensor(b, dev, F64, slot="b")
+                bh = b64.to(F32)
+                bs = [bh, (b64 - bh.to(F64)).to(F32)]
+            else:           # hi alone: B crosses as f32
+                bs = [as_tensor(b, dev, F32, slot="b")]
             out = self._fn(*bs)
             if self.c_lo:
                 out = out[0].to(F64) + out[1].to(F64)
-            return out.to(F64).cpu().numpy()
-        return self._fn(b)
+            return _to_numpy_f64(out.to(F64))
 
 
 class CscBSpgemm:

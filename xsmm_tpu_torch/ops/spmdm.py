@@ -21,9 +21,10 @@ here they are PyTorch ops:
 * **"ell"**: the slice phase packs A into fixed-width ELL (per-row values
   and column indices, width R = max row population rounded up to 8) with
   the JAX package's vectorized numpy pack.  Compute gathers B rows by index
-  and accumulates, one ELL column at a time.  The JAX package's native C++
-  pack (``native/spmdm.cpp``) waits for the port's bridge to ``native/``;
-  both packs give the same arrays.
+  and accumulates, one ELL column at a time.  The pack is the native C++
+  single-pass pack (``native/spmdm.cpp``, through ``core/native_bridge``)
+  where the JAX package takes it, else (``XSMM_NATIVE=0``) the JAX
+  package's vectorized numpy pack; both give the same arrays.
 * **"auto"** (default): packs ELL only below the JAX package's crossover
   (``SpmdmHandle.ELL_CROSSOVER``); otherwise dense.
 
@@ -109,6 +110,27 @@ class SpmdmHandle:
             # so ELL values are the exact f32 image of bf16 values
             a = a.to(torch.bfloat16)
         a_np = np.ascontiguousarray(a.to(F32).cpu().numpy())
+        # native single-pass pack (rowmax probe first so "auto" can bail to
+        # dense without packing), as xsmm_tpu/ops/spmdm.py:134-151
+        from ..core import native_bridge
+        lib = native_bridge.get_lib()
+        if lib is not None:
+            import ctypes
+            rmax = lib.xsmm_ell_rowmax(a_np.ctypes.data_as(ctypes.c_void_p),
+                                       self.m, self.k, float(tol))
+            r = max(1, int(round_up(max(int(rmax), 1), 8)))
+            if self.strategy == "auto" and r > self.ELL_CROSSOVER * self.k:
+                nz = a_np if not tol else np.where(np.abs(a_np) > tol,
+                                                   a_np, 0)
+                return SparseSlice(kind="dense",
+                                   a=as_tensor(nz, dev, self.in_dtype),
+                                   nnz=int(np.count_nonzero(nz)),
+                                   transa=transa)
+            vals, cols, nnz_total, r = native_bridge.ell_pack_native(
+                a_np, float(tol), r=r)   # r precomputed: skip the re-probe
+            return SparseSlice(kind="ell", values=as_tensor(vals, dev),
+                               cols=as_tensor(cols.astype(np.int64), dev),
+                               nnz=nnz_total, transa=transa)
         if tol:
             a_np = np.where(np.abs(a_np) > tol, a_np, 0)
         mask = a_np != 0

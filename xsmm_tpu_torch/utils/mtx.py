@@ -6,8 +6,10 @@ Reference: the generator CLI and sparse samples read .mtx operator matrices
 The port's own copy of ``xsmm_tpu/utils/mtx.py`` (numpy only).  The
 containers hold the same five numpy fields, so ``structure_digest`` gives
 the same 8 bytes as the JAX package's and ``from_fields`` takes an operator
-built by either package.  ``read_mtx`` is the Python parser only: the native
-C++ reader waits for the port's bridge to ``native/``.
+built by either package.  ``read_mtx`` parses coordinate files with the
+native C++ reader (``native/mtx.cpp``, through ``core/native_bridge``)
+unless ``XSMM_NATIVE=0``; the Python parser takes array files and
+``XSMM_NATIVE=0``.
 """
 
 from __future__ import annotations
@@ -112,8 +114,19 @@ def read_mtx(path: str) -> np.ndarray:
     """Read a MatrixMarket file to a dense numpy array.
 
     Supports coordinate and array formats, real/integer/pattern fields,
-    general/symmetric.
+    general/symmetric.  Coordinate files go through the native reader
+    (xsmm_tpu/utils/mtx.py:101-106); a failed native build raises.
     """
+    from ..core import native_bridge
+
+    a = native_bridge.read_mtx_native(path)
+    if a is not None:
+        return a
+    return _read_mtx_py(path)
+
+
+def _read_mtx_py(path: str) -> np.ndarray:
+    """The Python parser."""
     with open(path) as f:
         header = f.readline()
         if not header.startswith("%%MatrixMarket"):
