@@ -197,9 +197,41 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     launch are in the Chrome trace, and the host time a call of the sparse
     entry point ``acc_fn``, with and without its trace scope, beside its
     kernel wrapper's, with tracing off;
-32. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels),
-    the nvidia-smi line, and as its last line ``{"ok": true, "device":
-    {...}}``.
+32. trains one step of ResNet-18 (width 64, 100 classes, 8x64x64, f32,
+    a ``template_batches`` batch) through ``MLEngine`` on the card and with
+    ``target="cpu"``: the loss within 1e-5 relative, each parameter's
+    update within 1e-3 rel-Frobenius, the BN running state within 1e-4;
+33. trains ResNet-50 at its published width (64, 1000 classes) at batch
+    64, 224x224, in f32 and bf16: 2 warm-up and 10 timed
+    steps of ``train_epoch`` on ``synthetic_batches``, a ``validate``
+    pass, and prints images/s (training, inference), ms a step, the
+    model-FLOPs share (3 x the forward's conv and FC operations from the
+    graph's descriptors over the step time and the card's f32 or bf16
+    peak), the peak memory and a ``torch.profiler`` split of one step
+    (conv, BN, pooling, FC, eltwise, loss, update; forward and backward)
+    with the device's idle share; every loss finite, every parameter
+    moved;
+34. runs ``CONVERGENCE_r05.json``'s protocol (resnet18/width16, batch 256,
+    100 classes, 32x32, poly lr 0.02, sigma 1.5, 8 epochs of 20 host
+    ``template_batches``) in f32 and bf16 with the sample's criterion (last
+    loss < 0.6 x the first, val top-1 >= 3/100), then ``train_epoch_scan``
+    (the CUDA-graph epoch) against two eager loops from the same state and
+    data generator: two LeNet epochs on cuDNN's deterministic algorithms
+    (the losses step by step bit for bit), then on cuDNN's default ones
+    two LeNet epochs and 6 steps of ResNet-50 as step 33 (the README's
+    ``train_epoch_scan``) in f32 and bf16, where eager against eager is
+    the run-to-run spread and the graph against eager is held to
+    ``SCAN_DEFAULT_TOL``;
+35. runs ``DATAPIPE_r05.json``'s protocol: a PPM corpus of 120 + 24
+    images a class written under ``xsmm_tpu_torch/build/datapipe``,
+    ``ingest_image_dir``, the native ``DataLoader`` feeding the card,
+    ``make_augment`` on the card and cifar10net at batch 128 for 30
+    epochs, with the sample's criterion, the loader backend (native) and
+    images/s from disk to the trained step;
+36. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels;
+    every wrapper's launch counts, set to 0 before steps 32-35, are still 0
+    after them), the nvidia-smi
+    line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
 also exits non-zero when ``torch.cuda.is_available()`` is false.  It imports
@@ -1966,13 +1998,20 @@ def rnn_bwd_phase(args, dev, smi):
         zx_var += not torch.equal(_matmul(xd, wd), zx0)
     target = xp.get_config().target
     xp.set_config(target="cpu")
-    cpu = create_rnncell(desc).forward(x, w, r, b, h0)[0]
+    # the CPU call keeps its own products (x@W, each step's h@R) for the
+    # diagnosis, which must not recompute them
+    from xsmm_tpu_torch.dnn.fault2_stress import products_report
+    from xsmm_tpu_torch.dnn.rnn_seq import keep_products
+    with keep_products() as kept:
+        cpu = create_rnncell(desc).forward(x, w, r, b, h0)[0]
     xp.set_config(target=target)
     err = rel(cpu, hs0)
     print(f"repeat rnn_tanh f32 N{n} C{c} K{k} T{t}: hs differed in {hs_var} "
           f"of 1000 calls, x@W in {zx_var} of 1000; card vs CPU "
           f"rel-Frobenius {err:.3e}")
-    if err > 1e-5:  # name the side and the CPU's products and tanh
+    if err > 1e-5:  # the failing call's own products first, then the side
+        # and the CPU's products recomputed and its tanh
+        print("  " + products_report(kept, "the cpu forward"))
         gold = rnn_gold(np, "tanh", "rnn", x, w, r, b, h0,
                         np.zeros_like(h0))[0]
         xp.set_config(target="cpu")
@@ -3113,6 +3152,495 @@ def runtime_phase(args, dev, smi, native_s):
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# Steps 32-35: the training framework (dnn/layers, models/, the data path)
+# ---------------------------------------------------------------------------
+
+# step 32: card against CPU, one training step (the repo's 1e-3 gate on each
+# parameter's update; the loss and the BN running state tighter)
+STEP_LOSS_TOL = 1e-5
+STEP_UPDATE_TOL = 1e-3
+STEP_STATE_TOL = 1e-4
+TRAIN_BATCH = 64          # step 33: ResNet-50's batch (224x224)
+# the val top-1 of CONVERGENCE_r05.json's last epoch (f32, bf16): a TPU run
+# on jax.random data, printed beside, not a target
+R05_TOP1 = {"float32": 0.796, "bfloat16": 0.794}
+# step 34: the CUDA-graph epoch against eager on cuDNN's default algorithms
+# (on its deterministic ones: bit for bit), the worst step rel of the loss.
+# Two eager loops from one state differ by up to 1.07e-4 (LeNet, 2 x 40
+# steps) and 6.5e-3 (ResNet-50 f32, 6 steps): their weight gradients run
+# cuDNN's wgrad_alg0 engine, which cuDNN documents as non-deterministic
+# (CUDNN_CONVOLUTION_BWD_FILTER_ALGO_0 sums with atomics).  The limits are
+# 10x and ~5x those spreads.
+SCAN_DEFAULT_TOL = {"lenet": 1e-3, "resnet50": 3e-2}
+
+
+def _leaves(tree):
+    from xsmm_tpu_torch.models.engine import tree_flatten_with_path
+    return tree_flatten_with_path(tree)
+
+
+def step_split(prof, scope="smoke.step"):
+    """Device time of one profiled training step by layer type, forward and
+    backward, with the device's idle share and the largest kernels.
+
+    Forward ops lie inside the graph's ``graph.<type>`` scopes (and the
+    engine's ``engine.loss`` / ``engine.update``); each backward function
+    is charged to the scope of the forward op with its sequence number.
+    Kernels count by their launching op; the profiler's annotation spans
+    (the scopes' own ranges on the device timeline) are not kernels.  The
+    window is the ``scope`` range, which ends after a synchronize."""
+    from torch.autograd import DeviceType
+
+    groups = {"graph.conv": "conv", "graph.conv_bn": "conv",
+              "graph.batchnorm": "bn", "graph.pooling": "pool",
+              "graph.global_avg_pool": "pool", "graph.fc": "fc",
+              "graph.add": "eltwise", "graph.concat": "eltwise",
+              "graph.relu": "eltwise", "graph.dropout": "eltwise",
+              "graph.flatten": "eltwise", "engine.loss": "loss",
+              "engine.update": "update"}
+    events = list(prof.events())
+
+    def group_of(e):
+        while e is not None:
+            if e.name in groups:
+                return groups[e.name]
+            e = e.cpu_parent
+        return None
+
+    def in_backward(e):
+        while e is not None:
+            if getattr(e, "scope", 0) == 1:
+                return True
+            e = e.cpu_parent
+        return False
+
+    def device_us(e):
+        """Kernel time of ``e`` and its children (annotations left out)."""
+        return (sum(k.duration for k in e.kernels if k.name != e.name)
+                + sum(device_us(c) for c in e.cpu_children))
+
+    split = {}
+    fwd_seq = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in groups and group_of(e.cpu_parent) is None:
+            key = groups[e.name] + ("" if groups[e.name] == "update"
+                                    else "_fwd")
+            split[key] = split.get(key, 0.0) + device_us(e)
+        if e.sequence_nr >= 0 and not in_backward(e):
+            g = group_of(e)
+            if g is not None:
+                fwd_seq.setdefault((e.sequence_nr, e.thread), g)
+    for e in events:
+        if (e.device_type == DeviceType.CPU and getattr(e, "scope", 0) == 1
+                and not in_backward(e.cpu_parent)):
+            g = fwd_seq.get((e.sequence_nr, e.fwd_thread), "other")
+            split[g + "_bwd"] = split.get(g + "_bwd", 0.0) + device_us(e)
+    real = [e for e in events if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
+    window = [e for e in events if e.name == scope
+              and e.device_type == DeviceType.CPU]
+    if not real or not window:
+        raise RuntimeError("the profile holds no device time: "
+                           "torch.profiler saw no CUDA kernel")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in real)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    w0 = window[0].time_range.start
+    w1 = max(window[0].time_range.end, spans[-1][1])
+    total = sum(b - a for a, b in spans)
+    split = {k: v / 1e3 for k, v in sorted(split.items())}   # ms
+    split["other"] = total / 1e3 - sum(split.values())
+    by_name = {}
+    for e in real:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    split["largest kernels"] = "; ".join(f"{k[:70]} {v / 1e3:.3f}"
+                                         for k, v in top)
+    return split, busy / 1e3, (w1 - w0) / 1e3, 1.0 - busy / (w1 - w0)
+
+
+def train_card_vs_cpu(args, dev, smi):
+    """Step 32: one ResNet-18 step on the card and with target="cpu"."""
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
+    from xsmm_tpu_torch.models.engine import template_batches
+
+    shape = (8, 64, 64, 3)
+    x, y = next(template_batches(1, shape[0], hw=shape[1], classes=100,
+                                 seed=args.seed))
+    out = {}
+    for target in ("cuda", "cpu"):
+        xp.set_config(target=target)
+        params, fwd = resnet(18, width=64, num_classes=100,
+                             input_shape=shape, seed=args.seed)
+        before = [t.detach().double().cpu() for _, t in
+                  _leaves(params["layers"])]
+        eng = MLEngine(params, fwd, SolverConfig(lr=0.05))
+        t0 = time.perf_counter()
+        loss = eng.train_epoch(iter([(x, y)]), verbose=False)["loss"]
+        step_s = time.perf_counter() - t0
+        upd = [t.detach().double().cpu() - b for (_, t), b in
+               zip(_leaves(eng.params), before)]
+        state = [t.double().cpu() for _, t in _leaves(eng.state)]
+        out[target] = (loss, upd, state, step_s)
+    xp.set_config(target="cuda")
+    (lc, uc, sc, tc), (lh, uh, sh, th) = out["cuda"], out["cpu"]
+    loss_err = abs(lc - lh) / abs(lh)
+    upd_err = max((torch.linalg.vector_norm(a - b)
+                   / torch.linalg.vector_norm(b)).item()
+                  for a, b in zip(uc, uh))
+    state_err = max((a - b).abs().max().item() for a, b in zip(sc, sh))
+    ok = (loss_err <= STEP_LOSS_TOL and upd_err <= STEP_UPDATE_TOL
+          and state_err <= STEP_STATE_TOL)
+    print(f"train resnet18 width64 100 classes 8x64x64 f32, one step card "
+          f"vs cpu: loss {lc:.6f} / {lh:.6f} (rel {loss_err:.3e}, tol "
+          f"{STEP_LOSS_TOL:g}), worst update rel-Frobenius {upd_err:.3e} "
+          f"(tol {STEP_UPDATE_TOL:g}) over {len(uc)} leaves, BN state max "
+          f"abs {state_err:.3e} (tol {STEP_STATE_TOL:g}); first step "
+          f"{tc * 1e3:.1f} / {th * 1e3:.1f} ms {'pass' if ok else 'FAIL'}  "
+          f"[{smi}]")
+    if not ok:
+        raise RuntimeError("one training step: the card and the CPU "
+                           "disagree")
+
+
+def train_resnet50(args, dev, smi):
+    """Step 33: ResNet-50 at its published width, 64x224x224, f32 and
+    bf16: 2 warm-up and 10 timed steps, a validate pass, the model-FLOPs
+    share, the peak memory and a profiled step's split."""
+    import numpy as np
+    import torch
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
+    from xsmm_tpu_torch.models.engine import synthetic_batches
+
+    n, hw, classes = TRAIN_BATCH, 224, 1000
+    t0 = time.perf_counter()
+    batches = list(synthetic_batches(12, n, hw=hw, classes=classes,
+                                     seed=args.seed))
+    print(f"train resnet50 data: 12 synthetic_batches of {n}x{hw}x{hw}x3 "
+          f"made on the host in {time.perf_counter() - t0:.2f} s")
+    peak = {"float32": FP32_FLOP_PER_S, "bfloat16": BF16_FLOP_PER_S}
+    rows = {}
+    for dt in ("float32", "bfloat16"):
+        params, fwd = resnet(depth=50, width=64, num_classes=classes,
+                             input_shape=(n, hw, hw, 3), dtype=dt,
+                             seed=args.seed)
+        eng = MLEngine(params, fwd, SolverConfig(lr=0.01))
+        del params
+        p0 = [t.detach().clone() for _, t in _leaves(eng.params)]
+        warm = eng.train_epoch(iter(batches[:2]), verbose=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = eng.train_epoch(iter(batches[2:12]), verbose=False)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = 1e3 * n / timed["images_per_s"]
+        flops = 3 * fwd.graph.forward_flops(n)
+        share = flops / (step_ms / 1e3) / peak[dt]
+        eng.validate(iter(batches[:1]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = eng.validate(iter(batches[:4]))
+        torch.cuda.synchronize()
+        infer_ips = 4 * n / (time.perf_counter() - t0)
+        from torch.profiler import ProfilerActivity, profile, record_function
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("smoke.step"):
+                eng.train_epoch(iter(batches[2:3]), verbose=False)
+                torch.cuda.synchronize()
+        split, busy_ms, window_ms, idle = step_split(prof)
+        losses = warm["losses"] + timed["losses"]
+        moved = sum(not torch.equal(a, b) for a, (_, b) in
+                    zip(p0, _leaves(eng.params)))
+        ok = (np.isfinite(losses).all() and np.isfinite(val["loss"])
+              and moved == len(p0))
+        print(f"train resnet50 width64 {dt} batch {n} {hw}^2: "
+              f"{timed['images_per_s']:.1f} images/s training ({step_ms:.2f} "
+              f"ms a step, 10 steps of train_epoch, host batches), "
+              f"{infer_ips:.1f} images/s validate (4 batches); model FLOPs "
+              f"3 x {flops / 3e9:.1f} GFLOP a step = {share:.4f} of "
+              f"{peak[dt] / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; "
+              f"losses {losses[0]:.4f} .. {losses[-1]:.4f}; {moved} of "
+              f"{len(p0)} parameters moved {'pass' if ok else 'FAIL'}  "
+              f"[{smi}]")
+        # the profiler's host overhead stretches the profiled step: the
+        # timed loop's step against the same device work gives the idle
+        # share without it
+        idle_timed = max(0.0, 1.0 - busy_ms / step_ms)
+        print(f"split resnet50 {dt} one step, device ms: "
+              + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                          else f"{k}: {v}" for k, v in split.items())
+              + f"; busy {busy_ms:.3f} of {window_ms:.3f} ms profiled, idle "
+                f"share {idle:.4f} profiled, {idle_timed:.4f} against the "
+                f"timed step  [{smi}]")
+        if not ok:
+            raise RuntimeError(f"resnet50 {dt}: a non-finite loss or a "
+                               f"parameter that did not move")
+        rows[dt] = {"images_per_s": timed["images_per_s"],
+                    "infer_images_per_s": infer_ips, "step_ms": step_ms,
+                    "flops_share": share, "peak_gb": peak_gb,
+                    "idle_share": idle, "idle_share_timed": idle_timed,
+                    "busy_ms": busy_ms, "split_ms": split}
+        del eng, fwd, p0, prof
+        torch.cuda.empty_cache()
+    del batches
+    return rows
+
+
+def train_convergence(args, dev, smi):
+    """Step 34, first part: CONVERGENCE_r05.json's protocol
+    (samples/convergence_run.py) in f32 and bf16."""
+    import numpy as np
+    import torch
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
+    from xsmm_tpu_torch.models.engine import template_batches
+
+    epochs, bpe, batch, hw, classes = 8, 20, 256, 32, 100
+    for dt in ("float32", "bfloat16"):
+        params, fwd = resnet(depth=18, num_classes=classes, width=16,
+                             input_shape=(batch, hw, hw, 3), dtype=dt)
+        eng = MLEngine(params, fwd, SolverConfig(
+            lr=0.02, lr_policy="poly", max_epochs=epochs, weight_decay=1e-4))
+        rows = []
+        t0 = time.perf_counter()
+        for ep in range(epochs):
+            st = eng.train_epoch(template_batches(
+                bpe, batch, hw=hw, classes=classes, sigma=1.5, epoch=ep),
+                verbose=False)
+            val = eng.validate(template_batches(
+                4, batch, hw=hw, classes=classes, sigma=1.5,
+                epoch=1000 + ep))
+            rows.append((st["loss"], val["acc"], st["images_per_s"]))
+        first, last = rows[0], rows[-1]
+        ok = last[0] < 0.6 * first[0] and last[1] >= 3.0 / classes
+        print(f"converge resnet18/width16 {dt} batch {batch} {classes} "
+              f"classes {hw}^2, {epochs} epochs x {bpe} (poly lr 0.02, sigma "
+              f"1.5) in {time.perf_counter() - t0:.1f} s: loss "
+              f"{first[0]:.4f} -> {last[0]:.4f} (criterion < 0.6 x first), "
+              f"val top-1 by epoch "
+              f"{' '.join(f'{r[1]:.3f}' for r in rows)} (criterion >= "
+              f"{3.0 / classes:.2f}; CONVERGENCE_r05.json's last epoch "
+              f"{R05_TOP1[dt]}, a TPU run on other data), images/s by epoch "
+              f"{' '.join(f'{r[2]:.0f}' for r in rows)} "
+              f"{'pass' if ok else 'FAIL'}  [{smi}]")
+        if not ok:
+            raise RuntimeError(f"resnet18 {dt} did not meet the convergence "
+                               f"criterion")
+        del eng, fwd, params
+        torch.cuda.empty_cache()
+
+
+def scan_against_eager(make, batch_fn, b, nb, epochs, deterministic, dev):
+    """One CUDA-graph engine and two eager ones from one state; each epoch
+    the graph's ``train_epoch_scan`` and the two ``train_epoch`` over the
+    same generator's batches, on cuDNN's deterministic or default
+    algorithms.  Returns the worst step rel of the loss, graph against the
+    first eager and the second eager against the first, the graph's and
+    the first eager's images/s of the last epoch and the graph's losses."""
+    import torch
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig
+
+    def worst(got, want):
+        return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+    params, fwd = make()
+    engs = [MLEngine(params, fwd, SolverConfig(lr=0.002)) for _ in range(3)]
+    del params
+    ge = ee = 0.0
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        for _ in range(epochs):
+            og = engs[0].train_epoch_scan(nb, batch_fn, b, verbose=False)
+            oe = []
+            for eng in engs[1:]:
+                gen = torch.Generator(device=dev).manual_seed(
+                    eng.scan_seed(0))
+                oe.append(eng.train_epoch((batch_fn(gen) for _ in range(nb)),
+                                          verbose=False))
+            ge = max(ge, worst(og["losses"], oe[0]["losses"]))
+            ee = max(ee, worst(oe[1]["losses"], oe[0]["losses"]))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    del engs
+    torch.cuda.empty_cache()
+    return ge, ee, og["images_per_s"], oe[0]["images_per_s"], og["losses"]
+
+
+def train_scan(args, dev, smi):
+    """Step 34, second part: the CUDA-graph epoch against the eager loop,
+    for LeNet and for ResNet-50 as step 33 trains it.  On cuDNN's
+    deterministic algorithms the losses are bit for bit the eager loop's.
+    On the default ones (the main path's) cuDNN's weight gradients may
+    differ from run to run: there the spread of two eager loops is
+    printed beside the graph's difference, which is held to
+    SCAN_DEFAULT_TOL."""
+    from xsmm_tpu_torch.models import lenet, resnet
+    from xsmm_tpu_torch.models.engine import template_batch_fn
+
+    cases = [
+        ("lenet", "lenet", 256, 28, 1, 10, 40, 2,
+         lambda: lenet(num_classes=10, input_shape=(256, 28, 28, 1)))]
+    for dt in ("float32", "bfloat16"):
+        cases.append((f"resnet50 width64 {dt}", "resnet50", TRAIN_BATCH, 224,
+                      3, 1000, 6, 1, lambda dt=dt: resnet(
+                          depth=50, width=64, num_classes=1000,
+                          input_shape=(TRAIN_BATCH, 224, 224, 3), dtype=dt,
+                          seed=args.seed)))
+    bad = []
+    for deterministic in (True, False):
+        for name, key, b, hw, ch, classes, nb, epochs, make in cases:
+            bf = template_batch_fn(b, hw=hw, classes=classes, chans=ch)
+            ge, ee, g_ips, e_ips, losses = scan_against_eager(
+                make, bf, b, nb, epochs, deterministic, dev)
+            tol = 0.0 if deterministic else SCAN_DEFAULT_TOL[key]
+            # LeNet's 80 steps must learn; ResNet-50's 6 need not
+            ok = ge <= tol and (key != "lenet" or losses[-1] < losses[0])
+            print(f"scan {name} batch {b} {hw}^2, cuDNN "
+                  f"{'deterministic' if deterministic else 'default'} "
+                  f"algorithms, {epochs} x {nb} steps (the first eager as "
+                  f"the warm-up, then the capture): CUDA graph "
+                  f"{g_ips:.1f} images/s, eager train_epoch {e_ips:.1f} "
+                  f"images/s; losses {losses[0]:.5f} .. {losses[-1]:.5f}; "
+                  f"worst step rel, graph against eager {ge:.3e} (tol "
+                  f"{tol:g}), eager against eager {ee:.3e} "
+                  f"{'pass' if ok else 'FAIL'}  [{smi}]")
+            if not ok:
+                bad.append(name)
+    if bad:
+        raise RuntimeError(f"the CUDA-graph epoch does not give the eager "
+                           f"loop's losses, or does not learn: {bad}")
+
+
+def train_datapipe(args, dev, smi):
+    """Step 35: DATAPIPE_r05.json's protocol (samples/data_pipeline_run.py)
+    on the card: a PPM corpus -> ingest_image_dir -> the native DataLoader
+    -> make_augment on the card -> cifar10net, batch 128, 30 epochs."""
+    import shutil
+    import numpy as np
+    import torch
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, cifar10net
+    from xsmm_tpu_torch.utils.augment import make_augment
+    from xsmm_tpu_torch.utils.dataset import DataLoader
+    from xsmm_tpu_torch.utils.images import ingest_image_dir, write_pnm
+
+    hw, classes, chans, batch, epochs = 32, 10, 3, 128, 30
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "xsmm_tpu_torch", "build", "datapipe")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(7)
+        templates = rng.integers(48, 208, (classes, hw, hw, chans))
+        for split, per in (("train", 120), ("val", 24)):
+            for c in range(classes):
+                d = os.path.join(work, split, f"class{c:02d}")
+                os.makedirs(d)
+                noise = rng.normal(0.0, 18.0, (per, hw, hw, chans))
+                imgs = np.clip(templates[c] + noise, 0, 255).astype(np.uint8)
+                for i in range(per):
+                    write_pnm(os.path.join(d, f"img{i:04d}.ppm"), imgs[i])
+        t_corpus = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths = {s: os.path.join(work, s + ".xsd") for s in ("train", "val")}
+        man = {s: ingest_image_dir(os.path.join(work, s), paths[s],
+                                   hw=(hw, hw), channels=chans)
+               for s in paths}
+        t_ingest = time.perf_counter() - t0
+        params, fwd = cifar10net(num_classes=classes,
+                                 input_shape=(batch, hw, hw, chans))
+        eng = MLEngine(params, fwd, SolverConfig(lr=0.01, lr_policy="poly",
+                                                 max_epochs=epochs))
+        aug = make_augment(crop=hw, pad=4, flip=True, brightness=0.1,
+                           contrast=0.1)
+        gen = torch.Generator(device=dev).manual_seed(1000)
+        rows = []
+        backend = None
+        for ep in range(epochs):
+            dl = DataLoader(paths["train"], batch=batch, seed=ep, device=dev)
+            backend = dl.backend
+            st = eng.train_epoch(((aug(gen, x), y) for x, y in dl),
+                                 verbose=False)
+            val = eng.validate(DataLoader(paths["val"], batch=batch, seed=0,
+                                          device=dev))
+            rows.append((st["loss"], val["acc"], st["images_per_s"]))
+        first, last = rows[0], rows[-1]
+        ok = (backend == "native" and last[0] < 0.6 * first[0]
+              and last[1] >= 3.0 / classes)
+        ips = sorted(r[2] for r in rows[1:])[(epochs - 1) // 2]
+        print(f"datapipe cifar10net batch {batch}: corpus {man['train']['n_images']}"
+              f" + {man['val']['n_images']} PPM files written in "
+              f"{t_corpus:.2f} s, ingested in {t_ingest:.2f} s; loader "
+              f"{backend}; {epochs} epochs, loss {first[0]:.4f} -> "
+              f"{last[0]:.4f}, val top-1 {rows[0][1]:.3f} -> {last[1]:.3f} "
+              f"(criterion: loss < 0.6 x first, top-1 >= "
+              f"{3.0 / classes:.1f}); disk to trained step {ips:.1f} "
+              f"images/s (median of epochs 1-{epochs - 1}; epoch 0 "
+              f"{rows[0][2]:.1f}) {'pass' if ok else 'FAIL'}  [{smi}]")
+        if not ok:
+            raise RuntimeError("the data path did not meet its criterion")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def kernel_modules():
+    """The modules of the 21 kernels' wrappers, each with its launch
+    counters (``*launches`` dicts) and ``reset_launches``."""
+    from xsmm_tpu_torch.dnn import pooling, rnn_seq
+    from xsmm_tpu_torch.ops import (packed_kernels, smm_packed,
+                                    spgemm_kernels, tiled_gemm_kernels,
+                                    xcopy_kernels)
+    return (smm_packed, spgemm_kernels, tiled_gemm_kernels, xcopy_kernels,
+            packed_kernels, rnn_seq, pooling)
+
+
+def kernel_launch_counts():
+    """Every launch counter of ``kernel_modules()`` that is not 0."""
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{attr}.{k}": n
+            for m in kernel_modules() for attr, counts in vars(m).items()
+            if attr.endswith("launches") and isinstance(counts, dict)
+            for k, n in counts.items() if n}
+
+
+def training_phase(args, dev, smi):
+    """Steps 32 to 35 of the module docstring (the training framework)."""
+    import torch
+
+    # the training path launches none of the 21 kernels: the handles run
+    # on cuDNN, cuBLAS and torch ops (as the JAX package's on XLA).  A
+    # wrapper counts where it launches, so a kernel inside a CUDA graph
+    # counts once, at the capture: any launch in a step shows.
+    for m in kernel_modules():
+        m.reset_launches()
+    if kernel_launch_counts():
+        raise RuntimeError("launch counts not 0 after their reset")
+    train_card_vs_cpu(args, dev, smi)
+    torch.cuda.empty_cache()
+    rows = train_resnet50(args, dev, smi)
+    torch.cuda.empty_cache()
+    train_convergence(args, dev, smi)
+    torch.cuda.empty_cache()
+    train_scan(args, dev, smi)
+    torch.cuda.empty_cache()
+    train_datapipe(args, dev, smi)
+    launched = kernel_launch_counts()
+    print(f"train path kernel launches (every wrapper's counts, set to 0 "
+          f"before step 32): {launched or 'none'}")
+    if launched:
+        raise RuntimeError(f"the training path launched kernels: {launched}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=131072)
@@ -3494,6 +4022,8 @@ def main() -> int:
     rows += dnn_phase(args, dev, smi)
     torch.cuda.empty_cache()
     runtime_phase(args, dev, smi, native_s)
+    torch.cuda.empty_cache()
+    training_phase(args, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

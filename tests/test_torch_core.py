@@ -4,6 +4,7 @@ routing, platform, matdiff and the build helpers.
 Both packages get the same inputs; the port runs with ``target="cpu"``.
 """
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -499,14 +500,29 @@ def test_import_has_no_jax_and_builds_nothing(tmp_path):
     assert listing() == before
 
 
+def _names_jax(module: str) -> bool:
+    """A dotted module path with a part of JAX (``jax``, ``jaxlib``...) or
+    of the JAX package (``xsmm_tpu``)."""
+    return any(part.startswith("jax") or part == "xsmm_tpu"
+               for part in module.split("."))
+
+
 def test_sources_never_name_jax():
+    """No import statement of the port or the smoke, at any depth or over
+    several lines, names a module of JAX or of the JAX package: neither
+    the module imported from nor a name imported that could be a
+    submodule.  Imported names that only contain the word (the port's own
+    ``params_from_jax``) are not modules of JAX."""
     for p in list((REPO / "xsmm_tpu_torch").rglob("*.py")) + [
             REPO / "chip_smoke.py"]:
-        for line in p.read_text().splitlines():
-            s = line.strip()
-            if s.startswith(("import ", "from ")):
-                s = s.replace("xsmm_tpu_torch", "")
-                assert "jax" not in s and "xsmm_tpu" not in s, (p, line)
+        for node in ast.walk(ast.parse(p.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] + [a.name for a in node.names]
+            else:
+                continue
+            assert not any(_names_jax(m) for m in mods), (p, node.lineno)
 
 
 # ---------------------------------------------------------------------------

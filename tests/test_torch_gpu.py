@@ -1,6 +1,8 @@
 """Card-only tests: each CUDA kernel (the packed batched-GEMM kernels, the
 sparse x dense kernels, the tiled GEMM, the copy and transpose, the packed
-GETRF/TRSM kernels and the RNN sequence kernels) against its plain version.
+GETRF/TRSM kernels and the RNN sequence kernels) against its plain version;
+and the training framework's card paths (the CUDA-graph epoch against the
+eager loop, the loaders' pinned copies to the card).
 
 The kernels have no CPU mode, so these tests need a CUDA card and skip
 elsewhere (the check is made in the ``cuda`` fixture).  On a CUDA machine:
@@ -944,7 +946,8 @@ from xsmm_tpu_torch.dnn import CellType, RnnDesc, create_rnncell  # noqa: E402
 from xsmm_tpu_torch.dnn import rnn_seq as rs  # noqa: E402
 from xsmm_tpu_torch.dnn import rnncell  # noqa: E402
 from xsmm_tpu_torch.dnn.fault2_stress import (  # noqa: E402
-    cpu_products, cpu_state, rnn_cell_gold, rnn_diagnosis)
+    cpu_products, cpu_state, products_report, rnn_cell_gold,
+    rnn_diagnosis)
 
 # (T, N, K): lstm_driver's N and K; ragged N and K; T = 1; K below a block's
 # 16 units; N = 4100 at K = 512 needs several 32-row passes a block
@@ -1215,8 +1218,11 @@ def test_rnncell_card_equals_cpu(cuda, ct, dt):
         xp.set_config(target=target)
         cell = create_rnncell(desc)
         rs.reset_launches()
-        fwd = cell.forward(x, w, r, b, h0, c0)
-        (hs, h_t, c_t), saved = cell.forward_train(x, w, r, b, h0, c0)
+        # the CPU calls keep their own products for the failure message
+        with rs.keep_products() as kept_fwd:
+            fwd = cell.forward(x, w, r, b, h0, c0)
+        with rs.keep_products() as kept_train:
+            (hs, h_t, c_t), saved = cell.forward_train(x, w, r, b, h0, c0)
         if target == "cuda":
             torch.cuda.synchronize()
             assert sum(rs.launches.values()) == 2
@@ -1237,7 +1243,10 @@ def test_rnncell_card_equals_cpu(cuda, ct, dt):
         if _rel(got, want) > tol:
             off.append(f"{_rel(got, want):.3e} > {tol:g}; "
                        + rnn_diagnosis(name, got, want, gd))
-    if off:  # the CPU side again, right away, and its two products
+    if off:  # first the failing calls' own CPU products, then the CPU
+        # side again, right away, and its two products recomputed
+        off.insert(0, products_report(kept_fwd, "the cpu forward") + "\n"
+                   + products_report(kept_train, "the cpu forward_train"))
         xp.set_config(target="cpu")
         again = create_rnncell(desc).forward(x, w, r, b, h0, c0)[0]
         off.append(f"cpu forward hs again: {_rel(again, out['cpu'][0]):.3e} "
@@ -1999,3 +2008,84 @@ def test_rnn_tanh_cpu_forward_repeats_bit_identical(cuda):
                                 ("h0@R", first[2], (h0, r))):
         want = torch.from_numpy(a_.astype(np.float64) @ b_.astype(np.float64))
         assert _rel(got, want) <= 1e-6, f"{name}: {state0}"
+
+
+# ---------------------------------------------------------------------------
+# The training framework (models/engine.py, utils/dataset.py): the CUDA-graph
+# epoch against the eager loop, and the loaders feeding the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("model", ["lenet", "resnet18", "alexnet"])
+def test_cuda_graph_epoch_equals_eager_loop(cuda, model):
+    """Two epochs of ``train_epoch_scan`` (a warm-up step, the capture,
+    replays) against ``train_epoch`` over the same generator's batches from
+    the same state: the losses step by step, then every parameter, the
+    momentum and the BN state (ResNet-18), with dropout drawn inside the
+    graph (AlexNet), all bit for bit.  cuDNN runs its deterministic
+    algorithms here, so that the graph and the eager loop run the same
+    sums in the same order; on its default ones the weight gradients may
+    differ from run to run (the smoke's step 34 measures that spread)."""
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, alexnet, lenet
+    from xsmm_tpu_torch.models import resnet
+    from xsmm_tpu_torch.models.engine import (template_batch_fn,
+                                              tree_flatten_with_path)
+    b = 16
+    params, fwd, hw, ch = {
+        "lenet": lambda: (*lenet(input_shape=(b, 28, 28, 1)), 28, 1),
+        "resnet18": lambda: (*resnet(18, num_classes=10, width=8,
+                                     input_shape=(b, 16, 16, 3)), 16, 3),
+        "alexnet": lambda: (*alexnet(num_classes=10,
+                                     input_shape=(b, 64, 64, 3)), 64, 3),
+    }[model]()
+    bf = template_batch_fn(b, hw=hw, classes=10, chans=ch)
+    g_eng = MLEngine(params, fwd, SolverConfig(lr=0.002))
+    e_eng = MLEngine(params, fwd, SolverConfig(lr=0.002))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            og = g_eng.train_epoch_scan(5, bf, b, verbose=False)
+            gen = torch.Generator(device=cuda).manual_seed(
+                e_eng.scan_seed(0))
+            oe = e_eng.train_epoch((bf(gen) for _ in range(5)),
+                                   verbose=False)
+            assert og["losses"] == oe["losses"]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert g_eng.step == e_eng.step == 10
+    for tree in ("params", "momentum", "state"):
+        if getattr(e_eng, tree) is None:
+            continue
+        for (k, a), (_, c) in zip(
+                tree_flatten_with_path(getattr(g_eng, tree)),
+                tree_flatten_with_path(getattr(e_eng, tree))):
+            assert torch.equal(a, c), (tree, k)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_loader_feeds_the_card(cuda, tmp_path, native):
+    """Batches through pinned buffers to the card equal the host's, bit
+    for bit, for both backends, over several epochs (the pinned buffers
+    are reused only after their copies have landed)."""
+    from xsmm_tpu_torch.utils.dataset import DataLoader, write_dataset
+    rng = np.random.default_rng(3)
+    imgs = rng.integers(0, 256, (300, 12, 12, 3), dtype=np.uint8)
+    path = str(tmp_path / "ds.xsd")
+    write_dataset(path, imgs, rng.integers(0, 7, (300,)))
+    host = list(DataLoader(path, batch=32, epochs=3, seed=5, native=native))
+    card = DataLoader(path, batch=32, epochs=3, seed=5, native=native,
+                      device=cuda)
+    assert card.backend == ("native" if native else "python")
+    got = []
+    for x, y in card:
+        assert x.device.type == "cuda" and y.device.type == "cuda"
+        x.mul_(0)   # the consumer overwrites its batch: the host's stays
+        got.append((x, y))
+    assert len(got) == len(host) == 27
+    for (x, y), (hx, hy) in zip(list(DataLoader(path, batch=32, epochs=3,
+                                                 seed=5, native=native,
+                                                 device=cuda)), host):
+        assert torch.equal(x.cpu(), torch.from_numpy(hx))
+        assert torch.equal(y.cpu(), torch.from_numpy(hy))
+

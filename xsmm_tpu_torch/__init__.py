@@ -39,7 +39,8 @@ from .ops.packed import (GetrfKernel, TrmmKernel, TrsmKernel, getrf_dispatch,
                          pgemm_dispatch, trmm_dispatch, trsm_dispatch)
 from .utils.matdiff import MatdiffInfo, check, matdiff
 from .utils.mtx import Csc, Csr, read_mtx, write_mtx
-from .utils import mathx, mhd, scratch, timer, trace
+from .utils.dataset import DataLoader, write_dataset
+from .utils import mathx, mhd, rng, scratch, timer, trace
 
 __version__ = "0.1.0"
 

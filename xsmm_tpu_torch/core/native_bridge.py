@@ -2,12 +2,13 @@
 
 The port of ``xsmm_tpu/core/native_bridge.py``.  The native library gives
 the CRC32C open-addressing registry (the internal_find_code table analog,
-``native/registry.cpp``), the fast .mtx parser (``native/mtx.cpp``) and the
-single-pass ELL pack (``native/spmdm.cpp``).  The port builds them itself
+``native/registry.cpp``), the fast .mtx parser (``native/mtx.cpp``), the
+single-pass ELL pack (``native/spmdm.cpp``) and the worker-pool dataset
+loader (``native/dataloader.cpp``, used by ``utils/dataset.DataLoader``).  The port builds them itself
 at first use with ``g++`` and the flags of ``native/Makefile`` into
 ``xsmm_tpu_torch/build/native/``, under a name that carries a hash of the
 sources and flags (as ``ops/cuda_build.py`` keys its builds); it writes
-nothing into ``native/``.  ``native/dataloader.cpp`` is not built here yet.
+nothing into ``native/``.
 
 No quiet fallback: with ``XSMM_NATIVE=1`` (the default) a failed build or
 load raises ``RuntimeError`` with the compiler's output; ``XSMM_NATIVE=0``
@@ -33,7 +34,7 @@ from .config import get_config
 
 _REPO = Path(__file__).resolve().parents[2]
 NATIVE_DIR = _REPO / "native"
-SOURCES = ("registry.cpp", "mtx.cpp", "spmdm.cpp")
+SOURCES = ("registry.cpp", "mtx.cpp", "dataloader.cpp", "spmdm.cpp")
 # native/Makefile's CXXFLAGS and link line
 CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 LDFLAGS = ("-lpthread",)
@@ -117,6 +118,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.xsmm_ell_rowmax.argtypes = [p, i64, i64, ctypes.c_float]
     lib.xsmm_ell_pack.restype = i64
     lib.xsmm_ell_pack.argtypes = [p, i64, i64, ctypes.c_float, i64, p, p]
+    lib.xsmm_dl_open.restype = p
+    lib.xsmm_dl_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_uint64]
+    for fn in ("xsmm_dl_count", "xsmm_dl_batches_per_epoch"):
+        getattr(lib, fn).restype = i64
+        getattr(lib, fn).argtypes = [p]
+    for fn in ("xsmm_dl_height", "xsmm_dl_width", "xsmm_dl_channels",
+               "xsmm_dl_nclasses"):
+        getattr(lib, fn).restype = i32
+        getattr(lib, fn).argtypes = [p]
+    lib.xsmm_dl_next.restype = i64
+    lib.xsmm_dl_next.argtypes = [p, p, p]
+    lib.xsmm_dl_close.restype = None
+    lib.xsmm_dl_close.argtypes = [p]
     return lib
 
 

@@ -109,6 +109,17 @@ def _oihw(w):
     return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
+def _bwd_operands(*ts):
+    """The operands of a conv's backward: as they are, but 16-bit ones on
+    the CPU in f32 (the result is cast back), where oneDNN's 16-bit
+    backward gives wrong weight gradients for some shapes (bf16, 1x1 input,
+    3x3/s2 p1: 2.9 off in 11.7) and XLA's CPU computes it from f32."""
+    if ts[0].device.type == "cpu" and ts[0].dtype in (torch.bfloat16,
+                                                       torch.float16):
+        return [t.float() for t in ts]
+    return list(ts)
+
+
 class _Conv2d(torch.autograd.Function):
     """``F.conv2d`` whose backward, like its forward, runs f32 without TF32
     (a differentiated JAX conv at HIGHEST is HIGHEST both ways)."""
@@ -124,11 +135,13 @@ class _Conv2d(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         stride, padding = ctx.geometry
-        with _full_f32_conv(x.dtype):
+        gb, xb, wb = _bwd_operands(g.to(x.dtype), x, w)
+        with _full_f32_conv(xb.dtype):
             dx, dw, _ = torch.ops.aten.convolution_backward(
-                g, x, w, None, stride, padding, (1, 1), False, (0, 0), 1,
+                gb, xb, wb, None, stride, padding, (1, 1), False, (0, 0), 1,
                 [*ctx.needs_input_grad[:2], False])
-        return dx, dw, None, None
+        return (None if dx is None else dx.to(x.dtype),
+                None if dw is None else dw.to(w.dtype), None, None)
 
 
 def _conv(x, w, stride, pads):
@@ -177,10 +190,11 @@ class _ConvCore(torch.autograd.Function):
         x, w = ctx.saved_tensors
         layer = ctx.layer
         dx = layer._bwd_direct(g, w.float())
-        with _full_f32_conv(x.dtype):
-            dw = conv2d_weight(_nchw(x), (w.shape[3], w.shape[2], w.shape[0],
-                                          w.shape[1]),
-                               _nchw(g.to(x.dtype)), stride=layer._strides,
+        xb, gb = _bwd_operands(x, g.to(x.dtype))
+        with _full_f32_conv(xb.dtype):
+            dw = conv2d_weight(_nchw(xb), (w.shape[3], w.shape[2], w.shape[0],
+                                           w.shape[1]),
+                               _nchw(gb), stride=layer._strides,
                                padding=(layer.desc.pad_h, layer.desc.pad_w))
         return None, dx.to(x.dtype), dw.permute(2, 3, 1, 0).to(w.dtype)
 

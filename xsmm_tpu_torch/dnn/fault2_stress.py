@@ -9,10 +9,12 @@ many times over.
 
 It counts the rounds whose CPU ``hs`` leaves the f64 numpy gold by more
 than 1e-5 (rel-Frobenius), and the rounds whose CPU ``hs`` differs in any
-bit from the first round's.  For each such round it prints which side and
-which rows are off (``rnn_diagnosis``) and the CPU's two products and the
-first step's tanh against f64 with MKL's and oneDNN's verbose lines
-(``cpu_products``).
+bit from the first round's.  For each such round it prints first the
+products that round's CPU call computed (its own x@W and each step's h@R,
+kept by ``rnn_seq.keep_products``, not recomputed) against f64
+(``products_report``), then which side and which rows are off
+(``rnn_diagnosis``) and the two products recomputed and the first step's
+tanh against f64 with MKL's and oneDNN's verbose lines (``cpu_products``).
 
 ``--all-cells`` makes each round the whole parametrized test: the card's
 and then the CPU's ``forward`` and ``forward_train`` for every cell type
@@ -159,6 +161,30 @@ def cpu_products(x, w, r, h0) -> str:
             f"{bad[:16]}); " + cpu_state())
 
 
+def products_report(kept, label: str = "") -> str:
+    """The products one call kept (``rnn_seq.keep_products``: its own x@W
+    and each step's h@R, not recomputed), each against f64 from the same
+    operands: rel-Frobenius, and the worst element with its index; a
+    product beyond 1e-6 is marked OFF."""
+    import torch
+
+    parts = []
+    steps = 0
+    for name, a, b, out in kept:
+        gold = a.double().cpu() @ b.double().cpu()
+        d = (out.double().cpu() - gold).abs()
+        err = (torch.linalg.vector_norm(d)
+               / torch.linalg.vector_norm(gold)).item()
+        idx = tuple(int(i) for i in divmod(int(d.argmax()), d.shape[1]))
+        tag = name if name == "x@W" else f"{name} t{steps}"
+        steps += name != "x@W"
+        parts.append(f"{tag} {err:.3e}{' OFF' if err > 1e-6 else ''} "
+                     f"(worst {idx}: {out.flatten()[int(d.argmax())].item()!r}"
+                     f" vs {gold.flatten()[int(d.argmax())].item()!r})")
+    return (f"{label} call's own products vs f64: " + "; ".join(parts)
+            if parts else f"{label} call kept no product")
+
+
 def rnn_diagnosis(name, card, cpu, gold) -> str:
     """Where the card and the CPU part on one tensor: each side's
     rel-Frobenius error against the f64 gold (the side further from it is
@@ -189,6 +215,7 @@ def stress(iters: int, all_cells: bool = False) -> dict:
 
     import xsmm_tpu_torch as xp
 
+    from .rnn_seq import keep_products
     from .rnncell import create_rnncell
     from .types import CellType, RnnDesc
 
@@ -217,10 +244,11 @@ def stress(iters: int, all_cells: bool = False) -> dict:
             for target in ("cuda", "cpu"):
                 xp.set_config(target=target)
                 cell = cells[(c, d, target)]
-                out[target] = cell.forward(*args)[0]
+                with keep_products() as kept:
+                    out[target] = cell.forward(*args)[0]
                 cell.forward_train(*args)
             if (c, d) == (ct, "float32"):
-                card, cpu = out["cuda"].cpu(), out["cpu"]
+                card, cpu, cpu_kept = out["cuda"].cpu(), out["cpu"], kept
         err = rel(cpu, gold)
         worst = max(worst, err)
         if first is None:
@@ -231,6 +259,7 @@ def stress(iters: int, all_cells: bool = False) -> dict:
             off += err > TOL
             print(f"round {i}: cpu hs vs gold {err:.3e}"
                   f"{', differs from round 0' if new else ''}; "
+                  + products_report(cpu_kept, "the cpu forward") + "; "
                   + rnn_diagnosis("forward hs", card, cpu, gold.numpy())
                   + "; " + cpu_products(x, w, r, h0), flush=True)
         torch.cuda.synchronize()

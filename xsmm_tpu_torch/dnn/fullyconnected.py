@@ -31,14 +31,32 @@ from .types import FCDesc, FuseOp, Kind
 _LOW = (torch.bfloat16, torch.float16)
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+class _MmF32(torch.autograd.Function):
     """a @ b with an f32 result: full f32 for f32 operands; bf16/f16
-    operands multiplied exactly and summed in f32."""
-    if a.dtype in _LOW:
-        if a.device.type == "cuda":
+    operands multiplied exactly and summed in f32 (``torch.mm(...,
+    out_dtype=torch.float32)`` on the card, an f32 upcast on the CPU).
+    Both gradients are full-f32 products cast to the operand's dtype,
+    whatever the caller's TF32 setting, as the upcast product's are."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dtype in _LOW and a.device.type == "cuda":
             return torch.mm(a, b, out_dtype=torch.float32)
-        a, b = a.float(), b.float()
-    return _matmul(a.float(), b.float())
+        return _matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _matmul(g, b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _matmul(a.float().t(), g).to(b.dtype)
+        return da, db
+
+
+_mm_f32 = _MmF32.apply
 
 
 class FullyConnectedLayer:

@@ -54,9 +54,10 @@ agree bit for bit on dz, dh0, dc0 and db.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -226,6 +227,33 @@ def _shapes(zx, r, h0, c0, gates: int):
     return t, n, k
 
 
+# the products kept by ``keep_products`` (None: none is kept)
+_kept: Optional[List] = None
+
+
+@contextlib.contextmanager
+def keep_products():
+    """Keep, in call order, the products the cells compute outside the
+    kernels -- x@W, and on the plain versions every step's h@R -- as
+    (name, a, b, a@b): copies of the very operands and result of the call,
+    for a diagnosis that must not recompute them.  Yields the list."""
+    global _kept
+    saved, _kept = _kept, []
+    try:
+        yield _kept
+    finally:
+        _kept = saved
+
+
+def keep(name: str, a: torch.Tensor, b: torch.Tensor,
+         out: torch.Tensor) -> torch.Tensor:
+    """``out`` (= a @ b), kept with its operands under ``keep_products``."""
+    if _kept is not None:
+        _kept.append((name, a.detach().clone(), b.detach().clone(),
+                      out.detach().clone()))
+    return out
+
+
 def _hr(h: torch.Tensor, r32: torch.Tensor, bf16: bool) -> torch.Tensor:
     """h @ R as the JAX kernel's ``_dot`` (``r32`` is R in f32).  f32: the
     full-f32 product (TF32 off).  bf16: h rounded to bf16, and the products of the
@@ -233,13 +261,13 @@ def _hr(h: torch.Tensor, r32: torch.Tensor, bf16: bool) -> torch.Tensor:
     (the kernel's FMA chain gives the same sums, so the two agree bit for
     bit where their gate functions do)."""
     if not bf16:
-        return _matmul(h, r32)
+        return keep("h@R", h, r32, _matmul(h, r32))
     hb = h.to(torch.bfloat16).float()
     acc = torch.zeros((h.shape[0], r32.shape[1]), dtype=torch.float32,
                       device=h.device)
     for k in range(r32.shape[0]):
         acc.addcmul_(hb[:, k:k + 1], r32[k])
-    return acc
+    return keep("h@R (h in bf16)", hb, r32, acc)
 
 
 def _scratch(n: int, k: int, dev: torch.device):

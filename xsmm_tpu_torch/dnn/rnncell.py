@@ -49,6 +49,7 @@ from ..ops.smm import _matmul
 from .rnn_seq import (ACTS, gru_seq, gru_seq_bwd, gru_seq_bwd_plain, lstm_seq,
                       lstm_seq_bwd, lstm_seq_bwd_plain, rnn_seq, rnn_seq_bwd,
                       rnn_seq_bwd_plain, seq_bwd_kernel_ok, seq_kernel_ok)
+from .rnn_seq import keep as _keep
 from .types import CellType, Kind, RnnDesc
 
 # calls of the scan routes (shapes outside the kernels' envelopes), by cell:
@@ -147,6 +148,12 @@ class _RnnCore(torch.autograd.Function):
         return (None, *ctx.cell._rnn_bwd(*ctx.saved_tensors, dhs, dh_t))
 
 
+def _xw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The input product x@W in full f32 (kept under
+    ``rnn_seq.keep_products``)."""
+    return _keep("x@W", x, w, _matmul(x, w))
+
+
 class RnnState(NamedTuple):
     h: torch.Tensor
     c: Optional[torch.Tensor]
@@ -167,7 +174,7 @@ class RnnCell:
         t_, n_, c_in = xt_f.shape
         k = self.desc.k
         if seq_kernel_ok(n_, k, 4, self._r_size):
-            zx = (_matmul(xt_f.reshape(t_ * n_, c_in), w) + b
+            zx = (_xw(xt_f.reshape(t_ * n_, c_in), w) + b
                   ).reshape(t_, n_, 4 * k)
             hs, h_t, c_t, *res = lstm_seq(zx, r.to(self._r_dt), h0, c0,
                                           train=train)
@@ -192,7 +199,7 @@ class RnnCell:
     def _gru(self, xt_f, w, r, b, h0, train):
         t_, n_, c_in = xt_f.shape
         k = self.desc.k
-        zx = (_matmul(xt_f.reshape(t_ * n_, c_in), w) + b
+        zx = (_xw(xt_f.reshape(t_ * n_, c_in), w) + b
               ).reshape(t_, n_, 3 * k)
         if seq_kernel_ok(n_, k, 3, self._r_size):
             hs, h_t, *res = gru_seq(zx, r.to(self._r_dt), h0, train=train)
@@ -215,7 +222,7 @@ class RnnCell:
     def _rnn(self, xt_f, w, r, b, h0):
         t_, n_, c_in = xt_f.shape
         k = self.desc.k
-        zx = (_matmul(xt_f.reshape(t_ * n_, c_in), w) + b
+        zx = (_xw(xt_f.reshape(t_ * n_, c_in), w) + b
               ).reshape(t_, n_, k)
         if seq_kernel_ok(n_, k, 1, self._r_size):
             return rnn_seq(zx, r.to(self._r_dt), h0, act=self._act)

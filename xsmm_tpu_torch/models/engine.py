@@ -1,0 +1,562 @@
+"""MLEngine — the GxM training-framework analog: the port of
+``xsmm_tpu/models/engine.py``.
+
+Reference: samples/deeplearning/gxm/src/Engine.cpp — builds the layer graph
+from prototxt, runs epoch/minibatch loops (run(TRAIN) :484, :516-531), SGD
+solver with lr schedules, prints images/s per epoch (:600-602), checkpoints
+every epoch + snapshot dirs (:245-365), resumes at startup (:488-500).
+
+The same surface as the JAX package: ``SolverConfig`` and its schedules,
+``softmax_xent``, ``MLEngine(params, forward, solver)`` with ``train_epoch``,
+``train_epoch_scan``, ``validate``, ``checkpoint`` and ``resume``, and the
+batch sources.  Inside, PyTorch idiom on one device (``platform.device()``):
+
+* parameters, momentum and BN running state are tensors the engine owns
+  (copies of the caller's), updated in place under ``torch.no_grad()``;
+  a step runs the forward, the weighted aux losses and
+  ``torch.autograd.grad``, then the update on every trainable leaf:
+  ``g + wd*p``, ``m = mu*m + g``, ``p -= lr*m`` (``torch._foreach_*``),
+  with ``lr`` a device tensor written before the step;
+* dropout draws from the engine's ``torch.Generator`` (seeded 0xA6);
+* ``train_epoch_scan`` (the JAX package's one-dispatch ``lax.scan`` epoch)
+  is a CUDA-graph epoch on the card: one whole step (the batch made by
+  ``batch_fn`` from the engine's data generator, forward, backward, update,
+  BN state copied into its buffers) is captured once into a
+  ``torch.cuda.CUDAGraph`` and replayed; the first epoch's first step runs
+  eagerly, as the capture's warm-up.  On the CPU the same steps run as an
+  eager loop.  A step that cannot be captured raises, naming the reason;
+  nothing falls back to the eager loop on the card;
+* checkpoints have the JAX package's file names and array keys (the
+  ``jax.tree_util.keystr`` of each leaf, dict keys sorted), so a JAX
+  checkpoint resumes here.
+
+Stated differences: the engine runs on one device, so a ``mesh`` (the
+JAX package's data-parallel ``parallel.mesh``) raises
+``NotImplementedError`` until ``parallel/`` is ported (ROADMAP Queue 1
+item 7); dropout masks and the device batch makers (``device_*_batches``,
+``*_batch_fn``, which take a ``torch.Generator`` where JAX takes a key)
+have the JAX package's distributions, not its bits; the host batch
+sources (``synthetic_batches``, ``template_batches``) give its data
+exactly.  In a replayed epoch the Python-side launch counters of the
+layer handles count the capture once, not the replays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import platform
+from ..ops.smm import as_tensor
+from ..utils import trace
+from ..utils.scratch import STAGE_MIN_BYTES
+
+
+@dataclasses.dataclass
+class SolverConfig:
+    """GxM solver surface (SGD + schedule)."""
+
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    # Policies mirror the zoo solver.prototxt surface: fixed | step
+    # (= Caffe "multistep", explicit epoch list) | poly | inv
+    # (lr * (1 + gamma*epoch)^-power, the lenet_solver.prototxt policy)
+    lr_policy: str = "fixed"
+    gamma: float = 0.1              # step decay factor / inv denominator
+    step_epochs: Tuple[int, ...] = (30, 60, 80)
+    power: float = 1.0              # poly / inv exponent
+    max_epochs: int = 90
+    # Linear warmup (Solver.hpp:157,171 warmup_lr/warmup_epochs): ramp
+    # from warmup_lr to lr over warmup_epochs, then the main policy.
+    warmup_epochs: int = 0
+    warmup_lr: float = 0.0
+
+
+def _schedule(cfg: SolverConfig, epoch: float) -> float:
+    if cfg.warmup_epochs > 0 and epoch < cfg.warmup_epochs:
+        frac = epoch / cfg.warmup_epochs
+        return cfg.warmup_lr + (cfg.lr - cfg.warmup_lr) * frac
+    if cfg.lr_policy == "step":
+        drops = sum(1 for e in cfg.step_epochs if epoch >= e)
+        return cfg.lr * (cfg.gamma ** drops)
+    if cfg.lr_policy == "poly":
+        return cfg.lr * (1.0 - epoch / cfg.max_epochs) ** cfg.power
+    if cfg.lr_policy == "inv":
+        return cfg.lr * (1.0 + cfg.gamma * epoch) ** -cfg.power
+    return cfg.lr
+
+
+def softmax_xent(logits, labels):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors, with the JAX package's flatten order and key strings
+# ---------------------------------------------------------------------------
+
+
+def tree_flatten_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """[(keystr, leaf)] in ``jax.tree_util`` order: dict keys sorted, list
+    and tuple items in order, a NamedTuple's fields as ``.name``; None has
+    no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in tree_flatten_with_path(tree[k],
+                                                 f"{prefix}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [kv for f, v in zip(tree._fields, tree)
+                for kv in tree_flatten_with_path(v, f"{prefix}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in tree_flatten_with_path(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf, the structure kept (None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class MLEngine:
+    """Train/validate a functional model on one device."""
+
+    def __init__(self, params, forward: Callable, solver: SolverConfig,
+                 mesh=None, loss_fn: Callable = softmax_xent,
+                 checkpoint_dir: Optional[str] = None,
+                 compute_dtype=torch.float32):
+        if mesh is not None:
+            raise NotImplementedError(
+                "MLEngine runs on one device: data parallelism over a mesh "
+                "needs the port of parallel/ (ROADMAP Queue 1 item 7)")
+        # for graph-built models (dnn/layers.py) the compute dtype is
+        # chosen at model build time (resnet(..., dtype="bfloat16")); the
+        # compute_dtype kwarg is forwarded but those forwards ignore it.
+        self.solver = solver
+        self.forward = forward
+        self.loss_fn = loss_fn
+        self.checkpoint_dir = checkpoint_dir
+        self.compute_dtype = compute_dtype
+        self.device = platform.device()
+        self.epoch = 0
+        self.step = 0
+
+        def own(t):
+            t = as_tensor(t, self.device).detach().clone()
+            return t.requires_grad_() if t.is_floating_point() else t
+
+        # static metadata (strings etc.): split out once
+        self.meta = {k: v for k, v in params.items() if k.startswith("_")}
+        self.params = tree_map(own, self._trainable(params))
+        self.momentum = tree_map(
+            lambda p: torch.zeros_like(p, requires_grad=False), self.params)
+        self._leaves = [t for _, t in tree_flatten_with_path(self.params)]
+        self._moms = [t for _, t in tree_flatten_with_path(self.momentum)]
+        # graph-built forwards take train/rng so dropout nodes fire during
+        # training; legacy forwards don't — detect once.  A **kwargs
+        # forward also qualifies.
+        try:
+            params_ = inspect.signature(forward).parameters
+            self._train_kwargs = (
+                any(p.kind is inspect.Parameter.VAR_KEYWORD
+                    for p in params_.values())
+                or {"train", "rng"} <= set(params_))
+        except (TypeError, ValueError):
+            self._train_kwargs = False
+        self._gen = torch.Generator(device=self.device).manual_seed(0xA6)
+        # stateful models (graph-built nets with batchnorm) advertise their
+        # running-statistics state; the engine threads it through train
+        # (moving-sum update) and eval (use_global_stats path)
+        init_state = getattr(forward, "init_state", None)
+        self._stateful = bool(init_state)
+        self.state = (tree_map(lambda t: as_tensor(t, self.device).clone(),
+                               dict(init_state)) if self._stateful else None)
+        self._lr = torch.zeros((), device=self.device)
+        # CUDA-graph epochs: id(batch_fn) -> (batch_fn, graph, static loss,
+        # data generator); the entry holds batch_fn (and the tensors its
+        # graph reads) alive, so its id is not reused
+        self._graphs: Dict[int, Tuple[Callable, Any, torch.Tensor,
+                                      torch.Generator]] = {}
+
+    @staticmethod
+    def _trainable(params):
+        return {k: v for k, v in params.items() if not k.startswith("_")}
+
+    def _to_device(self, x):
+        """A batch array on the engine's device.  From numpy to the card
+        every copy is non-blocking from pinned memory (a pageable copy
+        would wait for the steps already queued): large arrays through
+        the staging pool (``as_tensor``), small ones (labels) pinned."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, non_blocking=True)
+        arr = np.ascontiguousarray(x)
+        if self.device.type == "cuda" and arr.nbytes < STAGE_MIN_BYTES:
+            return torch.from_numpy(arr).pin_memory().to(self.device,
+                                                         non_blocking=True)
+        return as_tensor(arr, self.device)
+
+    # -- one step --------------------------------------------------------------
+    def _loss(self, x, y):
+        kw = {"train": True, "rng": self._gen} if self._train_kwargs else {}
+        params = {**self.params, **self.meta}
+        if self._stateful:
+            logits, new_state = self.forward(
+                params, x, compute_dtype=self.compute_dtype,
+                state=self.state, **kw)
+        else:
+            logits = self.forward(params, x,
+                                  compute_dtype=self.compute_dtype, **kw)
+            new_state = None
+        with trace.scope("engine.loss"):
+            if isinstance(logits, tuple):
+                # weighted multi-loss (GoogLeNet-v1 aux classifiers: loss =
+                # main + sum(w_i * aux_i), prototxt loss_weight semantics);
+                # the weights come from the graph's aux taps
+                main, auxs = logits[0], logits[1:]
+                ws = getattr(self.forward, "aux_loss_weights",
+                             (0.3,) * len(auxs))
+                lval = self.loss_fn(main, y)
+                for w, al in zip(ws, auxs):
+                    lval = lval + w * self.loss_fn(al, y)
+            else:
+                lval = self.loss_fn(logits, y)
+        return lval, new_state
+
+    def _train_step(self, x, y) -> torch.Tensor:
+        """One SGD step on device tensors x, y with the lr in ``self._lr``;
+        returns the loss (a device tensor).  Reads nothing back to the
+        host, so it can be captured into a CUDA graph."""
+        with torch.enable_grad():
+            lval, new_state = self._loss(x, y)
+        with trace.scope("engine.backward"):
+            grads = torch.autograd.grad(lval, self._leaves,
+                                        allow_unused=True)
+        cfg = self.solver
+        with torch.no_grad(), trace.scope("engine.update"):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, self._leaves)]
+            g = torch._foreach_add(grads, self._leaves,
+                                   alpha=cfg.weight_decay)
+            torch._foreach_mul_(self._moms, cfg.momentum)
+            torch._foreach_add_(self._moms, g)
+            torch._foreach_sub_(self._leaves,
+                                torch._foreach_mul(self._moms, self._lr))
+            if new_state is not None:
+                for k, v in new_state.items():
+                    for dst, src in zip(self.state[k], v):
+                        dst.copy_(src)
+        return lval.detach()
+
+    @torch.no_grad()
+    def _eval_step(self, x, y):
+        params = {**self.params, **self.meta}
+        if self._stateful:
+            # GxM TEST/VAL mode: global statistics, no state update
+            logits, _ = self.forward(params, x,
+                                     compute_dtype=self.compute_dtype,
+                                     state=self.state)
+        else:
+            logits = self.forward(params, x,
+                                  compute_dtype=self.compute_dtype)
+        y = y.long()
+        acc = (logits.argmax(dim=1) == y).float().mean()
+        # top-5 (Engine.cpp:642 validation / Accuracy.cpp analog)
+        k = min(5, logits.shape[1])
+        topk = logits.topk(k, dim=1).indices
+        acc5 = (topk == y[:, None]).any(dim=1).float().mean()
+        return self.loss_fn(logits, y), acc, acc5
+
+    # -- public API --------------------------------------------------------------
+    def train_epoch(self, batches: Iterator[Tuple[Any, Any]],
+                    log_every: int = 50, verbose: bool = True):
+        """One epoch over an iterator of (images NHWC, int labels), numpy
+        arrays (staged to the card through pinned memory) or tensors.
+        Returns images/s, the last loss, the lr and every step's loss."""
+        lr = _schedule(self.solver, self.epoch)
+        self._lr.fill_(lr)
+        n_images = 0
+        t0 = time.perf_counter()
+        losses = []
+        for bi, (x, y) in enumerate(batches):
+            x, y = self._to_device(x), self._to_device(y)
+            losses.append(self._train_step(x, y))
+            n_images += x.shape[0]
+            self.step += 1
+            if verbose and bi % log_every == 0:
+                print(f"epoch {self.epoch} batch {bi} "
+                      f"loss {float(losses[-1]):.4f} lr {lr:.5f}")
+        losses = torch.stack(losses).float().tolist()   # waits for the card
+        dt = time.perf_counter() - t0
+        ips = n_images / dt
+        if verbose:
+            print(f"epoch {self.epoch}: {ips:.1f} images/s "
+                  f"({n_images} images, {dt:.2f}s)")  # Engine.cpp:600 analog
+        self.epoch += 1
+        if self.checkpoint_dir:
+            self.checkpoint()
+            # snapshot dirs at schedule boundaries (Engine.cpp writes
+            # snapshots at epochs 30/60/80 alongside the rolling checkpoint)
+            if self.epoch in self.solver.step_epochs:
+                self.checkpoint(tag=f"epoch{self.epoch}")
+        return {"images_per_s": ips, "loss": losses[-1], "lr": lr,
+                "losses": losses}
+
+    def scan_seed(self, data_seed: int = 0) -> int:
+        """The seed of the data generator for the next ``train_epoch_scan``
+        (from the data seed and the step count, as the JAX package folds
+        both into its key)."""
+        return (0xDA7A << 32) + (data_seed << 20) + self.step
+
+    def _capture(self, batch_fn: Callable, gen: torch.Generator):
+        """Warm up one real step on a side stream, then capture one step
+        into a CUDA graph; returns (graph, static loss, loss of the warm-up
+        step)."""
+        graph = torch.cuda.CUDAGraph()
+        try:
+            for g in {gen, self._gen}:
+                graph.register_generator_state(g)
+        except (AttributeError, RuntimeError) as e:
+            raise RuntimeError(
+                f"train_epoch_scan: the data and dropout generators cannot "
+                f"be registered with a CUDA graph ({e}); the step draws from "
+                f"them inside the graph") from e
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            warm = self._train_step(*batch_fn(gen))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        try:
+            with torch.cuda.graph(graph):
+                loss = self._train_step(*batch_fn(gen))
+        except RuntimeError as e:
+            raise RuntimeError(f"train_epoch_scan: the step could not be "
+                               f"captured into a CUDA graph: {e}") from e
+        return graph, loss, warm
+
+    def train_epoch_scan(self, n_batches: int, batch_fn: Callable,
+                         batch_size: int, verbose: bool = True,
+                         data_seed: int = 0):
+        """One epoch of ``n_batches`` steps on batches made on the device.
+
+        ``batch_fn(gen) -> (x NHWC, y int)`` draws a batch from the
+        ``torch.Generator`` it is given (e.g. ``synthetic_batch_fn`` /
+        ``template_batch_fn``); the engine's data generator is seeded with
+        ``scan_seed(data_seed)`` at the epoch's start.  On the card the
+        step is a CUDA graph replayed ``n_batches`` times (captured at the
+        first call for this ``batch_fn``, after one eager warm-up step
+        that is the epoch's first); on the CPU the same steps run eagerly.
+        """
+        lr = _schedule(self.solver, self.epoch)
+        seed = self.scan_seed(data_seed)
+        t0 = time.perf_counter()
+        self._lr.fill_(lr)
+        losses = torch.empty((n_batches,), device=self.device)
+        if self.device.type != "cuda":
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            for i in range(n_batches):
+                losses[i] = self._train_step(*batch_fn(gen)).float()
+        else:
+            first = 0
+            if id(batch_fn) not in self._graphs:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                graph, loss, warm = self._capture(batch_fn, gen)
+                self._graphs[id(batch_fn)] = (batch_fn, graph, loss, gen)
+                losses[0] = warm.float()
+                first = 1
+            _, graph, loss, gen = self._graphs[id(batch_fn)]
+            if not first:
+                gen.manual_seed(seed)
+            for i in range(first, n_batches):
+                graph.replay()
+                losses[i] = loss.float()
+        losses = losses.tolist()    # waits for the card
+        dt = time.perf_counter() - t0
+        self.step += n_batches
+        self.epoch += 1
+        n_images = n_batches * batch_size
+        ips = n_images / dt
+        if verbose:
+            print(f"epoch {self.epoch - 1}: {ips:.1f} images/s "
+                  f"({n_images} images, {dt:.2f}s, "
+                  f"{'CUDA graph' if self.device.type == 'cuda' else 'eager'}"
+                  f")")
+        if self.checkpoint_dir:
+            self.checkpoint()
+        return {"images_per_s": ips, "loss": losses[-1], "lr": lr,
+                "losses": losses}
+
+    def validate(self, batches) -> Dict[str, float]:
+        rows = []
+        for x, y in batches:
+            rows.append(torch.stack(self._eval_step(
+                self._to_device(x), self._to_device(y))).float())
+        loss, acc, acc5 = torch.stack(rows).mean(dim=0).tolist()
+        return {"loss": loss, "acc": acc, "acc5": acc5}
+
+    # -- checkpoint / resume (Engine.cpp:245-365, 488-500 analog) --------------
+    def _trees(self):
+        trees = {"params": self.params, "momentum": self.momentum}
+        if self._stateful:
+            trees["state"] = self.state
+        return trees
+
+    def checkpoint(self, tag: Optional[str] = None):
+        d = self.checkpoint_dir
+        if not d:
+            raise ValueError("no checkpoint_dir configured")
+        os.makedirs(d, exist_ok=True)
+        tag = tag or "latest"
+        for name, tree in self._trees().items():
+            np.savez(os.path.join(d, f"{name}_{tag}.npz"),
+                     **{k: v.detach().cpu().numpy()
+                        for k, v in tree_flatten_with_path(tree)})
+        with open(os.path.join(d, f"meta_{tag}.json"), "w") as f:
+            json.dump({"epoch": self.epoch, "step": self.step,
+                       "lr": _schedule(self.solver, self.epoch)}, f)
+
+    def resume(self, tag: str = "latest") -> bool:
+        """Load a checkpoint (this package's or the JAX package's) into the
+        engine's tensors, in place; False where there is none."""
+        d = self.checkpoint_dir
+        meta_p = os.path.join(d or "", f"meta_{tag}.json")
+        if not d or not os.path.exists(meta_p):
+            return False
+        with open(meta_p) as f:
+            meta = json.load(f)
+        for name, tree in self._trees().items():
+            path = os.path.join(d, f"{name}_{tag}.npz")
+            if name == "state" and not os.path.exists(path):
+                continue
+            with np.load(path) as z, torch.no_grad():
+                for k, t in tree_flatten_with_path(tree):
+                    t.copy_(torch.from_numpy(z[k]))
+        self.epoch = meta["epoch"]
+        self.step = meta["step"]
+        return True
+
+
+# ---------------------------------------------------------------------------
+# Batch sources
+# ---------------------------------------------------------------------------
+
+
+def synthetic_batches(n_batches: int, batch: int, hw: int = 32,
+                      classes: int = 10, seed: int = 0, chans: int = 3):
+    """Synthetic data pipeline (LMDB-free input analog): numpy batches, the
+    JAX package's draws."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n_batches):
+        yield (rng.standard_normal(
+                   (batch, hw, hw, chans)).astype(np.float32),
+               rng.integers(0, classes, (batch,)).astype(np.int32))
+
+
+def template_batches(n_batches: int, batch: int, hw: int = 32,
+                     classes: int = 10, seed: int = 0, sigma: float = 0.6,
+                     epoch: int = 0, chans: int = 3):
+    """Deterministic LEARNABLE dataset: class templates + Gaussian noise
+    (numpy batches, the JAX package's draws).
+
+    Each class is a fixed random template image (drawn once from the data
+    seed); every sample is template[label] + sigma*noise.  A working
+    training stack must drive the loss well below ln(classes) and the
+    accuracy far above 1/classes."""
+    trng = np.random.default_rng(seed)  # templates: seed-stable
+    templates = trng.standard_normal(
+        (classes, hw, hw, chans)).astype(np.float32)
+    rng = np.random.default_rng(seed + 1000 + epoch)
+    for _ in range(n_batches):
+        y = rng.integers(0, classes, (batch,)).astype(np.int32)
+        x = templates[y] + sigma * rng.standard_normal(
+            (batch, hw, hw, chans)).astype(np.float32)
+        yield x, y
+
+
+def _templates(seed: int, classes: int, hw: int, chans: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((classes, hw, hw, chans), generator=gen, device=dev)
+
+
+def _template_batch(gen, templates, batch, sigma):
+    classes, hw, _, chans = templates.shape
+    dev = templates.device
+    y = torch.randint(0, classes, (batch,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x = templates[y.long()] + sigma * torch.randn(
+        (batch, hw, hw, chans), generator=gen, device=dev)
+    return x, y
+
+
+def _synthetic_batch(gen, batch, hw, classes, chans):
+    dev = gen.device
+    x = torch.randn((batch, hw, hw, chans), generator=gen, device=dev)
+    y = torch.randint(0, classes, (batch,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    return x, y
+
+
+def device_template_batches(n_batches: int, batch: int, hw: int = 32,
+                            classes: int = 10, seed: int = 0,
+                            sigma: float = 0.6, epoch: int = 0,
+                            chans: int = 3):
+    """template_batches made on the device (nothing crosses the link): the
+    same task family from a ``torch.Generator``, so the same distribution,
+    not the same numbers (the JAX package says the same of its own)."""
+    dev = platform.device()
+    templates = _templates(seed, classes, hw, chans, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000 + epoch)
+    for _ in range(n_batches):
+        yield _template_batch(gen, templates, batch, sigma)
+
+
+def synthetic_batch_fn(batch: int, hw: int = 32, classes: int = 10,
+                       chans: int = 3) -> Callable:
+    """Per-step batch maker for ``train_epoch_scan``: gen -> (x NHWC,
+    y int32), drawn on gen's device."""
+    def make(gen):
+        return _synthetic_batch(gen, batch, hw, classes, chans)
+    return make
+
+
+def template_batch_fn(batch: int, hw: int = 32, classes: int = 10,
+                      seed: int = 0, sigma: float = 0.6,
+                      chans: int = 3) -> Callable:
+    """LEARNABLE batch maker (template task) for ``train_epoch_scan``: the
+    class templates are made once, on the entry points' device, from the
+    seed (the templates of ``device_template_batches``)."""
+    templates = _templates(seed, classes, hw, chans, platform.device())
+
+    def make(gen):
+        return _template_batch(gen, templates, batch, sigma)
+    return make
+
+
+def device_synthetic_batches(n_batches: int, batch: int, hw: int = 32,
+                             classes: int = 10, seed: int = 0,
+                             sharding=None, chans: int = 3):
+    """Synthetic batches made on the device (nothing crosses the link).
+    ``sharding`` (a JAX data sharding) needs the port of parallel/."""
+    if sharding is not None:
+        raise NotImplementedError("a data sharding needs the port of "
+                                  "parallel/ (ROADMAP Queue 1 item 7)")
+    gen = torch.Generator(device=platform.device()).manual_seed(seed)
+    for _ in range(n_batches):
+        yield _synthetic_batch(gen, batch, hw, classes, chans)
