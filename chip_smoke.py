@@ -199,8 +199,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     kernel wrapper's, with tracing off;
 32. trains one step of ResNet-18 (width 64, 100 classes, 8x64x64, f32,
     a ``template_batches`` batch) through ``MLEngine`` on the card and with
-    ``target="cpu"``: the loss within 1e-5 relative, each parameter's
-    update within 1e-3 rel-Frobenius, the BN running state within 1e-4;
+    ``target="cpu"``, the card's step three times on cuDNN's default
+    algorithms and once on its deterministic ones, the CPU's twice: each
+    card step against the CPU's within 1e-5 relative on the loss, 1e-3
+    rel-Frobenius on each parameter's update and 1e-4 on the BN running
+    state, and each side's repeats against its first;
 33. trains ResNet-50 at its published width (64, 1000 classes) at batch
     64, 224x224, in f32 and bf16: 2 warm-up and 10 timed
     steps of ``train_epoch`` on ``synthetic_batches``, a ``validate``
@@ -228,9 +231,45 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     ``make_augment`` on the card and cifar10net at batch 128 for 30
     epochs, with the sample's criterion, the loader backend (native) and
     images/s from disk to the trained step;
-36. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels;
+36. drives the distributed layer's ring on one card, its d ranks virtual
+    ranks on ``cuda:0`` (each with its own compute and communication
+    streams; the cards round robin where there are more):
+    ``ring_spmm_csr`` on the 150x150 PyFR operator at N = 65536, d = 1, 2
+    and 4, chunks 1 and 4, f32 and f64 under split2 and fold, each against
+    numpy f64 gold (1e-3 f32, 1e-5 f64), with the sparse launch counts and
+    the hop counts set to 0 just before and read just after; every block
+    kernel of those calls against its plain version on the ring's panels,
+    bit for bit; the ms of each call beside the local kernel's on the whole
+    B (virtual ranks share the SMs: the machinery's cost, not scaling); and
+    ``parallel/schedule_check`` on a profiler trace of d = 4, chunks 4 (the
+    share of hops under compute of another sub-panel, the event order, the
+    live panel images, whether the hops ran as copies);
+37. drives ``dp_batched_smm`` at 23^3, B = 131072 over 4 ranks (split2_fast,
+    float32, split2) and ``dp_packed`` getrf and trsm at 16^2, B = 131072
+    and at 125^2, B = 4096, over 4 ranks, counted, each against gold and
+    each rank's kernel against its plain version on its own shard, and
+    times the 4-rank calls beside one call on the whole batch;
+38. holds cross-replica BN over 2 replicas against the global batch's BN at
+    N64 C256 H56 W56 (y, dx, dgamma, dbeta at 1e-5), then trains ResNet-50
+    at width 64, batch 64, 224^2, f32 through ``MLEngine`` over a dp = 2
+    mesh for 3 steps: the first against the single-device engine's step on
+    the same batch, on cuDNN's deterministic algorithms (the loss at the
+    step-32 gate, the whole update at ``DIST_UPDATE_TOL``, which two
+    planted faults must exceed; the worst leaf, the BN state, the second
+    step's loss and the one-device step with its input one ulp up
+    printed) and on its default ones beside two single-device steps'
+    spread, the other two timed beside step 33's, with the peak memory
+    and a profiled step's split; before it, ResNet-18 width 8 at batch 8,
+    16^2, over dp = 2 on the deterministic algorithms at every step-32
+    gate;
+39. runs ``entry.dryrun_multichip(4)`` and ``entry.entry()`` on the card,
+    and ``parallel.multihost.launch_dryrun(2, 2)``: two processes of two
+    ranks sharing the card over gloo (every cross-process transfer staged
+    through host memory), each printing its line;
+40. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels;
     every wrapper's launch counts, set to 0 before steps 32-35, are still 0
-    after them), the nvidia-smi
+    after them; the rows of kernels 1-3, 5-8 and 11-14 carry the
+    distributed steps' launches as ``dist_launches``), the nvidia-smi
     line, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line; it
@@ -3162,6 +3201,9 @@ def runtime_phase(args, dev, smi, native_s):
 STEP_LOSS_TOL = 1e-5
 STEP_UPDATE_TOL = 1e-3
 STEP_STATE_TOL = 1e-4
+# step 32's card steps on cuDNN's default algorithms (one more on its
+# deterministic ones), each against the CPU's
+STEP32_REPEATS = 3
 TRAIN_BATCH = 64          # step 33: ResNet-50's batch (224x224)
 # the val top-1 of CONVERGENCE_r05.json's last epoch (f32, bf16): a TPU run
 # on jax.random data, printed beside, not a target
@@ -3267,20 +3309,17 @@ def step_split(prof, scope="smoke.step"):
     return split, busy / 1e3, (w1 - w0) / 1e3, 1.0 - busy / (w1 - w0)
 
 
-def train_card_vs_cpu(args, dev, smi):
-    """Step 32: one ResNet-18 step on the card and with target="cpu"."""
-    import numpy as np
+def _card_cpu_step(target, x, y, args, shape, deterministic=False):
+    """One ResNet-18 step of a fresh engine on ``target``: (loss, each
+    leaf's update, the BN state, seconds)."""
     import torch
     import xsmm_tpu_torch as xp
     from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
-    from xsmm_tpu_torch.models.engine import template_batches
 
-    shape = (8, 64, 64, 3)
-    x, y = next(template_batches(1, shape[0], hw=shape[1], classes=100,
-                                 seed=args.seed))
-    out = {}
-    for target in ("cuda", "cpu"):
-        xp.set_config(target=target)
+    xp.set_config(target=target)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
         params, fwd = resnet(18, width=64, num_classes=100,
                              input_shape=shape, seed=args.seed)
         before = [t.detach().double().cpu() for _, t in
@@ -3289,26 +3328,63 @@ def train_card_vs_cpu(args, dev, smi):
         t0 = time.perf_counter()
         loss = eng.train_epoch(iter([(x, y)]), verbose=False)["loss"]
         step_s = time.perf_counter() - t0
-        upd = [t.detach().double().cpu() - b for (_, t), b in
-               zip(_leaves(eng.params), before)]
-        state = [t.double().cpu() for _, t in _leaves(eng.state)]
-        out[target] = (loss, upd, state, step_s)
-    xp.set_config(target="cuda")
-    (lc, uc, sc, tc), (lh, uh, sh, th) = out["cuda"], out["cpu"]
-    loss_err = abs(lc - lh) / abs(lh)
-    upd_err = max((torch.linalg.vector_norm(a - b)
-                   / torch.linalg.vector_norm(b)).item()
-                  for a, b in zip(uc, uh))
-    state_err = max((a - b).abs().max().item() for a, b in zip(sc, sh))
-    ok = (loss_err <= STEP_LOSS_TOL and upd_err <= STEP_UPDATE_TOL
-          and state_err <= STEP_STATE_TOL)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        xp.set_config(target="cuda")
+    upd = [t.detach().double().cpu() - b for (_, t), b in
+           zip(_leaves(eng.params), before)]
+    state = [t.double().cpu() for _, t in _leaves(eng.state)]
+    return loss, upd, state, step_s
+
+
+def _card_cpu_diff(a, b):
+    """(loss rel, worst leaf's update rel-Frobenius, BN state max abs) of
+    two ``_card_cpu_step`` results, b the reference."""
+    import torch
+
+    return (abs(a[0] - b[0]) / abs(b[0]),
+            max((torch.linalg.vector_norm(u - v)
+                 / torch.linalg.vector_norm(v)).item()
+                for u, v in zip(a[1], b[1])),
+            max((u - v).abs().max().item() for u, v in zip(a[2], b[2])))
+
+
+def train_card_vs_cpu(args, dev, smi):
+    """Step 32: one ResNet-18 step on the card and with target="cpu".  The
+    card's step runs ``STEP32_REPEATS`` times on cuDNN's default
+    algorithms and once on its deterministic ones, the CPU's twice; every
+    card step is held to the first CPU step at the step-32 gates, and the
+    repeats on each side against their first (the run-to-run spread)."""
+    from xsmm_tpu_torch.models.engine import template_batches
+
+    shape = (8, 64, 64, 3)
+    x, y = next(template_batches(1, shape[0], hw=shape[1], classes=100,
+                                 seed=args.seed))
+    cpu = [_card_cpu_step("cpu", x, y, args, shape) for _ in range(2)]
+    card = [_card_cpu_step("cuda", x, y, args, shape)
+            for _ in range(STEP32_REPEATS)]
+    card.append(_card_cpu_step("cuda", x, y, args, shape,
+                               deterministic=True))
+    errs = [_card_cpu_diff(c, cpu[0]) for c in card]
+    card_spread = [_card_cpu_diff(c, card[0]) for c in card[1:-1]]
+    cpu_spread = _card_cpu_diff(cpu[1], cpu[0])
+    ok = all(e[0] <= STEP_LOSS_TOL and e[1] <= STEP_UPDATE_TOL
+             and e[2] <= STEP_STATE_TOL for e in errs)
+    worst = max(range(len(errs)), key=lambda i: errs[i][1])
+    lc, lh = card[worst][0], cpu[0][0]
     print(f"train resnet18 width64 100 classes 8x64x64 f32, one step card "
-          f"vs cpu: loss {lc:.6f} / {lh:.6f} (rel {loss_err:.3e}, tol "
-          f"{STEP_LOSS_TOL:g}), worst update rel-Frobenius {upd_err:.3e} "
-          f"(tol {STEP_UPDATE_TOL:g}) over {len(uc)} leaves, BN state max "
-          f"abs {state_err:.3e} (tol {STEP_STATE_TOL:g}); first step "
-          f"{tc * 1e3:.1f} / {th * 1e3:.1f} ms {'pass' if ok else 'FAIL'}  "
-          f"[{smi}]")
+          f"vs cpu: loss {lc:.6f} / {lh:.6f} (rel {errs[worst][0]:.3e}, tol "
+          f"{STEP_LOSS_TOL:g}), worst update rel-Frobenius "
+          f"{errs[worst][1]:.3e} (tol {STEP_UPDATE_TOL:g}) over "
+          f"{len(card[0][1])} leaves, BN state max abs {errs[worst][2]:.3e} "
+          f"(tol {STEP_STATE_TOL:g}); every card step's worst update "
+          f"(cuDNN default x{STEP32_REPEATS}, deterministic): "
+          f"{[float(f'{e[1]:.4g}') for e in errs]}; card repeats against "
+          f"the first (loss, update, state): "
+          f"{[tuple(float(f'{v:.3g}') for v in e) for e in card_spread]}, "
+          f"cpu against cpu: {tuple(float(f'{v:.3g}') for v in cpu_spread)}"
+          f"; first step {card[0][3] * 1e3:.1f} / {cpu[0][3] * 1e3:.1f} ms "
+          f"{'pass' if ok else 'FAIL'}  [{smi}]")
     if not ok:
         raise RuntimeError("one training step: the card and the CPU "
                            "disagree")
@@ -3639,6 +3715,636 @@ def training_phase(args, dev, smi):
     if launched:
         raise RuntimeError(f"the training path launched kernels: {launched}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Steps 36-40: the distributed layer (parallel/, sync BN, MLEngine over a
+# mesh, entry.py)
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = (1, 2, 4)
+DIST_CHUNKS = (1, 4)
+# (dtype, f64 schedule) of the ring; gates against numpy f64 gold
+DIST_RING_CASES = (("float32", None), ("float64", "split2"),
+                   ("float64", "fold"))
+DIST_GOLD_TOL = {"float32": 1e-3, "float64": 1e-5}
+DIST_SMM = ("split2_fast", "float32", "split2")
+# the kernels of the distributed path: (module, launch counter) by row name
+DIST_KERNELS = {
+    "packed_split2_fast": "smm_packed", "packed_f32": "smm_packed",
+    "packed_split2": "smm_packed",
+    "spgemm_unroll_f32": "spgemm_kernels",
+    "spgemm_unroll_f64": "spgemm_kernels",
+    "spgemm_acc_f32": "spgemm_kernels", "spgemm_acc_f64": "spgemm_kernels",
+    "getrf_unrolled": "packed_kernels", "getrf_loop": "packed_kernels",
+    "trsm_unrolled": "packed_kernels", "trsm_loop": "packed_kernels",
+}
+DIST_ENGINE_STEPS = 3
+# step 38: the dp = 2 ResNet-50 step's whole update (every leaf in one
+# vector, rel-Frobenius) against the one-device step's, on cuDNN's
+# deterministic algorithms.  Between the sound step's reading and a planted
+# fault's (a rank's gradient share dropped, or the shares doubled), both
+# of which the step measures and must find above it.  On an H100 80GB
+# HBM3 at 700 W: sound 2.897e-2 (the one-device step with its input one
+# ulp up reads 2.236e-2: the step's own conditioning), faults 0.7119 and
+# 1.001.
+DIST_UPDATE_TOL = 0.1
+
+
+def _tup(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _bits(got, want):
+    """(bit for bit, max abs difference) of two tensors or tuples of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    same = all(g.shape == w.shape and bool((g == w).all())
+               for g, w in zip(got, want))
+    err = max((g.double() - w.double()).abs().max().item()
+              for g, w in zip(got, want))
+    return same, err
+
+
+def dist_ring(args, dev, smi, max_abs):
+    """Step 36: ``ring_spmm_csr`` on the 150x150 PyFR operator at N =
+    ``--sparse-n``: d = 1, 2, 4, chunks 1 and 4, f32 and f64 under split2
+    and fold, against numpy f64 gold; every block kernel against its plain
+    version on the ring's own panels, bit for bit; the ms at each d beside
+    the local kernel's; ``schedule_check`` on a trace of d = 4, chunks 4."""
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.ops import spgemm_kernels as sk
+    from xsmm_tpu_torch.parallel import dist_spmm, schedule_check
+    from xsmm_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    name, op = pyfr_operators(np)[2]
+    n = args.sparse_n
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    b64 = torch.randn((op.shape[1], n), generator=g, device=dev,
+                      dtype=torch.float64)
+    gold = torch.from_numpy(op).to(dev) @ b64
+    runs = []
+    sk.reset_launches()
+    dist_spmm.reset_counts()
+    for dtype, sched in DIST_RING_CASES:
+        for d in DIST_RANKS:
+            kpad = -(-op.shape[1] // d) * d
+            bp = torch.zeros((kpad, n), dtype=torch.float64, device=dev)
+            bp[:op.shape[1]] = b64
+            bh = bp.float()
+            streams = {None: [bh], "split2": [bh, (bp - bh.double()).float()],
+                       "fold": [bh]}[sched]
+            mesh = make_mesh((1, d), ("dp", "mp"),
+                             devices=virtual_devices(d))
+            shards = [dist_spmm.shard_rows(mesh, s) for s in streams]
+            for chunks in DIST_CHUNKS:
+                fn = dist_spmm.ring_spmm_csr(
+                    mesh, op.astype(np.float32) if sched is None else op, n,
+                    dtype=dtype, chunks=chunks,
+                    f64_schedule=sched or "split2")
+                out = fn(*shards)
+                out = out if isinstance(out, tuple) else (out,)
+                c = sum(o.gather().double() for o in out)[:op.shape[0]]
+                torch.cuda.synchronize()
+                err = xp.matdiff(gold.cpu().numpy(),
+                                 c.cpu().numpy()).normf_rel
+                tol = DIST_GOLD_TOL[dtype]
+                label = f"{dtype}{'/' + sched if sched else ''} d={d} " \
+                        f"chunks={chunks}"
+                print(f"dist ring {name} N={n} {label}: gold rel-Frobenius "
+                      f"{err:.3e} (tol {tol:g}) "
+                      f"{'pass' if err < tol else 'FAIL'}")
+                if not err < tol:
+                    raise RuntimeError(f"ring {label}: {err:.3e} against "
+                                       f"gold")
+                runs.append((label, d, chunks, dtype, sched, fn, shards))
+    launched = dict(sk.launches)
+    hops = dict(dist_spmm.hops)
+    print(f"dist ring launches (counts set to 0 before the ring's calls): "
+          f"{launched}; routes {dict(sk.route_launches)}; hops {hops}")
+    for k, v in launched.items():
+        if v < 1:
+            raise RuntimeError(f"the ring did not launch {k}")
+
+    # every block kernel against its plain version, on the ring's panels
+    seen = set()
+    checked = 0
+    for label, d, chunks, dtype, sched, fn, shards in runs:
+        for e in range(d):
+            for j in range(d):
+                kern = fn.kernels[e][j]
+                if kern is None or (id(kern), j) in seen:
+                    continue
+                seen.add((id(kern), j))
+                o = kern._operand(dev)
+                nc = kern.n
+                panels = [s.shards[j][:, :nc].contiguous() for s in shards]
+                cin = torch.randn((o.m, nc), generator=g, device=dev)
+                if dtype == "float32":
+                    pairs = [("spgemm_unroll_f32", sk.unroll_f32(o, *panels),
+                              sk.unroll_f32_plain(o, *panels)),
+                             ("spgemm_acc_f32", sk.acc_f32(o, cin, *panels),
+                              sk.acc_f32_plain(o, cin, *panels))]
+                else:
+                    c_lo = sched == "split2"
+                    cl = cin * 1e-8 if c_lo else None
+                    pairs = [("spgemm_unroll_f64",
+                              sk.unroll_f64(o, *panels, c_lo=c_lo),
+                              sk.unroll_f64_plain(o, *panels, c_lo=c_lo)),
+                             ("spgemm_acc_f64",
+                              sk.acc_f64(o, cin, cl, *panels),
+                              sk.acc_f64_plain(o, cin, cl, *panels))]
+                for kname, got, want in pairs:
+                    same, err = _bits(got, want)
+                    max_abs[kname] = max(max_abs.get(kname, 0.0), err)
+                    checked += 1
+                    if not same:
+                        raise RuntimeError(
+                            f"ring {label}: block ({e}, {j}) {kname} and "
+                            f"its plain version differ by {err:.3e}")
+    print(f"dist ring plain: {checked} block kernels of the ring's calls, "
+          f"each bit for bit against its plain version on the ring's panels "
+          f"pass")
+
+    # times: each ring call beside the local kernel on the whole B
+    local_ms = {}
+    for label, d, chunks, dtype, sched, fn, shards in runs:
+        key = (dtype, sched)
+        if key not in local_ms:    # d = 1 comes first: its shard is all of B
+            kern = xp.create_csr_soa(op.astype(np.float32) if sched is None
+                                     else op, n, dtype=dtype,
+                                     f64_schedule=sched or "split2")
+            local_ms[key] = cuda_time_ms(
+                kern._fn, *[s.shards[0] for s in shards], warmup=3, iters=20)
+        ms = cuda_time_ms(fn, *shards, warmup=2, iters=10)
+        # the same call captured into one CUDA graph: the device's part
+        # without the host's issue between the calls, bit for bit
+        graph, gout = schedule_check.capture(fn, *shards)
+        gms = cuda_time_ms(graph.replay, warmup=2, iters=20)
+        want = fn(*shards)
+        graph.replay()
+        same, _ = _bits(tuple(o.gather() for o in _tup(gout)),
+                        tuple(o.gather() for o in _tup(want)))
+        if not same:
+            raise RuntimeError(f"ring {label}: the graph's replay differs "
+                               f"from the eager call")
+        del graph, gout, want
+        print(f"time  dist ring {name} N={n} {label}: {ms:.4f} ms eager, "
+              f"{gms:.4f} ms as one CUDA graph (bit for bit), against the "
+              f"local kernel's {local_ms[key]:.4f} ms ({ms / local_ms[key]:.2f}"
+              f"x, graph {gms / local_ms[key]:.2f}x; {d} virtual rank(s) on "
+              f"one card share its SMs: the ring machinery's cost, not "
+              f"scaling)  [{smi}]")
+
+    os.makedirs(os.path.join("xsmm_tpu_torch", "build", "trace"),
+                exist_ok=True)
+    st = schedule_check.check_ring(
+        d=4, chunks=4, n=n, op=op.astype(np.float32),
+        trace_path=os.path.join("xsmm_tpu_torch", "build", "trace",
+                                "ring_trace.json"), seed=args.seed,
+        graph=True)
+    gr = st["graph"]
+    share = st["under_compute"] / max(st["hops"], 1)
+    print(f"dist schedule d=4 chunks=4 f32 N={n}: {st['hops']} hops "
+          f"(expected {st['expected_hops']}), {share:.3f} of them under "
+          f"compute of another sub-panel (min {st['min_under_us']:.1f} us "
+          f"shared), {st['ordered']} after their sending compute, at most "
+          f"{st['max_live_images']} images of a sub-panel live on a rank; "
+          f"hop device events {st['hop_device_events']}; overlap_ok "
+          f"{st['overlap_ok']} order_ok {st['order_ok']} live_ok "
+          f"{st['live_ok']} hops_ok {st['hops_ok']}; as one CUDA graph "
+          f"{gr['replay_ms']:.4f} ms against {gr['eager_ms']:.4f} eager: "
+          f"{gr['kernels']} kernels and {gr['copies']} copies, "
+          f"{gr['copies_under_kernel']} copies overlapping a kernel, kernel "
+          f"{gr['kernel_us']:.1f} us and copy {gr['copy_us']:.1f} us in a "
+          f"{gr['span_us']:.1f} us span  [{smi}]")
+    if not (st["order_ok"] and st["hops_ok"]):
+        raise RuntimeError(f"the ring's event order is broken: {st}")
+    return launched
+
+
+def dist_wrappers(args, dev, smi, max_abs):
+    """Step 37: ``dp_batched_smm`` at 23^3, B = ``--batch``, over 4 ranks
+    (split2_fast, float32, split2) and ``dp_packed`` getrf and trsm at 16^2,
+    B = ``--packed-batch``, and at ``--packed-big-m``, B =
+    ``--packed-big-batch``, over 4 ranks: each against gold, each rank's
+    kernel against its plain version on the same shard."""
+    import numpy as np
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.ops import packed_kernels as pk
+    from xsmm_tpu_torch.ops import smm_packed
+    from xsmm_tpu_torch.ops.pack_util import pack_lanes
+    from xsmm_tpu_torch.parallel import dist_spmm
+    from xsmm_tpu_torch.parallel.mesh import (NamedSharding, P, device_put,
+                                              make_mesh, virtual_devices)
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    mesh = make_mesh((4, 1), ("dp", "mp"), devices=virtual_devices(4))
+    lanes = NamedSharding(mesh, P(None, None, "dp"))
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    B = args.batch
+    a64, b64 = (torch.randn((B, M, K), generator=g, device=dev,
+                            dtype=torch.float64) for _ in range(2))
+    gold = torch.einsum("bmk,bkn->bmn", a64[:GOLD_SUBSET], b64[:GOLD_SUBSET])
+    smm_packed.reset_launches()
+    pk.reset_launches()
+    calls = []
+    for strategy in DIST_SMM:
+        xp.set_config(f64_strategy=strategy)
+        kern = xp.dmmdispatch(M, N, K, batch=B, beta=0.0)
+        ah, al = xp.split_f64(a64, dev)
+        bh, bl = xp.split_f64(b64, dev)
+        ops = {"split2": [kern.pack_a(ah), kern.pack_a(al), kern.pack_b(bh),
+                          kern.pack_b(bl)],
+               "split2_fast": [kern.pack_a(ah), kern.pack_b(bh),
+                               kern.pack_b(bl)],
+               "float32": [kern.pack_a(ah), kern.pack_b(bh)]}[strategy]
+        sharded = [device_put(o, lanes) for o in ops]
+        out = dist_spmm.dp_batched_smm(mesh, kern)(*sharded)
+        out = out if isinstance(out, tuple) else (out,)
+        c = sum(o.gather().double() for o in out)
+        c = kern.unpack_c(c, B)[:GOLD_SUBSET]
+        torch.cuda.synchronize()
+        err = xp.matdiff(gold.cpu().numpy(), c.cpu().numpy()).normf_rel
+        kname = {"split2": "packed_split2", "split2_fast":
+                 "packed_split2_fast", "float32": "packed_f32"}[strategy]
+        print(f"dist dp_batched_smm {strategy} {M}^3 B={B} over 4 ranks: "
+              f"gold rel-Frobenius {err:.3e} (tol 1e-6) "
+              f"{'pass' if err < 1e-6 else 'FAIL'}")
+        if not err < 1e-6:
+            raise RuntimeError(f"dp_batched_smm {strategy}: {err:.3e}")
+        calls.append((kname, kern, sharded, out, ops))
+    xp.set_config(f64_strategy="split2_fast")
+
+    packed = []
+    for m, bsz in ((16, args.packed_batch),
+                   (args.packed_big_m, args.packed_big_batch)):
+        a = torch.randn((bsz, m, m), generator=g, device=dev)
+        a = a + m * torch.eye(m, device=dev)
+        low = torch.tril(a)
+        rhs = torch.randn((bsz, m, m), generator=g, device=dev)
+        getrf = xp.getrf_dispatch(m, m, batch=bsz)
+        trsm = xp.trsm_dispatch(m, m, batch=bsz)
+        ap, lp, bp = (device_put(pack_lanes(t), lanes) for t in (a, low, rhs))
+        lu = dist_spmm.dp_packed(mesh, getrf.packed, 1)(ap)
+        x = dist_spmm.dp_packed(mesh, trsm.packed, 2)(lp, bp)
+        luf = lu.gather().permute(2, 0, 1).double()
+        xf = x.gather().permute(2, 0, 1).double()
+        torch.cuda.synchronize()
+        lo = torch.tril(luf, -1) + torch.eye(m, device=dev,
+                                             dtype=torch.float64)
+        e_lu = xp.matdiff(a.double().cpu().numpy(),
+                          (lo @ torch.triu(luf)).cpu().numpy()).normf_rel
+        e_x = xp.matdiff(rhs.double().cpu().numpy(),
+                         (low.double() @ xf).cpu().numpy()).normf_rel
+        ok = e_lu < PACKED_TOL["f32"] and e_x < PACKED_TOL["f32"]
+        print(f"dist dp_packed getrf / trsm {m}^2 B={bsz} over 4 ranks: "
+              f"L U against A {e_lu:.3e}, L X against B {e_x:.3e} (tol "
+              f"{PACKED_TOL['f32']:g}) {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"dp_packed {m}^2 against gold")
+        packed.append((getrf.kernel_name, lu, [ap]))
+        packed.append((trsm.kernel_name, x, [lp, bp]))
+    launched = {**{k: v for k, v in smm_packed.launches.items()},
+                **{k: v for k, v in pk.launches.items()}}
+    print(f"dist wrappers launches (counts set to 0 before their calls): "
+          f"{launched}")
+    for k in ("packed_split2_fast", "packed_f32", "packed_split2",
+              "getrf_unrolled", "getrf_loop", "trsm_unrolled", "trsm_loop"):
+        if launched.get(k, 0) < 1:
+            raise RuntimeError(f"the dp wrappers did not launch {k}")
+
+    # each rank's kernel against its plain version on its own shard
+    for kname, kern, sharded, out, ops in calls:
+        for i in range(len(out[0].shards)):
+            shard_ops = [s.shards[i] for s in sharded]
+            want = getattr(smm_packed, kname + "_plain")(
+                *shard_ops, **({"out_dtype": torch.float32}
+                               if kname == "packed_f32" else {}))
+            want = want if isinstance(want, tuple) else (want,)
+            got = tuple(o.shards[i] for o in out)
+            d = max((gg.double() - ww.double()).abs().max().item()
+                    for gg, ww in zip(got, want))
+            r = max((torch.linalg.vector_norm(gg.double() - ww.double())
+                     / torch.linalg.vector_norm(ww.double())).item()
+                    for gg, ww in zip(got, want))
+            max_abs[kname] = max(max_abs.get(kname, 0.0), d)
+            if not r <= PLAIN_TOL:
+                raise RuntimeError(f"dp {kname} rank {i}: {r:.3e} from plain")
+    for kname, out, ins in packed:
+        for i in range(len(out.shards)):
+            args_ = [t.shards[i] for t in ins]
+            if kname.startswith("trsm"):
+                args_.append(False)
+            same, err = _bits(out.shards[i],
+                              getattr(pk, kname + "_plain")(*args_))
+            max_abs[kname] = max(max_abs.get(kname, 0.0), err)
+            if not same:
+                raise RuntimeError(f"dp {kname} rank {i}: not bit for bit "
+                                   f"({err:.3e})")
+    print("dist wrappers plain: every rank's kernel against its plain "
+          "version on its shard (smm rel-Frobenius <= 1e-6, packed LA bit "
+          "for bit) pass")
+
+    # times: the 4-rank call beside the kernel on the whole batch
+    for kname, kern, sharded, out, ops in calls:
+        fn = dist_spmm.dp_batched_smm(mesh, kern)
+        ms = cuda_time_ms(fn, *sharded, warmup=2, iters=10)
+        one = cuda_time_ms(kern.packed, *ops, warmup=2, iters=10)
+        print(f"time  dist dp_batched_smm {kname} {M}^3 B={B}: 4 ranks "
+              f"{ms:.4f} ms against one call on the whole batch "
+              f"{one:.4f} ms (4 virtual ranks share one card)  [{smi}]")
+    return launched
+
+
+def dist_sync_bn(args, dev, smi):
+    """Step 38a: cross-replica BN over 2 replicas against the global
+    batch's BN at N64 C256 H56 W56, RELU: y, dx, dgamma, dbeta."""
+    import torch
+    import xsmm_tpu_torch as xp
+    from xsmm_tpu_torch.dnn import BnDesc, BnFuse, create_fusedbatchnorm
+
+    n, c, hw = args.dnn_batch, 256, 56
+    g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    x = torch.randn((n, hw, hw, c), generator=g, device=dev) * 2 + 1
+    dy = torch.randn((n, hw, hw, c), generator=g, device=dev)
+    gamma = torch.randn((c,), generator=g, device=dev)
+    beta = torch.randn((c,), generator=g, device=dev)
+    glob = create_fusedbatchnorm(BnDesc(n=n, c=c, h=hw, w=hw,
+                                        fuse=BnFuse.RELU))
+    y, st = glob.forward(x, gamma, beta)
+    want = (y,) + tuple(glob.backward(dy, gamma, st))
+    sync = create_fusedbatchnorm(BnDesc(n=n // 2, c=c, h=hw, w=hw,
+                                        fuse=BnFuse.RELU), axis_name="dp")
+    ys, sts = sync.forward(list(x.chunk(2)), gamma, beta)
+    dxs, dgs, dbs = sync.backward(list(dy.chunk(2)), gamma, sts)
+    got = (torch.cat(ys), torch.cat(dxs), dgs[0], dbs[0])
+    errs = [xp.matdiff(w.double().cpu().numpy(),
+                       v.double().cpu().numpy()).normf_rel
+            for w, v in zip(want, got)]
+    ok = max(errs) <= 1e-5
+    print(f"dist sync bn N{n} C{c} H{hw} W{hw} RELU over 2 replicas against "
+          f"the global batch: y {errs[0]:.3e}, dx {errs[1]:.3e}, dgamma "
+          f"{errs[2]:.3e}, dbeta {errs[3]:.3e} (tol 1e-5) "
+          f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("cross-replica BN disagrees with the global batch")
+
+
+def _one_step(params, fwd, batch, mesh, before, then=None, loss_fn=None):
+    """One ``train_epoch`` step of a fresh engine (over ``mesh``, or one
+    device): (loss, each leaf's update, the BN state, the engine, and the
+    loss of a second step on ``then``, else None)."""
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig
+
+    eng = MLEngine(params, fwd, SolverConfig(lr=0.01), mesh=mesh,
+                   **({"loss_fn": loss_fn} if loss_fn else {}))
+    loss = eng.train_epoch(iter([batch]), verbose=False)["loss"]
+    upd = [t.detach().double().cpu() - b for (_, t), b in
+           zip(_leaves(eng.params), before)]
+    state = [t.double().cpu() for _, t in _leaves(eng.state)]
+    second = (None if then is None else
+              eng.train_epoch(iter([then]), verbose=False)["loss"])
+    return loss, upd, state, eng, second
+
+
+def _planted(kind: str):
+    """A loss function that plants a fault in a dp = 2 step: "dropped"
+    zeroes the second rank's loss (its gradient share lost), "doubled"
+    doubles every rank's (the shares summed twice, or the mean over the
+    ranks left out)."""
+    from xsmm_tpu_torch.models.engine import softmax_xent
+
+    calls = [0]
+
+    def loss_fn(logits, y):
+        calls[0] += 1
+        lv = softmax_xent(logits, y)
+        if kind == "doubled":
+            return 2.0 * lv
+        return lv if calls[0] % 2 else 0.0 * lv
+    return loss_fn
+
+
+def _step_diff(x, y):
+    """(loss rel, rel-Frobenius of the whole update (every leaf in one
+    vector), BN state max abs, the worst leaf's update rel-Frobenius, its
+    index, its update's norm over the median leaf's) of two ``_one_step``
+    results."""
+    import torch
+
+    upd = [(torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b)).item() for a, b in zip(x[1], y[1])]
+    worst = max(range(len(upd)), key=upd.__getitem__)
+    norms = sorted(torch.linalg.vector_norm(b).item() for b in y[1])
+    whole = (torch.cat([(a - b).flatten() for a, b in zip(x[1], y[1])])
+             .norm() / torch.cat([b.flatten() for b in y[1]]).norm()).item()
+    return (abs(x[0] - y[0]) / abs(y[0]), whole,
+            max((a - b).abs().max().item() for a, b in zip(x[2], y[2])),
+            upd[worst], worst,
+            torch.linalg.vector_norm(y[1][worst]).item()
+            / norms[len(norms) // 2])
+
+
+def dist_engine(args, dev, smi, train_rows):
+    """Step 38b: the dp engine against the single-device engine, card
+    against card, on the same batch.  First ResNet-18 width 8, batch 8,
+    16^2 (``tests/test_torch_engine.py``'s) over dp = 2 on cuDNN's
+    deterministic algorithms, held to the step-32 gates (the loss, every
+    leaf's update, the BN state).  Then ResNet-50 width 64, batch
+    ``TRAIN_BATCH``, 224^2, f32, over dp = 2 for ``DIST_ENGINE_STEPS``
+    steps.  On the deterministic algorithms the first step's loss is held
+    to the step-32 gate and its whole update to ``DIST_UPDATE_TOL``, and
+    two planted faults (``_planted``) must read above that limit; the
+    worst leaf, the BN state and the second step's loss are printed, and
+    beside them the one-device step on the batch moved one f32 ulp up, the
+    step's own conditioning.  On the default algorithms (the main path's)
+    the same readings stand beside two single-device steps' spread.  The
+    other steps are timed beside step 33's, with the peak memory and a
+    profiled step's split."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from xsmm_tpu_torch.models import resnet
+    from xsmm_tpu_torch.models.engine import synthetic_batches
+    from xsmm_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+
+    mesh = make_mesh((2, 1), ("dp", "mp"), devices=virtual_devices(2))
+    saved = torch.backends.cudnn.deterministic
+    # tests/test_torch_engine.py's model and batch
+    params, fwd = resnet(depth=18, width=8, num_classes=10,
+                         input_shape=(8, 16, 16, 3))
+    from xsmm_tpu_torch.models.engine import template_batches
+    small = next(template_batches(1, 8, hw=16))
+    before = [t.detach().double().cpu() for _, t in _leaves(params["layers"])]
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = [_one_step(params, fwd, small, m, before)[:3]
+               for m in (None, mesh)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    sd = _step_diff(res[1], res[0])
+    leaf_ok = all((torch.linalg.vector_norm(a - b)
+                   / torch.linalg.vector_norm(b)).item() <= STEP_UPDATE_TOL
+                  for a, b in zip(res[1][1], res[0][1]))
+    small_ok = (sd[0] <= STEP_LOSS_TOL and leaf_ok
+                and sd[2] <= STEP_STATE_TOL)
+    print(f"dist engine resnet18 width8 batch 8 16^2 over dp=2, one step "
+          f"against the single-device engine's (cuDNN deterministic): loss "
+          f"rel {sd[0]:.3e} (tol {STEP_LOSS_TOL:g}), worst leaf's update "
+          f"rel-Frobenius {sd[3]:.3e} (tol {STEP_UPDATE_TOL:g}), whole update "
+          f"{sd[1]:.3e}, BN state max abs {sd[2]:.3e} (tol "
+          f"{STEP_STATE_TOL:g}) {'pass' if small_ok else 'FAIL'}  [{smi}]")
+    if not small_ok:
+        raise RuntimeError("the dp engine disagrees with the single-device "
+                           "engine (ResNet-18)")
+
+    n, hw, classes = TRAIN_BATCH, 224, 1000
+    batches = list(synthetic_batches(DIST_ENGINE_STEPS, n, hw=hw,
+                                     classes=classes, seed=args.seed))
+    params, fwd = resnet(depth=50, width=64, num_classes=classes,
+                         input_shape=(n, hw, hw, 3), seed=args.seed)
+    keys = [k for k, _ in _leaves(params["layers"])]
+    before = [t.detach().double().cpu() for _, t in _leaves(params["layers"])]
+    x0, y0 = batches[0]
+    ulp = (np.nextafter(x0, np.float32(np.inf)), y0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        one, dp = (_one_step(params, fwd, batches[0], m, before,
+                             then=batches[1]) for m in (None, mesh))
+        one, dp = ([*r[:3], r[4]] for r in (one, dp))
+        moved = _one_step(params, fwd, ulp, None, before)[:3]
+        faults = {k: _one_step(params, fwd, batches[0], mesh, before,
+                               loss_fn=_planted(k))[:3]
+                  for k in ("dropped", "doubled")}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+    one_a = _one_step(params, fwd, batches[0], None, before)[:3]
+    one_b = _one_step(params, fwd, batches[0], None, before)[:3]
+    torch.cuda.empty_cache()
+    *dp_def, eng, _ = _one_step(params, fwd, batches[0], mesh, before)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = eng.train_epoch(iter(batches[1:]), verbose=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.step"):
+            eng.train_epoch(iter(batches[1:2]), verbose=False)
+            torch.cuda.synchronize()
+    split, busy_ms, window_ms, idle = step_split(prof)
+    reps_equal = all(torch.equal(a, b) for a, b in
+                     zip(eng._rep_leaves[0], eng._rep_leaves[1]))
+    del eng, prof
+    torch.cuda.empty_cache()
+    gated = _step_diff(dp, one)
+    second = abs(dp[3] - one[3]) / abs(one[3])
+    cond = _step_diff(moved, one)
+    planted = {k: _step_diff(v, one)[1] for k, v in faults.items()}
+    spread = _step_diff(one_b, one_a)
+    default = _step_diff(dp_def, one_a)
+    step_ms = 1e3 * n / timed["images_per_s"]
+    one_ms = train_rows["float32"]["step_ms"]
+    caught = all(v > DIST_UPDATE_TOL for v in planted.values())
+    ok = (gated[0] <= STEP_LOSS_TOL and gated[1] <= DIST_UPDATE_TOL
+          and caught and reps_equal
+          and np.isfinite(timed["losses"]).all())
+
+    def diff(t):
+        return (f"loss rel {t[0]:.3e}, whole update {t[1]:.3e}, BN state "
+                f"{t[2]:.3e}, worst leaf {keys[t[4]]} {t[3]:.3e} (its "
+                f"update {t[5]:.3g}x the median leaf's)")
+    print(f"dist engine resnet50 width64 f32 batch {n} {hw}^2 over dp=2 "
+          f"(virtual ranks on one card), the first step against the "
+          f"single-device engine's, cuDNN deterministic: loss "
+          f"{dp[0]:.6f} / {one[0]:.6f}, {diff(gated)} (tol: the loss "
+          f"{STEP_LOSS_TOL:g}, the whole update {DIST_UPDATE_TOL:g}); the "
+          f"second step's loss {dp[3]:.6f} / {one[3]:.6f} rel {second:.3e}; "
+          f"the one-device step with every input "
+          f"one f32 ulp up against it (the step's own conditioning): "
+          f"{diff(cond)}; planted faults' whole update (must exceed "
+          f"{DIST_UPDATE_TOL:g}): a rank's share dropped "
+          f"{planted['dropped']:.3e}, the shares doubled "
+          f"{planted['doubled']:.3e}; "
+          f"cuDNN default: dp against one {diff(default)}; one against one "
+          f"(the run-to-run spread) {diff(spread)}; replicas equal "
+          f"{reps_equal} {'pass' if ok else 'FAIL'}  [{smi}]")
+    print(f"dist engine resnet50 dp=2 {DIST_ENGINE_STEPS - 1} timed steps: "
+          f"{step_ms:.2f} ms a step ({timed['images_per_s']:.1f} images/s) "
+          f"against step 33's {one_ms:.2f} ms; losses {timed['losses']}; "
+          f"peak memory {peak_gb:.2f} GB; one profiled step, device ms: "
+          + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                      else f"{k}: {v}" for k, v in split.items())
+          + f"; busy {busy_ms:.3f} of {window_ms:.3f} ms, idle share "
+            f"{idle:.4f} profiled, {max(0.0, 1 - busy_ms / step_ms):.4f} "
+            f"against the timed step  [{smi}]")
+    if not caught:
+        raise RuntimeError("the dp engine's update gate does not tell a "
+                           "planted fault from a sound step")
+    if not ok:
+        raise RuntimeError("the dp engine disagrees with the single-device "
+                           "engine")
+    return {"step_ms": step_ms, "one_step_ms": one_ms, "peak_gb": peak_gb,
+            "busy_ms": busy_ms, "idle_share": idle,
+            "deterministic": gated, "second_loss": second,
+            "conditioning": cond, "planted": planted,
+            "default": default, "spread": spread}
+
+
+def dist_entry(args, dev, smi):
+    """Step 39: ``entry.dryrun_multichip(4)`` (4 virtual ranks on the card)
+    and ``launch_dryrun(2, 2)`` (two processes of two ranks sharing the
+    card over gloo, every cross-process hop staged through host memory)."""
+    from xsmm_tpu_torch import entry
+    from xsmm_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    got = entry.dryrun_multichip(4)
+    print(f"dist entry dryrun_multichip(4): {got} in "
+          f"{time.perf_counter() - t0:.2f} s pass  [{smi}]")
+    fn, x = entry.entry()
+    out = fn(*x)
+    if tuple(out.shape) != (8, 100) or not bool(out.isfinite().all()):
+        raise RuntimeError(f"entry(): {tuple(out.shape)}")
+    t0 = time.perf_counter()
+    lines = multihost.launch_dryrun(2, 2, timeout_s=300, device="cuda")
+    print(f"dist entry launch_dryrun(2, 2) on the card: {len(lines)} workers "
+          f"OK in {time.perf_counter() - t0:.2f} s  [{smi}]")
+    if len(lines) != 2 or "staged" not in lines[0]:
+        raise RuntimeError("launch_dryrun: a worker did not report")
+
+
+def distributed_phase(args, dev, smi, rows, train_rows):
+    """Steps 36 to 39 of the module docstring (the distributed layer)."""
+    import torch
+    from xsmm_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    max_abs = {}
+    counts = {}
+    counts.update(dist_ring(args, dev, smi, max_abs))
+    torch.cuda.empty_cache()
+    counts.update(dist_wrappers(args, dev, smi, max_abs))
+    torch.cuda.empty_cache()
+    dist_sync_bn(args, dev, smi)
+    torch.cuda.empty_cache()
+    eng = dist_engine(args, dev, smi, train_rows)
+    torch.cuda.empty_cache()
+    pmesh.reset_counts()
+    dist_entry(args, dev, smi)
+    for row in rows:
+        if row["name"] in DIST_KERNELS:
+            row["dist_launches"] = counts.get(row["name"], 0)
+            row["dist_max_abs_err"] = max_abs.get(row["name"], 0.0)
+    print(f"dist path kernel launches (each set to 0 before its step): "
+          + json.dumps({k: counts.get(k, 0) for k in DIST_KERNELS})
+          + f"; steps 36-39 in {time.perf_counter() - t0:.1f} s")
+    return eng
 
 
 def main() -> int:
@@ -4023,7 +4729,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     runtime_phase(args, dev, smi, native_s)
     torch.cuda.empty_cache()
-    training_phase(args, dev, smi)
+    train_rows = training_phase(args, dev, smi)
+    torch.cuda.empty_cache()
+    distributed_phase(args, dev, smi, rows, train_rows)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -755,9 +755,58 @@ def test_batchnorm_forward_from_moments(rng, fuse):
 
 
 def test_batchnorm_sync_needs_parallel():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        pd.create_fusedbatchnorm(pd.BnDesc(n=2, c=4, h=3, w=3),
-                                 axis_name="dp")
+    """Cross-replica BN takes its replicas as a sequence (one controller
+    drives the axis); a lone tensor is refused with the reason."""
+    bn = pd.create_fusedbatchnorm(pd.BnDesc(n=2, c=4, h=3, w=3),
+                                  axis_name="dp")
+    assert bn.axis_name == "dp"
+    x = torch.ones((2, 3, 3, 4))
+    ys, states = bn.forward([x, 2 * x], torch.ones(4), torch.zeros(4))
+    assert len(ys) == len(states) == 2
+    # the moments are averaged across the replicas: mean 1.5, var 0.25
+    assert torch.allclose(states[0].mean, torch.full((4,), 1.5))
+    assert torch.allclose(states[1].var, torch.full((4,), 0.25))
+    with pytest.raises(ValueError, match="one tensor a replica"):
+        bn.forward(x, torch.ones(4), torch.zeros(4))
+
+
+@pytest.mark.parametrize("replicas", [2, 4])
+@pytest.mark.parametrize("fuse", ["BN", "RELU", "ELTWISE_RELU"])
+def test_sync_bn_matches_global_batch(rng, replicas, fuse):
+    """Cross-replica BN over 2 and 4 replicas equals the single-device BN
+    on the whole batch, the port's and the JAX package's (JAX's own check
+    is tests/test_dnn.py's test_sync_bn_matches_global_batch), forward and
+    backward: y, dx, dgamma, dbeta (and dresidual) at 1e-5."""
+    f = getattr(pd.BnFuse, fuse)
+    x = rng.standard_normal((8, 4, 4, 6)).astype(np.float32) * 2 + 1
+    gamma = rng.standard_normal((6,)).astype(np.float32)
+    beta = rng.standard_normal((6,)).astype(np.float32)
+    dy = rng.standard_normal((8, 4, 4, 6)).astype(np.float32)
+    res = (rng.standard_normal((8, 4, 4, 6)).astype(np.float32)
+           if "ELTWISE" in fuse else None)
+    jb, pb = _bn_pair(n=8, c=6, h=4, w=4, fuse=f)
+    jy, jst = jb.forward(x, gamma, beta, res)
+    jback = jb.backward(dy, gamma, jst)
+    py, pst = pb.forward(x, gamma, beta, res)
+    pback = pb.backward(dy, gamma, pst)
+    bn = pd.create_fusedbatchnorm(pd.BnDesc(n=8 // replicas, c=6, h=4, w=4,
+                                            fuse=f), axis_name="dp")
+    split = lambda v: [torch.from_numpy(p) for p in np.split(v, replicas)]
+    ys, sts = bn.forward(split(x), torch.from_numpy(gamma),
+                         torch.from_numpy(beta),
+                         None if res is None else split(res))
+    back = bn.backward(split(dy), torch.from_numpy(gamma), sts)
+    got = [torch.cat(ys), torch.cat(back[0]), back[1][0], back[2][0]]
+    if res is not None:
+        got.append(torch.cat(back[3]))
+    for want in ([jy] + list(jback), [py] + list(pback)):
+        for name, w, g in zip(("y", "dx", "dgamma", "dbeta", "dresidual"),
+                              want, got):
+            _close(w, g, PARITY, f"sync bn {name}")
+    # every replica carries the same summed dgamma and dbeta
+    for r in range(1, replicas):
+        assert torch.equal(back[1][r], back[1][0])
+        assert torch.equal(back[2][r], back[2][0])
 
 
 # ------------------------------------------------------- parameters, chain --

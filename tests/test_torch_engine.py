@@ -36,6 +36,7 @@ from xsmm_tpu.parallel.mesh import make_mesh
 from xsmm_tpu_torch.models import engine as pe
 from xsmm_tpu_torch.models import params_from_jax
 from xsmm_tpu_torch.models.engine import tree_flatten_with_path
+from xsmm_tpu_torch.parallel import mesh as pmesh
 
 LOSS = 1e-5
 UPDATE = 1e-3
@@ -54,6 +55,11 @@ def cpu_target():
 def mesh1():
     """The JAX engine's mesh over every (virtual CPU) device."""
     return make_mesh((len(jax.devices()), 1), ("dp", "mp"))
+
+
+def port_mesh(dp, mp=1):
+    """The port's mesh of dp x mp ranks, every one on the CPU."""
+    return pmesh.make_mesh((dp, mp), devices=["cpu"] * (dp * mp))
 
 
 def flat(tree):
@@ -292,8 +298,14 @@ def test_device_batch_makers():
     xs = [b for b, _ in pe.device_template_batches(2, 8, hw=4, sigma=0.6)]
     assert len(xs) == 2 and not torch.equal(xs[0], xs[1])
     assert len(list(pe.device_synthetic_batches(3, 2, hw=4))) == 3
-    with pytest.raises(NotImplementedError, match="item 7"):
-        next(pe.device_synthetic_batches(1, 2, sharding=object()))
+    # over a mesh: each batch split along "dp" over the ranks
+    mesh = port_mesh(4)
+    x, y = next(pe.device_synthetic_batches(1, 8, hw=4, classes=5,
+                                            sharding=pmesh.dp_sharding(mesh)))
+    assert isinstance(x, pmesh.Sharded) and x.shape == (8, 4, 4, 3)
+    assert len(x.shards) == 4 and tuple(x.shards[0].shape) == (2, 4, 4, 3)
+    assert y.shape == (8,) and tuple(y.spec) == ("dp",)
+    assert 0 <= int(y.gather().min()) <= int(y.gather().max()) < 5
 
 
 def test_scan_epoch_equals_eager_loop_and_learns():
@@ -314,9 +326,15 @@ def test_scan_epoch_equals_eager_loop_and_learns():
 
 
 def test_mesh_raises_and_dropout_fires():
+    """A port mesh is taken (dropout fires over its ranks too); the JAX
+    package's mesh is not one."""
     params, fwd = pm.alexnet(num_classes=10, input_shape=(4, 64, 64, 3))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="parallel.mesh.Mesh"):
         pe.MLEngine(params, fwd, pe.SolverConfig(), mesh=mesh1())
+    on_mesh = pe.MLEngine(params, fwd, pe.SolverConfig(lr=0.0,
+                                                       weight_decay=0.0,
+                                                       momentum=0.0),
+                          mesh=port_mesh(2))
     eng = pe.MLEngine(params, fwd, pe.SolverConfig(lr=0.0, weight_decay=0.0,
                                                    momentum=0.0))
     assert eng._train_kwargs
@@ -326,6 +344,10 @@ def test_mesh_raises_and_dropout_fires():
     out = eng.train_epoch(iter([(x, y)]), verbose=False)
     ev = eng.validate(iter([(x, y)]))
     assert not np.isclose(out["loss"], ev["loss"], rtol=1e-6)
+    out = on_mesh.train_epoch(iter([(x, y)]), verbose=False)
+    ev2 = on_mesh.validate(iter([(x, y)]))
+    assert not np.isclose(out["loss"], ev2["loss"], rtol=1e-6)
+    assert ev2["loss"] == pytest.approx(ev["loss"], rel=1e-5)
 
 
 def test_training_converges():
@@ -341,3 +363,119 @@ def test_training_converges():
                                            epoch=99))
     assert losses[-1] < 0.6 * losses[0], losses
     assert val["acc"] >= 0.6, (val, losses)
+
+
+# ----------------------------------------------------------- over a mesh --
+
+
+def check_momentum(j_eng, p_eng):
+    for (k, a), (_, b) in zip(flat(j_eng.momentum), pflat(p_eng.momentum)):
+        assert rel(a, b) <= UPDATE, k
+
+
+def check_replicas(p_eng):
+    """Every rank's replica of the parameters, momentum and BN state is
+    rank 0's, bit for bit."""
+    for reps in (p_eng._rep_params, p_eng._rep_moms, p_eng._rep_states):
+        for rep in reps[1:]:
+            for (k, a), (_, b) in zip(pflat(reps[0]), pflat(rep)):
+                assert np.array_equal(a, b), k
+
+
+def test_mesh_engine_equals_jax(jax_run):
+    """The port's engine over make_mesh((4, 1)) against the JAX engine over
+    its 8-device mesh, two steps on the same batches, each from the same
+    state: step 1 from the initial parameters; step 2 resumed on the mesh
+    from the JAX engine's checkpoint after step 1.  Loss, every update,
+    the momentum and the BN state at the module's tolerances."""
+    p_eng = port_engine(params_from_jax(jax_run["jp"]), mesh=port_mesh(4))
+    po = p_eng.train_epoch(iter(jax_run["batches"][:1]), verbose=False)
+    assert abs(po["loss"] - jax_run["loss1"]) <= LOSS * abs(jax_run["loss1"])
+    params, state, _ = jax_run["after1"]
+    j = types.SimpleNamespace(params=params, state=state)
+    check_updates(j, p_eng, jax_run["p0"], UPDATE)
+    check_state(j, p_eng)
+    check_replicas(p_eng)
+    pp, _ = pm.resnet(**RESNET)
+    p2 = port_engine(pp, mesh=port_mesh(4), checkpoint_dir=jax_run["dir"])
+    assert p2.resume(tag="one") and p2.step == 1
+    check_replicas(p2)
+    po = p2.train_epoch(iter(jax_run["batches"][1:]), verbose=False)
+    assert abs(po["loss"] - jax_run["loss2"]) <= LOSS * abs(jax_run["loss2"])
+    check_updates(jax_run["eng"], p2, params, UPDATE)
+    check_momentum(jax_run["eng"], p2)
+    check_state(jax_run["eng"], p2)
+    check_replicas(p2)
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_mesh_step_equals_one_device(dp):
+    """A (dp, 1) step equals the one-device engine's on the whole batch
+    (the loss, each leaf's update, the BN state), and a (2, 2) mesh's mp
+    ranks are replicas of their dp rank.  One step from the same state:
+    over two, the roundings of the first step's sums (in another order on
+    the ranks) move the second step's loss by ~2e-5, as they move the
+    one-device engine's against the JAX package's by ~1e-5."""
+    pp, pf = pm.resnet(**RESNET)
+    batches = list(pe.template_batches(1, 8, hw=16))
+    one = pe.MLEngine(pp, pf, pe.SolverConfig(lr=0.05))
+    lo = one.train_epoch(iter(batches), verbose=False)["losses"]
+    base = dict(pflat({"layers": pp["layers"]}))
+    for mesh in (port_mesh(dp), port_mesh(2, 2)):
+        eng = pe.MLEngine(pp, pf, pe.SolverConfig(lr=0.05), mesh=mesh)
+        lm = eng.train_epoch(iter(batches), verbose=False)["losses"]
+        assert np.allclose(lo, lm, rtol=LOSS, atol=0)
+        for (k, a), (_, b) in zip(pflat(one.params), pflat(eng.params)):
+            assert rel(a - base[k], b - base[k]) <= UPDATE, k
+        for (k, a), (_, b) in zip(pflat(one.state), pflat(eng.state)):
+            assert np.abs(a - b).max() <= STATE, k
+        check_replicas(eng)
+
+
+def test_mesh_scan_epoch_and_validate():
+    """``train_epoch_scan`` over the mesh (eager on the CPU) runs the
+    steps of ``train_epoch`` on the same generator's batches, and
+    ``validate`` over the mesh equals the one-device engine's."""
+    params, fwd = pm.lenet(num_classes=10)
+    mesh = port_mesh(2)
+    a = pe.MLEngine(params, fwd, pe.SolverConfig(lr=0.002), mesh=mesh)
+    b = pe.MLEngine(params, fwd, pe.SolverConfig(lr=0.002), mesh=mesh)
+    bf = pe.template_batch_fn(16, hw=28, classes=10, chans=1)
+    gen = torch.Generator().manual_seed(b.scan_seed(0))
+    first = a.train_epoch_scan(4, bf, 16, verbose=False)
+    ref = b.train_epoch((bf(gen) for _ in range(4)), verbose=False)
+    assert first["losses"] == ref["losses"] and a.step == 4
+    check_replicas(a)
+    one = pe.MLEngine(params, fwd, pe.SolverConfig(lr=0.002))
+    one.train_epoch_scan(4, bf, 16, verbose=False)
+    val = list(pe.template_batches(2, 16, hw=28, classes=10, chans=1,
+                                   epoch=3))
+    va, vo = a.validate(iter(val)), one.validate(iter(val))
+    assert va["loss"] == pytest.approx(vo["loss"], rel=1e-4)
+    assert va["acc"] == vo["acc"] and va["acc5"] == vo["acc5"]
+
+
+def test_mesh_checkpoint_resume_across_single_device(tmp_path):
+    """A mesh engine's checkpoint (rank 0's replica, the same files and
+    keys) resumes in a one-device engine, and back: every replica takes
+    it."""
+    kw = dict(depth=18, num_classes=10, width=4, input_shape=(4, 16, 16, 3))
+    pp, pf = pm.resnet(**kw)
+    d = str(tmp_path)
+    eng = pe.MLEngine(pp, pf, pe.SolverConfig(lr=0.01), mesh=port_mesh(2),
+                      checkpoint_dir=d)
+    eng.train_epoch(pe.synthetic_batches(2, 4, hw=16), verbose=False)
+    one = pe.MLEngine(pp, pf, pe.SolverConfig(lr=0.01), checkpoint_dir=d)
+    assert one.resume() and (one.epoch, one.step) == (1, 2)
+    for tree in ("params", "momentum", "state"):
+        for (k, a), (_, b) in zip(pflat(getattr(eng, tree)),
+                                  pflat(getattr(one, tree))):
+            assert np.array_equal(a, b), (tree, k)
+    one.train_epoch(pe.synthetic_batches(1, 4, hw=16, seed=5), verbose=False)
+    one.checkpoint(tag="one")
+    back = pe.MLEngine(pp, pf, pe.SolverConfig(lr=0.01), mesh=port_mesh(4),
+                       checkpoint_dir=d)
+    assert back.resume(tag="one") and back.step == 3
+    check_replicas(back)
+    for (k, a), (_, b) in zip(pflat(one.params), pflat(back.params)):
+        assert np.array_equal(a, b), k

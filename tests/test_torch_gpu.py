@@ -2089,3 +2089,156 @@ def test_loader_feeds_the_card(cuda, tmp_path, native):
         assert torch.equal(x.cpu(), torch.from_numpy(hx))
         assert torch.equal(y.cpu(), torch.from_numpy(hy))
 
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer: virtual ranks on cuda:0, each with its own streams
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,schedule", [("float32", None),
+                                            ("float64", "split2"),
+                                            ("float64", "fold")])
+def test_ring_block_kernels_equal_plain(cuda, dtype, schedule):
+    """``ring_spmm_csr`` over 2 and 4 virtual ranks, chunks 2: the result
+    against f64 gold, each block kernel of the ring against its plain
+    version on the ring's own panels, bit for bit, and the launches
+    counted (step 0 on kernel 5 or 6, the others on 7 or 8)."""
+    from xsmm_tpu_torch.ops import spgemm_kernels as sk
+    from xsmm_tpu_torch.parallel import dist_spmm
+    from xsmm_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(7)
+    a = np.where(rng.random((70, 90)) < 0.1,
+                 rng.standard_normal((70, 90)), 0.0)
+    n = 4096
+    for d in (2, 4):
+        mesh = make_mesh((1, d), devices=[cuda] * d)
+        k = -(-90 // d) * d
+        b = torch.zeros((k, n), dtype=torch.float64, device=cuda)
+        b[:90] = torch.randn((90, n), dtype=torch.float64, device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(d))
+        bh = b.float()
+        streams = [bh, (b - bh.double()).float()] if schedule == "split2" \
+            else [bh]
+        sk.reset_launches()
+        fn = dist_spmm.ring_spmm_csr(
+            mesh, a.astype(np.float32) if schedule is None else a, n,
+            dtype=dtype, chunks=2, f64_schedule=schedule or "split2")
+        out = fn(*[dist_spmm.shard_rows(mesh, s) for s in streams])
+        out = out if isinstance(out, tuple) else (out,)
+        c = sum(o.gather().double() for o in out)[:70]
+        torch.cuda.synchronize()
+        gold = torch.from_numpy(a).to(cuda) @ b[:90]
+        err = ((c - gold).norm() / gold.norm()).item()
+        assert err < (1e-3 if schedule is None else 1e-5), err
+        kind = "f32" if schedule is None else "f64"
+        assert sk.launches[f"spgemm_unroll_{kind}"] >= 1
+        assert sk.launches[f"spgemm_acc_{kind}"] >= 1
+        for e in range(d):
+            for j in range(d):
+                kern = fn.kernels[e][j]
+                if kern is None:
+                    continue
+                o = kern._operand(cuda)
+                panels = [s[j * (k // d):(j + 1) * (k // d), :kern.n]
+                          .contiguous() for s in streams]
+                cin = torch.randn((o.m, kern.n), device=cuda)
+                if schedule is None:
+                    _same(sk.unroll_f32(o, *panels),
+                          sk.unroll_f32_plain(o, *panels))
+                    _same(sk.acc_f32(o, cin, *panels),
+                          sk.acc_f32_plain(o, cin, *panels))
+                    continue
+                c_lo = schedule == "split2"
+                cl = cin * 1e-8 if c_lo else None
+                for got, want in (
+                        (sk.unroll_f64(o, *panels, c_lo=c_lo),
+                         sk.unroll_f64_plain(o, *panels, c_lo=c_lo)),
+                        (sk.acc_f64(o, cin, cl, *panels),
+                         sk.acc_f64_plain(o, cin, cl, *panels))):
+                    for g_, w_ in zip(got if c_lo else (got,),
+                                      want if c_lo else (want,)):
+                        _same(g_, w_)
+
+
+def test_ring_stream_event_order(cuda, tmp_path):
+    """The ring's hops wait on their sub-panel's compute (no hop hoisted),
+    (d - 1) x chunks hops a rank, read back from a profiler trace."""
+    from xsmm_tpu_torch.parallel import schedule_check
+    st = schedule_check.check_ring(d=4, chunks=4, n=16384,
+                                   trace_path=str(tmp_path / "ring.json"))
+    assert st["hops_ok"] and st["order_ok"], st
+    assert st["device_events"] > 0
+
+
+def test_dp_engine_equals_single_device_on_card(cuda):
+    """MLEngine over 2 virtual ranks on cuda:0 against the single-device
+    engine on the card: one step of tests/test_torch_engine.py's ResNet-18
+    on the same batch (the loss to 1e-5, each update to 1e-3, the BN state
+    to 1e-4), the replicas equal.
+    On cuDNN's deterministic algorithms: on its default ones the weight
+    gradients differ from run to run (the smoke's step 38 prints both)."""
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
+    from xsmm_tpu_torch.models.engine import (template_batches,
+                                              tree_flatten_with_path)
+    from xsmm_tpu_torch.parallel.mesh import make_mesh
+    params, fwd = resnet(depth=18, num_classes=10, width=8,
+                         input_shape=(8, 16, 16, 3))
+    p0 = [t.detach().clone() for _, t in
+          tree_flatten_with_path({"layers": params["layers"]})]
+    batch = next(template_batches(1, 8, hw=16))
+    engs = [MLEngine(params, fwd, SolverConfig(lr=0.05), mesh=m)
+            for m in (None, make_mesh((2, 1), devices=[cuda] * 2))]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = [e.train_epoch(iter([batch]), verbose=False)["loss"]
+                  for e in engs]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for (k, a), (_, b), c in zip(tree_flatten_with_path(engs[0].params),
+                                 tree_flatten_with_path(engs[1].params),
+                                 p0):
+        ua, ub = (a - c).double(), (b - c).double()
+        assert ((ua - ub).norm() / ua.norm()).item() <= 1e-3, k
+    for (k, a), (_, b) in zip(tree_flatten_with_path(engs[0].state),
+                              tree_flatten_with_path(engs[1].state)):
+        assert (a - b).abs().max().item() <= 1e-4, k
+    for a, b in zip(engs[1]._rep_leaves[0], engs[1]._rep_leaves[1]):
+        assert torch.equal(a, b)
+
+
+def test_cuda_graph_epoch_over_a_mesh_equals_eager_loop(cuda):
+    """``train_epoch_scan`` over 2 virtual ranks on cuda:0 (one CUDA graph
+    holding both ranks' steps, the batch split inside it) against the mesh
+    engine's ``train_epoch`` over the same generator's batches: the losses
+    step by step and every replica bit for bit (cuDNN's deterministic
+    algorithms, as test_cuda_graph_epoch_equals_eager_loop)."""
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
+    from xsmm_tpu_torch.models.engine import (template_batch_fn,
+                                              tree_flatten_with_path)
+    from xsmm_tpu_torch.parallel.mesh import make_mesh
+    b = 16
+    params, fwd = resnet(18, num_classes=10, width=8,
+                         input_shape=(b, 16, 16, 3))
+    bf = template_batch_fn(b, hw=16, classes=10)
+    engs = [MLEngine(params, fwd, SolverConfig(lr=0.002),
+                     mesh=make_mesh((2, 1), devices=[cuda] * 2))
+            for _ in range(2)]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            og = engs[0].train_epoch_scan(4, bf, b, verbose=False)
+            gen = torch.Generator(device=cuda).manual_seed(
+                engs[1].scan_seed(0))
+            oe = engs[1].train_epoch((bf(gen) for _ in range(4)),
+                                     verbose=False)
+            assert og["losses"] == oe["losses"]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for ra, rb in zip(engs[0]._rep_params, engs[1]._rep_params):
+        for (k, a), (_, c) in zip(tree_flatten_with_path(ra),
+                                  tree_flatten_with_path(rb)):
+            assert torch.equal(a, c), k

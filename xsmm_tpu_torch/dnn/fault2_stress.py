@@ -161,11 +161,50 @@ def cpu_products(x, w, r, h0) -> str:
             f"{bad[:16]}); " + cpu_state())
 
 
+# CPU flags under which oneDNN may run an f32 product at reduced precision
+_ISA_FLAGS = ("amx_bf16", "amx_fp16", "amx_tile", "avx512_bf16",
+              "avx512_fp16")
+
+
+def cpu_isa() -> str:
+    """Which of ``_ISA_FLAGS`` the host CPU reports (``/proc/cpuinfo``)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = next((ln.split(":", 1)[1].split() for ln in f
+                          if ln.startswith("flags")), [])
+    except OSError as e:
+        return f"cpu flags unreadable ({e})"
+    have = [fl for fl in _ISA_FLAGS if fl in flags]
+    return "cpu flags " + (" ".join(have) if have else "none of " +
+                           " ".join(_ISA_FLAGS))
+
+
+def precision_facts() -> str:
+    """The facts that would rule in a product at reduced precision on the
+    host: the ISA flags oneDNN may use, the f32 matmul precision (the
+    legacy setting and oneDNN's fp32 precision where torch has it) and
+    the thread count."""
+    import torch
+
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError as e:  # the per-backend API was used
+        legacy = f"unreadable ({str(e).splitlines()[0][:60]})"
+    mkl = getattr(torch.backends, "mkldnn", None)
+    onednn = "; ".join(
+        f"{name} {getattr(obj, 'fp32_precision', 'absent')}"
+        for name, obj in (("mkldnn fp32_precision", mkl),
+                          ("mkldnn matmul fp32_precision",
+                           getattr(mkl, "matmul", None))))
+    return (f"{cpu_isa()}; f32 matmul precision {legacy}; {onednn}; "
+            f"threads {torch.get_num_threads()}")
+
+
 def products_report(kept, label: str = "") -> str:
     """The products one call kept (``rnn_seq.keep_products``: its own x@W
     and each step's h@R, not recomputed), each against f64 from the same
     operands: rel-Frobenius, and the worst element with its index; a
-    product beyond 1e-6 is marked OFF."""
+    product beyond 1e-6 is marked OFF.  Ends with ``precision_facts``."""
     import torch
 
     parts = []
@@ -181,8 +220,9 @@ def products_report(kept, label: str = "") -> str:
         parts.append(f"{tag} {err:.3e}{' OFF' if err > 1e-6 else ''} "
                      f"(worst {idx}: {out.flatten()[int(d.argmax())].item()!r}"
                      f" vs {gold.flatten()[int(d.argmax())].item()!r})")
-    return (f"{label} call's own products vs f64: " + "; ".join(parts)
-            if parts else f"{label} call kept no product")
+    return ((f"{label} call's own products vs f64: " + "; ".join(parts)
+             if parts else f"{label} call kept no product")
+            + "; " + precision_facts())
 
 
 def rnn_diagnosis(name, card, cpu, gold) -> str:

@@ -36,6 +36,17 @@ Spec types (GxM node analog in parens):
   {"type": "aux_head", "classes"[, ...]}          (train-only classifier tap)
   {"type": "global_avg_pool"} / {"type": "flatten"}
 
+Over a mesh (``parallel/mesh.py``) the graph runs **in lock-step over
+the ranks**: the input is a ``Ranks`` value (one tensor a local rank, with
+the mesh and its data and model axes), the parameters one structure a
+rank, and each node is applied to every rank's tensor in turn, the paths
+of branch nodes too.  The BN nodes (and the fused conv+BN node) combine
+the ranks' moments over the data axis with the mesh's collectives (the
+JAX package's global batch statistics under ``jit``); an FC node whose
+weight holds a column shard (tensor parallel over the model axis)
+all-gathers its logits.  Torch ops throughout, so one
+``torch.autograd.grad`` differentiates every rank's step.
+
 Stated difference: dropout draws from a ``torch.Generator`` (``rng=``)
 where the JAX package splits a key, so its bits differ; its rate, its
 scale and its identity in eval are the same.
@@ -50,8 +61,9 @@ import torch
 
 from ..core import platform
 from ..ops.smm import as_tensor
+from ..parallel import mesh as _mesh
 from ..utils import trace
-from .batchnorm import create_fusedbatchnorm
+from .batchnorm import _mean_over, _sum_over, create_fusedbatchnorm
 from .conv import create_conv_layer
 from .fullyconnected import create_fullyconnected_layer
 from .pooling import create_pooling_layer
@@ -123,15 +135,65 @@ def _param(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(dev)
 
 
+class Ranks(list):
+    """One lock-step value: a tensor a local rank of ``mesh`` (in
+    ``mesh.local_ranks()`` order), with the mesh's data axis (batch shards,
+    BN statistics combined over it) and model axis (tensor-parallel FC
+    shards gathered over it).  Without a mesh the ranks are the list's
+    members; one device is a list of one."""
+
+    def __init__(self, values, mesh=None, data_axis: str = "dp",
+                 model_axis: str = "mp"):
+        super().__init__(values)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+
+    def like(self, values) -> "Ranks":
+        return Ranks(values, self.mesh, self.data_axis, self.model_axis)
+
+    def pmean(self, values):
+        """The mean over the data axis (over the list without a mesh)."""
+        if self.mesh is None:
+            return _mean_over(values)
+        return _mesh.pmean(self.mesh, self.data_axis, values)
+
+    def psum(self, values):
+        """The sum over the data axis (over the list without a mesh)."""
+        if self.mesh is None:
+            return _sum_over(values)
+        return _mesh.psum(self.mesh, self.data_axis, values)
+
+    @property
+    def data_size(self) -> int:
+        return len(self) if self.mesh is None else \
+            self.mesh.shape[self.data_axis]
+
+
+def _pick(p: Ranks, i):
+    """Item ``i`` of every rank's parameters."""
+    return Ranks([q[i] for q in p])
+
+
 def _scoped(name: str, node: Callable) -> Callable:
+    """The node inside a trace scope, run once a rank unless it combines
+    the ranks itself (``node.lockstep``)."""
+    lockstep = getattr(node, "lockstep", False)
+
     def run(p, x, ctx):
         with trace.scope(name):
-            return node(p, x, ctx)
+            if lockstep:
+                return node(p, x, ctx)
+            return x.like([node(pi, xi, ctx) for pi, xi in zip(p, x)])
     return run
 
 
 class Graph:
     """A built layer graph: handles + init params + functional forward.
+
+    Every node runs over ``Ranks``: a tensor given to the graph is one
+    rank (its parameters and state one structure), and the result comes
+    back as a tensor.
 
     Stateful layers (batchnorm running statistics — the GxM
     use_global_stats machinery, FusedBNormXSMM.cpp:427-467) keep their
@@ -254,21 +316,9 @@ class Graph:
         self.init_state[key] = bn.init_running()
 
         def node(p, x, ctx, _c=conv, _bn=bn, _key=key):
-            st = ctx.get("state")
-            y, stats = _c.forward(x, p["w"], p.get("b"))
-            if st is not None and not ctx["train"]:
-                return _bn.forward_eval(y, p["gamma"], p["beta"], st[_key])
-            nhw = y.shape[0] * y.shape[1] * y.shape[2]
-            mean = stats.sum / nhw
-            var = stats.sumsq / nhw - torch.square(mean)
-            out, bstate = _bn.forward_from_moments(
-                y, p["gamma"], p["beta"], mean, var)
-            if st is not None:
-                with torch.no_grad():
-                    ctx["new_state"][_key] = _bn.update_running(st[_key],
-                                                                bstate)
-            return out
+            return conv_bn_ranks(p, x, ctx, _c, _bn, _key)
 
+        node.lockstep = True
         return node, p, (shape[0], desc.out_h, desc.out_w, k)
 
     def _build_batchnorm(self, spec, shape):
@@ -283,16 +333,9 @@ class Graph:
         self.init_state[key] = layer.init_running()
 
         def node(p, x, ctx, _l=layer, _key=key):
-            st = ctx.get("state")
-            if st is not None and not ctx["train"]:
-                return _l.forward_eval(x, p["gamma"], p["beta"], st[_key])
-            y, bstate = _l.forward(x, p["gamma"], p["beta"])
-            if st is not None:
-                with torch.no_grad():
-                    ctx["new_state"][_key] = _l.update_running(st[_key],
-                                                               bstate)
-            return y
+            return batchnorm_ranks(p, x, ctx, _l, _key)
 
+        node.lockstep = True
         return node, p, shape
 
     def _build_pooling(self, spec, shape):
@@ -335,13 +378,22 @@ class Graph:
             p["b"] = torch.zeros((k,), device=self.device)
         relu = bool(spec.get("relu"))
 
-        def node(p, x, ctx, _l=layer, _relu=relu):
+        def one(p, x, _l=layer, _relu=relu):
             if x.ndim > 2:
                 x = flatten(x)
             out = _l.forward(x, p["w"], p.get("b"))
             # fused-ReLU fwd returns (y, relu_mask) for the layer-level bwd
             return out[0] if _relu else out
 
+        def node(p, x, ctx, _k=k):
+            ys = [one(pi, xi) for pi, xi in zip(p, x)]
+            if p[0]["w"].shape[1] != _k:
+                # a column shard a rank (tensor parallel over the model
+                # axis): gather the logits' columns in axis order
+                ys = _mesh.all_gather(x.mesh, x.model_axis, ys, dim=1)
+            return x.like(ys)
+
+        node.lockstep = True
         return node, p, (n, k)
 
     def _build_relu(self, spec, shape):
@@ -385,21 +437,26 @@ class Graph:
             out_shape = out_shapes[0]
         relu = bool(spec.get("relu"))
 
-        def node(p, x, ctx, _paths=paths, _combine=combine, _relu=relu):
+        def combine_(outs, _combine=combine, _relu=relu):
+            if _combine == "concat":
+                y = concat(outs)
+            else:
+                y = outs[0]
+                for o in outs[1:]:
+                    y = eltwise_add(y, o)
+            return torch.relu(y) if _relu else y
+
+        def node(p, x, ctx, _paths=paths, _combine=combine):
             outs = []
-            for path_nodes, path_params in zip(_paths, p):
+            for pi, path_nodes in enumerate(_paths):
+                path_params = _pick(p, pi)
                 y = x
-                for fn, fp in zip(path_nodes, path_params):
-                    y = fn(fp, y, ctx)
+                for j, fn in enumerate(path_nodes):
+                    y = fn(_pick(path_params, j), y, ctx)
                 outs.append(y)
             with trace.scope(f"graph.{_combine}"):
-                if _combine == "concat":
-                    y = concat(outs)
-                else:
-                    y = outs[0]
-                    for o in outs[1:]:
-                        y = eltwise_add(y, o)
-                return torch.relu(y) if _relu else y
+                return x.like([combine_([o[r] for o in outs])
+                               for r in range(len(x))])
 
         return node, sub_params_init, out_shape
 
@@ -439,8 +496,8 @@ class Graph:
             if not ctx["train"]:
                 return x
             y = x
-            for fn, fp in zip(_nodes, p):
-                y = fn(fp, y, ctx)
+            for j, fn in enumerate(_nodes):
+                y = fn(_pick(p, j), y, ctx)
             ctx.setdefault("aux", []).append(y)
             return x
 
@@ -457,20 +514,31 @@ class Graph:
         return node, None, (shape[0], int(np.prod(shape[1:])))
 
     # -- execution -------------------------------------------------------------
-    def _maybe_aux(self, y, ctx):
-        """Train-mode output with aux taps becomes (main, *aux) — eval
-        always returns the bare logits (aux heads are phase-TRAIN only)."""
-        aux = ctx.get("aux")
-        return (y, *aux) if aux else y
-
-    def _run(self, params, x, ctx):
-        y = x if isinstance(x, torch.Tensor) else as_tensor(x, self.device)
-        for fn, p in zip(self.nodes, params):
-            y = fn(p, y, ctx)
-        return self._maybe_aux(y, ctx)
+    def _run(self, params, state, x, train: bool, rng):
+        """The nodes in order over ``Ranks`` (a tensor is one rank):
+        (y, or (y, *aux) in train mode with aux taps; the new state)."""
+        one = not isinstance(x, Ranks)
+        if one:
+            x = Ranks([x if isinstance(x, torch.Tensor)
+                       else as_tensor(x, self.device)])
+            params = Ranks([params])
+            state = None if state is None else [state]
+        ctx = {"train": train, "rng": rng, "state": state,
+               "new_state": [{} for _ in x]}
+        for j, fn in enumerate(self.nodes):
+            x = fn(_pick(params, j), x, ctx)
+        # aux taps (phase-TRAIN only) make the output (main, *aux)
+        outs = (x, *ctx.get("aux", ()))
+        if one:
+            outs = tuple(o[0] for o in outs)
+        if state is not None and train:
+            state = [{**s, **ns} for s, ns in zip(state, ctx["new_state"])]
+        if one and state is not None:
+            state = state[0]
+        return (outs if len(outs) > 1 else outs[0]), state
 
     def __call__(self, params, x, train: bool = False, rng=None):
-        return self._run(params, x, {"train": train, "rng": rng})
+        return self._run(params, None, x, train, rng)[0]
 
     def apply(self, params, state: Dict[str, Any], x,
               train: bool = False, rng=None):
@@ -478,11 +546,10 @@ class Graph:
 
         train=True: batch-stat normalization + moving-sum update (GxM
         TRAIN mode); train=False: global-stats normalization (GxM
-        TEST/VAL mode — use_global_stats)."""
-        ctx = {"train": train, "rng": rng, "state": state, "new_state": {}}
-        y = self._run(params, x, ctx)
-        new_state = {**state, **ctx["new_state"]} if train else state
-        return y, new_state
+        TEST/VAL mode — use_global_stats).  Over ``Ranks`` (lock-step),
+        params and state hold one structure a rank, and the new state comes
+        back so."""
+        return self._run(params, state, x, train, rng)
 
     def forward_flops(self, batch: int = 0) -> int:
         """The forward's conv and FC operations at ``batch`` (default: the
@@ -497,6 +564,51 @@ class Graph:
         return total
 
 
+def batchnorm_ranks(p, x: Ranks, ctx, layer, key):
+    """A BN node over the ranks: the moments averaged over the data axis
+    (the global batch's statistics), each rank normalized with them, and
+    every rank's running state updated from them (replica-consistent)."""
+    st = ctx.get("state")
+    if st is not None and not ctx["train"]:
+        return x.like([layer.forward_eval(xi, pi["gamma"], pi["beta"],
+                                          si[key])
+                       for pi, xi, si in zip(p, x, st)])
+    ys, bstates = layer.forward_replicas(
+        list(x), [pi["gamma"] for pi in p], [pi["beta"] for pi in p],
+        pmean=x.pmean)
+    if st is not None:
+        with torch.no_grad():
+            for si, ns, bs in zip(st, ctx["new_state"], bstates):
+                ns[key] = layer.update_running(si[key], bs)
+    return x.like(ys)
+
+
+def conv_bn_ranks(p, x: Ranks, ctx, conv, bn, key):
+    """The fused conv+BN node over the ranks: the convs' sum and sumsq and
+    the count nhw summed over the data axis."""
+    st = ctx.get("state")
+    outs = [conv.forward(xi, pi["w"], pi.get("b")) for pi, xi in zip(p, x)]
+    ys = [y for y, _ in outs]
+    if st is not None and not ctx["train"]:
+        return x.like([bn.forward_eval(y, pi["gamma"], pi["beta"], si[key])
+                       for y, pi, si in zip(ys, p, st)])
+    sums = x.psum([s.sum for _, s in outs])
+    sumsqs = x.psum([s.sumsq for _, s in outs])
+    res = []
+    for y, pi, s1, s2, i in zip(ys, p, sums, sumsqs, range(len(ys))):
+        nhw = y.shape[0] * y.shape[1] * y.shape[2] * x.data_size
+        mean = s1 / nhw
+        var = s2 / nhw - torch.square(mean)
+        out, bstate = bn.forward_from_moments(y, pi["gamma"], pi["beta"],
+                                              mean, var)
+        if st is not None:
+            with torch.no_grad():
+                ctx["new_state"][i][key] = bn.update_running(st[i][key],
+                                                             bstate)
+        res.append(out)
+    return x.like(res)
+
+
 def make_model_forward(graph: Graph, key: str = "layers"):
     """Wrap a Graph as a model-level forward for MLEngine.
 
@@ -508,11 +620,14 @@ def make_model_forward(graph: Graph, key: str = "layers"):
     def forward(params, x, compute_dtype=None, train=False, rng=None,
                 state=None):
         del compute_dtype  # dtype is a build-time choice (dtype= kwarg)
+        layer_params = (Ranks([p[key] for p in params])
+                        if isinstance(params, Ranks) else params[key])
         if state is not None:
-            return graph.apply(params[key], state, x, train=train, rng=rng)
-        return graph(params[key], x, train=train, rng=rng)
+            return graph.apply(layer_params, state, x, train=train, rng=rng)
+        return graph(layer_params, x, train=train, rng=rng)
 
     forward.graph = graph
+    forward.lockstep = True     # takes Ranks (MLEngine over a mesh)
     forward.init_state = graph.init_state
     forward.aux_loss_weights = tuple(graph.aux_weights)
     return forward

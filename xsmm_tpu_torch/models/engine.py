@@ -30,10 +30,24 @@ batch sources.  Inside, PyTorch idiom on one device (``platform.device()``):
   ``jax.tree_util.keystr`` of each leaf, dict keys sorted), so a JAX
   checkpoint resumes here.
 
-Stated differences: the engine runs on one device, so a ``mesh`` (the
-JAX package's data-parallel ``parallel.mesh``) raises
-``NotImplementedError`` until ``parallel/`` is ported (ROADMAP Queue 1
-item 7); dropout masks and the device batch makers (``device_*_batches``,
+Over a mesh (``mesh=``, a ``parallel.mesh.Mesh`` with a "dp" axis) the
+engine is data parallel, as the JAX package's under ``jit`` with a
+dp-sharded batch: each rank holds a replica of the parameters, the
+momentum and the BN state on its device, and its shard of the batch (a
+``Sharded`` batch is taken as it lies).  The graph runs in lock-step over
+the ranks (``dnn/layers.Ranks``) with the BN moments averaged over "dp",
+so the statistics, the loss (the mean of the ranks' shard means) and the
+gradient are the global batch's; one ``torch.autograd.grad`` of the mean
+loss gives every replica's share, the shares are summed in rank order
+(the all-reduce), and every replica takes the same update; the running
+statistics come from the global moments, so they stay replica-consistent.
+Ranks along another axis ("mp") are replicas of their dp rank.  One
+device is the same executor over one rank.
+``train_epoch_scan`` captures every rank's step into one CUDA graph (the
+ranks on one card); checkpoints hold rank 0's replica.  The mesh lies in
+one process: multi-process steps are ``parallel/multihost.py``'s.
+
+Stated differences: dropout masks and the device batch makers (``device_*_batches``,
 ``*_batch_fn``, which take a ``torch.Generator`` where JAX takes a key)
 have the JAX package's distributions, not its bits; the host batch
 sources (``synthetic_batches``, ``template_batches``) give its data
@@ -54,7 +68,9 @@ import numpy as np
 import torch
 
 from ..core import platform
+from ..dnn.layers import Ranks
 from ..ops.smm import as_tensor
+from ..parallel import mesh as _mesh
 from ..utils import trace
 from ..utils.scratch import STAGE_MIN_BYTES
 
@@ -137,16 +153,23 @@ def tree_map(fn: Callable, tree):
 
 
 class MLEngine:
-    """Train/validate a functional model on one device."""
+    """Train/validate a functional model on one device, or data parallel
+    over the ranks of a mesh."""
 
     def __init__(self, params, forward: Callable, solver: SolverConfig,
                  mesh=None, loss_fn: Callable = softmax_xent,
                  checkpoint_dir: Optional[str] = None,
                  compute_dtype=torch.float32):
         if mesh is not None:
-            raise NotImplementedError(
-                "MLEngine runs on one device: data parallelism over a mesh "
-                "needs the port of parallel/ (ROADMAP Queue 1 item 7)")
+            if not isinstance(mesh, _mesh.Mesh) or "dp" not in \
+                    mesh.axis_names:
+                raise ValueError("MLEngine's mesh is a parallel.mesh.Mesh "
+                                 "with a 'dp' axis")
+            if len(mesh.local_ranks()) != mesh.size:
+                raise ValueError("MLEngine's mesh must lie within this "
+                                 "process (multi-process training steps: "
+                                 "parallel/multihost.py)")
+        self.mesh = mesh
         # for graph-built models (dnn/layers.py) the compute dtype is
         # chosen at model build time (resnet(..., dtype="bfloat16")); the
         # compute_dtype kwarg is forwarded but those forwards ignore it.
@@ -155,21 +178,35 @@ class MLEngine:
         self.loss_fn = loss_fn
         self.checkpoint_dir = checkpoint_dir
         self.compute_dtype = compute_dtype
-        self.device = platform.device()
+        self._devices = ([mesh.device(r) for r in mesh.local_ranks()]
+                         if mesh is not None else [platform.device()])
+        self.device = self._devices[0]
+        self._dp = 1 if mesh is None else mesh.shape["dp"]
         self.epoch = 0
         self.step = 0
 
-        def own(t):
-            t = as_tensor(t, self.device).detach().clone()
-            return t.requires_grad_() if t.is_floating_point() else t
+        def own(dev):
+            def put(t):
+                t = as_tensor(t, dev).detach().clone()
+                return t.requires_grad_() if t.is_floating_point() else t
+            return put
 
         # static metadata (strings etc.): split out once
         self.meta = {k: v for k, v in params.items() if k.startswith("_")}
-        self.params = tree_map(own, self._trainable(params))
-        self.momentum = tree_map(
-            lambda p: torch.zeros_like(p, requires_grad=False), self.params)
-        self._leaves = [t for _, t in tree_flatten_with_path(self.params)]
-        self._moms = [t for _, t in tree_flatten_with_path(self.momentum)]
+        # one replica a rank (one on a single device); rank 0's is the
+        # engine's params / momentum / state
+        self._rep_params = [tree_map(own(d), self._trainable(params))
+                            for d in self._devices]
+        self._rep_moms = [tree_map(
+            lambda p: torch.zeros_like(p, requires_grad=False), p)
+            for p in self._rep_params]
+        self.params, self.momentum = self._rep_params[0], self._rep_moms[0]
+        self._rep_leaves = [[t for _, t in tree_flatten_with_path(p)]
+                            for p in self._rep_params]
+        self._rep_mom_leaves = [[t for _, t in tree_flatten_with_path(m)]
+                                for m in self._rep_moms]
+        self._leaves, self._moms = (self._rep_leaves[0],
+                                    self._rep_mom_leaves[0])
         # graph-built forwards take train/rng so dropout nodes fire during
         # training; legacy forwards don't — detect once.  A **kwargs
         # forward also qualifies.
@@ -187,8 +224,17 @@ class MLEngine:
         # (moving-sum update) and eval (use_global_stats path)
         init_state = getattr(forward, "init_state", None)
         self._stateful = bool(init_state)
-        self.state = (tree_map(lambda t: as_tensor(t, self.device).clone(),
-                               dict(init_state)) if self._stateful else None)
+        if (self._stateful and len(self._devices) > 1
+                and not getattr(forward, "lockstep", False)):
+            raise ValueError("a stateful forward over a mesh must run in "
+                             "lock-step over Ranks (dnn/layers."
+                             "make_model_forward), so that its BN "
+                             "statistics are the global batch's")
+        self._rep_states = [
+            tree_map(lambda t, _d=d: as_tensor(t, _d).clone(),
+                     dict(init_state)) if self._stateful else None
+            for d in self._devices]
+        self.state = self._rep_states[0]
         self._lr = torch.zeros((), device=self.device)
         # CUDA-graph epochs: id(batch_fn) -> (batch_fn, graph, static loss,
         # data generator); the entry holds batch_fn (and the tensors its
@@ -199,6 +245,26 @@ class MLEngine:
     @staticmethod
     def _trainable(params):
         return {k: v for k, v in params.items() if not k.startswith("_")}
+
+    def _batch(self, x):
+        """A batch as a list of each rank's shard along "dp" on the rank's
+        device (a ``Sharded`` batch as it lies); one device is one rank."""
+        if isinstance(x, _mesh.Sharded):
+            if x.mesh is not self.mesh or tuple(x.spec[:1]) != ("dp",):
+                raise ValueError("a Sharded batch must be split along 'dp' "
+                                 "over the engine's mesh")
+            return list(x.shards)
+        x = self._to_device(x)
+        if self.mesh is None:
+            return [x]
+        dp = self.mesh.shape["dp"]
+        if x.shape[0] % dp:
+            raise ValueError(f"batch {x.shape[0]} does not divide over "
+                             f"dp = {dp} ranks")
+        bs = x.shape[0] // dp
+        return [x[self.mesh.coord(r, "dp") * bs:
+                  (self.mesh.coord(r, "dp") + 1) * bs].to(d)
+                for r, d in zip(self.mesh.local_ranks(), self._devices)]
 
     def _to_device(self, x):
         """A batch array on the engine's device.  From numpy to the card
@@ -214,17 +280,42 @@ class MLEngine:
         return as_tensor(arr, self.device)
 
     # -- one step --------------------------------------------------------------
-    def _loss(self, x, y):
+    def _forward(self, xs, **kw):
+        """The forward over the ranks: (each rank's logits, each rank's new
+        state or None).  A graph-built forward runs in lock-step over
+        ``Ranks`` (BN over the global batch); any other forward once a
+        rank."""
+        params = [{**p, **self.meta} for p in self._rep_params]
+        kw["compute_dtype"] = self.compute_dtype
+        if getattr(self.forward, "lockstep", False):
+            if self._stateful:
+                kw["state"] = self._rep_states
+            out = self.forward(Ranks(params), Ranks(xs, self.mesh), **kw)
+            logits, states = out if self._stateful else (out, None)
+            if isinstance(logits, tuple):
+                return list(zip(*logits)), states
+            return list(logits), states
+        outs = [self.forward(p, x, **kw, **({"state": st} if self._stateful
+                                            else {}))
+                for p, x, st in zip(params, xs, self._rep_states)]
+        if not self._stateful:
+            return outs, None
+        return [o[0] for o in outs], [o[1] for o in outs]
+
+    def _loss(self, xs, ys):
+        """The mean of the ranks' losses (each the mean over its shard)
+        and every rank's new state."""
         kw = {"train": True, "rng": self._gen} if self._train_kwargs else {}
-        params = {**self.params, **self.meta}
-        if self._stateful:
-            logits, new_state = self.forward(
-                params, x, compute_dtype=self.compute_dtype,
-                state=self.state, **kw)
-        else:
-            logits = self.forward(params, x,
-                                  compute_dtype=self.compute_dtype, **kw)
-            new_state = None
+        logits, new_states = self._forward(xs, **kw)
+        losses = [self._weighted_loss(lg, y) for lg, y in zip(logits, ys)]
+        total = losses[0]
+        for lv in losses[1:]:
+            total = total + lv.to(total.device)
+        if len(losses) > 1:
+            total = total / len(losses)
+        return total, new_states
+
+    def _weighted_loss(self, logits, y):
         with trace.scope("engine.loss"):
             if isinstance(logits, tuple):
                 # weighted multi-loss (GoogLeNet-v1 aux classifiers: loss =
@@ -238,7 +329,7 @@ class MLEngine:
                     lval = lval + w * self.loss_fn(al, y)
             else:
                 lval = self.loss_fn(logits, y)
-        return lval, new_state
+        return lval
 
     def _train_step(self, x, y) -> torch.Tensor:
         """One SGD step on device tensors x, y with the lr in ``self._lr``;
@@ -246,43 +337,55 @@ class MLEngine:
         host, so it can be captured into a CUDA graph."""
         with torch.enable_grad():
             lval, new_state = self._loss(x, y)
+        leaves = [t for rep in self._rep_leaves for t in rep]
         with trace.scope("engine.backward"):
-            grads = torch.autograd.grad(lval, self._leaves,
-                                        allow_unused=True)
+            grads = torch.autograd.grad(lval, leaves, allow_unused=True)
         cfg = self.solver
+        n = len(self._leaves)
         with torch.no_grad(), trace.scope("engine.update"):
             grads = [torch.zeros_like(p) if g is None else g
-                     for g, p in zip(grads, self._leaves)]
-            g = torch._foreach_add(grads, self._leaves,
-                                   alpha=cfg.weight_decay)
-            torch._foreach_mul_(self._moms, cfg.momentum)
-            torch._foreach_add_(self._moms, g)
-            torch._foreach_sub_(self._leaves,
-                                torch._foreach_mul(self._moms, self._lr))
-            if new_state is not None:
-                for k, v in new_state.items():
-                    for dst, src in zip(self.state[k], v):
-                        dst.copy_(src)
+                     for g, p in zip(grads, leaves)]
+            # every replica's share of the gradient, summed in rank order
+            # (the all-reduce); then the same update on every replica
+            total = grads[:n]
+            for r in range(1, len(self._rep_leaves)):
+                part = grads[r * n:(r + 1) * n]
+                torch._foreach_add_(total, [t.to(u.device)
+                                            for t, u in zip(part, total)])
+            states = new_state or [None] * len(self._devices)
+            for ls, ms, st, dev, stv in zip(self._rep_leaves,
+                                            self._rep_mom_leaves,
+                                            self._rep_states, self._devices,
+                                            states):
+                g = torch._foreach_add([t.to(dev) for t in total], ls,
+                                       alpha=cfg.weight_decay)
+                torch._foreach_mul_(ms, cfg.momentum)
+                torch._foreach_add_(ms, g)
+                torch._foreach_sub_(ls, torch._foreach_mul(
+                    ms, self._lr.to(dev)))
+                if stv is not None:
+                    for k, v in stv.items():
+                        for dst, src in zip(st[k], v):
+                            dst.copy_(src)
         return lval.detach()
 
     @torch.no_grad()
-    def _eval_step(self, x, y):
-        params = {**self.params, **self.meta}
-        if self._stateful:
-            # GxM TEST/VAL mode: global statistics, no state update
-            logits, _ = self.forward(params, x,
-                                     compute_dtype=self.compute_dtype,
-                                     state=self.state)
-        else:
-            logits = self.forward(params, x,
-                                  compute_dtype=self.compute_dtype)
-        y = y.long()
-        acc = (logits.argmax(dim=1) == y).float().mean()
-        # top-5 (Engine.cpp:642 validation / Accuracy.cpp analog)
-        k = min(5, logits.shape[1])
-        topk = logits.topk(k, dim=1).indices
-        acc5 = (topk == y[:, None]).any(dim=1).float().mean()
-        return self.loss_fn(logits, y), acc, acc5
+    def _eval_step(self, xs, ys):
+        """Every rank's eval on its shard (GxM TEST/VAL mode: global
+        statistics, no state update), averaged over the ranks (equal
+        shards: the global batch's metrics)."""
+        logits, _ = self._forward(xs)
+        rows = []
+        for lg, y in zip(logits, ys):
+            y = y.long()
+            # top-5 (Engine.cpp:642 validation / Accuracy.cpp analog)
+            k = min(5, lg.shape[1])
+            topk = lg.topk(k, dim=1).indices
+            rows.append(torch.stack([
+                self.loss_fn(lg, y), (lg.argmax(dim=1) == y).float().mean(),
+                (topk == y[:, None]).any(dim=1).float().mean()
+            ]).to(self.device))
+        return rows[0] if len(rows) == 1 else torch.stack(rows).mean(dim=0)
 
     # -- public API --------------------------------------------------------------
     def train_epoch(self, batches: Iterator[Tuple[Any, Any]],
@@ -296,9 +399,9 @@ class MLEngine:
         t0 = time.perf_counter()
         losses = []
         for bi, (x, y) in enumerate(batches):
-            x, y = self._to_device(x), self._to_device(y)
+            x, y = self._batch(x), self._batch(y)
             losses.append(self._train_step(x, y))
-            n_images += x.shape[0]
+            n_images += sum(t.shape[0] for t in x) * self._dp // len(x)
             self.step += 1
             if verbose and bi % log_every == 0:
                 print(f"epoch {self.epoch} batch {bi} "
@@ -318,6 +421,10 @@ class MLEngine:
                 self.checkpoint(tag=f"epoch{self.epoch}")
         return {"images_per_s": ips, "loss": losses[-1], "lr": lr,
                 "losses": losses}
+
+    def _scan_step(self, batch_fn: Callable, gen):
+        x, y = batch_fn(gen)
+        return self._train_step(self._batch(x), self._batch(y))
 
     def scan_seed(self, data_seed: int = 0) -> int:
         """The seed of the data generator for the next ``train_epoch_scan``
@@ -341,11 +448,11 @@ class MLEngine:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            warm = self._train_step(*batch_fn(gen))
+            warm = self._scan_step(batch_fn, gen)
         torch.cuda.current_stream(self.device).wait_stream(side)
         try:
             with torch.cuda.graph(graph):
-                loss = self._train_step(*batch_fn(gen))
+                loss = self._scan_step(batch_fn, gen)
         except RuntimeError as e:
             raise RuntimeError(f"train_epoch_scan: the step could not be "
                                f"captured into a CUDA graph: {e}") from e
@@ -363,7 +470,14 @@ class MLEngine:
         step is a CUDA graph replayed ``n_batches`` times (captured at the
         first call for this ``batch_fn``, after one eager warm-up step
         that is the epoch's first); on the CPU the same steps run eagerly.
+        Over a mesh the batch is the global one, split along "dp" inside
+        the step, and the graph holds every rank's step (the ranks must
+        share one card).
         """
+        if (self.mesh is not None and self.device.type == "cuda"
+                and len(set(self._devices)) > 1):
+            raise ValueError("train_epoch_scan over a mesh captures one CUDA "
+                             "graph: the mesh's ranks must share one card")
         lr = _schedule(self.solver, self.epoch)
         seed = self.scan_seed(data_seed)
         t0 = time.perf_counter()
@@ -372,7 +486,7 @@ class MLEngine:
         if self.device.type != "cuda":
             gen = torch.Generator(device=self.device).manual_seed(seed)
             for i in range(n_batches):
-                losses[i] = self._train_step(*batch_fn(gen)).float()
+                losses[i] = self._scan_step(batch_fn, gen).float()
         else:
             first = 0
             if id(batch_fn) not in self._graphs:
@@ -406,8 +520,8 @@ class MLEngine:
     def validate(self, batches) -> Dict[str, float]:
         rows = []
         for x, y in batches:
-            rows.append(torch.stack(self._eval_step(
-                self._to_device(x), self._to_device(y))).float())
+            rows.append(self._eval_step(self._batch(x),
+                                        self._batch(y)).float())
         loss, acc, acc5 = torch.stack(rows).mean(dim=0).tolist()
         return {"loss": loss, "acc": acc, "acc5": acc5}
 
@@ -448,6 +562,13 @@ class MLEngine:
             with np.load(path) as z, torch.no_grad():
                 for k, t in tree_flatten_with_path(tree):
                     t.copy_(torch.from_numpy(z[k]))
+        with torch.no_grad():   # rank 0's replica to every other
+            for reps in (self._rep_params, self._rep_moms, self._rep_states):
+                for rep in reps[1:]:
+                    for (_, dst), (_, src) in zip(
+                            tree_flatten_with_path(rep),
+                            tree_flatten_with_path(reps[0])):
+                        dst.copy_(src)
         self.epoch = meta["epoch"]
         self.step = meta["step"]
         return True
@@ -553,10 +674,19 @@ def device_synthetic_batches(n_batches: int, batch: int, hw: int = 32,
                              classes: int = 10, seed: int = 0,
                              sharding=None, chans: int = 3):
     """Synthetic batches made on the device (nothing crosses the link).
-    ``sharding`` (a JAX data sharding) needs the port of parallel/."""
-    if sharding is not None:
-        raise NotImplementedError("a data sharding needs the port of "
-                                  "parallel/ (ROADMAP Queue 1 item 7)")
-    gen = torch.Generator(device=platform.device()).manual_seed(seed)
+    With ``sharding`` (a ``parallel.mesh.NamedSharding`` over the batch
+    axis, e.g. ``dp_sharding(mesh)``) each batch is drawn on the mesh's
+    first rank's device and comes back as (``Sharded`` x, ``Sharded`` y),
+    split along the batch over the ranks' devices."""
+    if sharding is None:
+        gen = torch.Generator(device=platform.device()).manual_seed(seed)
+        for _ in range(n_batches):
+            yield _synthetic_batch(gen, batch, hw, classes, chans)
+        return
+    mesh = sharding.mesh
+    gen = torch.Generator(device=mesh.device(mesh.local_ranks()[0])
+                          ).manual_seed(seed)
+    y_sh = _mesh.NamedSharding(mesh, _mesh.P(*sharding.spec[:1]))
     for _ in range(n_batches):
-        yield _synthetic_batch(gen, batch, hw, classes, chans)
+        x, y = _synthetic_batch(gen, batch, hw, classes, chans)
+        yield _mesh.device_put(x, sharding), _mesh.device_put(y, y_sh)

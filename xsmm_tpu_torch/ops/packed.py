@@ -187,6 +187,22 @@ class TrsmKernel:
             x = x.transpose(-1, -2)
         return x
 
+    def packed(self, ap, bp) -> torch.Tensor:
+        """X [M, N, Bp] of A X = B on packed operands A [M, M, Bp], B [M, N,
+        Bp] (f32, on the device; numpy taken as well): kernel 13 or 14
+        alone, for a left, lower, untransposed descriptor (the data-parallel
+        wrapper's form, ``parallel/dist_spmm.dp_packed``)."""
+        if (self.side, self.uplo, self.trans) != ("L", "L", False):
+            raise ValueError("packed() solves the left lower system; this "
+                             f"descriptor is side={self.side} uplo="
+                             f"{self.uplo} trans={self.trans}")
+        with trace.scope(self.name + "_packed"):
+            dev = platform.device()
+            ap = _f32(ap, dev, slot="ap").contiguous()
+            bp = _f32(bp, dev, slot="bp").contiguous()
+            return getattr(packed_kernels, self.kernel_name)(ap, bp,
+                                                             self.unit)
+
     def _op_a(self, a, tril, triu):
         """op(A) with only its referenced triangle kept (array functions
         of numpy or torch); the caller sets a unit diagonal."""
