@@ -199,21 +199,27 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     kernel wrapper's, with tracing off;
 32. trains one step of ResNet-18 (width 64, 100 classes, 8x64x64, f32,
     a ``template_batches`` batch) through ``MLEngine`` on the card and with
-    ``target="cpu"``, the card's step three times on cuDNN's default
-    algorithms and once on its deterministic ones, the CPU's twice: each
-    card step against the CPU's within 1e-5 relative on the loss, 1e-3
-    rel-Frobenius on each parameter's update and 1e-4 on the BN running
-    state, and each side's repeats against its first;
+    ``target="cpu"`` (``models/fault3_stress.step``), the card's step three
+    times on cuDNN's default algorithms and once on its deterministic ones,
+    each under ``torch.profiler``, the CPU's twice: each card step against
+    the CPU's within 1e-5 relative on the loss, 1e-3 rel-Frobenius on each
+    parameter's update and 1e-4 on the BN running state, and each side's
+    repeats against its first; the worst leaf by name, and a log of every
+    step (its worst leaf, the kernels cuDNN ran for each convolution,
+    forward and backward, the cuDNN state and the host's precision facts)
+    in ``chiprun_out/step32.log``, printed on a failure;
 33. trains ResNet-50 at its published width (64, 1000 classes) at batch
-    64, 224x224, in f32 and bf16: 2 warm-up and 10 timed
+    64, 224x224, in f32 and bf16, each in the compiled form (the card's
+    default: each step a CUDA graph replayed) and in the eager one
+    (``compiled=False``) from the same parameters: 2 warm-up and 10 timed
     steps of ``train_epoch`` on ``synthetic_batches``, a ``validate``
     pass, and prints images/s (training, inference), ms a step, the
     model-FLOPs share (3 x the forward's conv and FC operations from the
     graph's descriptors over the step time and the card's f32 or bf16
-    peak), the peak memory and a ``torch.profiler`` split of one step
-    (conv, BN, pooling, FC, eltwise, loss, update; forward and backward)
-    with the device's idle share; every loss finite, every parameter
-    moved;
+    peak), the peak memory, the device's idle share in a profiled step,
+    the two forms' steps side by side and a ``torch.profiler`` split of
+    one eager step (conv, BN, pooling, FC, eltwise, loss, update; forward
+    and backward); every loss finite, every parameter moved;
 34. runs ``CONVERGENCE_r05.json``'s protocol (resnet18/width16, batch 256,
     100 classes, 32x32, poly lr 0.02, sigma 1.5, 8 epochs of 20 host
     ``template_batches``) in f32 and bf16 with the sample's criterion (last
@@ -240,15 +246,24 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     the hop counts set to 0 just before and read just after; every block
     kernel of those calls against its plain version on the ring's panels,
     bit for bit; the ms of each call beside the local kernel's on the whole
-    B (virtual ranks share the SMs: the machinery's cost, not scaling); and
-    ``parallel/schedule_check`` on a profiler trace of d = 4, chunks 4 (the
-    share of hops under compute of another sub-panel, the event order, the
-    live panel images, whether the hops ran as copies);
+    B (virtual ranks share the SMs: the machinery's cost, not scaling),
+    each call's default callable (compiled: one CUDA graph a key) against
+    its ``compiled=False`` form, bit for bit, with ``forms`` and the ms of
+    the eager call, of the compiled calls (copying the caller's shards in,
+    or on the graph's own inputs) and of the replay alone (the copies
+    apart); and ``parallel/schedule_check`` on a profiler trace of the
+    eager form at d = 4, chunks 4 (the share of hops under compute of
+    another sub-panel, the event order, the live panel images, whether the
+    hops ran as copies) and on a trace of the entry point's own replay
+    (the copies that overlap a kernel; the step fails if none does);
 37. drives ``dp_batched_smm`` at 23^3, B = 131072 over 4 ranks (split2_fast,
     float32, split2) and ``dp_packed`` getrf and trsm at 16^2, B = 131072
     and at 125^2, B = 4096, over 4 ranks, counted, each against gold and
-    each rank's kernel against its plain version on its own shard, and
-    times the 4-rank calls beside one call on the whole batch;
+    each rank's kernel against its plain version on its own shard; then
+    ``ring_spmm`` and ``col_sharded_spmm`` on the densified 150x150
+    operator at N = 65536 over 4 ranks against gold; every one of these
+    builders' default callables against its ``compiled=False`` form as in
+    step 36, the dp calls beside one call on the whole batch;
 38. holds cross-replica BN over 2 replicas against the global batch's BN at
     N64 C256 H56 W56 (y, dx, dgamma, dbeta at 1e-5), then trains ResNet-50
     at width 64, batch 64, 224^2, f32 through ``MLEngine`` over a dp = 2
@@ -258,8 +273,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     planted faults must exceed; the worst leaf, the BN state, the second
     step's loss and the one-device step with its input one ulp up
     printed) and on its default ones beside two single-device steps'
-    spread, the other two timed beside step 33's, with the peak memory
-    and a profiled step's split; before it, ResNet-18 width 8 at batch 8,
+    spread, the other two timed beside step 33's in the compiled and the
+    eager forms, with the peak memory, each profiled step's idle share and
+    the eager step's split; before it, ResNet-18 width 8 at batch 8,
     16^2, over dp = 2 on the deterministic algorithms at every step-32
     gate;
 39. runs ``entry.dryrun_multichip(4)`` and ``entry.entry()`` on the card,
@@ -3281,6 +3297,27 @@ def step_split(prof, scope="smoke.step"):
                 and not in_backward(e.cpu_parent)):
             g = fwd_seq.get((e.sequence_nr, e.fwd_thread), "other")
             split[g + "_bwd"] = split.get(g + "_bwd", 0.0) + device_us(e)
+    real, busy_ms, window_ms = device_busy(events, scope)
+    total = sum(e.time_range.end - e.time_range.start for e in real)
+    split = {k: v / 1e3 for k, v in sorted(split.items())}   # ms
+    split["other"] = total / 1e3 - sum(split.values())
+    by_name = {}
+    for e in real:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    split["largest kernels"] = "; ".join(f"{k[:70]} {v / 1e3:.3f}"
+                                         for k, v in top)
+    return split, busy_ms, window_ms, 1.0 - busy_ms / window_ms
+
+
+def device_busy(events, scope="smoke.step"):
+    """The device events of a profile (annotations left out), the ms the
+    device was busy and the ms of the ``scope`` window (to the last device
+    event).  A CUDA graph's replay counts like any launch: its kernels
+    carry no host op, so only the busy time and the window are read."""
+    from torch.autograd import DeviceType
+
     real = [e for e in events if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation]
     window = [e for e in events if e.name == scope
@@ -3296,104 +3333,109 @@ def step_split(prof, scope="smoke.step"):
             end = b
     w0 = window[0].time_range.start
     w1 = max(window[0].time_range.end, spans[-1][1])
-    total = sum(b - a for a, b in spans)
-    split = {k: v / 1e3 for k, v in sorted(split.items())}   # ms
-    split["other"] = total / 1e3 - sum(split.values())
-    by_name = {}
-    for e in real:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
-                                                      - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    split["largest kernels"] = "; ".join(f"{k[:70]} {v / 1e3:.3f}"
-                                         for k, v in top)
-    return split, busy / 1e3, (w1 - w0) / 1e3, 1.0 - busy / (w1 - w0)
-
-
-def _card_cpu_step(target, x, y, args, shape, deterministic=False):
-    """One ResNet-18 step of a fresh engine on ``target``: (loss, each
-    leaf's update, the BN state, seconds)."""
-    import torch
-    import xsmm_tpu_torch as xp
-    from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
-
-    xp.set_config(target=target)
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = deterministic
-    try:
-        params, fwd = resnet(18, width=64, num_classes=100,
-                             input_shape=shape, seed=args.seed)
-        before = [t.detach().double().cpu() for _, t in
-                  _leaves(params["layers"])]
-        eng = MLEngine(params, fwd, SolverConfig(lr=0.05))
-        t0 = time.perf_counter()
-        loss = eng.train_epoch(iter([(x, y)]), verbose=False)["loss"]
-        step_s = time.perf_counter() - t0
-    finally:
-        torch.backends.cudnn.deterministic = saved
-        xp.set_config(target="cuda")
-    upd = [t.detach().double().cpu() - b for (_, t), b in
-           zip(_leaves(eng.params), before)]
-    state = [t.double().cpu() for _, t in _leaves(eng.state)]
-    return loss, upd, state, step_s
-
-
-def _card_cpu_diff(a, b):
-    """(loss rel, worst leaf's update rel-Frobenius, BN state max abs) of
-    two ``_card_cpu_step`` results, b the reference."""
-    import torch
-
-    return (abs(a[0] - b[0]) / abs(b[0]),
-            max((torch.linalg.vector_norm(u - v)
-                 / torch.linalg.vector_norm(v)).item()
-                for u, v in zip(a[1], b[1])),
-            max((u - v).abs().max().item() for u, v in zip(a[2], b[2])))
+    return real, busy / 1e3, (w1 - w0) / 1e3
 
 
 def train_card_vs_cpu(args, dev, smi):
-    """Step 32: one ResNet-18 step on the card and with target="cpu".  The
-    card's step runs ``STEP32_REPEATS`` times on cuDNN's default
-    algorithms and once on its deterministic ones, the CPU's twice; every
-    card step is held to the first CPU step at the step-32 gates, and the
-    repeats on each side against their first (the run-to-run spread)."""
-    from xsmm_tpu_torch.models.engine import template_batches
+    """Step 32: one ResNet-18 step on the card and with target="cpu"
+    (``models/fault3_stress.step``).  The card's step runs
+    ``STEP32_REPEATS`` times on cuDNN's default algorithms and once on its
+    deterministic ones, each under ``torch.profiler``, the CPU's twice;
+    every card step is held to the first CPU step at the step-32 gates, and
+    the repeats on each side against their first (the run-to-run spread).
+    The log (each step's worst leaf and each convolution's cuDNN kernels,
+    the cuDNN state, the host's precision facts) goes to
+    ``chiprun_out/step32.log``; on a failure the failing steps' entries are
+    printed too."""
+    import torch
+    from xsmm_tpu_torch.dnn.fault2_stress import precision_facts
+    from xsmm_tpu_torch.models import fault3_stress as f3
 
-    shape = (8, 64, 64, 3)
-    x, y = next(template_batches(1, shape[0], hw=shape[1], classes=100,
-                                 seed=args.seed))
-    cpu = [_card_cpu_step("cpu", x, y, args, shape) for _ in range(2)]
-    card = [_card_cpu_step("cuda", x, y, args, shape)
+    x, y = f3.batch(args.seed)
+    cpu = [f3.step("cpu", x, y, args.seed) for _ in range(2)]
+    card = [f3.step("cuda", x, y, args.seed, profile=True)
             for _ in range(STEP32_REPEATS)]
-    card.append(_card_cpu_step("cuda", x, y, args, shape,
-                               deterministic=True))
-    errs = [_card_cpu_diff(c, cpu[0]) for c in card]
-    card_spread = [_card_cpu_diff(c, card[0]) for c in card[1:-1]]
-    cpu_spread = _card_cpu_diff(cpu[1], cpu[0])
-    ok = all(e[0] <= STEP_LOSS_TOL and e[1] <= STEP_UPDATE_TOL
-             and e[2] <= STEP_STATE_TOL for e in errs)
+    card.append(f3.step("cuda", x, y, args.seed, deterministic=True,
+                        profile=True))
+    errs = [f3.diff(c, cpu[0]) for c in card]
+    card_spread = [f3.diff(c, card[0]) for c in card[1:-1]]
+    cpu_spread = f3.diff(cpu[1], cpu[0])
+    ok = all(f3.passes(e) for e in errs)
     worst = max(range(len(errs)), key=lambda i: errs[i][1])
-    lc, lh = card[worst][0], cpu[0][0]
+    lc, lh = card[worst]["loss"], cpu[0]["loss"]
+    entries = [f3.describe(i, c, e) + (" (deterministic)"
+                                       if i == len(card) - 1 else "")
+               for i, (c, e) in enumerate(zip(card, errs))]
+    log = os.path.join("chiprun_out", "step32.log")
+    f3.write_log(log, "\n".join(
+        [f"{torch.cuda.get_device_name(0)}; {f3.cudnn_state()}; host "
+         f"{precision_facts()}",
+         f"cpu repeat against the first (loss, update, leaf, state): "
+         f"{cpu_spread}"] + entries) + "\n")
     print(f"train resnet18 width64 100 classes 8x64x64 f32, one step card "
           f"vs cpu: loss {lc:.6f} / {lh:.6f} (rel {errs[worst][0]:.3e}, tol "
           f"{STEP_LOSS_TOL:g}), worst update rel-Frobenius "
-          f"{errs[worst][1]:.3e} (tol {STEP_UPDATE_TOL:g}) over "
-          f"{len(card[0][1])} leaves, BN state max abs {errs[worst][2]:.3e} "
-          f"(tol {STEP_STATE_TOL:g}); every card step's worst update "
-          f"(cuDNN default x{STEP32_REPEATS}, deterministic): "
+          f"{errs[worst][1]:.3e} at {errs[worst][2]} (tol "
+          f"{STEP_UPDATE_TOL:g}) over {len(card[0]['updates'])} leaves, BN "
+          f"state max abs {errs[worst][3]:.3e} (tol {STEP_STATE_TOL:g}); "
+          f"every card step's worst update (cuDNN default "
+          f"x{STEP32_REPEATS}, deterministic): "
           f"{[float(f'{e[1]:.4g}') for e in errs]}; card repeats against "
           f"the first (loss, update, state): "
-          f"{[tuple(float(f'{v:.3g}') for v in e) for e in card_spread]}, "
-          f"cpu against cpu: {tuple(float(f'{v:.3g}') for v in cpu_spread)}"
-          f"; first step {card[0][3] * 1e3:.1f} / {cpu[0][3] * 1e3:.1f} ms "
+          f"{[(float(f'{e[0]:.3g}'), float(f'{e[1]:.3g}'), float(f'{e[3]:.3g}')) for e in card_spread]}, "
+          f"cpu against cpu: {tuple(float(f'{cpu_spread[i]:.3g}') for i in (0, 1, 3))}"
+          f"; first step {card[0]['seconds'] * 1e3:.1f} / "
+          f"{cpu[0]['seconds'] * 1e3:.1f} ms; log {log} "
           f"{'pass' if ok else 'FAIL'}  [{smi}]")
     if not ok:
+        print(f"step 32 failed: {f3.cudnn_state()}; host "
+              f"{precision_facts()}")
+        for e, entry in zip(errs, entries):
+            if not f3.passes(e):
+                print(entry)
         raise RuntimeError("one training step: the card and the CPU "
                            "disagree")
 
 
+def _train_timed(eng, batches, n):
+    """Step 33's protocol on one engine: 2 warm-up steps of
+    ``train_epoch`` (in the compiled form the first runs eagerly and
+    captures), 10 timed ones, a validate pass timed over 4 batches after
+    one warm-up batch, and one profiled step.  Returns the warm-up and
+    timed results, the validate metrics, images/s of validate, the peak
+    memory (allocated, and reserved: a graph's pool, held since its
+    capture, counts as reserved only) and the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    warm = eng.train_epoch(iter(batches[:2]), verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = eng.train_epoch(iter(batches[2:12]), verbose=False)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9,
+               torch.cuda.max_memory_reserved() / 1e9)
+    eng.validate(iter(batches[:1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = eng.validate(iter(batches[:4]))
+    torch.cuda.synchronize()
+    infer_ips = 4 * n / (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.step"):
+            eng.train_epoch(iter(batches[2:3]), verbose=False)
+            torch.cuda.synchronize()
+    return warm, timed, val, infer_ips, peak_gb, prof
+
+
 def train_resnet50(args, dev, smi):
     """Step 33: ResNet-50 at its published width, 64x224x224, f32 and
-    bf16: 2 warm-up and 10 timed steps, a validate pass, the model-FLOPs
-    share, the peak memory and a profiled step's split."""
+    bf16, through ``train_epoch`` and ``validate`` in the compiled form
+    (the card's default: CUDA graphs) and in the eager one
+    (``compiled=False``), from the same parameters: each timed, with the
+    model-FLOPs share, the peak memory and a profiled step's idle share;
+    the eager step's profile split by layer (a graph's replay has no host
+    ops to charge its kernels to)."""
     import numpy as np
     import torch
     from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
@@ -3411,63 +3453,76 @@ def train_resnet50(args, dev, smi):
         params, fwd = resnet(depth=50, width=64, num_classes=classes,
                              input_shape=(n, hw, hw, 3), dtype=dt,
                              seed=args.seed)
-        eng = MLEngine(params, fwd, SolverConfig(lr=0.01))
-        del params
-        p0 = [t.detach().clone() for _, t in _leaves(eng.params)]
-        warm = eng.train_epoch(iter(batches[:2]), verbose=False)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        timed = eng.train_epoch(iter(batches[2:12]), verbose=False)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        step_ms = 1e3 * n / timed["images_per_s"]
         flops = 3 * fwd.graph.forward_flops(n)
-        share = flops / (step_ms / 1e3) / peak[dt]
-        eng.validate(iter(batches[:1]))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        val = eng.validate(iter(batches[:4]))
-        torch.cuda.synchronize()
-        infer_ips = 4 * n / (time.perf_counter() - t0)
-        from torch.profiler import ProfilerActivity, profile, record_function
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function("smoke.step"):
-                eng.train_epoch(iter(batches[2:3]), verbose=False)
-                torch.cuda.synchronize()
-        split, busy_ms, window_ms, idle = step_split(prof)
-        losses = warm["losses"] + timed["losses"]
-        moved = sum(not torch.equal(a, b) for a, (_, b) in
-                    zip(p0, _leaves(eng.params)))
-        ok = (np.isfinite(losses).all() and np.isfinite(val["loss"])
-              and moved == len(p0))
-        print(f"train resnet50 width64 {dt} batch {n} {hw}^2: "
-              f"{timed['images_per_s']:.1f} images/s training ({step_ms:.2f} "
-              f"ms a step, 10 steps of train_epoch, host batches), "
-              f"{infer_ips:.1f} images/s validate (4 batches); model FLOPs "
-              f"3 x {flops / 3e9:.1f} GFLOP a step = {share:.4f} of "
-              f"{peak[dt] / 1e12:.0f} TFLOP/s; peak memory {peak_gb:.2f} GB; "
-              f"losses {losses[0]:.4f} .. {losses[-1]:.4f}; {moved} of "
-              f"{len(p0)} parameters moved {'pass' if ok else 'FAIL'}  "
-              f"[{smi}]")
-        # the profiler's host overhead stretches the profiled step: the
-        # timed loop's step against the same device work gives the idle
-        # share without it
-        idle_timed = max(0.0, 1.0 - busy_ms / step_ms)
-        print(f"split resnet50 {dt} one step, device ms: "
-              + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
-                          else f"{k}: {v}" for k, v in split.items())
-              + f"; busy {busy_ms:.3f} of {window_ms:.3f} ms profiled, idle "
-                f"share {idle:.4f} profiled, {idle_timed:.4f} against the "
-                f"timed step  [{smi}]")
-        if not ok:
-            raise RuntimeError(f"resnet50 {dt}: a non-finite loss or a "
-                               f"parameter that did not move")
-        rows[dt] = {"images_per_s": timed["images_per_s"],
-                    "infer_images_per_s": infer_ips, "step_ms": step_ms,
-                    "flops_share": share, "peak_gb": peak_gb,
-                    "idle_share": idle, "idle_share_timed": idle_timed,
-                    "busy_ms": busy_ms, "split_ms": split}
-        del eng, fwd, p0, prof
+        row = {}
+        for form in ("compiled", "eager"):
+            eng = MLEngine(params, fwd, SolverConfig(lr=0.01),
+                           **({} if form == "compiled" else
+                              {"compiled": False}))
+            if eng.compiled != (form == "compiled"):
+                raise RuntimeError(f"resnet50 {dt}: the engine's default "
+                                   f"form is not the compiled one")
+            p0 = [t.detach().clone() for _, t in _leaves(eng.params)]
+            warm, timed, val, infer_ips, peak_gb, prof = _train_timed(
+                eng, batches, n)
+            step_ms = 1e3 * n / timed["images_per_s"]
+            share = flops / (step_ms / 1e3) / peak[dt]
+            if form == "eager":
+                split, busy_ms, window_ms, idle = step_split(prof)
+            else:
+                split = None
+                _, busy_ms, window_ms = device_busy(list(prof.events()))
+                idle = 1.0 - busy_ms / window_ms
+            losses = warm["losses"] + timed["losses"]
+            moved = sum(not torch.equal(a, b) for a, (_, b) in
+                        zip(p0, _leaves(eng.params)))
+            ok = (np.isfinite(losses).all() and np.isfinite(val["loss"])
+                  and moved == len(p0))
+            # the profiler's host overhead stretches the profiled step: the
+            # timed loop's step against the same device work gives the idle
+            # share without it
+            idle_timed = max(0.0, 1.0 - busy_ms / step_ms)
+            print(f"train resnet50 width64 {dt} batch {n} {hw}^2, {form} "
+                  f"({dict(eng.forms)}): {timed['images_per_s']:.1f} images/s"
+                  f" training ({step_ms:.2f} ms a step, 10 steps of "
+                  f"train_epoch, host batches), {infer_ips:.1f} images/s "
+                  f"validate (4 batches); model FLOPs 3 x {flops / 3e9:.1f} "
+                  f"GFLOP a step = {share:.4f} of {peak[dt] / 1e12:.0f} "
+                  f"TFLOP/s; peak memory {peak_gb[0]:.2f} GB allocated, "
+                  f"{peak_gb[1]:.2f} GB reserved; device busy "
+                  f"{busy_ms:.3f} ms of a {window_ms:.3f} ms profiled step, "
+                  f"idle share {idle:.4f} profiled, {idle_timed:.4f} against "
+                  f"the timed step; losses {losses[0]:.4f} .. "
+                  f"{losses[-1]:.4f}; {moved} of {len(p0)} parameters moved "
+                  f"{'pass' if ok else 'FAIL'}  [{smi}]")
+            if split is not None:
+                print(f"split resnet50 {dt} one eager step, device ms: "
+                      + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                                  else f"{k}: {v}" for k, v in split.items())
+                      + f"  [{smi}]")
+            if not ok:
+                raise RuntimeError(f"resnet50 {dt} {form}: a non-finite "
+                                   f"loss or a parameter that did not move")
+            pre = "" if form == "compiled" else "eager_"
+            row.update({f"{pre}images_per_s": timed["images_per_s"],
+                        f"{pre}infer_images_per_s": infer_ips,
+                        f"{pre}step_ms": step_ms,
+                        f"{pre}flops_share": share,
+                        f"{pre}peak_gb": peak_gb,
+                        f"{pre}idle_share": idle,
+                        f"{pre}idle_share_timed": idle_timed,
+                        f"{pre}busy_ms": busy_ms})
+            if split is not None:
+                row["split_ms"] = split
+            del eng, p0, prof
+            torch.cuda.empty_cache()
+        print(f"train resnet50 {dt}: the compiled step {row['step_ms']:.2f} "
+              f"ms against the eager {row['eager_step_ms']:.2f} ms "
+              f"({row['eager_step_ms'] / row['step_ms']:.3f}x), idle "
+              f"{row['idle_share_timed']:.4f} against "
+              f"{row['eager_idle_share_timed']:.4f}  [{smi}]")
+        rows[dt] = row
+        del params, fwd
         torch.cuda.empty_cache()
     del batches
     return rows
@@ -3530,7 +3585,8 @@ def scan_against_eager(make, batch_fn, b, nb, epochs, deterministic, dev):
         return max(abs(g - w) / abs(w) for g, w in zip(got, want))
 
     params, fwd = make()
-    engs = [MLEngine(params, fwd, SolverConfig(lr=0.002)) for _ in range(3)]
+    engs = [MLEngine(params, fwd, SolverConfig(lr=0.002),
+                     compiled=None if i == 0 else False) for i in range(3)]
     del params
     ge = ee = 0.0
     saved = torch.backends.cudnn.deterministic
@@ -3694,8 +3750,8 @@ def training_phase(args, dev, smi):
 
     # the training path launches none of the 21 kernels: the handles run
     # on cuDNN, cuBLAS and torch ops (as the JAX package's on XLA).  A
-    # wrapper counts where it launches, so a kernel inside a CUDA graph
-    # counts once, at the capture: any launch in a step shows.
+    # wrapper counts where it launches, and a CUDA graph's replay counts
+    # what it replays: any launch in a step shows.
     for m in kernel_modules():
         m.reset_launches()
     if kernel_launch_counts():
@@ -3764,6 +3820,50 @@ def _bits(got, want):
     err = max((g.double() - w.double()).abs().max().item()
               for g, w in zip(got, want))
     return same, err
+
+
+def compiled_vs_eager(label, fn, eager, args, smi):
+    """A builder's default callable ``fn`` (compiled: CUDA graphs) against
+    its ``compiled=False`` form ``eager`` on ``args``: the call that
+    copies the caller's shards in, the call on the graph's own inputs and
+    a later call each bit for bit the eager call's; the ms of the eager
+    call, of the two compiled calls and of the replay alone (so the copies
+    in and out apart); ``dist_spmm.forms`` over these calls.  Fails unless
+    ``fn`` ran as a graph, never eagerly."""
+    import torch
+    from xsmm_tpu_torch.parallel import dist_spmm
+    from xsmm_tpu_torch.utils.timer import cuda_time_ms
+
+    f0 = dict(dist_spmm.forms)
+    want = eager(*args)
+    got = [fn(*args)]
+    entry = fn.entry(*args)
+    if entry is None:
+        raise RuntimeError(f"{label}: the default callable kept no graph")
+    got += [fn(*args), fn(*entry.args)]
+    torch.cuda.synchronize()
+    same = all(_bits(tuple(o.gather() for o in _tup(g)),
+                     tuple(o.gather() for o in _tup(want)))[0] for g in got)
+    eager_ms = cuda_time_ms(eager, *args, warmup=2, iters=10)
+    eager_calls = 1 + 2 + 10       # want, then cuda_time_ms's calls
+    copy_ms = cuda_time_ms(fn, *args, warmup=2, iters=10)
+    own_ms = cuda_time_ms(fn, *entry.args, warmup=2, iters=10)
+    replay_ms = cuda_time_ms(entry.replay, warmup=2, iters=20)
+    forms = {k: dist_spmm.forms[k] - f0[k] for k in f0}
+    ok = (same and forms["eager"] == eager_calls and forms["graph"] >= 1
+          and forms["graph_copy"] >= 1)
+    print(f"compiled {label}: eager {eager_ms:.4f} ms, compiled "
+          f"{copy_ms:.4f} ms (copies in and out) / {own_ms:.4f} ms (its own "
+          f"inputs: copy out) / replay alone {replay_ms:.4f} ms: copy in "
+          f"{copy_ms - own_ms:.4f}, copy out {own_ms - replay_ms:.4f} ms; "
+          f"{eager_ms / copy_ms:.2f}x; forms {forms} (the eager form's "
+          f"{eager_calls} calls as eager); bit for bit {same} "
+          f"{'pass' if ok else 'FAIL'}  [{smi}]")
+    if not ok:
+        raise RuntimeError(f"{label}: the compiled callable is not a graph "
+                           f"bit for bit its eager form")
+    return {"eager_ms": eager_ms, "compiled_ms": copy_ms, "own_ms": own_ms,
+            "replay_ms": replay_ms, "forms": forms}
 
 
 def dist_ring(args, dev, smi, max_abs):
@@ -3869,7 +3969,8 @@ def dist_ring(args, dev, smi, max_abs):
           f"each bit for bit against its plain version on the ring's panels "
           f"pass")
 
-    # times: each ring call beside the local kernel on the whole B
+    # times: each ring call, compiled (the default) and eager, beside the
+    # local kernel on the whole B
     local_ms = {}
     for label, d, chunks, dtype, sched, fn, shards in runs:
         key = (dtype, sched)
@@ -3879,25 +3980,18 @@ def dist_ring(args, dev, smi, max_abs):
                                      f64_schedule=sched or "split2")
             local_ms[key] = cuda_time_ms(
                 kern._fn, *[s.shards[0] for s in shards], warmup=3, iters=20)
-        ms = cuda_time_ms(fn, *shards, warmup=2, iters=10)
-        # the same call captured into one CUDA graph: the device's part
-        # without the host's issue between the calls, bit for bit
-        graph, gout = schedule_check.capture(fn, *shards)
-        gms = cuda_time_ms(graph.replay, warmup=2, iters=20)
-        want = fn(*shards)
-        graph.replay()
-        same, _ = _bits(tuple(o.gather() for o in _tup(gout)),
-                        tuple(o.gather() for o in _tup(want)))
-        if not same:
-            raise RuntimeError(f"ring {label}: the graph's replay differs "
-                               f"from the eager call")
-        del graph, gout, want
-        print(f"time  dist ring {name} N={n} {label}: {ms:.4f} ms eager, "
-              f"{gms:.4f} ms as one CUDA graph (bit for bit), against the "
-              f"local kernel's {local_ms[key]:.4f} ms ({ms / local_ms[key]:.2f}"
-              f"x, graph {gms / local_ms[key]:.2f}x; {d} virtual rank(s) on "
-              f"one card share its SMs: the ring machinery's cost, not "
-              f"scaling)  [{smi}]")
+        eager = dist_spmm.ring_spmm_csr(
+            shards[0].mesh, op.astype(np.float32) if sched is None else op, n, dtype=dtype,
+            chunks=chunks, f64_schedule=sched or "split2", compiled=False)
+        t = compiled_vs_eager(f"dist ring {name} N={n} {label}", fn, eager,
+                              shards, smi)
+        print(f"time  dist ring {name} N={n} {label}: {t['eager_ms']:.4f} ms "
+              f"eager, {t['compiled_ms']:.4f} ms compiled (one CUDA graph, "
+              f"bit for bit), against the local kernel's "
+              f"{local_ms[key]:.4f} ms ({t['eager_ms'] / local_ms[key]:.2f}x"
+              f", compiled {t['compiled_ms'] / local_ms[key]:.2f}x; {d} "
+              f"virtual rank(s) on one card share its SMs: the ring "
+              f"machinery's cost, not scaling)  [{smi}]")
 
     os.makedirs(os.path.join("xsmm_tpu_torch", "build", "trace"),
                 exist_ok=True)
@@ -3908,21 +4002,27 @@ def dist_ring(args, dev, smi, max_abs):
         graph=True)
     gr = st["graph"]
     share = st["under_compute"] / max(st["hops"], 1)
-    print(f"dist schedule d=4 chunks=4 f32 N={n}: {st['hops']} hops "
-          f"(expected {st['expected_hops']}), {share:.3f} of them under "
+    graph_share = gr["copies_under_kernel"] / max(gr["copies"], 1)
+    print(f"dist schedule d=4 chunks=4 f32 N={n}, eager form: {st['hops']} "
+          f"hops (expected {st['expected_hops']}), {share:.3f} of them under "
           f"compute of another sub-panel (min {st['min_under_us']:.1f} us "
           f"shared), {st['ordered']} after their sending compute, at most "
           f"{st['max_live_images']} images of a sub-panel live on a rank; "
           f"hop device events {st['hop_device_events']}; overlap_ok "
           f"{st['overlap_ok']} order_ok {st['order_ok']} live_ok "
-          f"{st['live_ok']} hops_ok {st['hops_ok']}; as one CUDA graph "
-          f"{gr['replay_ms']:.4f} ms against {gr['eager_ms']:.4f} eager: "
-          f"{gr['kernels']} kernels and {gr['copies']} copies, "
-          f"{gr['copies_under_kernel']} copies overlapping a kernel, kernel "
+          f"{st['live_ok']} hops_ok {st['hops_ok']}; the entry point's "
+          f"compiled form: {gr['call_ms']:.4f} ms a call (replay "
+          f"{gr['replay_ms']:.4f}) against {gr['eager_ms']:.4f} eager; its "
+          f"replay: {gr['kernels']} kernels and {gr['copies']} copies, "
+          f"{gr['copies_under_kernel']} copies overlapping a kernel (share "
+          f"of hops under compute {graph_share:.3f}), kernel "
           f"{gr['kernel_us']:.1f} us and copy {gr['copy_us']:.1f} us in a "
           f"{gr['span_us']:.1f} us span  [{smi}]")
     if not (st["order_ok"] and st["hops_ok"]):
         raise RuntimeError(f"the ring's event order is broken: {st}")
+    if graph_share == 0:
+        raise RuntimeError("the compiled ring's replay runs no hop under "
+                           "compute (d = 4, chunks 4)")
     return launched
 
 
@@ -4007,8 +4107,8 @@ def dist_wrappers(args, dev, smi, max_abs):
               f"{PACKED_TOL['f32']:g}) {'pass' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"dp_packed {m}^2 against gold")
-        packed.append((getrf.kernel_name, lu, [ap]))
-        packed.append((trsm.kernel_name, x, [lp, bp]))
+        packed.append((getrf.kernel_name, lu, [ap], getrf))
+        packed.append((trsm.kernel_name, x, [lp, bp], trsm))
     launched = {**{k: v for k, v in smm_packed.launches.items()},
                 **{k: v for k, v in pk.launches.items()}}
     print(f"dist wrappers launches (counts set to 0 before their calls): "
@@ -4035,7 +4135,7 @@ def dist_wrappers(args, dev, smi, max_abs):
             max_abs[kname] = max(max_abs.get(kname, 0.0), d)
             if not r <= PLAIN_TOL:
                 raise RuntimeError(f"dp {kname} rank {i}: {r:.3e} from plain")
-    for kname, out, ins in packed:
+    for kname, out, ins, _ in packed:
         for i in range(len(out.shards)):
             args_ = [t.shards[i] for t in ins]
             if kname.startswith("trsm"):
@@ -4050,14 +4150,55 @@ def dist_wrappers(args, dev, smi, max_abs):
           "version on its shard (smm rel-Frobenius <= 1e-6, packed LA bit "
           "for bit) pass")
 
-    # times: the 4-rank call beside the kernel on the whole batch
+    # times: the 4-rank call, compiled (the default) and eager, beside the
+    # kernel on the whole batch
     for kname, kern, sharded, out, ops in calls:
-        fn = dist_spmm.dp_batched_smm(mesh, kern)
-        ms = cuda_time_ms(fn, *sharded, warmup=2, iters=10)
+        t = compiled_vs_eager(
+            f"dist dp_batched_smm {kname} {M}^3 B={B} 4 ranks",
+            dist_spmm.dp_batched_smm(mesh, kern),
+            dist_spmm.dp_batched_smm(mesh, kern, compiled=False), sharded,
+            smi)
         one = cuda_time_ms(kern.packed, *ops, warmup=2, iters=10)
         print(f"time  dist dp_batched_smm {kname} {M}^3 B={B}: 4 ranks "
-              f"{ms:.4f} ms against one call on the whole batch "
-              f"{one:.4f} ms (4 virtual ranks share one card)  [{smi}]")
+              f"{t['eager_ms']:.4f} ms eager, {t['compiled_ms']:.4f} ms "
+              f"compiled, against one call on the whole batch {one:.4f} ms "
+              f"(4 virtual ranks share one card)  [{smi}]")
+    for kname, out, ins, kern in packed:
+        n_in = len(ins)
+        compiled_vs_eager(
+            f"dist dp_packed {kname} {ins[0].shape[0]}^2 B={ins[0].shape[2]}"
+            f" 4 ranks", dist_spmm.dp_packed(mesh, kern.packed, n_in),
+            dist_spmm.dp_packed(mesh, kern.packed, n_in, compiled=False),
+            ins, smi)
+
+    # the dense ring and the column-sharded product on the 150x150 PyFR
+    # operator (densified, f32) at N = --sparse-n over 4 ranks: no kernel
+    # of the 21 (full-f32 torch.matmul), the compiled form's other builders
+    row = make_mesh((1, 4), ("dp", "mp"), devices=virtual_devices(4))
+    _, op = pyfr_operators(np)[2]
+    kp = -(-max(op.shape) // 4) * 4       # M and K padded to whole shards
+    a = torch.zeros((kp, kp), device=dev)
+    a[:op.shape[0], :op.shape[1]] = torch.from_numpy(op.astype(np.float32))
+    b = torch.randn((kp, args.sparse_n), generator=g, device=dev)
+    b[op.shape[1]:] = 0
+    gold = a.double() @ b.double()
+    for label, fn, eager, fargs in (
+            ("ring_spmm", dist_spmm.ring_spmm(row),
+             dist_spmm.ring_spmm(row, compiled=False),
+             (dist_spmm.shard_rows(row, a), dist_spmm.shard_rows(row, b))),
+            ("col_sharded_spmm", dist_spmm.col_sharded_spmm(row),
+             dist_spmm.col_sharded_spmm(row, compiled=False),
+             (a, dist_spmm.shard_cols(row, b)))):
+        c = fn(*fargs).gather().double()
+        torch.cuda.synchronize()
+        err = xp.matdiff(gold.cpu().numpy(), c.cpu().numpy()).normf_rel
+        print(f"dist {label} 150x150 N={args.sparse_n} f32 over 4 ranks: gold "
+              f"rel-Frobenius {err:.3e} (tol {DIST_GOLD_TOL['float32']:g}) "
+              f"{'pass' if err < DIST_GOLD_TOL['float32'] else 'FAIL'}")
+        if not err < DIST_GOLD_TOL["float32"]:
+            raise RuntimeError(f"{label}: {err:.3e} against gold")
+        compiled_vs_eager(f"dist {label} 150x150 N={args.sparse_n} 4 ranks",
+                          fn, eager, fargs, smi)
     return launched
 
 
@@ -4095,13 +4236,15 @@ def dist_sync_bn(args, dev, smi):
         raise RuntimeError("cross-replica BN disagrees with the global batch")
 
 
-def _one_step(params, fwd, batch, mesh, before, then=None, loss_fn=None):
+def _one_step(params, fwd, batch, mesh, before, then=None, loss_fn=None,
+              compiled=None):
     """One ``train_epoch`` step of a fresh engine (over ``mesh``, or one
     device): (loss, each leaf's update, the BN state, the engine, and the
     loss of a second step on ``then``, else None)."""
     from xsmm_tpu_torch.models import MLEngine, SolverConfig
 
     eng = MLEngine(params, fwd, SolverConfig(lr=0.01), mesh=mesh,
+                   compiled=compiled,
                    **({"loss_fn": loss_fn} if loss_fn else {}))
     loss = eng.train_epoch(iter([batch]), verbose=False)["loss"]
     upd = [t.detach().double().cpu() - b for (_, t), b in
@@ -4227,33 +4370,58 @@ def dist_engine(args, dev, smi, train_rows):
     one_a = _one_step(params, fwd, batches[0], None, before)[:3]
     one_b = _one_step(params, fwd, batches[0], None, before)[:3]
     torch.cuda.empty_cache()
-    *dp_def, eng, _ = _one_step(params, fwd, batches[0], mesh, before)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    timed = eng.train_epoch(iter(batches[1:]), verbose=False)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function("smoke.step"):
-            eng.train_epoch(iter(batches[1:2]), verbose=False)
-            torch.cuda.synchronize()
-    split, busy_ms, window_ms, idle = step_split(prof)
-    reps_equal = all(torch.equal(a, b) for a, b in
-                     zip(eng._rep_leaves[0], eng._rep_leaves[1]))
-    del eng, prof
-    torch.cuda.empty_cache()
+    # the dp step timed in the compiled form (the default; its first step
+    # is the warm-up and the capture) and in the eager one
+    timing = {}
+    for form in ("compiled", "eager"):
+        *first, eng, _ = _one_step(params, fwd, batches[0], mesh, before,
+                                   compiled=None if form == "compiled"
+                                   else False)
+        if form == "compiled":
+            dp_def = first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = eng.train_epoch(iter(batches[1:]), verbose=False)
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9,
+                   torch.cuda.max_memory_reserved() / 1e9)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("smoke.step"):
+                eng.train_epoch(iter(batches[1:2]), verbose=False)
+                torch.cuda.synchronize()
+        if form == "eager":
+            split, busy_ms, window_ms, idle = step_split(prof)
+        else:
+            split = None
+            _, busy_ms, window_ms = device_busy(list(prof.events()))
+            idle = 1.0 - busy_ms / window_ms
+        step_ms = 1e3 * n / timed["images_per_s"]
+        timing[form] = {
+            "step_ms": step_ms, "timed": timed, "peak_gb": peak_gb,
+            "split": split, "busy_ms": busy_ms, "window_ms": window_ms,
+            "idle": idle, "idle_timed": max(0.0, 1 - busy_ms / step_ms),
+            "forms": dict(eng.forms),
+            "reps_equal": all(torch.equal(a, b) for a, b in
+                              zip(eng._rep_leaves[0], eng._rep_leaves[1]))}
+        del eng, prof
+        torch.cuda.empty_cache()
+    reps_equal = all(t["reps_equal"] for t in timing.values())
+    timed = timing["compiled"]["timed"]
+    eager_timed = timing["eager"]["timed"]
     gated = _step_diff(dp, one)
     second = abs(dp[3] - one[3]) / abs(one[3])
     cond = _step_diff(moved, one)
     planted = {k: _step_diff(v, one)[1] for k, v in faults.items()}
     spread = _step_diff(one_b, one_a)
     default = _step_diff(dp_def, one_a)
-    step_ms = 1e3 * n / timed["images_per_s"]
+    step_ms = timing["compiled"]["step_ms"]
     one_ms = train_rows["float32"]["step_ms"]
+    one_eager_ms = train_rows["float32"]["eager_step_ms"]
     caught = all(v > DIST_UPDATE_TOL for v in planted.values())
     ok = (gated[0] <= STEP_LOSS_TOL and gated[1] <= DIST_UPDATE_TOL
           and caught and reps_equal
-          and np.isfinite(timed["losses"]).all())
+          and np.isfinite(timed["losses"]).all()
+          and np.isfinite(eager_timed["losses"]).all())
 
     def diff(t):
         return (f"loss rel {t[0]:.3e}, whole update {t[1]:.3e}, BN state "
@@ -4274,23 +4442,36 @@ def dist_engine(args, dev, smi, train_rows):
           f"cuDNN default: dp against one {diff(default)}; one against one "
           f"(the run-to-run spread) {diff(spread)}; replicas equal "
           f"{reps_equal} {'pass' if ok else 'FAIL'}  [{smi}]")
-    print(f"dist engine resnet50 dp=2 {DIST_ENGINE_STEPS - 1} timed steps: "
-          f"{step_ms:.2f} ms a step ({timed['images_per_s']:.1f} images/s) "
-          f"against step 33's {one_ms:.2f} ms; losses {timed['losses']}; "
-          f"peak memory {peak_gb:.2f} GB; one profiled step, device ms: "
-          + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
-                      else f"{k}: {v}" for k, v in split.items())
-          + f"; busy {busy_ms:.3f} of {window_ms:.3f} ms, idle share "
-            f"{idle:.4f} profiled, {max(0.0, 1 - busy_ms / step_ms):.4f} "
-            f"against the timed step  [{smi}]")
+    for form, ref in (("compiled", one_ms), ("eager", one_eager_ms)):
+        t = timing[form]
+        print(f"dist engine resnet50 dp=2 {form} {DIST_ENGINE_STEPS - 1} "
+              f"timed steps ({t['forms']}): {t['step_ms']:.2f} ms a step "
+              f"({t['timed']['images_per_s']:.1f} images/s) against step "
+              f"33's one-device {form} {ref:.2f} ms; losses "
+              f"{t['timed']['losses']}; peak memory {t['peak_gb'][0]:.2f} "
+              f"GB allocated, {t['peak_gb'][1]:.2f} GB reserved; "
+              f"one profiled step: busy {t['busy_ms']:.3f} of "
+              f"{t['window_ms']:.3f} ms, idle share {t['idle']:.4f} "
+              f"profiled, {t['idle_timed']:.4f} against the timed step"
+              + ("" if t["split"] is None else "; device ms: " + ", ".join(
+                  f"{k} {v:.3f}" if isinstance(v, float) else f"{k}: {v}"
+                  for k, v in t["split"].items()))
+              + f"  [{smi}]")
+    print(f"dist engine resnet50 dp=2: compiled {step_ms:.2f} ms against "
+          f"eager {timing['eager']['step_ms']:.2f} ms a step "
+          f"({timing['eager']['step_ms'] / step_ms:.3f}x); one device "
+          f"compiled {one_ms:.2f}, eager {one_eager_ms:.2f}  [{smi}]")
     if not caught:
         raise RuntimeError("the dp engine's update gate does not tell a "
                            "planted fault from a sound step")
     if not ok:
         raise RuntimeError("the dp engine disagrees with the single-device "
                            "engine")
-    return {"step_ms": step_ms, "one_step_ms": one_ms, "peak_gb": peak_gb,
-            "busy_ms": busy_ms, "idle_share": idle,
+    return {"step_ms": step_ms, "one_step_ms": one_ms,
+            "eager_step_ms": timing["eager"]["step_ms"],
+            "peak_gb": timing["compiled"]["peak_gb"],
+            "busy_ms": timing["compiled"]["busy_ms"],
+            "idle_share": timing["compiled"]["idle"],
             "deterministic": gated, "second_loss": second,
             "conditioning": cond, "planted": planted,
             "default": default, "spread": spread}

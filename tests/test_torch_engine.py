@@ -479,3 +479,57 @@ def test_mesh_checkpoint_resume_across_single_device(tmp_path):
     check_replicas(back)
     for (k, a), (_, b) in zip(pflat(one.params), pflat(back.params)):
         assert np.array_equal(a, b), k
+
+
+# ------------------------------------------------------ the compiled form --
+
+from test_torch_parallel import cpu_graphs  # noqa: E402,F401  (a fixture)
+
+
+def test_engine_runs_eagerly_on_the_cpu():
+    """On the CPU target the engine's steps count "eager" (train_epoch,
+    validate and the scan epoch), and ``compiled=True`` raises."""
+    pp, pf = pm.lenet(num_classes=10)
+    eng = pe.MLEngine(pp, pf, pe.SolverConfig(lr=0.002))
+    assert eng.compiled is False
+    batches = list(pe.template_batches(2, 8, hw=28, classes=10, chans=1))
+    eng.train_epoch(iter(batches), verbose=False)
+    eng.validate(iter(batches[:1]))
+    eng.train_epoch_scan(3, pe.template_batch_fn(8, hw=28, classes=10,
+                                                 chans=1), 8, verbose=False)
+    assert eng.forms == {"graph": 0, "graph_copy": 0, "eager": 6,
+                         "captures": 0}
+    for mesh in (None, port_mesh(2)):
+        with pytest.raises(ValueError, match="compiled=True"):
+            pe.MLEngine(pp, pf, pe.SolverConfig(), mesh=mesh, compiled=True)
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_compiled_train_epoch_and_validate_equal_eager(cpu_graphs, dp):
+    """``train_epoch`` and ``validate`` in the compiled form (graphs stood
+    in by test_torch_parallel's ``_Rerun``) against the eager form over 3
+    steps of ResNet-18 (one device, and dp = 2 in lock-step): the losses,
+    parameters, momentum, BN state and metrics bit for bit; the first step
+    of a key captures, the later ones copy their batch in; a new batch
+    shape captures anew."""
+    pp, pf = pm.resnet(**RESNET)
+    mesh = None if dp == 1 else port_mesh(dp)
+    engs = [pe.MLEngine(pp, pf, pe.SolverConfig(lr=0.05), mesh=mesh,
+                        compiled=c) for c in (None, False)]
+    assert engs[0].compiled and not engs[1].compiled
+    batches = list(pe.template_batches(3, 8, hw=16))
+    val = list(pe.template_batches(2, 8, hw=16, epoch=5))
+    outs = [e.train_epoch(iter(batches), verbose=False) for e in engs]
+    assert outs[0]["losses"] == outs[1]["losses"]
+    for tree in ("params", "momentum", "state"):
+        for (k, a), (_, b) in zip(pflat(getattr(engs[0], tree)),
+                                  pflat(getattr(engs[1], tree))):
+            assert np.array_equal(a, b), (tree, k)
+    assert [e.validate(iter(val)) for e in engs[:1]] == \
+        [engs[1].validate(iter(val))]
+    assert engs[0].forms == {"graph": 0, "graph_copy": 3, "eager": 0,
+                             "captures": 2}
+    assert engs[1].forms["eager"] == 5
+    small = list(pe.template_batches(1, 4, hw=16))
+    engs[0].validate(iter(small))
+    assert engs[0].forms["captures"] == 3 and len(engs[0]._graphs) == 3

@@ -2040,7 +2040,7 @@ def test_cuda_graph_epoch_equals_eager_loop(cuda, model):
     }[model]()
     bf = template_batch_fn(b, hw=hw, classes=10, chans=ch)
     g_eng = MLEngine(params, fwd, SolverConfig(lr=0.002))
-    e_eng = MLEngine(params, fwd, SolverConfig(lr=0.002))
+    e_eng = MLEngine(params, fwd, SolverConfig(lr=0.002), compiled=False)
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2224,8 +2224,8 @@ def test_cuda_graph_epoch_over_a_mesh_equals_eager_loop(cuda):
                          input_shape=(b, 16, 16, 3))
     bf = template_batch_fn(b, hw=16, classes=10)
     engs = [MLEngine(params, fwd, SolverConfig(lr=0.002),
-                     mesh=make_mesh((2, 1), devices=[cuda] * 2))
-            for _ in range(2)]
+                     mesh=make_mesh((2, 1), devices=[cuda] * 2),
+                     compiled=c) for c in (None, False)]
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2242,3 +2242,273 @@ def test_cuda_graph_epoch_over_a_mesh_equals_eager_loop(cuda):
         for (k, a), (_, c) in zip(tree_flatten_with_path(ra),
                                   tree_flatten_with_path(rb)):
             assert torch.equal(a, c), k
+
+
+# ---------------------------------------------------------------------------
+# The compiled form (utils/graphs.py): the builders' callables and the
+# engine's steps as CUDA graphs, against their eager forms
+# ---------------------------------------------------------------------------
+
+
+def _ring_streams(cuda, d, k, n, schedule, seed=0):
+    """The ring's B streams over d ranks: f32, or the f64 schedule's."""
+    from xsmm_tpu_torch.parallel import dist_spmm
+    from xsmm_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((1, d), devices=[cuda] * d)
+    kp = -(-k // d) * d
+    b = torch.zeros((kp, n), dtype=torch.float64, device=cuda)
+    b[:k] = torch.randn((k, n), dtype=torch.float64, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(seed))
+    bh = b.float()
+    streams = ([bh, (b - bh.double()).float()] if schedule == "split2"
+               else [bh])
+    return mesh, [dist_spmm.shard_rows(mesh, s) for s in streams]
+
+
+def _gathered(out):
+    out = out if isinstance(out, tuple) else (out,)
+    return tuple(o.gather() for o in out)
+
+
+def _same_results(got, want):
+    return all(torch.equal(a, b) for a, b in zip(_gathered(got),
+                                                 _gathered(want)))
+
+
+@pytest.mark.parametrize("dtype,schedule", [("float32", None),
+                                            ("float64", "split2"),
+                                            ("float64", "fold")])
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_compiled_ring_equals_eager(cuda, dtype, schedule, d, chunks):
+    """``ring_spmm_csr``'s default callable runs as a CUDA graph (the
+    capture's warm-up, a replay copying the caller's shards in, a replay
+    reading the graph's own) and each result is the ``compiled=False``
+    call's, bit for bit."""
+    from xsmm_tpu_torch.parallel import dist_spmm
+    rng = np.random.default_rng(5)
+    a = np.where(rng.random((70, 90)) < 0.1, rng.standard_normal((70, 90)),
+                 0.0)
+    n = 8192
+    mesh, bs = _ring_streams(cuda, d, 90, n, schedule)
+    op = a.astype(np.float32) if schedule is None else a
+    kw = dict(dtype=dtype, chunks=chunks, f64_schedule=schedule or "split2")
+    fn = dist_spmm.ring_spmm_csr(mesh, op, n, **kw)
+    ref = dist_spmm.ring_spmm_csr(mesh, op, n, compiled=False, **kw)
+    want = ref(*bs)
+    dist_spmm.reset_counts()
+    got = [fn(*bs), fn(*bs), fn(*fn.entry(*bs).args)]
+    torch.cuda.synchronize()
+    assert dist_spmm.forms == {"graph": 1, "graph_copy": 1, "eager": 0,
+                               "captures": 1}
+    for g in got:
+        assert _same_results(g, want)
+
+
+def _dense_builders(cuda, rng):
+    """The other four builders on 4 ranks of one card: (name, build(**kw),
+    args)."""
+    from xsmm_tpu_torch.parallel import dist_spmm
+    from xsmm_tpu_torch.parallel.mesh import (NamedSharding, P, device_put,
+                                              make_mesh)
+    mesh = make_mesh((4, 1), ("dp", "mp"), devices=[cuda] * 4)
+    row = make_mesh((1, 4), ("dp", "mp"), devices=[cuda] * 4)
+    lanes = NamedSharding(mesh, P(None, None, "dp"))
+    a = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((64, 4096)).astype(np.float32))
+    kern = xp.smmdispatch(23, 23, 23, batch=4096, beta=0.0)
+    pa, pb = (device_put(kern.pack_a(torch.from_numpy(
+        rng.standard_normal((4096, 23, 23)).astype(np.float32)).to(cuda)),
+        lanes), device_put(kern.pack_b(torch.from_numpy(
+            rng.standard_normal((4096, 23, 23)).astype(np.float32)).to(cuda)),
+            lanes))
+    m = 16
+    lu = xp.getrf_dispatch(m, m, batch=4096)
+    tr = xp.trsm_dispatch(m, m, batch=4096)
+    ap = torch.randn((m, m, 4096), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(3)) + \
+        m * torch.eye(m, device=cuda)[:, :, None]
+    low, rhs = torch.tril(ap.permute(2, 0, 1)).permute(1, 2, 0), \
+        torch.randn((m, m, 4096), device=cuda)
+    sa, sl, sr = (device_put(t.contiguous(), lanes) for t in (ap, low, rhs))
+    return [
+        ("ring_spmm", lambda **kw: dist_spmm.ring_spmm(row, **kw),
+         (dist_spmm.shard_rows(row, a.to(cuda)),
+          dist_spmm.shard_rows(row, b[:64].to(cuda)))),
+        ("col_sharded_spmm", lambda **kw: dist_spmm.col_sharded_spmm(
+            row, **kw), (a.to(cuda), dist_spmm.shard_cols(row, b.to(cuda)))),
+        ("dp_batched_smm", lambda **kw: dist_spmm.dp_batched_smm(
+            mesh, kern, **kw), (pa, pb)),
+        ("dp_packed getrf", lambda **kw: dist_spmm.dp_packed(
+            mesh, lu.packed, 1, **kw), (sa,)),
+        ("dp_packed trsm", lambda **kw: dist_spmm.dp_packed(
+            mesh, tr.packed, 2, **kw), (sl, sr)),
+    ]
+
+
+def test_compiled_builders_equal_eager(cuda):
+    """The dense ring, the column-sharded product and the dp wrappers:
+    each default callable runs as a graph, bit for bit the eager form."""
+    from xsmm_tpu_torch.parallel import dist_spmm
+    for name, build, args in _dense_builders(cuda, np.random.default_rng(2)):
+        fn, ref = build(), build(compiled=False)
+        want = ref(*args)
+        dist_spmm.reset_counts()
+        got = [fn(*args), fn(*args), fn(*fn.entry(*args).args)]
+        torch.cuda.synchronize()
+        assert dist_spmm.forms == {"graph": 1, "graph_copy": 1, "eager": 0,
+                                   "captures": 1}, name
+        for g in got:
+            assert _same_results(g, want), name
+
+
+def test_compiled_ring_inputs_results_and_keys(cuda):
+    """New values written into the graph's own inputs reach the next
+    replay; a fresh input tensor takes the copy path; two successive
+    results both stay intact; a new shape captures anew and the 9th key
+    evicts the first."""
+    from xsmm_tpu_torch.parallel import dist_spmm
+    rng = np.random.default_rng(6)
+    a = np.where(rng.random((60, 64)) < 0.2, rng.standard_normal((60, 64)),
+                 0.0).astype(np.float32)
+    n = 4096
+    mesh, (b1,) = _ring_streams(cuda, 4, 64, n, None, seed=1)
+    _, (b2,) = _ring_streams(cuda, 4, 64, n, None, seed=2)
+    fn = dist_spmm.ring_spmm_csr(mesh, a, n, chunks=4)
+    ref = dist_spmm.ring_spmm_csr(mesh, a, n, chunks=4, compiled=False)
+    r1 = fn(b1)
+    own, = fn.entry(b1).args
+    for t, src in zip(own.shards, b2.shards):
+        t.copy_(src)
+    dist_spmm.reset_counts()
+    r2 = fn(own)                        # the new values, read in place
+    r3 = fn(b1)                         # a fresh tensor: copied in
+    torch.cuda.synchronize()
+    assert dist_spmm.forms["graph"] == 1 and \
+        dist_spmm.forms["graph_copy"] == 1
+    assert _same_results(r2, ref(b2))
+    assert _same_results(r3, ref(b1))
+    assert _same_results(r1, ref(b1))   # earlier results stay intact
+    assert not _same_results(r1, r2)
+    dense = dist_spmm.ring_spmm(mesh)
+    x = torch.randn((64, 64), device=cuda)
+    ys = [torch.randn((64, w), device=cuda) for w in range(1, 10)]
+    for y in ys:
+        dense(dist_spmm.shard_rows(mesh, x), dist_spmm.shard_rows(mesh, y))
+    assert len(dense.cache) == 8 and dense.cache.evictions == 1
+    assert dense.entry(dist_spmm.shard_rows(mesh, x),
+                       dist_spmm.shard_rows(mesh, ys[0])) is None
+    assert dense.entry(dist_spmm.shard_rows(mesh, x),
+                       dist_spmm.shard_rows(mesh, ys[-1])) is not None
+
+
+def test_compiled_ring_counts_every_replay(cuda):
+    """The hop, launch and route counters count each replay: k compiled
+    calls count k times one eager call."""
+    from xsmm_tpu_torch.ops import spgemm_kernels as sk
+    from xsmm_tpu_torch.parallel import dist_spmm
+    rng = np.random.default_rng(8)
+    a = np.where(rng.random((70, 90)) < 0.1, rng.standard_normal((70, 90)),
+                 0.0)
+    mesh, bs = _ring_streams(cuda, 4, 90, 4096, "split2")
+    kw = dict(dtype="float64", chunks=4)
+    ref = dist_spmm.ring_spmm_csr(mesh, a, 4096, compiled=False, **kw)
+    fn = dist_spmm.ring_spmm_csr(mesh, a, 4096, **kw)
+    ref(*bs)
+    sk.reset_launches()
+    dist_spmm.reset_counts()
+    ref(*bs)
+    one = (dict(sk.launches), dict(sk.route_launches), dict(dist_spmm.hops))
+    assert one[2]["device"] == 4 * 3 * 4 * 2
+    sk.reset_launches()
+    dist_spmm.reset_counts()
+    for _ in range(3):
+        fn(*bs)
+    torch.cuda.synchronize()
+    for got, want in zip((sk.launches, sk.route_launches, dist_spmm.hops),
+                         one):
+        assert got == {k: 3 * v for k, v in want.items()}
+
+
+def test_compiled_capture_failure_raises(cuda, monkeypatch):
+    """A capture that fails raises with the reason; nothing runs eagerly
+    in its place, no graph is kept, and the next call captures."""
+    from xsmm_tpu_torch.parallel import dist_spmm
+    rng = np.random.default_rng(9)
+    a = np.where(rng.random((32, 32)) < 0.3, rng.standard_normal((32, 32)),
+                 0.0).astype(np.float32)
+    mesh, (b,) = _ring_streams(cuda, 2, 32, 1024, None)
+    fn = dist_spmm.ring_spmm_csr(mesh, a, 1024)
+    begin = dist_spmm._begin
+
+    def planted(*args):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("planted capture fault")
+        return begin(*args)
+    monkeypatch.setattr(dist_spmm, "_begin", planted)
+    dist_spmm.reset_counts()
+    with pytest.raises(RuntimeError, match="could not be captured.*planted"):
+        fn(b)
+    assert len(fn.cache) == 0 and dist_spmm.forms["captures"] == 0
+    monkeypatch.setattr(dist_spmm, "_begin", begin)
+    want = dist_spmm.ring_spmm_csr(mesh, a, 1024, compiled=False)(b)
+    fn(b)
+    assert _same_results(fn(b), want)
+    assert dist_spmm.forms["captures"] == 1 and \
+        dist_spmm.forms["graph_copy"] == 1
+
+
+def _engine_case(model, dp, cuda, compiled):
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, lenet, resnet
+    from xsmm_tpu_torch.parallel.mesh import make_mesh
+    b = 16
+    params, fwd, hw, ch = {
+        "lenet": lambda: (*lenet(input_shape=(b, 28, 28, 1)), 28, 1),
+        "resnet18": lambda: (*resnet(18, num_classes=10, width=8,
+                                     input_shape=(b, 16, 16, 3)), 16, 3),
+    }[model]()
+    mesh = None if dp == 1 else make_mesh((dp, 1), devices=[cuda] * dp)
+    return (MLEngine(params, fwd, SolverConfig(lr=0.01), mesh=mesh,
+                     compiled=compiled), b, hw, ch)
+
+
+@pytest.mark.parametrize("model", ["lenet", "resnet18"])
+@pytest.mark.parametrize("dp", [1, 2])
+def test_compiled_train_epoch_and_validate_equal_eager(cuda, model, dp):
+    """``train_epoch`` and ``validate`` as CUDA graphs (the default on the
+    card) against their eager forms over 3 steps from one state on host
+    batches: on cuDNN's deterministic algorithms the losses, parameters,
+    momentum, BN state and metrics bit for bit; on its default ones the
+    losses within 1e-3 relative (chip_smoke's step-34 limit for LeNet, 10x
+    the eager loop's own spread)."""
+    from xsmm_tpu_torch.models.engine import (template_batches,
+                                              tree_flatten_with_path)
+    saved = torch.backends.cudnn.deterministic
+    for deterministic in (True, False):
+        engs = [_engine_case(model, dp, cuda, c) for c in (None, False)]
+        b, hw, ch = engs[0][1:]
+        engs = [e[0] for e in engs]
+        assert engs[0].compiled and not engs[1].compiled
+        data = list(template_batches(5, b, hw=hw, classes=10, chans=ch))
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            outs = [e.train_epoch(iter(data[:3]), verbose=False)
+                    for e in engs]
+            vals = [e.validate(iter(data[3:])) for e in engs]
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        assert engs[0].forms == {"graph": 0, "graph_copy": 3, "eager": 0,
+                                 "captures": 2}
+        if not deterministic:
+            for g, w in zip(outs[0]["losses"], outs[1]["losses"]):
+                assert abs(g - w) <= 1e-3 * abs(w)
+            continue
+        assert outs[0]["losses"] == outs[1]["losses"]
+        assert vals[0] == vals[1]
+        for tree in ("params", "momentum", "state"):
+            if getattr(engs[1], tree) is None:
+                continue
+            for (k, x), (_, y) in zip(
+                    tree_flatten_with_path(getattr(engs[0], tree)),
+                    tree_flatten_with_path(getattr(engs[1], tree))):
+                assert torch.equal(x, y), (tree, k)

@@ -358,6 +358,184 @@ def test_dp_packed_trsm(rng):
              1e-5)
 
 
+# ------------------------------------------------------ the compiled form --
+
+class _Rerun:
+    """A CPU stand-in for a captured CUDA graph: its replay runs the body
+    again on the inputs it captured and writes the outputs it holds, as a
+    graph writes its pool.  It lets the CPU drive the compiled form's keys,
+    copies and counts; the card tests hold real graphs."""
+
+    def __init__(self, body, out):
+        self.body, self.out = body, out
+
+    def replay(self):
+        _assign(self.out, self.body())
+
+
+def _mirror(x):
+    if isinstance(x, tuple):
+        return tuple(_mirror(v) for v in x)
+    if isinstance(x, pm.Sharded):
+        return pm.Sharded(x.sharding, [torch.empty_like(t) for t in x.shards],
+                          x.shape)
+    return torch.empty_like(x)
+
+
+def _assign(dst, src):
+    if isinstance(dst, tuple):
+        for d, s_ in zip(dst, src):
+            _assign(d, s_)
+    elif isinstance(dst, pm.Sharded):
+        for d, s_ in zip(dst.shards, src.shards):
+            d.copy_(s_)
+    else:
+        dst.copy_(src)
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """The compiled form on the CPU through ``_Rerun``: the graph form
+    allowed on CPU ranks, ``graphs.capture`` a warm-up and a stand-in."""
+    import contextlib
+
+    from xsmm_tpu_torch.utils import graphs
+
+    def capture(body, inputs=(), generators=(), device=None, what="",
+                args=()):
+        warm = body()
+        g = _Rerun(body, _mirror(warm))
+        return graphs.Entry(g, inputs, g.out, graphs.Counts(), args), warm
+    monkeypatch.setattr(graphs, "graph_form",
+                        lambda devs, compiled, what, processes=1:
+                        compiled is not False)
+    monkeypatch.setattr(graphs, "capture", capture)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    return graphs
+
+
+def _builders(rng, mesh):
+    """Each builder's callable and arguments on a small case: (name,
+    build(**kw), args)."""
+    a = rng.standard_normal((16, 16)).astype(np.float32)
+    b = rng.standard_normal((16, 24)).astype(np.float32)
+    op = sparse(rng, 16, 16, 0.3).astype(np.float32)
+    kern = xp.smmdispatch(4, 4, 4, batch=64, beta=0.0)
+    pa, pb = (kern.pack_a(rng.standard_normal((64, 4, 4)).astype(np.float32)),
+              kern.pack_b(rng.standard_normal((64, 4, 4)).astype(np.float32)))
+    lu = xp.getrf_dispatch(4, 4, batch=64)
+    ap = rng.standard_normal((4, 4, 64)).astype(np.float32) + \
+        4 * np.eye(4, dtype=np.float32)[:, :, None]
+    return [
+        ("ring_spmm", lambda **kw: pd.ring_spmm(mesh, **kw), (a, b)),
+        ("ring_spmm_csr", lambda **kw: pd.ring_spmm_csr(mesh, op, 24, **kw),
+         (b,)),
+        ("col_sharded_spmm", lambda **kw: pd.col_sharded_spmm(mesh, **kw),
+         (a, b)),
+        ("dp_batched_smm", lambda **kw: pd.dp_batched_smm(mesh, kern, "mp",
+                                                           **kw), (pa, pb)),
+        ("dp_packed", lambda **kw: pd.dp_packed(mesh, lu.packed, 1, "mp",
+                                                **kw), (ap,)),
+    ]
+
+
+def test_builders_run_eagerly_on_the_cpu(rng):
+    """On the CPU target every builder's call counts "eager", equals its
+    ``compiled=False`` form bit for bit, and ``compiled=True`` raises."""
+    mesh = pmesh((1, 4))
+    for name, build, args in _builders(rng, mesh):
+        pd.reset_counts()
+        got = build()(*args)
+        assert pd.forms == {"graph": 0, "graph_copy": 0, "eager": 1,
+                            "captures": 0}, name
+        assert torch.equal(got.gather(),
+                           build(compiled=False)(*args).gather()), name
+        with pytest.raises(ValueError, match="compiled=True"):
+            build(compiled=True)
+
+
+def test_graph_form_and_signature():
+    """Where the graph form runs, and the key: a new shape, dtype or
+    stride is a new key, the same ones the same key."""
+    from xsmm_tpu_torch.utils import graphs
+    card = torch.device("cuda", 0)
+    assert graphs.graph_form([card, card], None, "f")
+    assert not graphs.graph_form([card], False, "f")
+    for devs, procs, why in (([torch.device("cpu")], 1, "CPU"),
+                             ([card], 2, "processes"),
+                             ([card, torch.device("cuda", 1)], 1,
+                              "several cards")):
+        assert not graphs.graph_form(devs, None, "f", procs)
+        with pytest.raises(ValueError, match=why):
+            graphs.graph_form(devs, True, "f", procs)
+    t = torch.zeros((4, 6))
+    sig = graphs.signature([t])
+    assert graphs.signature([torch.ones((4, 6))]) == sig
+    for other in (torch.zeros((4, 7)), torch.zeros((4, 6), dtype=torch.int32),
+                  torch.zeros((6, 4)).t(), torch.zeros((4, 12))[:, ::2]):
+        assert graphs.signature([other]) != sig
+
+
+def test_graph_cache_evicts_the_least_recently_used():
+    from xsmm_tpu_torch.utils.graphs import GraphCache
+    cache = GraphCache(3)
+    for k in "abc":
+        cache.put(k, k.upper())
+    assert cache.get("a") == "A"
+    cache.put("d", "D")
+    assert cache.evictions == 1 and len(cache) == 3
+    assert "b" not in cache and all(k in cache for k in "cad")
+
+
+def test_compiled_form_keys_copies_and_counts(rng, cpu_graphs):
+    """The compiled form's control flow, graphs stood in by ``_Rerun``:
+    the first call of a key captures and returns the warm-up's result; a
+    later call with the caller's tensors copies them in ("graph_copy"),
+    one with the graph's own inputs reads them ("graph"), and new values
+    written there reach the next call; results stay apart; the hop count
+    is the eager call's each call; a new shape captures anew and the 9th
+    key evicts the first; each builder's calls equal its eager form."""
+    mesh = pmesh((1, 4))
+    a, bp, gold = _ring_case(rng, m=16, k=16, n=64, d=4, density=0.5)
+    b = pd.shard_rows(mesh, bp.astype(np.float32))
+    eager = pd.ring_spmm_csr(mesh, a.astype(np.float32), 64, chunks=2,
+                             compiled=False)
+    pd.reset_counts()
+    want = eager(b).gather()
+    hops = pd.hops["device"]
+    fn = pd.ring_spmm_csr(mesh, a.astype(np.float32), 64, chunks=2)
+    pd.reset_counts()
+    first = fn(b)
+    second = fn(b)
+    assert pd.forms == {"graph": 0, "graph_copy": 1, "eager": 0,
+                        "captures": 1}
+    assert pd.hops["device"] == 2 * hops
+    assert torch.equal(first.gather(), want)
+    assert torch.equal(second.gather(), want)
+    assert second.shards[0] is not fn.entry(b).out.shards[0]
+    inputs = fn.entry(b).args
+    assert inputs[0].shards[0] is not b.shards[0]
+    for t in inputs[0].shards:
+        t.mul_(2)
+    third = fn(*inputs)
+    assert pd.forms["graph"] == 1 and len(fn.cache) == 1
+    assert torch.equal(third.gather(), 2 * want)
+    assert torch.equal(first.gather(), want)    # results stay apart
+    # keys: the dense ring over 9 widths, the first evicted at the 9th
+    dense = pd.ring_spmm(mesh)
+    x = rng.standard_normal((16, 16)).astype(np.float32)
+    for n in range(1, 10):
+        y = rng.standard_normal((16, n)).astype(np.float32)
+        assert np.allclose(dense(x, y).numpy(), x @ y, atol=1e-5)
+    assert len(dense.cache) == 8 and dense.cache.evictions == 1
+    assert pd.forms["captures"] == 1 + 9
+    for name, build, args in _builders(rng, mesh):
+        fn, ref = build(), build(compiled=False)
+        for _ in range(2):
+            assert torch.equal(fn(*args).gather(), ref(*args).gather()), name
+
+
 # ----------------------------------------------------------- entry points --
 
 def test_entry_forward():

@@ -18,14 +18,30 @@ batch sources.  Inside, PyTorch idiom on one device (``platform.device()``):
   ``g + wd*p``, ``m = mu*m + g``, ``p -= lr*m`` (``torch._foreach_*``),
   with ``lr`` a device tensor written before the step;
 * dropout draws from the engine's ``torch.Generator`` (seeded 0xA6);
+* compiled, as the JAX package's ``jax.jit(self._train_step_impl)`` and
+  ``jax.jit(self._eval_step_impl)``: on the card ``train_epoch`` and
+  ``validate`` run each step as a CUDA graph (``utils/graphs.py``), one a
+  key (the batch's shapes, dtypes, strides and devices, and the solver's
+  momentum and weight decay, which the graph holds as constants).  The
+  first step of a key runs eagerly on a side stream, as the warm-up and
+  the epoch's step, then is captured, with the dropout generator
+  registered with the graph; each later step stages its host batch to the
+  card (the non-blocking pinned copies), copies it into the graph's own
+  input tensors, replays, and copies the loss (the metrics) out of the
+  graph's pool.  Parameters, momentum and BN state stay the engine's
+  tensors, updated in place by the replay.  ``forms`` counts every step
+  under the form it ran (``utils/graphs.FORMS``); each engine keeps at most
+  ``utils/graphs.CAPACITY`` graphs, the least recently used evicted first.
+  ``compiled=False`` gives the eager form; the CPU target, and a mesh over
+  several cards, run eagerly, and ``compiled=True`` there raises
+  ``ValueError``.  A step that cannot be captured raises, naming the
+  reason; nothing falls back to the eager form on the card;
 * ``train_epoch_scan`` (the JAX package's one-dispatch ``lax.scan`` epoch)
-  is a CUDA-graph epoch on the card: one whole step (the batch made by
-  ``batch_fn`` from the engine's data generator, forward, backward, update,
-  BN state copied into its buffers) is captured once into a
-  ``torch.cuda.CUDAGraph`` and replayed; the first epoch's first step runs
-  eagerly, as the capture's warm-up.  On the CPU the same steps run as an
-  eager loop.  A step that cannot be captured raises, naming the reason;
-  nothing falls back to the eager loop on the card;
+  is a CUDA-graph epoch in the compiled form: one whole step (the batch
+  made by ``batch_fn`` from the engine's data generator, forward, backward,
+  update, BN state copied into its buffers) is captured once and replayed;
+  the first epoch's first step runs eagerly, as the capture's warm-up.  In
+  the eager form the same steps run as an eager loop;
 * checkpoints have the JAX package's file names and array keys (the
   ``jax.tree_util.keystr`` of each leaf, dict keys sorted), so a JAX
   checkpoint resumes here.
@@ -43,7 +59,7 @@ loss gives every replica's share, the shares are summed in rank order
 statistics come from the global moments, so they stay replica-consistent.
 Ranks along another axis ("mp") are replicas of their dp rank.  One
 device is the same executor over one rank.
-``train_epoch_scan`` captures every rank's step into one CUDA graph (the
+The compiled forms capture every rank's step into one CUDA graph (the
 ranks on one card); checkpoints hold rank 0's replica.  The mesh lies in
 one process: multi-process steps are ``parallel/multihost.py``'s.
 
@@ -51,8 +67,7 @@ Stated differences: dropout masks and the device batch makers (``device_*_batche
 ``*_batch_fn``, which take a ``torch.Generator`` where JAX takes a key)
 have the JAX package's distributions, not its bits; the host batch
 sources (``synthetic_batches``, ``template_batches``) give its data
-exactly.  In a replayed epoch the Python-side launch counters of the
-layer handles count the capture once, not the replays.
+exactly.
 """
 
 from __future__ import annotations
@@ -71,7 +86,7 @@ from ..core import platform
 from ..dnn.layers import Ranks
 from ..ops.smm import as_tensor
 from ..parallel import mesh as _mesh
-from ..utils import trace
+from ..utils import graphs, trace
 from ..utils.scratch import STAGE_MIN_BYTES
 
 
@@ -159,7 +174,8 @@ class MLEngine:
     def __init__(self, params, forward: Callable, solver: SolverConfig,
                  mesh=None, loss_fn: Callable = softmax_xent,
                  checkpoint_dir: Optional[str] = None,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32,
+                 compiled: Optional[bool] = None):
         if mesh is not None:
             if not isinstance(mesh, _mesh.Mesh) or "dp" not in \
                     mesh.axis_names:
@@ -181,6 +197,7 @@ class MLEngine:
         self._devices = ([mesh.device(r) for r in mesh.local_ranks()]
                          if mesh is not None else [platform.device()])
         self.device = self._devices[0]
+        self.compiled = graphs.graph_form(self._devices, compiled, "MLEngine")
         self._dp = 1 if mesh is None else mesh.shape["dp"]
         self.epoch = 0
         self.step = 0
@@ -236,11 +253,12 @@ class MLEngine:
             for d in self._devices]
         self.state = self._rep_states[0]
         self._lr = torch.zeros((), device=self.device)
-        # CUDA-graph epochs: id(batch_fn) -> (batch_fn, graph, static loss,
-        # data generator); the entry holds batch_fn (and the tensors its
-        # graph reads) alive, so its id is not reused
-        self._graphs: Dict[int, Tuple[Callable, Any, torch.Tensor,
-                                      torch.Generator]] = {}
+        # the compiled steps: ("train" | "eval", key) -> graphs.Entry;
+        # ("scan", id(batch_fn)) -> (graphs.Entry, batch_fn, data
+        # generator), the entry holding batch_fn (and the tensors its graph
+        # reads) alive, so that its id is not reused
+        self._graphs = graphs.GraphCache()
+        self.forms = graphs.new_forms()
 
     @staticmethod
     def _trainable(params):
@@ -400,7 +418,8 @@ class MLEngine:
         losses = []
         for bi, (x, y) in enumerate(batches):
             x, y = self._batch(x), self._batch(y)
-            losses.append(self._train_step(x, y))
+            losses.append(self._run("train", self._train_step, x, y,
+                                    (self._gen,)))
             n_images += sum(t.shape[0] for t in x) * self._dp // len(x)
             self.step += 1
             if verbose and bi % log_every == 0:
@@ -422,6 +441,27 @@ class MLEngine:
         return {"images_per_s": ips, "loss": losses[-1], "lr": lr,
                 "losses": losses}
 
+    def _run(self, kind: str, step: Callable, xs, ys, generators=()):
+        """``step(xs, ys)`` (each rank's batch shard on its device) in the
+        engine's form: eagerly, or as the CUDA graph of its key (the first
+        step of a key is the warm-up, then the capture; later ones copy the
+        batch into the graph's inputs, replay and copy the result out)."""
+        if not self.compiled:
+            self.forms["eager"] += 1
+            return step(xs, ys)
+        cfg = self.solver
+        key = (kind, graphs.signature(xs), graphs.signature(ys),
+               cfg.momentum, cfg.weight_decay)
+        got = self._graphs.get(key)
+        if got is None:
+            sx, sy = [t.clone() for t in xs], [t.clone() for t in ys]
+            got, warm = self._capture(lambda: step(sx, sy), sx + sy,
+                                      generators, f"MLEngine {kind} step")
+            self._graphs.put(key, got)
+            self.forms["captures"] += 1
+            return warm
+        return got.replay(list(xs) + list(ys), self.forms).clone()
+
     def _scan_step(self, batch_fn: Callable, gen):
         x, y = batch_fn(gen)
         return self._train_step(self._batch(x), self._batch(y))
@@ -432,31 +472,13 @@ class MLEngine:
         both into its key)."""
         return (0xDA7A << 32) + (data_seed << 20) + self.step
 
-    def _capture(self, batch_fn: Callable, gen: torch.Generator):
-        """Warm up one real step on a side stream, then capture one step
-        into a CUDA graph; returns (graph, static loss, loss of the warm-up
-        step)."""
-        graph = torch.cuda.CUDAGraph()
-        try:
-            for g in {gen, self._gen}:
-                graph.register_generator_state(g)
-        except (AttributeError, RuntimeError) as e:
-            raise RuntimeError(
-                f"train_epoch_scan: the data and dropout generators cannot "
-                f"be registered with a CUDA graph ({e}); the step draws from "
-                f"them inside the graph") from e
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            warm = self._scan_step(batch_fn, gen)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        try:
-            with torch.cuda.graph(graph):
-                loss = self._scan_step(batch_fn, gen)
-        except RuntimeError as e:
-            raise RuntimeError(f"train_epoch_scan: the step could not be "
-                               f"captured into a CUDA graph: {e}") from e
-        return graph, loss, warm
+    def _capture(self, step: Callable[[], Any], inputs, generators,
+                 what: str):
+        """Warm up one real step on a side stream, then capture the same
+        step (which reads ``inputs``) into a CUDA graph with
+        ``generators`` registered: (its ``graphs.Entry``, the warm-up
+        step's result)."""
+        return graphs.capture(step, inputs, generators, self.device, what)
 
     def train_epoch_scan(self, n_batches: int, batch_fn: Callable,
                          batch_size: int, verbose: bool = True,
@@ -471,36 +493,36 @@ class MLEngine:
         first call for this ``batch_fn``, after one eager warm-up step
         that is the epoch's first); on the CPU the same steps run eagerly.
         Over a mesh the batch is the global one, split along "dp" inside
-        the step, and the graph holds every rank's step (the ranks must
-        share one card).
+        the step, and the graph holds every rank's step (the ranks share
+        one card).  In the eager form the steps run as an eager loop.
         """
-        if (self.mesh is not None and self.device.type == "cuda"
-                and len(set(self._devices)) > 1):
-            raise ValueError("train_epoch_scan over a mesh captures one CUDA "
-                             "graph: the mesh's ranks must share one card")
         lr = _schedule(self.solver, self.epoch)
         seed = self.scan_seed(data_seed)
         t0 = time.perf_counter()
         self._lr.fill_(lr)
         losses = torch.empty((n_batches,), device=self.device)
-        if self.device.type != "cuda":
+        if not self.compiled:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             for i in range(n_batches):
                 losses[i] = self._scan_step(batch_fn, gen).float()
+            self.forms["eager"] += n_batches
         else:
             first = 0
-            if id(batch_fn) not in self._graphs:
+            key = ("scan", id(batch_fn))
+            if key not in self._graphs:
                 gen = torch.Generator(device=self.device).manual_seed(seed)
-                graph, loss, warm = self._capture(batch_fn, gen)
-                self._graphs[id(batch_fn)] = (batch_fn, graph, loss, gen)
+                entry, warm = self._capture(
+                    lambda: self._scan_step(batch_fn, gen), (),
+                    (gen, self._gen), "train_epoch_scan: the step")
+                self._graphs.put(key, (entry, batch_fn, gen))
+                self.forms["captures"] += 1
                 losses[0] = warm.float()
                 first = 1
-            _, graph, loss, gen = self._graphs[id(batch_fn)]
+            entry, _, gen = self._graphs.get(key)
             if not first:
                 gen.manual_seed(seed)
             for i in range(first, n_batches):
-                graph.replay()
-                losses[i] = loss.float()
+                losses[i] = entry.replay((), self.forms).float()
         losses = losses.tolist()    # waits for the card
         dt = time.perf_counter() - t0
         self.step += n_batches
@@ -510,7 +532,7 @@ class MLEngine:
         if verbose:
             print(f"epoch {self.epoch - 1}: {ips:.1f} images/s "
                   f"({n_images} images, {dt:.2f}s, "
-                  f"{'CUDA graph' if self.device.type == 'cuda' else 'eager'}"
+                  f"{'CUDA graph' if self.compiled else 'eager'}"
                   f")")
         if self.checkpoint_dir:
             self.checkpoint()
@@ -518,10 +540,12 @@ class MLEngine:
                 "losses": losses}
 
     def validate(self, batches) -> Dict[str, float]:
+        """Loss, top-1 and top-5 over ``batches``, each step in the
+        engine's form (compiled: the eval step's CUDA graph)."""
         rows = []
         for x, y in batches:
-            rows.append(self._eval_step(self._batch(x),
-                                        self._batch(y)).float())
+            rows.append(self._run("eval", self._eval_step, self._batch(x),
+                                  self._batch(y)).float())
         loss, acc, acc5 = torch.stack(rows).mean(dim=0).tolist()
         return {"loss": loss, "acc": acc, "acc5": acc5}
 

@@ -29,6 +29,31 @@ packed LA kernels (no collectives).
 
 Inputs and outputs are ``mesh.Sharded`` values; ``shard_rows`` and
 ``shard_cols`` place a global array with the JAX package's zero padding.
+
+Compiled, as the JAX package's ``jax.jit(shard_map(...))``: on the card the
+callable every builder returns runs its program as one CUDA graph a key
+(``utils/graphs.py``; the key is the shapes, dtypes, strides and devices of
+the inputs' shards). The first call of a key runs the program eagerly on a
+side stream, as the warm-up and the call's result, then captures it: each
+rank's compute and communication streams fork from the capture stream and
+join it through the events of the eager schedule, so the graph keeps the
+ring's order (hop s under the compute of sub-panels s+1..S). Later calls
+replay it: inputs that are the graph's own (``fn.entry(*args).args``, as a
+solver loop refills its buffers) are read where they lie, any other tensors
+are copied into them first, and every output is copied out of the graph's
+pool, so no call's result is overwritten by a later call. The spgemm
+kernels' item counters need no reset between replays: each launch leaves
+its stream's pair at zero (``ops/csrc/spgemm.cu`` ``sched_counters``), so
+every replay starts from zero, bit for bit the eager call. The hop and
+launch counters count each replay; ``forms`` counts every call under the
+form it ran. Compiled is the default wherever the mesh lies in one process
+with all its local ranks on one card; ``compiled=False`` gives the eager
+form (the counterpart of ``jax.disable_jit()``). Meshes over several cards
+or processes run eagerly (gloo's host-staged transfers cannot be captured),
+as does the CPU target; ``compiled=True`` there raises ``ValueError``. A
+capture that fails raises; nothing runs eagerly in its place. Each callable
+keeps at most ``utils/graphs.CAPACITY`` graphs, the least recently used
+evicted first (``fn.cache.evictions``).
 """
 
 from __future__ import annotations
@@ -40,7 +65,7 @@ import numpy as np
 import torch
 
 from ..ops.smm import _matmul, as_tensor
-from ..utils import trace
+from ..utils import graphs, trace
 from .mesh import (COMM_TIMEOUT_S, Mesh, NamedSharding, P, Sharded,
                    device_put, on_rank, staged)
 
@@ -49,11 +74,14 @@ F32 = torch.float32
 # hops since the last reset_counts(): device copies within a process and
 # point-to-point transfers between processes (a panel stream each)
 hops: Dict[str, int] = {"device": 0, "process": 0}
+# the builders' calls by the form they ran (utils/graphs.FORMS)
+forms: Dict[str, int] = graphs.new_forms()
 
 
 def reset_counts() -> None:
-    for k in hops:
-        hops[k] = 0
+    for counts in (hops, forms):
+        for k in counts:
+            counts[k] = 0
 
 
 def _as_tuple(r):
@@ -221,8 +249,75 @@ def _as_sharded(mesh: Mesh, x, axis: str) -> Sharded:
     return shard_rows(mesh, x, axis)
 
 
-def ring_spmm(mesh: Mesh, axis: str = "mp", precision=None):
-    """Build fn(a, b) -> c with A row-sharded, B k-sharded, C row-sharded.
+def _leaves(args) -> List[torch.Tensor]:
+    return [t for a in args
+            for t in (a.shards if isinstance(a, Sharded) else (a,))]
+
+
+def _rebuild(args, tensors) -> tuple:
+    """``args`` (Sharded values and tensors) over other tensors."""
+    it = iter(tensors)
+    return tuple(Sharded(a.sharding, [next(it) for _ in a.shards], a.shape)
+                 if isinstance(a, Sharded) else next(it) for a in args)
+
+
+def _copy_out(out):
+    """A builder's result (a Sharded or a tuple of them) copied out of a
+    graph's pool."""
+    if isinstance(out, tuple):
+        return tuple(_copy_out(o) for o in out)
+    return Sharded(out.sharding, [t.clone() for t in out.shards], out.shape)
+
+
+def _compiled(mesh: Mesh, body: Callable, place: Callable,
+              compiled: Optional[bool], what: str) -> Callable:
+    """The builders' callable: ``body(*place(*args))`` as one CUDA graph a
+    key on the card (the module docstring), else eagerly; every call
+    counted in ``forms``.  ``place`` puts the arguments on the mesh
+    (Sharded values and tensors on the ranks' devices)."""
+    local = mesh.local_ranks()
+    if not graphs.graph_form([mesh.device(r) for r in local], compiled, what,
+                             len(set(mesh.owners.flat))):
+        def eager(*args):
+            out = body(*place(*args))
+            forms["eager"] += 1
+            return out
+        return eager
+    dev = mesh.device(local[0])
+    cache = graphs.GraphCache()
+
+    def key(ins) -> tuple:
+        return (tuple((a.spec, a.shape) if isinstance(a, Sharded) else None
+                      for a in ins), graphs.signature(_leaves(ins)))
+
+    def entry(*args) -> Optional[graphs.Entry]:
+        """The captured program of ``args``' key, None before its first
+        call; ``entry(*args).args`` are the arguments the graph reads."""
+        return cache.get(key(place(*args)))
+
+    def call(*args):
+        ins = place(*args)
+        k = key(ins)
+        with torch.cuda.device(dev):
+            got = cache.get(k)
+            if got is None:
+                static = _rebuild(ins, [t.clone() for t in _leaves(ins)])
+                got, warm = graphs.capture(lambda: body(*static),
+                                           _leaves(static), device=dev,
+                                           what=what, args=static)
+                cache.put(k, got)
+                forms["captures"] += 1
+                return warm
+            return _copy_out(got.replay(_leaves(ins), forms))
+
+    call.cache, call.entry = cache, entry
+    return call
+
+
+def ring_spmm(mesh: Mesh, axis: str = "mp", precision=None,
+              compiled: Optional[bool] = None):
+    """Build fn(a, b) -> c with A row-sharded, B k-sharded, C row-sharded
+    (compiled per ``compiled``: the module docstring).
 
     a: [M, K] sharded (axis, None) — operator (dense or densified sparse)
     b: [K, N] sharded (axis, None)
@@ -234,8 +329,10 @@ def ring_spmm(mesh: Mesh, axis: str = "mp", precision=None):
     del precision
     d = mesh.shape[axis]
 
-    def fn(a, b):
-        a_s, b_s = _as_sharded(mesh, a, axis), _as_sharded(mesh, b, axis)
+    def place(a, b):
+        return _as_sharded(mesh, a, axis), _as_sharded(mesh, b, axis)
+
+    def body(a_s, b_s):
         out = {}
         for gi, group in enumerate(mesh.groups((axis,))):
             ring = _Ring(mesh, group, gi * 4 * d * d)
@@ -274,14 +371,16 @@ def ring_spmm(mesh: Mesh, axis: str = "mp", precision=None):
         return Sharded(NamedSharding(mesh, P(axis, None)),
                        [out[r] for r in local], (m, b_s.shape[1]))
 
-    return fn
+    return _compiled(mesh, body, place, compiled, "ring_spmm")
 
 
 def ring_spmm_csr(mesh: Mesh, a, n: int, axis: str = "mp",
                   dtype="float32", strategy: str = "auto",
-                  chunks: int = 1, f64_schedule: str = "split2"):
+                  chunks: int = 1, f64_schedule: str = "split2",
+                  compiled: Optional[bool] = None):
     """Ring SpMM whose per-step compute is the library's own CSR kernel
-    (kernels 5-8 of ``ops/spgemm_kernels.py``), not a densified product.
+    (kernels 5-8 of ``ops/spgemm_kernels.py``), not a densified product;
+    compiled per ``compiled`` (the module docstring).
 
     The fixed-structure operator A [M, K] is carved into a d x d grid of
     sparse blocks at build time; each nonempty block becomes one
@@ -350,12 +449,14 @@ def ring_spmm_csr(mesh: Mesh, a, n: int, axis: str = "mp",
             return cs
         return _as_tuple(kern.acc_fn(*cs, *bs))
 
-    def fn(*b_streams):
+    def place(*b_streams):
         if len(b_streams) != n_b:
             raise ValueError(f"the ring takes {n_b} B stream(s) under "
                              f"{'f64 ' + f64_schedule if is_f64 else 'f32'}"
                              f", got {len(b_streams)}")
-        bss = [_as_sharded(mesh, b, axis) for b in b_streams]
+        return tuple(_as_sharded(mesh, b, axis) for b in b_streams)
+
+    def body(*bss):
         for b in bss:
             if b.shape != (kl * d, n):
                 raise ValueError(f"B must be [{kl * d}, {n}] (K padded to a "
@@ -413,22 +514,27 @@ def ring_spmm_csr(mesh: Mesh, a, n: int, axis: str = "mp",
                     for j in range(n_c))
         return res if n_c == 2 else res[0]
 
+    fn = _compiled(mesh, body, place, compiled, "ring_spmm_csr")
     fn.kernels = kernels
     fn.streams = (n_b, n_c)
     return fn
 
 
-def col_sharded_spmm(mesh: Mesh, axis: str = "mp", precision=None):
-    """fn(a, b) -> c with A replicated, B/C column(N)-sharded — zero comm.
+def col_sharded_spmm(mesh: Mesh, axis: str = "mp", precision=None,
+                     compiled: Optional[bool] = None):
+    """fn(a, b) -> c with A replicated, B/C column(N)-sharded — zero comm;
+    compiled per ``compiled`` (the module docstring).
 
     The right layout when B is the wide streaming operand (PyFR-style):
     each rank computes all M rows for its N columns (``torch.matmul`` in
     full f32)."""
     del precision
 
-    def fn(a, b):
-        if not isinstance(b, Sharded):
-            b = shard_cols(mesh, b, axis)
+    def place(a, b):
+        return (as_tensor(a, mesh.device(mesh.local_ranks()[0])),
+                b if isinstance(b, Sharded) else shard_cols(mesh, b, axis))
+
+    def body(a, b):
         local = mesh.local_ranks()
         _begin(mesh, local)
         outs = []
@@ -440,24 +546,27 @@ def col_sharded_spmm(mesh: Mesh, axis: str = "mp", precision=None):
                 _used_on([bt], comp)
             _finish(mesh, r, [c])
             outs.append(c)
-        m = int(np.shape(a)[0])
+        m = int(a.shape[0])
         return Sharded(NamedSharding(mesh, P(None, axis)), outs,
                        (m, b.shape[1]))
 
-    return fn
+    return _compiled(mesh, body, place, compiled, "col_sharded_spmm")
 
 
 def _dp_wrapper(mesh: Mesh, packed_fn: Callable, n_in: Optional[int],
-                axis: str):
+                axis: str, compiled: Optional[bool], what: str):
     """fn(*ops) -> Sharded: ``packed_fn`` on each local rank's lane shard
-    (the last axis of every operand), on the rank's compute stream."""
+    (the last axis of every operand), on the rank's compute stream;
+    compiled per ``compiled`` (the module docstring)."""
     spec = P(None, None, axis)
 
-    def fn(*ops):
+    def place(*ops):
         if n_in is not None and len(ops) != n_in:
             raise ValueError(f"takes {n_in} operands, got {len(ops)}")
-        ops = [o if isinstance(o, Sharded) else
-               device_put(o, NamedSharding(mesh, spec)) for o in ops]
+        return tuple(o if isinstance(o, Sharded) else
+                     device_put(o, NamedSharding(mesh, spec)) for o in ops)
+
+    def body(*ops):
         local = mesh.local_ranks()
         _begin(mesh, local)
         outs = []
@@ -476,19 +585,22 @@ def _dp_wrapper(mesh: Mesh, packed_fn: Callable, n_in: Optional[int],
                     for j in range(len(outs[0])))
         return res if len(res) > 1 else res[0]
 
-    return fn
+    return _compiled(mesh, body, place, compiled, what)
 
 
-def dp_batched_smm(mesh: Mesh, kernel, axis: str = "dp"):
+def dp_batched_smm(mesh: Mesh, kernel, axis: str = "dp",
+                   compiled: Optional[bool] = None):
     """Data-parallel wrapper over a lane-packed ``BatchedSMM`` kernel
     (kernels 1-3): each rank runs ``kernel.packed`` on its lane shard of
     the packed operands ([M, K, B] / [K, N, B], the batch last).  No
     collectives for independent problems (the GxM-DP analog reduces
     gradients, not forward SMMs)."""
-    return _dp_wrapper(mesh, kernel.packed, None, axis)
+    return _dp_wrapper(mesh, kernel.packed, None, axis, compiled,
+                       "dp_batched_smm")
 
 
-def dp_packed(mesh: Mesh, packed_fn: Callable, n_in: int, axis: str = "dp"):
+def dp_packed(mesh: Mesh, packed_fn: Callable, n_in: int, axis: str = "dp",
+              compiled: Optional[bool] = None):
     """Batch(lane)-partitioned wrapper for any lane-packed kernel
     (``getrf_dispatch(...).packed``, ``trsm_dispatch(...).packed``:
     kernels 11-14).
@@ -497,7 +609,7 @@ def dp_packed(mesh: Mesh, packed_fn: Callable, n_in: int, axis: str = "dp"):
     over hosts": the packed layout's lane axis is the batch, so
     distributing = sharding the last axis of every operand; each rank
     factors or solves its own problem instances (zero collectives)."""
-    return _dp_wrapper(mesh, packed_fn, n_in, axis)
+    return _dp_wrapper(mesh, packed_fn, n_in, axis, compiled, "dp_packed")
 
 
 def _pad(x, pads) -> torch.Tensor:

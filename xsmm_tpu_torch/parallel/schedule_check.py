@@ -186,25 +186,6 @@ def check_schedule(items: List[Dict], chunks: int, d: int,
     return st
 
 
-def capture(fn, *args):
-    """``fn(*args)`` captured into one CUDA graph (after a warm-up call on
-    a side stream): (graph, the outputs it writes at each replay).  The
-    ring's streams fork from and join the capture stream through events,
-    so the graph keeps their order: the analog of the TPU's compiled
-    schedule, without the host's issue between the calls."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn(*args)
-    return graph, out
-
-
 def replay_overlap(trace) -> Dict:
     """Copies and kernels of a trace without the ring's ranges (a CUDA
     graph's replay carries one correlation id): how many copies overlap a
@@ -233,16 +214,18 @@ def check_ring(d: int = 4, chunks: int = 4, n: int = 65536, op=None,
                trace_path: Optional[str] = None, seed: int = 0,
                graph: bool = False) -> Dict:
     """Run ``ring_spmm_csr`` over ``d`` ranks on the card (virtual ranks on
-    ``cuda:0`` when there are fewer cards) under ``torch.profiler`` and
-    check its schedule (the Chrome trace written to ``trace_path``, by
-    default ``xsmm_tpu_torch_trace/ring_trace.json`` in the working
-    directory).  ``op`` is the operator (default: a 150 x 150
-    operator at 5 % density from ``seed``).  Also reports where the hops'
-    copies ran: as copies (a copy engine, "gpu_memcpy") or as kernels.
-    With ``graph``, also the ring captured into one CUDA graph
-    (``capture``): a replay's trace (``replay_overlap``: its ranges are
-    gone, so only the copies overlapping kernels are counted) and the
-    replay's ms beside the eager call's.  Needs a card."""
+    ``cuda:0`` when there are fewer cards) in its eager form
+    (``compiled=False``) under ``torch.profiler`` and check its schedule
+    (the Chrome trace written to ``trace_path``, by default
+    ``xsmm_tpu_torch_trace/ring_trace.json`` in the working directory).
+    ``op`` is the operator (default: a 150 x 150 operator at 5 % density
+    from ``seed``).  Also reports where the hops' copies ran: as copies (a
+    copy engine, "gpu_memcpy") or as kernels.  With ``graph``, also the
+    compiled form, the entry point's default: the trace of a replay of its
+    graph (``replay_overlap``: its ranges are gone, so only the copies
+    overlapping kernels are counted), and the ms of the eager call, of the
+    compiled call (its replay, the result copied out) and of the replay
+    alone.  Needs a card."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -259,7 +242,7 @@ def check_ring(d: int = 4, chunks: int = 4, n: int = 65536, op=None,
         op = np.where(rng.random((150, 150)) < 0.05,
                       rng.standard_normal((150, 150)), 0.0)
     fn = dist_spmm.ring_spmm_csr(mesh, op, n, dtype=dtype, chunks=chunks,
-                                 f64_schedule=f64_schedule)
+                                 f64_schedule=f64_schedule, compiled=False)
     n_b = fn.streams[0]
     k = -(-op.shape[1] // d) * d
     gen = torch.Generator(device=devs[0]).manual_seed(seed)
@@ -285,9 +268,15 @@ def check_ring(d: int = 4, chunks: int = 4, n: int = 65536, op=None,
     if graph:
         from ..utils.timer import cuda_time_ms
 
-        g, out = capture(fn, *bs)
+        cfn = dist_spmm.ring_spmm_csr(mesh, op, n, dtype=dtype,
+                                      chunks=chunks,
+                                      f64_schedule=f64_schedule)
+        cfn(*bs)     # the warm-up and the capture
+        entry = cfn.entry(*bs)
+        entry.replay()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            g.replay()
+            entry.replay()
             torch.cuda.synchronize()
         gpath = path[:-len(".json")] + "_graph.json" \
             if path.endswith(".json") else path + "_graph"
@@ -295,6 +284,8 @@ def check_ring(d: int = 4, chunks: int = 4, n: int = 65536, op=None,
         st["graph"] = dict(replay_overlap(gpath), trace=gpath,
                            eager_ms=cuda_time_ms(fn, *bs, warmup=1,
                                                  iters=5),
-                           replay_ms=cuda_time_ms(g.replay, warmup=2,
+                           call_ms=cuda_time_ms(cfn, *entry.args,
+                                                warmup=2, iters=20),
+                           replay_ms=cuda_time_ms(entry.replay, warmup=2,
                                                   iters=20))
     return st
