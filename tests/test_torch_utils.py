@@ -348,8 +348,9 @@ def test_kernel_name_equals_jax(kind, args):
 
 
 def test_scope_opens_no_range_with_tracing_off(monkeypatch):
-    """With no capture running and XSMM_TRACE unset, scope and the named
-    entry points cost a flag check: no record_function range is opened."""
+    """With no capture running, XSMM_TRACE unset and no recording on,
+    scope, span and the named entry points cost a flag check: no
+    record_function range is opened and no span is recorded."""
     opened = []
     real = torch.profiler.record_function
 
@@ -358,12 +359,18 @@ def test_scope_opens_no_range_with_tracing_off(monkeypatch):
         return real(name)
     monkeypatch.setattr(torch.profiler, "record_function", spy)
     monkeypatch.setattr(trace, "_TRACE_DIR", "")
-    with trace.scope("off"):
-        pass
+    assert not trace.recording_on()
+    with trace.scope("off"), trace.scope("off.call", "frontend"):
+        with trace.span("off.span"):
+            pass
     rng = np.random.default_rng(5)
     kern = xp.dmmdispatch(4, 4, 4, batch=8, beta=0.0)
     kern(*rng.standard_normal((2, 8, 4, 4)))
-    assert opened == []
+    xp.create_dcsr_reg(np.eye(4), 8)
+    assert opened == [] and trace._REC is None
+    with trace.recording() as rec:     # holds what it saw, nothing earlier
+        pass
+    assert rec.spans() == []
     monkeypatch.setattr(trace, "_TRACE_DIR", "somewhere")
     with trace.scope("on"):
         pass

@@ -22,6 +22,7 @@ import atexit
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..utils import trace
 from .config import get_config
 
 
@@ -246,7 +247,8 @@ class Registry:
                 entry = self._table.get(key)
                 if entry is None:
                     jit = True
-                    kernel = builder()
+                    with trace.span("registry.build"):
+                        kernel = builder()
                     entry = RegistryEntry(kernel, descriptor, name)
                     # working-set estimate for the registry-bytes stat:
                     # per-problem operand bytes x batch, f64 counted at

@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from ..utils import trace
+
 _PKG = Path(__file__).resolve().parent
 DEFAULT_BUILD_DIR = _PKG.parent / "build"
 # where the libraries are built; ``enable_compile_cache`` may move it
@@ -47,6 +49,9 @@ BUILD_TIMEOUT_S = 600
 # compiler output of each library built by this process (ptxas prints each
 # kernel's registers, shared memory and spills)
 build_logs: Dict[str, str] = {}
+
+# libraries compiled and loaded by this process (utils/trace.build_counts)
+builds: Dict[str, int] = {"compiled": 0, "loaded": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -110,6 +115,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, paths[n])  # atomic: concurrent builders agree
+            builds["compiled"] += 1
     if failed:
         raise RuntimeError("xsmm_tpu_torch: CUDA build failed:\n"
                            + "\n".join(failed))
@@ -126,9 +132,10 @@ def launch(fn, device, *args, refused: Optional[str] = None) -> None:
     reason; else the ``cudaError`` of the launch)."""
     import torch
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, device.index if device.index is not None
-            else torch.cuda.current_device(), stream)
+    with trace.span("launch"):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, device.index if device.index is not None
+                else torch.cuda.current_device(), stream)
     if rc == -2:
         raise ValueError(f"{fn.__name__}: " + (refused or (
             "these sizes need more shared memory than a block has (or, for "
@@ -146,4 +153,5 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _LIBS[name] = lib
+            builds["loaded"] += 1
         return lib

@@ -232,7 +232,7 @@ class BatchedSMM(_Kernel):
             raise ValueError(f"packed() takes {n_in + n_c} operands for "
                              f"strategy {self.strategy} beta={self.desc.beta}"
                              f", got {len(ops)}")
-        with trace.scope(self.name + "_packed"):
+        with trace.scope(self.name + "_packed", "frontend"):
             ops = [as_tensor(o, self.device,
                              self.in_dt if i < n_in else self.out_dt,
                              slot=f"packed{i}")
@@ -261,7 +261,7 @@ class BatchedSMM(_Kernel):
         on the device and the result is a float64 numpy array (hi + lo
         joined in f64).
         """
-        with trace.scope(self.name):
+        with trace.scope(self.name, "frontend"):
             if not self.is_f64:
                 return self._full(a, b, c)
             return self._call_f64(a, b, c)
@@ -543,6 +543,14 @@ def mmdispatch(m: int, n: int, k: int, *, in_dtype="float32", out_dtype=None,
     at most once per process and cached in the registry; the hot path is a
     raw-args memo probe (the TLS-cache analog, libxsmm_main.c:1704-1732).
     """
+    with trace.span("dispatch"):
+        return _mmdispatch(m, n, k, in_dtype, out_dtype, lda, ldb, ldc,
+                           alpha, beta, transa, transb, batch, batch_reduce,
+                           prefetch)
+
+
+def _mmdispatch(m, n, k, in_dtype, out_dtype, lda, ldb, ldc, alpha, beta,
+                transa, transb, batch, batch_reduce, prefetch):
     reg = get_registry()
     gen = config_generation()
     if getattr(reg, "front_memo_gen", gen) != gen:
@@ -602,24 +610,23 @@ def _typed(in_dtype, out_dtype, batch_reduce=False):
     def dispatch(m, n, k, *, lda=0, ldb=0, ldc=0, alpha=1.0, beta=1.0,
                  transa="N", transb="N", batch=1, prefetch=0,
                  _in=in_dtype, _out=out_dtype, _br=batch_reduce):
-        reg = get_registry()
-        gen = _cfg._GENERATION
-        if getattr(reg, "front_memo_gen", -1) == gen:
-            hit = reg.front_memo.get(
-                (m, n, k, _in, _out, lda, ldb, ldc, alpha, beta,
-                 transa, transb, batch, _br, prefetch, gen))
-            if hit is not None:
-                kernel, row, bucket, entry = hit
-                st = reg.stats
-                st.ntry += 1
-                st.ncache_hit += 1
-                row[bucket] += 1
-                entry.hits += 1
-                return kernel
-        return mmdispatch(m, n, k, in_dtype=_in, out_dtype=_out, lda=lda,
-                          ldb=ldb, ldc=ldc, alpha=alpha, beta=beta,
-                          transa=transa, transb=transb, batch=batch,
-                          batch_reduce=_br, prefetch=prefetch)
+        with trace.span("dispatch"):
+            reg = get_registry()
+            gen = _cfg._GENERATION
+            if getattr(reg, "front_memo_gen", -1) == gen:
+                hit = reg.front_memo.get(
+                    (m, n, k, _in, _out, lda, ldb, ldc, alpha, beta,
+                     transa, transb, batch, _br, prefetch, gen))
+                if hit is not None:
+                    kernel, row, bucket, entry = hit
+                    st = reg.stats
+                    st.ntry += 1
+                    st.ncache_hit += 1
+                    row[bucket] += 1
+                    entry.hits += 1
+                    return kernel
+            return _mmdispatch(m, n, k, _in, _out, lda, ldb, ldc, alpha,
+                               beta, transa, transb, batch, _br, prefetch)
     return dispatch
 
 

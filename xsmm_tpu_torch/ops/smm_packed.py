@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from . import cuda_build
 
 # kernel name -> launches since the last reset_launches()
@@ -157,21 +158,22 @@ def packed_f32(a: torch.Tensor, b: torch.Tensor,
                out_dtype: torch.dtype) -> torch.Tensor:
     """One-product schedule: A, B in f32/bf16/f16, C in ``out_dtype``
     (f32/bf16/f16); ``cin`` (beta = 1) in ``out_dtype``."""
-    m, n, k, bp = _shapes(a, b)
-    if a.dtype not in _CODES or out_dtype not in _CODES:
-        raise ValueError(f"packed_f32 takes {list(_CODES)} in and out, got "
-                         f"{a.dtype} -> {out_dtype}")
-    _check(a.device, {"A": (a, a.dtype, (m, k, bp)),
-                      "B": (b, a.dtype, (k, n, bp)),
-                      "C_in": (cin, out_dtype, (m, n, bp))})
-    if a.device.type == "cpu":
-        return packed_f32_plain(a, b, cin, out_dtype=out_dtype)
-    c = torch.empty((m, n, bp), dtype=out_dtype, device=a.device)
-    if c.numel():
-        _launch(_lib().xsmm_packed_f32, "packed_f32", (a, b), _ptr(a), _ptr(b),
-                _ptr(cin), _ptr(c), m, n, k, bp, _CODES[a.dtype],
-                _CODES[out_dtype])
-    return c
+    with trace.span("wrapper"):
+        m, n, k, bp = _shapes(a, b)
+        if a.dtype not in _CODES or out_dtype not in _CODES:
+            raise ValueError(f"packed_f32 takes {list(_CODES)} in and out, "
+                             f"got {a.dtype} -> {out_dtype}")
+        _check(a.device, {"A": (a, a.dtype, (m, k, bp)),
+                          "B": (b, a.dtype, (k, n, bp)),
+                          "C_in": (cin, out_dtype, (m, n, bp))})
+        if a.device.type == "cpu":
+            return packed_f32_plain(a, b, cin, out_dtype=out_dtype)
+        c = torch.empty((m, n, bp), dtype=out_dtype, device=a.device)
+        if c.numel():
+            _launch(_lib().xsmm_packed_f32, "packed_f32", (a, b), _ptr(a),
+                    _ptr(b), _ptr(cin), _ptr(c), m, n, k, bp,
+                    _CODES[a.dtype], _CODES[out_dtype])
+        return c
 
 
 # ---------------------------------------------------------------------------
@@ -193,19 +195,21 @@ def packed_split2_fast_plain(ah, bh, bl, cin=None):
 def packed_split2_fast(ah: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor,
                        cin: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Default f64 schedule on f32 hi/lo planes: (ah, bh, bl[, c_in]) -> C."""
-    m, n, k, bp = _shapes(ah, bh)
-    f32 = torch.float32
-    _check(ah.device, {"Ah": (ah, f32, (m, k, bp)), "Bh": (bh, f32, (k, n, bp)),
-                       "Bl": (bl, f32, (k, n, bp)),
-                       "C_in": (cin, f32, (m, n, bp))})
-    if ah.device.type == "cpu":
-        return packed_split2_fast_plain(ah, bh, bl, cin)
-    c = torch.empty((m, n, bp), dtype=f32, device=ah.device)
-    if c.numel():
-        _launch(_lib().xsmm_packed_split2_fast, "packed_split2_fast",
-                (ah, bh, bl), _ptr(ah), _ptr(bh), _ptr(bl), _ptr(cin), _ptr(c),
-                m, n, k, bp)
-    return c
+    with trace.span("wrapper"):
+        m, n, k, bp = _shapes(ah, bh)
+        f32 = torch.float32
+        _check(ah.device, {"Ah": (ah, f32, (m, k, bp)),
+                           "Bh": (bh, f32, (k, n, bp)),
+                           "Bl": (bl, f32, (k, n, bp)),
+                           "C_in": (cin, f32, (m, n, bp))})
+        if ah.device.type == "cpu":
+            return packed_split2_fast_plain(ah, bh, bl, cin)
+        c = torch.empty((m, n, bp), dtype=f32, device=ah.device)
+        if c.numel():
+            _launch(_lib().xsmm_packed_split2_fast, "packed_split2_fast",
+                    (ah, bh, bl), _ptr(ah), _ptr(bh), _ptr(bl), _ptr(cin),
+                    _ptr(c), m, n, k, bp)
+        return c
 
 
 # ---------------------------------------------------------------------------
@@ -232,20 +236,23 @@ def packed_split2(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Three-product f64 schedule: (ah, al, bh, bl[, ch_in, cl_in]) ->
     (ch, cl), joined in f64 by the caller."""
-    m, n, k, bp = _shapes(ah, bh)
-    if (chin is None) != (clin is None):
-        raise ValueError("split2 takes both C halves or neither")
-    f32 = torch.float32
-    _check(ah.device, {"Ah": (ah, f32, (m, k, bp)), "Al": (al, f32, (m, k, bp)),
-                       "Bh": (bh, f32, (k, n, bp)), "Bl": (bl, f32, (k, n, bp)),
-                       "Ch_in": (chin, f32, (m, n, bp)),
-                       "Cl_in": (clin, f32, (m, n, bp))})
-    if ah.device.type == "cpu":
-        return packed_split2_plain(ah, al, bh, bl, chin, clin)
-    ch = torch.empty((m, n, bp), dtype=f32, device=ah.device)
-    cl = torch.empty_like(ch)
-    if ch.numel():
-        _launch(_lib().xsmm_packed_split2, "packed_split2", (ah, al, bh, bl),
-                _ptr(ah), _ptr(al), _ptr(bh), _ptr(bl), _ptr(chin), _ptr(clin),
-                _ptr(ch), _ptr(cl), m, n, k, bp)
-    return ch, cl
+    with trace.span("wrapper"):
+        m, n, k, bp = _shapes(ah, bh)
+        if (chin is None) != (clin is None):
+            raise ValueError("split2 takes both C halves or neither")
+        f32 = torch.float32
+        _check(ah.device, {"Ah": (ah, f32, (m, k, bp)),
+                           "Al": (al, f32, (m, k, bp)),
+                           "Bh": (bh, f32, (k, n, bp)),
+                           "Bl": (bl, f32, (k, n, bp)),
+                           "Ch_in": (chin, f32, (m, n, bp)),
+                           "Cl_in": (clin, f32, (m, n, bp))})
+        if ah.device.type == "cpu":
+            return packed_split2_plain(ah, al, bh, bl, chin, clin)
+        ch = torch.empty((m, n, bp), dtype=f32, device=ah.device)
+        cl = torch.empty_like(ch)
+        if ch.numel():
+            _launch(_lib().xsmm_packed_split2, "packed_split2",
+                    (ah, al, bh, bl), _ptr(ah), _ptr(al), _ptr(bh), _ptr(bl),
+                    _ptr(chin), _ptr(clin), _ptr(ch), _ptr(cl), m, n, k, bp)
+        return ch, cl

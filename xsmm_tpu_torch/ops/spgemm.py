@@ -167,7 +167,7 @@ class CsrSpgemm:
 
     # -- accumulate (beta = 1) ------------------------------------------------
     def _acc(self, *ops):
-        with trace.scope(self.name + "_acc"):
+        with trace.scope(self.name + "_acc", "frontend"):
             dev = platform.device()
             n_c = 2 if self.c_lo else 1
             if self.strategy != "unroll":
@@ -192,7 +192,7 @@ class CsrSpgemm:
         return self._acc
 
     def __call__(self, b):
-        with trace.scope(self.name):
+        with trace.scope(self.name, "frontend"):
             if not self.is_f64:
                 return self._fn(b)
             dev = platform.device()
@@ -242,16 +242,20 @@ def create_csr_soa(a, n: int, dtype="float32", strategy: str = "auto",
                    f64_schedule: str = "split2") -> CsrSpgemm:
     """Sparse-A (CSR or dense-with-zeros) x dense-B kernel, cached by
     structure digest (libxsmm_create_xcsr_soa, libxsmm_main.c:2423)."""
-    csr = _as_csr(a, tol)
-    _check_schedule(f64_schedule)
-    sched_id = sorted(F64_SCHEDULES).index(f64_schedule)
-    desc = SparseDescriptor(kind="csr_asparse", m=csr.m, n=n, k=csr.k,
-                            dtype=dtype_name(dtype),
-                            structure_digest=csr.structure_digest(),
-                            flags=_STRATEGY_FLAGS[strategy] | (sched_id << 4))
-    return get_registry().dispatch(
-        desc, lambda: CsrSpgemm(csr, n, dtype, strategy, f64_schedule),
-        name=f"spgemm_csr_{csr.m}x{n}x{csr.k}_nnz{csr.nnz}")
+    with trace.span("create"):
+        csr = _as_csr(a, tol)
+        _check_schedule(f64_schedule)
+        sched_id = sorted(F64_SCHEDULES).index(f64_schedule)
+        with trace.span("create.digest"):
+            digest = csr.structure_digest()
+        desc = SparseDescriptor(kind="csr_asparse", m=csr.m, n=n, k=csr.k,
+                                dtype=dtype_name(dtype),
+                                structure_digest=digest,
+                                flags=(_STRATEGY_FLAGS[strategy]
+                                       | (sched_id << 4)))
+        return get_registry().dispatch(
+            desc, lambda: CsrSpgemm(csr, n, dtype, strategy, f64_schedule),
+            name=f"spgemm_csr_{csr.m}x{n}x{csr.k}_nnz{csr.nnz}")
 
 
 def create_dcsr_reg(a, n: int, strategy: str = "unroll",

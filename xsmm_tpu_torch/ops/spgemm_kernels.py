@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import cuda_build
 
 # kernel name -> launches since the last reset_launches()
@@ -63,6 +64,8 @@ ROUTE_REFUSED = ("the route does not fit this operator and kernel (a "
                  "structure; the structure must fit shared memory); nothing "
                  "was launched")
 STRUCT_BUDGET = 48 * 1024  # the operator in shared memory up to this
+# routes picked (pick_route's cache misses; utils/trace.build_counts)
+routes_picked = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -228,9 +231,11 @@ def pick_route(op: SparseOperator, f64: bool,
     where it addresses the planes, else by cp.async, where the operator has
     a term and (on the card) the ring fits, else unstaged.  Kept a kind of
     launch on the operator."""
+    global routes_picked
     key = (f64, len(planes), c_planes, tma_addresses(planes))
     route = op.routes.get(key)
     if route is None:
+        routes_picked += 1
         structure = ("shared" if structure_bytes(op.m, op.nnz, f64)
                      <= STRUCT_BUDGET else "global")
         staging = "tma" if key[3] else "cp_async"
@@ -352,16 +357,17 @@ def unroll_f32(op: SparseOperator, b: torch.Tensor, *,
     """C = A @ B in f32; rows of A without a term give 0.  ``route``
     (each wrapper's) forces a (staging, structure); one the kernel cannot
     run raises ``ValueError`` on either device."""
-    n = _width(b)
-    _check(op, {"B": b}, n)
-    rt = _route(op, False, [b], 0, route)
-    if op.on_cpu:
-        return unroll_f32_plain(op, b)
-    c = torch.empty((op.m, n), dtype=F32, device=op.device)
-    if c.numel():
-        _launch(_lib().xsmm_spgemm_unroll_f32, "spgemm_unroll_f32", op, n,
-                rt, *op.ptrs[:3], _ptr(b), _ptr(c))
-    return c
+    with trace.span("wrapper"):
+        n = _width(b)
+        _check(op, {"B": b}, n)
+        rt = _route(op, False, [b], 0, route)
+        if op.on_cpu:
+            return unroll_f32_plain(op, b)
+        c = torch.empty((op.m, n), dtype=F32, device=op.device)
+        if c.numel():
+            _launch(_lib().xsmm_spgemm_unroll_f32, "spgemm_unroll_f32", op, n,
+                    rt, *op.ptrs[:3], _ptr(b), _ptr(c))
+        return c
 
 
 # ---------------------------------------------------------------------------
@@ -374,17 +380,18 @@ def unroll_f64(op: SparseOperator, bh: torch.Tensor,
                route: Optional[Route] = None) -> Out64:
     """f64 schedule on f32 planes: B-lo read when ``bl`` is given; returns
     (ch, cl) when ``c_lo``, else the folded hi + lo."""
-    n = _width(bh)
-    _check(op, {"Bh": bh, "Bl": bl}, n)
-    rt = _route(op, True, [bh] if bl is None else [bh, bl], 0, route)
-    if op.on_cpu:
-        return unroll_f64_plain(op, bh, bl, c_lo=c_lo)
-    ch = torch.empty((op.m, n), dtype=F32, device=op.device)
-    cl = torch.empty_like(ch) if c_lo else None
-    if ch.numel():
-        _launch(_lib().xsmm_spgemm_unroll_f64, "spgemm_unroll_f64", op, n,
-                rt, *op.ptrs, _ptr(bh), _ptr(bl), _ptr(ch), _ptr(cl))
-    return (ch, cl) if c_lo else ch
+    with trace.span("wrapper"):
+        n = _width(bh)
+        _check(op, {"Bh": bh, "Bl": bl}, n)
+        rt = _route(op, True, [bh] if bl is None else [bh, bl], 0, route)
+        if op.on_cpu:
+            return unroll_f64_plain(op, bh, bl, c_lo=c_lo)
+        ch = torch.empty((op.m, n), dtype=F32, device=op.device)
+        cl = torch.empty_like(ch) if c_lo else None
+        if ch.numel():
+            _launch(_lib().xsmm_spgemm_unroll_f64, "spgemm_unroll_f64", op, n,
+                    rt, *op.ptrs, _ptr(bh), _ptr(bl), _ptr(ch), _ptr(cl))
+        return (ch, cl) if c_lo else ch
 
 
 # ---------------------------------------------------------------------------
@@ -396,16 +403,17 @@ def acc_f32(op: SparseOperator, cin: torch.Tensor, b: torch.Tensor, *,
             route: Optional[Route] = None) -> torch.Tensor:
     """C = C_in + A @ B in f32 (a new tensor; C_in is not written); rows of
     A without a term keep C_in."""
-    n = _width(b)
-    _check(op, {"B": b, "C_in": cin}, n)
-    rt = _route(op, False, [b], 1, route)
-    if op.on_cpu:
-        return acc_f32_plain(op, cin, b)
-    c = torch.empty((op.m, n), dtype=F32, device=op.device)
-    if c.numel():
-        _launch(_lib().xsmm_spgemm_acc_f32, "spgemm_acc_f32", op, n, rt,
-                *op.ptrs[:3], _ptr(cin), _ptr(b), _ptr(c))
-    return c
+    with trace.span("wrapper"):
+        n = _width(b)
+        _check(op, {"B": b, "C_in": cin}, n)
+        rt = _route(op, False, [b], 1, route)
+        if op.on_cpu:
+            return acc_f32_plain(op, cin, b)
+        c = torch.empty((op.m, n), dtype=F32, device=op.device)
+        if c.numel():
+            _launch(_lib().xsmm_spgemm_acc_f32, "spgemm_acc_f32", op, n, rt,
+                    *op.ptrs[:3], _ptr(cin), _ptr(b), _ptr(c))
+        return c
 
 
 # ---------------------------------------------------------------------------
@@ -420,16 +428,17 @@ def acc_f64(op: SparseOperator, chin: torch.Tensor,
     """(ch, cl) = (ch_in + hi, cl_in + lo) when ``clin`` is given, else
     c = c_in + (hi + lo); B-lo read when ``bl`` is given.  New tensors;
     rows of A without a term keep C_in."""
-    n = _width(bh)
-    _check(op, {"Bh": bh, "Bl": bl, "Ch_in": chin, "Cl_in": clin}, n)
-    rt = _route(op, True, [bh] if bl is None else [bh, bl],
-                1 if clin is None else 2, route)
-    if op.on_cpu:
-        return acc_f64_plain(op, chin, clin, bh, bl)
-    ch = torch.empty((op.m, n), dtype=F32, device=op.device)
-    cl = None if clin is None else torch.empty_like(ch)
-    if ch.numel():
-        _launch(_lib().xsmm_spgemm_acc_f64, "spgemm_acc_f64", op, n, rt,
-                *op.ptrs, _ptr(chin), _ptr(clin), _ptr(bh), _ptr(bl),
-                _ptr(ch), _ptr(cl))
-    return ch if cl is None else (ch, cl)
+    with trace.span("wrapper"):
+        n = _width(bh)
+        _check(op, {"Bh": bh, "Bl": bl, "Ch_in": chin, "Cl_in": clin}, n)
+        rt = _route(op, True, [bh] if bl is None else [bh, bl],
+                    1 if clin is None else 2, route)
+        if op.on_cpu:
+            return acc_f64_plain(op, chin, clin, bh, bl)
+        ch = torch.empty((op.m, n), dtype=F32, device=op.device)
+        cl = None if clin is None else torch.empty_like(ch)
+        if ch.numel():
+            _launch(_lib().xsmm_spgemm_acc_f64, "spgemm_acc_f64", op, n, rt,
+                    *op.ptrs, _ptr(chin), _ptr(clin), _ptr(bh), _ptr(bl),
+                    _ptr(ch), _ptr(cl))
+        return ch if cl is None else (ch, cl)

@@ -41,6 +41,8 @@ import torch
 # first call of a key: the eager warm-up, then the capture)
 FORMS = ("graph", "graph_copy", "eager", "captures")
 CAPACITY = 8
+# graphs captured by this process (utils/trace.build_counts)
+captures = 0
 
 
 def new_forms() -> Dict[str, int]:
@@ -156,6 +158,7 @@ def capture(body: Callable[[], Any], inputs: Sequence[torch.Tensor] = (),
     stream: (the ``Entry``, the warm-up's outputs).  The ``generators`` (``torch.Generator``s the body
     draws from) are registered with the graph, so that each replay draws
     anew."""
+    global captures
     dev = device if device is not None else torch.device(
         "cuda", torch.cuda.current_device())
     graph = torch.cuda.CUDAGraph()
@@ -182,6 +185,7 @@ def capture(body: Callable[[], Any], inputs: Sequence[torch.Tensor] = (),
         raise RuntimeError(f"{what} could not be captured into a CUDA "
                            f"graph: {e}") from e
     cur.wait_stream(side)
+    captures += 1
     return Entry(graph, inputs, out, counts, args), warm
 
 
