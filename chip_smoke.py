@@ -20,17 +20,23 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
    (``dmmdispatch`` under split2_fast, split2 and float32, beta 0 and 1;
    ``smmdispatch`` beta 0 and 1; ``bsmmdispatch``; ``bmmdispatch``), with the
    launch counts set to 0 just before and read just after (every f32 plane
-   staged by TMA, the bf16 cases on the first design), and checks each
-   result against numpy f64 gold on a 4096-problem subset;
-4. compares each kernel with its plain version on the same packed operands,
-   and each schedule once on the cp.async staging (planes one element off
-   their alignment, Bp 4097), bit for bit;
+   staged by TMA, the bf16 cases on the first design, the ``smmdispatch``
+   calls on the natural kernel with bulk copies), and checks each result
+   against numpy f64 gold on a 4096-problem subset;
+4. compares each kernel with its plain version on the same packed operands
+   (the natural calls on their batch-first operands, and with the pack
+   route, kernel 2), and each schedule and the natural kernel once on the
+   cp.async staging (operands one element off their alignment, Bp 4097),
+   bit for bit;
 5. runs the non-kernel routes once each (f32 product at 256^3 without TF32,
    native f64, int16, batch-reduce);
-6. times the three kernels, their plain versions and ``torch.bmm`` on the
+6. times the four kernels, their plain versions and ``torch.bmm`` on the
    same problems with CUDA events (each kernel in turns with ``torch.bmm``:
    kernel, library, library, kernel), beside the bound of the card, and the
-   whole entry-point call (f64 split2_fast, and f32);
+   whole entry-point call (f64 split2_fast, and f32); and at the edge of
+   the natural route, f32 28^3 (the natural kernel) and 32^3 (the pack
+   route), the call's kernel counted and both routes timed in turns, the
+   natural route required to be the faster at 28^3;
 7. drives the sparse path through its entry points at N = 65536 on the
    three PyFR-shaped operators of ``samples/pyfr_driver.py`` (seed 0):
    ``create_dcsr_reg`` under each f64 schedule, beta 0 and ``acc_fn``;
@@ -60,8 +66,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     route of ``ops/xcopy.py`` once (they must launch nothing); the blocked
     GEMM at 2048^3 bf16 with blocks of 256 and an f64 handle;
     ``gemm_batch`` and a ``torch.matmul`` rerouted by
-    ``mmbatch_begin(record_only=False)``, whose ``packed_f32`` launches show
-    that they reached the batched kernel; each result against gold (f64
+    ``mmbatch_begin(record_only=False)``, contiguous f32 at 23^3, whose
+    launches show that each reached the natural kernel once and kernel 2
+    not at all; each result against gold (f64
     products on the card, or bit for bit for the copies);
 11. compares the three dense kernels with their plain versions on the same
     inputs (GEMMs to f32 rounding, copies bit for bit), the tiled GEMM on
@@ -85,7 +92,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     take the loop kernels (getrf on its "tile" route), and getrf at 140,
     which takes the loop kernel's "shared" route (each route must be
     launched); ``trmm_dispatch`` f32 and f64 and
-    ``pgemm_dispatch`` 16^3, which reach the batched kernels 2 and 1;
+    ``pgemm_dispatch`` 16^3, which reach the natural kernel (f32) and
+    kernel 1 (f64);
     each result against f64 gold on the card (L U against A, op(A) X
     against alpha B, the refine gates of ``tests/test_packed.py``);
 15. compares the four packed-LA kernels with their plain versions on the
@@ -282,7 +290,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     and ``parallel.multihost.launch_dryrun(2, 2)``: two processes of two
     ranks sharing the card over gloo (every cross-process transfer staged
     through host memory), each printing its line;
-40. prints one ``{"kernels": [...]}`` JSON line (all twenty-one kernels;
+40. prints one ``{"kernels": [...]}`` JSON line (all twenty-two kernels;
     every wrapper's launch counts, set to 0 before steps 32-35, are still 0
     after them; the rows of kernels 1-3, 5-8 and 11-14 carry the
     distributed steps' launches as ``dist_launches``), the nvidia-smi
@@ -315,6 +323,9 @@ REPLACES = {
     "packed_split2_fast": "xsmm_tpu/ops/smm.py:296",
     "packed_f32": "xsmm_tpu/ops/smm.py:193",
     "packed_split2": "xsmm_tpu/ops/smm.py:251",
+    # no TPU kernel: BatchedSMM.pack_a / pack_b / unpack_c fused with the
+    # schedule of xsmm_tpu/ops/smm.py:193
+    "natural_f32": "none (fuses the pack into xsmm_tpu/ops/smm.py:193)",
 }
 
 SPARSE_SOURCE = "xsmm_tpu_torch/ops/csrc/spgemm.cu"
@@ -866,7 +877,7 @@ def dense_phase(args, dev, smi):
         raise RuntimeError("a non-kernel route launched a kernel")
     outs["bgemm bf16"] = hb(ba, bb)
     outs["bgemm f64"] = hd(da, db, dc)
-    packed0 = smm_packed.launches["packed_f32"]
+    batched0 = dict(smm_packed.launches)
     outs["gemm_batch f32 4096x23^3"] = xp.gemm_batch(ga, gb)
     with xp.mmbatch_begin(record_only=False) as calls:
         outs["mmbatch_begin reroute"] = torch.matmul(ga, gb)
@@ -874,18 +885,20 @@ def dense_phase(args, dev, smi):
     main_s = time.perf_counter() - t0
     launched = dict(tk.launches, **xk.launches)
     routes = dict(tk.route_launches)
-    rerouted = smm_packed.launches["packed_f32"] - packed0
+    rerouted = {kn: n - batched0[kn] for kn, n in smm_packed.launches.items()
+                if n != batched0[kn]}
     print(f"dense path: {len(outs)} calls in {main_s:.2f} s; launches "
-          f"{launched}; tiled_gemm routes {routes}; packed_f32 +{rerouted} "
+          f"{launched}; tiled_gemm routes {routes}; batched SMM {rerouted} "
           f"(gemm_batch and the mmbatch_begin reroute); recorded "
           f"{len(calls)} call(s)")
     for kname, n in list(launched.items()) + [
             (f"tiled_gemm route {r}", n) for r, n in routes.items()]:
         if n < 1:
             raise RuntimeError(f"{kname} was not launched on the dense path")
-    if rerouted != 2 or len(calls) != 1:
+    # contiguous f32 at 23^3: the natural kernel, once each
+    if rerouted != {"natural_f32": 2} or len(calls) != 1:
         raise RuntimeError("gemm_batch or the mmbatch_begin reroute did not "
-                           "reach the packed kernel")
+                           "reach the natural kernel once each")
 
     # gold: f64 products on the card of what each handle computed from
     gold16 = a16.double() @ b16.double()
@@ -1210,11 +1223,11 @@ def packed_phase(args, dev, smi):
     drive(f"trsm f32 LLNN {BM}/{BM}", lambda: xp.trsm_dispatch(
         BM, BM, batch=BB)(abig, bbig), "trsm_loop")
     drive(f"trmm f32 {M}/{M}", lambda: xp.trmm_dispatch(M, M, batch=B)(
-        a32, b32), "packed_f32")
+        a32, b32), "natural_f32")
     drive(f"trmm f64 {M}/{M} numpy", lambda: xp.trmm_dispatch(
         M, M, dtype="float64", batch=B)(a_np, b_np), "packed_split2_fast")
     drive(f"pgemm f32 {M}^3", lambda: xp.pgemm_dispatch(M, M, M, batch=B)(
-        a32, b32), "packed_f32")
+        a32, b32), "natural_f32")
     main_s = time.perf_counter() - t0
     print(f"packed path: {len(outs)} calls at B={B} ({M}) and B={BB} ({BM}, "
           f"{BS}) in {main_s:.2f} s; packed-LA launches {totals}; "
@@ -3726,7 +3739,7 @@ def train_datapipe(args, dev, smi):
 
 
 def kernel_modules():
-    """The modules of the 21 kernels' wrappers, each with its launch
+    """The modules of the 22 kernels' wrappers, each with its launch
     counters (``*launches`` dicts) and ``reset_launches``."""
     from xsmm_tpu_torch.dnn import pooling, rnn_seq
     from xsmm_tpu_torch.ops import (packed_kernels, smm_packed,
@@ -3748,7 +3761,7 @@ def training_phase(args, dev, smi):
     """Steps 32 to 35 of the module docstring (the training framework)."""
     import torch
 
-    # the training path launches none of the 21 kernels: the handles run
+    # the training path launches none of the 22 kernels: the handles run
     # on cuDNN, cuBLAS and torch ops (as the JAX package's on XLA).  A
     # wrapper counts where it launches, and a CUDA graph's replay counts
     # what it replays: any launch in a step shows.
@@ -4613,10 +4626,11 @@ def main() -> int:
          (a64, b64, c64), "packed_split2_fast", 1e-6),
         ("dmm split2 beta1", "split2", xp.dmmdispatch, 1.0,
          (a64, b64, c64), "packed_split2", 1e-6),
+        # f32 tensors, batch-first and contiguous: the natural kernel
         ("smm beta0", None, xp.smmdispatch, 0.0, (a32, b32, c32),
-         "packed_f32", 1e-3),
+         "natural_f32", 1e-3),
         ("smm beta1", None, xp.smmdispatch, 1.0, (a32, b32, c32),
-         "packed_f32", 1e-3),
+         "natural_f32", 1e-3),
         # bf16 inputs, f32 sum: gold is exact products of the bf16 values
         ("bsmm beta0", None, xp.bsmmdispatch, 0.0, (a16, b16, None),
          "packed_f32", 1e-6),
@@ -4659,11 +4673,12 @@ def main() -> int:
         if n < 1:
             raise RuntimeError(f"{kname} was not launched on the main path")
     # f32 planes of the main path are aligned with B % 4 == 0: every one
-    # takes TMA staging, and the bf16 cases the first design
+    # takes TMA staging, the bf16 cases the first design, and the natural
+    # calls' operands (on 16 bytes) bulk copies
     if (main_staging["cp.async"] or main_staging["tma"] < 1
-            or main_staging["first"] < 1):
-        raise RuntimeError(f"main path stagings {main_staging}: expected tma "
-                           f"and first, no cp.async")
+            or main_staging["first"] < 1 or main_staging["bulk"] < 1):
+        raise RuntimeError(f"main path stagings {main_staging}: expected tma, "
+                           f"first and bulk, no cp.async")
 
     # gold on a subset of the problems
     for label, strategy, disp, beta, (a, b, c), kname, tol in cases:
@@ -4711,6 +4726,29 @@ def main() -> int:
     for label, strategy, disp, beta, (a, b, c), kname, _ in cases:
         kern = kernels[label]
         ops = packed_ops(kern, a, b, c)
+        if kname == "natural_f32":
+            # the natural call against its plain version and against the
+            # pack route (kernel 2 on the packed operands), bit for bit
+            nat = (a, b, c) if beta else (a, b)
+            got = kern(*nat)
+            want = run_kernel(kname, kern, nat, plain=True)
+            packed = kern.unpack_c(kern.packed(*ops), B)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            ok = torch.equal(got, want) and torch.equal(got, packed)
+            max_abs[kname] = max(max_abs[kname], err)
+            print(f"plain {label:24s} {kname:18s} max_abs_err {err:.3e}; "
+                  f"pack route (packed_f32) max_abs_err "
+                  f"{(got.double() - packed.double()).abs().max().item():.3e}"
+                  f" (bit for bit) {'pass' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{label}: the natural kernel, its plain "
+                                   f"version and the pack route disagree")
+            if label == "smm beta0":
+                timing_ops[kname] = (kern, nat)
+                timing_ops["packed_f32"] = (kern, ops)
+            del ops, got, want, packed
+            continue
         got = kern.packed(*ops)
         want = run_kernel(kname, kern, ops, plain=True)
         got = got if isinstance(got, tuple) else (got,)
@@ -4731,7 +4769,7 @@ def main() -> int:
               f"{'pass' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"{label}: kernel and plain version disagree")
-        if label in ("dmm split2_fast beta0", "dmm split2 beta0", "smm beta0"):
+        if label in ("dmm split2_fast beta0", "dmm split2 beta0"):
             timing_ops[kname] = (kern, ops)
         del ops, got, want
     del kernels
@@ -4750,9 +4788,15 @@ def main() -> int:
               ("packed_f32", smm_packed.packed_f32(ah, bh,
                                                     out_dtype=torch.float32),
                smm_packed.packed_f32_plain(ah, bh, out_dtype=torch.float32))]
+    # and the natural kernel on batch-first operands one element past their
+    # alignment, with a ragged last group
+    nat_off = [base[1 + i * M * K * bp_off:1 + (i + 1) * M * K * bp_off]
+               .view(bp_off, M, K) for i in range(2)]
+    checks.append(("natural_f32", smm_packed.natural_f32(*nat_off),
+                   smm_packed.natural_f32_plain(*nat_off)))
     torch.cuda.synchronize()
     staged = dict(smm_packed.staging_launches)
-    if staged != {"tma": 0, "cp.async": 3, "first": 0}:
+    if staged != {"tma": 0, "cp.async": 4, "first": 0, "bulk": 0}:
         raise RuntimeError(f"offset planes took stagings {staged}")
     for kname, got, want in checks:
         got = got if isinstance(got, tuple) else (got,)
@@ -4766,7 +4810,7 @@ def main() -> int:
         if not ok:
             raise RuntimeError(f"{kname} on cp.async staging: kernel and "
                                f"plain version disagree")
-    del base, ah, al, bh, bl, checks
+    del base, ah, al, bh, bl, nat_off, checks
     torch.cuda.empty_cache()
 
     # -- 5. the non-kernel routes --------------------------------------------
@@ -4827,17 +4871,19 @@ def main() -> int:
     # -- 6. times at the main path's shape -----------------------------------
     planes = {  # f32 planes moved at beta = 0: (A, B, C)
         "packed_f32": (1, 1, 1), "packed_split2_fast": (1, 2, 1),
-        "packed_split2": (2, 2, 2)}
+        "packed_split2": (2, 2, 2), "natural_f32": (1, 1, 1)}
     ops_per_mnk = {"packed_f32": 2, "packed_split2_fast": 4,
-                   "packed_split2": 6}
+                   "packed_split2": 6, "natural_f32": 2}
     library = {
         "packed_f32": (a32, b32),
         "packed_split2_fast": (a64, b64),
         "packed_split2": (a64, b64),
+        "natural_f32": (a32, b32),
     }
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
-    for kname in ("packed_split2_fast", "packed_f32", "packed_split2"):
+    for kname in ("packed_split2_fast", "packed_f32", "packed_split2",
+                  "natural_f32"):
         kern, ops = timing_ops[kname]
         la, lb = library[kname]
         # in turns with the library call: kernel, library, library, kernel
@@ -4892,6 +4938,42 @@ def main() -> int:
           f"ms (median of 5, host clock, numpy f64 out); smmdispatch f32 "
           f"beta0 {call32_ms:.3f} ms (CUDA events, tensors on the card)  "
           f"[{smi}]")
+
+    # the edge of the natural route: the smallest blocks per SM it takes
+    # (28^3, 3) and the first shape it leaves to the pack route (32^3, 2),
+    # at about the main path's bytes; each call's kernel counted, both
+    # routes timed in turns (natural, pack, pack, natural)
+    for em, want in ((28, "natural_f32"), (32, "packed_f32")):
+        enb = B * M * K // (em * em)
+        ea, eb = (torch.randn((enb, em, em), device=dev) for _ in range(2))
+        ekern = xp.smmdispatch(em, em, em, batch=enb, beta=0.0)
+        before = dict(smm_packed.launches)
+        ekern(ea, eb)
+        torch.cuda.synchronize()
+        grown = {kn: n - before[kn] for kn, n in smm_packed.launches.items()
+                 if n != before[kn]}
+        if grown != {want: 1}:
+            raise RuntimeError(f"{em}^3 f32 launched {grown}, not {want}")
+
+        def nat():
+            return smm_packed.natural_f32(ea, eb)
+
+        def pack():
+            return ekern.unpack_c(ekern.packed(ekern.pack_a(ea),
+                                               ekern.pack_b(eb)), enb)
+
+        turns = [cuda_time_ms(fn, warmup=2, iters=10)
+                 for fn in (nat, pack, pack, nat)]
+        nat_ms, pack_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        print(f"route {em}^3 B={enb} blocks/SM "
+              f"{smm_packed.natural_blocks(em, em, em)} -> {want}: natural "
+              f"{nat_ms:.4f} ms, pack route {pack_ms:.4f} ms, pack/natural "
+              f"{pack_ms / nat_ms:.2f}; in turns {turns[0]:.4f} / "
+              f"{turns[1]:.4f} / {turns[2]:.4f} / {turns[3]:.4f}  [{smi}]")
+        if want == "natural_f32" and nat_ms >= pack_ms:
+            raise RuntimeError(f"the natural route at {em}^3 is not faster "
+                               f"than the pack route")
+        del ea, eb, ekern
 
     del cases, library, la, lb, timing_ops
     del a64, b64, c64, a32, b32, c32, a16, b16

@@ -258,14 +258,15 @@ def test_gemm_batch_beta_and_stacked(rng):
 
 def test_gemm_batch_and_reroute_reach_the_batched_kernel(rng, monkeypatch):
     """gemm_batch and a rerouted small 3-D matmul go through BatchedSMM's
-    packed f32 kernel wrapper (on the card: kernel 2)."""
+    natural f32 kernel wrapper (contiguous f32 operands; on the card the
+    natural kernel, kernel 2's schedule with the pack fused in)."""
     hits = []
-    real = smm_packed.packed_f32
+    real = smm_packed.natural_f32
 
     def counted(*a, **k):
         hits.append(1)
         return real(*a, **k)
-    monkeypatch.setattr(smm_packed, "packed_f32", counted)
+    monkeypatch.setattr(smm_packed, "natural_f32", counted)
     t = torch.from_numpy(rng.standard_normal((5, 7, 6)).astype(np.float32))
     u = torch.from_numpy(rng.standard_normal((5, 6, 9)).astype(np.float32))
     xp.gemm_batch(t, u)

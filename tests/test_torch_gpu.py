@@ -170,6 +170,114 @@ def test_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# The natural kernel (ops/csrc/smm_packed.cu natural_kernel): kernel 2's f32
+# schedule on batch-first operands
+# ---------------------------------------------------------------------------
+
+def _natural_ops(dev, seed, nb, m, n, k, ta, tb, offset):
+    """A, B, C_in of ``nb`` problems, batch-first (A and B transposed per
+    ``ta``/``tb``); with ``offset`` each starts one element past 16 bytes."""
+    shapes = ((nb, k, m) if ta else (nb, m, k), (nb, n, k) if tb
+              else (nb, k, n), (nb, m, n))
+    if offset:
+        return _offset_planes(dev, seed, *shapes)
+    return _planes(dev, seed, *shapes)
+
+
+@pytest.mark.parametrize("m,n,k,nb", [s for s in SHAPES
+                                      if smm_packed.natural_blocks(*s[:3])]
+                         + [(30, 50, 9, 9)])
+@pytest.mark.parametrize("trans", ["NN", "TN", "NT", "TT"])
+@pytest.mark.parametrize("beta", [0, 1])
+@pytest.mark.parametrize("offset", [False, True], ids=["bulk", "cp.async"])
+def test_natural_f32_matches_plain(cuda, m, n, k, nb, trans, beta, offset):
+    """The natural kernel against its plain version, bit for bit, on its
+    staging ("bulk" on 16 bytes, ragged tails included; "cp.async" off
+    them), counted."""
+    ta, tb = trans[0] == "T", trans[1] == "T"
+    a, b, c = _natural_ops(cuda, 80, nb, m, n, k, ta, tb, offset)
+    cin = c if beta else None
+    before = smm_packed.launches["natural_f32"]
+    got = _staged("cp.async" if offset else "bulk", smm_packed.natural_f32,
+                  a, b, cin, trans_a=ta, trans_b=tb)
+    assert smm_packed.launches["natural_f32"] == before + 1
+    assert got.is_contiguous()
+    _same(got, smm_packed.natural_f32_plain(a, b, cin, trans_a=ta,
+                                            trans_b=tb))
+
+
+@pytest.mark.parametrize("nb", [131072, 131071])
+@pytest.mark.parametrize("beta", [0.0, 1.0])
+@pytest.mark.parametrize("offset", [False, True], ids=["bulk", "cp.async"])
+def test_natural_call_equals_pack_route(cuda, nb, beta, offset):
+    """``smmdispatch(23, 23, 23)(a, b[, c])`` at the benchmark's batch (and
+    one less: a ragged last group), on tensors on 16 bytes and on ``x[1:]``
+    views off them: one natural launch on its staging, no kernel 2, and
+    the bits of its plain version and of the pack route (kernel 2)."""
+    m = n = k = 23
+    a, b, c = _natural_ops(cuda, 90, nb, m, n, k, False, False, offset)
+    kern = xp.smmdispatch(m, n, k, batch=nb, beta=beta)
+    smm_packed.reset_launches()
+    got = kern(a, b, c) if beta else kern(a, b)
+    torch.cuda.synchronize()
+    st = "cp.async" if offset else "bulk"
+    assert smm_packed.launches == {"packed_f32": 0, "packed_split2_fast": 0,
+                                   "packed_split2": 0, "natural_f32": 1}
+    assert smm_packed.staging_launches == {**dict.fromkeys(
+        smm_packed.STAGINGS, 0), st: 1}
+    cin = c if beta else None
+    _same(got, smm_packed.natural_f32_plain(a, b, cin))
+    ops = [kern.pack_a(a), kern.pack_b(b)] + ([kern.pack_c(c)] if beta
+                                              else [])
+    _same(got, kern.unpack_c(kern.packed(*ops), nb))
+    assert smm_packed.launches["packed_f32"] == 1
+
+
+def test_natural_rule_keeps_the_pack_route(cuda):
+    """Calls the rule sends to the pack route launch kernel 2 and never the
+    natural kernel: a non-contiguous operand, bf16 in, a shape whose group
+    does not fit the staging, and shapes whose ring leaves an SM fewer than
+    ``NATURAL_ROUTE_BLOCKS`` blocks (32^3 and the skinny 1 x 2000 x 1)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a, b = (torch.randn((64, 23, 23), generator=g, device=cuda)
+            for _ in range(2))
+    big = torch.randn((8, 50, 50), generator=g, device=cuda)
+    mid = torch.randn((8, 32, 32), generator=g, device=cuda)
+    sa, sb = (torch.randn(s, generator=g, device=cuda)
+              for s in ((8, 1, 1), (8, 1, 2000)))
+    calls = [(xp.smmdispatch(23, 23, 23, batch=64, beta=0.0),
+              (a.transpose(1, 2), b)),
+             (xp.bsmmdispatch(23, 23, 23, batch=64, beta=0.0),
+              (a.bfloat16(), b.bfloat16())),
+             (xp.smmdispatch(50, 50, 50, batch=8, beta=0.0), (big, big)),
+             (xp.smmdispatch(32, 32, 32, batch=8, beta=0.0), (mid, mid)),
+             (xp.smmdispatch(1, 2000, 1, batch=8, beta=0.0), (sa, sb))]
+    for kern, ops in calls:
+        assert isinstance(kern, xp.BatchedSMM)
+        smm_packed.reset_launches()
+        kern(*ops)
+        torch.cuda.synchronize()
+        assert smm_packed.launches["packed_f32"] == 1
+        assert smm_packed.launches["natural_f32"] == 0
+
+
+@pytest.mark.parametrize("mnk", [49, 50])
+def test_natural_launch_limit_is_the_kernels(cuda, mnk):
+    """``smm_packed.natural_blocks`` and the C entry agree on the largest
+    ring a block holds: 49^3 (1 block an SM) launches and gives its plain
+    version's bits; 50^3 (0) is refused with nothing launched."""
+    a, b, _ = _natural_ops(cuda, 95, 9, mnk, mnk, mnk, False, False, False)
+    before = smm_packed.launches["natural_f32"]
+    if smm_packed.natural_blocks(mnk, mnk, mnk):
+        _same(smm_packed.natural_f32(a, b), smm_packed.natural_f32_plain(a, b))
+        assert smm_packed.launches["natural_f32"] == before + 1
+    else:
+        with pytest.raises(ValueError, match="nothing was launched"):
+            smm_packed.natural_f32(a, b)
+        assert smm_packed.launches["natural_f32"] == before
+
+
+# ---------------------------------------------------------------------------
 # The four sparse x dense kernels (ops/csrc/spgemm.cu)
 # ---------------------------------------------------------------------------
 

@@ -16,7 +16,9 @@ Stated tolerances (rel-Frobenius):
 
 import contextlib
 import dataclasses
+import re
 import types
+from pathlib import Path
 
 import ml_dtypes
 import numpy as np
@@ -572,8 +574,10 @@ def test_tile_kernel_other_schedules_match_plain(rng, m, n, k, bp, sched):
 def test_packed_staging_checked_and_counted(monkeypatch):
     """Each wrapper names the staging its planes take ("tma" for f32 planes
     on 16 bytes with Bp % 4 == 0, "cp.async" for other f32 planes, "first"
-    for 16-bit inputs), passes its code to the C entry and counts it beside
-    ``launches``; the entry's refusal (-2) raises with nothing counted."""
+    for 16-bit inputs; for the natural kernel "bulk" where every operand is
+    on 16 bytes, else "cp.async"), passes its code to the C entry and counts
+    it beside ``launches``; the entry's refusal (-2) raises with nothing
+    counted."""
     f32 = torch.float32
     a = torch.ones((3, 5, 8))
     b = torch.ones((5, 4, 8))
@@ -592,7 +596,8 @@ def test_packed_staging_checked_and_counted(monkeypatch):
             return rc
         return types.SimpleNamespace(xsmm_packed_f32=record,
                                      xsmm_packed_split2_fast=record,
-                                     xsmm_packed_split2=record)
+                                     xsmm_packed_split2=record,
+                                     xsmm_natural_f32=record)
 
     empty = torch.empty
     monkeypatch.setattr(torch, "empty",
@@ -607,17 +612,267 @@ def test_packed_staging_checked_and_counted(monkeypatch):
     smm_packed.packed_split2_fast(a_off, b, b)
     smm_packed.packed_f32(a_ragged, b_ragged, out_dtype=f32)
     smm_packed.packed_f32(a.bfloat16(), b.bfloat16(), out_dtype=f32)
-    assert calls == [0, 1, 1, 2]
+    # the natural kernel: "bulk" where every operand is on 16 bytes
+    nat = torch.ones((8, 3, 5))
+    nat_off = torch.ones(8 * 3 * 5 + 1)[1:].view(8, 3, 5)
+    smm_packed.natural_f32(nat, nat.transpose(1, 2).contiguous())
+    smm_packed.natural_f32(nat_off, nat, trans_b=True)
+    assert calls == [0, 1, 1, 2, 3, 1]
     assert smm_packed.launches == {"packed_f32": 2, "packed_split2_fast": 1,
-                                   "packed_split2": 1}
-    assert smm_packed.staging_launches == {"tma": 1, "cp.async": 2,
-                                           "first": 1}
+                                   "packed_split2": 1, "natural_f32": 2}
+    assert smm_packed.staging_launches == {"tma": 1, "cp.async": 3,
+                                           "first": 1, "bulk": 1}
     monkeypatch.setattr(smm_packed, "_lib", lambda: entry(-2))
     with pytest.raises(ValueError, match="staging does not fit"):
         smm_packed.packed_split2(a, a, b, b)
     with pytest.raises(ValueError, match="staging does not fit"):
         smm_packed.packed_f32(a.bfloat16(), b.bfloat16(), out_dtype=f32)
-    assert sum(smm_packed.launches.values()) == 4
-    assert sum(smm_packed.staging_launches.values()) == 4
+    with pytest.raises(ValueError, match="staging does not fit"):
+        smm_packed.natural_f32(nat, nat, trans_b=True)
+    assert sum(smm_packed.launches.values()) == 6
+    assert sum(smm_packed.staging_launches.values()) == 6
     smm_packed.reset_launches()
     assert set(smm_packed.staging_launches.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# The natural kernel (smm_packed.natural_f32): the route BatchedSMM.__call__
+# takes, its bits against the pack route, and its staging, ring and lanes
+# emulated index for index on the CPU
+# ---------------------------------------------------------------------------
+
+def _offset(x):
+    """``x``'s values in a tensor one element past the start of its storage
+    (off 16 bytes)."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype)
+    out = base[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# (id, dispatcher, (m, n, k), batch, beta, transa, transb, operands, route):
+# operands "plain" (contiguous), "offset" (A off 16 bytes) or "view" (a
+# non-contiguous A)
+NATURAL_CASES = [
+    ("b37", "smmdispatch", (23, 23, 23), 37, 0.0, "N", "N", "plain",
+     "natural"),
+    ("b1024", "smmdispatch", (23, 23, 23), 1024, 0.0, "N", "N", "plain",
+     "natural"),
+    ("b37-beta1", "smmdispatch", (23, 23, 23), 37, 1.0, "N", "N", "plain",
+     "natural"),
+    ("b1024-beta1", "smmdispatch", (23, 23, 23), 1024, 1.0, "N", "N",
+     "plain", "natural"),
+    ("trans-a", "smmdispatch", (23, 23, 23), 37, 0.0, "T", "N", "plain",
+     "natural"),
+    ("trans-b-beta1", "smmdispatch", (23, 23, 23), 37, 1.0, "N", "T",
+     "plain", "natural"),
+    ("trans-ab", "smmdispatch", (5, 30, 7), 37, 0.0, "T", "T", "plain",
+     "natural"),
+    ("offset", "smmdispatch", (23, 23, 23), 37, 1.0, "N", "N", "offset",
+     "natural"),
+    ("bf16", "bsmmdispatch", (23, 23, 23), 37, 0.0, "N", "N", "plain",
+     "pack"),
+    ("f64", "dmmdispatch", (23, 23, 23), 37, 0.0, "N", "N", "plain", "pack"),
+    ("view", "smmdispatch", (23, 23, 23), 37, 0.0, "N", "N", "view", "pack"),
+    ("too-big", "smmdispatch", (50, 50, 50), 6, 0.0, "N", "N", "plain",
+     "pack"),
+    # rings that fit fewer than NATURAL_ROUTE_BLOCKS blocks on an SM
+    ("few-blocks", "smmdispatch", (36, 36, 36), 6, 0.0, "N", "N", "plain",
+     "pack"),
+    ("skinny", "smmdispatch", (1, 2000, 1), 6, 1.0, "N", "N", "plain",
+     "pack"),
+]
+
+
+@pytest.mark.parametrize(
+    "disp,mnk,batch,beta,transa,transb,operands,route",
+    [c[1:] for c in NATURAL_CASES], ids=[c[0] for c in NATURAL_CASES])
+def test_natural_route_matches_pack_route(rng, monkeypatch, disp, mnk, batch,
+                                          beta, transa, transb, operands,
+                                          route):
+    """``kernel(a, b[, c])`` takes the natural kernel for f32 in and out on
+    contiguous operands whose group fits its staging, bit for bit the pack
+    route (``unpack_c(packed(pack_a(a), pack_b(b)[, pack_c(c)]))``), as a
+    contiguous [B, M, N]; bf16 in, f64, a non-contiguous operand, a shape
+    the staging cannot hold and one whose ring leaves an SM fewer than
+    ``NATURAL_ROUTE_BLOCKS`` blocks pack."""
+    m, n, k = mnk
+    called = []
+    for name in ("natural_f32", "packed_f32", "packed_split2_fast"):
+        orig = getattr(smm_packed, name)
+        monkeypatch.setattr(smm_packed, name,
+                            lambda *a, _n=name, _o=orig, **kw:
+                            called.append(_n) or _o(*a, **kw))
+    dt = {"smmdispatch": torch.float32, "bsmmdispatch": torch.bfloat16,
+          "dmmdispatch": torch.float64}[disp]
+    a = torch.from_numpy(rng.standard_normal(
+        (batch, k, m) if transa == "T" else (batch, m, k))).to(dt)
+    b = torch.from_numpy(rng.standard_normal(
+        (batch, n, k) if transb == "T" else (batch, k, n))).to(dt)
+    c = torch.from_numpy(rng.standard_normal((batch, m, n))).float()
+    if operands == "offset":
+        a = _offset(a)
+        assert a.data_ptr() % 16 and a.is_contiguous()
+    elif operands == "view":
+        a = torch.cat([a, a], dim=2)[:, :, :k]
+        assert not a.is_contiguous()
+    kern = getattr(xp, disp)(m, n, k, batch=batch, beta=beta, transa=transa,
+                             transb=transb)
+    assert isinstance(kern, xp.BatchedSMM)
+    few = smm_packed.natural_blocks(m, n, k) < smm_packed.NATURAL_ROUTE_BLOCKS
+    assert few == (mnk in ((50, 50, 50), (36, 36, 36), (1, 2000, 1)))
+    got = kern(a, b, c) if beta else kern(a, b)
+    assert called == (["natural_f32"] if route == "natural" else
+                      ["packed_split2_fast" if dt == torch.float64
+                       else "packed_f32"])
+    if route == "pack":
+        return
+    ops = [kern.pack_a(a), kern.pack_b(b)] + ([kern.pack_c(c)] if beta
+                                              else [])
+    want = kern.unpack_c(kern.packed(*ops), batch)
+    assert got.is_contiguous() and got.dtype == torch.float32
+    assert tuple(got.shape) == (batch, m, n)
+    assert torch.equal(got, want), (got - want).abs().max()
+    assert torch.equal(got, smm_packed.natural_f32_plain(
+        a, b, c if beta else None, trans_a=transa == "T",
+        trans_b=transb == "T"))
+
+
+# natural_kernel's constants: problems a group, lanes a problem, rows of C
+# a lane holds a pass, columns a pass, slots of a block's ring
+NAT_G, NAT_RT, NAT_R, NAT_NT, NAT_SLOTS = 4, 8, 3, 24, 2
+NAT_TM = NAT_RT * NAT_R
+
+
+@pytest.mark.parametrize("c_name,value", [
+    ("NAT_G", smm_packed.NATURAL_GROUP), ("NAT_SLOTS",
+                                          smm_packed.NATURAL_SLOTS),
+    ("NAT_NT", smm_packed.NATURAL_COLUMNS),
+    ("NAT_MAX_SMEM", smm_packed.NATURAL_MAX_SMEM),
+    ("NAT_G", NAT_G), ("NAT_RT", NAT_RT), ("NAT_R", NAT_R),
+    ("NAT_NT", NAT_NT), ("NAT_SLOTS", NAT_SLOTS)])
+def test_natural_constants_are_the_kernels(c_name, value):
+    """The natural kernel's constants that the route rule
+    (``smm_packed.natural_blocks``) and the emulation below mirror are those
+    of ops/csrc/smm_packed.cu."""
+    src = (Path(smm_packed.__file__).parent / "csrc"
+           / "smm_packed.cu").read_text()
+    found = re.findall(rf"constexpr int {c_name} = (\d+);", src)
+    assert found == [str(value)]
+
+
+# (m, n, k) -> blocks of the natural kernel an SM holds: the route takes
+# 3 and more, the wrapper launches 1 and more (the card tests check 49^3
+# launches and 50^3 is refused)
+@pytest.mark.parametrize("mnk,blocks", [
+    ((23, 23, 23), 4), ((16, 16, 16), 9), ((28, 28, 28), 3),
+    ((32, 32, 32), 2), ((1, 2000, 1), 1), ((49, 49, 49), 1),
+    ((50, 50, 50), 0)])
+def test_natural_blocks(mnk, blocks):
+    assert smm_packed.natural_blocks(*mnk) == blocks
+
+
+def _natural_emulated(a, b, c_in, grid, trans_a, trans_b, bulk):
+    """natural_kernel on batch-first operands: ``grid`` one-warp blocks,
+    each walking its groups of NAT_G problems through a ring of NAT_SLOTS
+    slots (A | B | C parts) in one flat shared memory with the mbarriers and
+    NAT_NT words of padding after them (NaN where nothing was staged); a
+    whole group staged in one run per operand and a ragged one (or any
+    group without ``bulk``) problem by problem; lane 8p + r computes rows
+    r, r + 8, r + 16 of each NAT_TM-row pass of problem p, all NAT_NT
+    columns of a pass, rows past M clamped to M - 1 and columns past N
+    clamped (trans_b) or read on (every read must stay inside the shared
+    memory), into the slot's C part, storing rows < M and columns < N; the
+    group's C leaves as one run, and the slot takes the block's group
+    NAT_SLOTS on."""
+    nb = a.shape[0]
+    m, k = (a.shape[2], a.shape[1]) if trans_a else a.shape[1:]
+    n = b.shape[1] if trans_b else b.shape[2]
+    mk, kn, mn = m * k, k * n, m * n
+    slot = NAT_G * (mk + kn + mn)
+    size = NAT_SLOTS * slot + NAT_SLOTS * 2 + NAT_NT   # mbarriers: 8 bytes
+    af, bf = a.reshape(-1), b.reshape(-1)
+    cf = None if c_in is None else c_in.reshape(-1)
+    out = torch.full((nb * mn,), float("nan"))
+    ngroups = -(-nb // NAT_G)
+    for blk in range(grid):
+        mine = (ngroups - 1 - blk) // grid + 1 if blk < ngroups else 0
+        smem = torch.full((size,), float("nan"))
+
+        def issue(t):
+            if t >= mine:
+                return
+            p0 = (blk + t * grid) * NAT_G
+            np_ = min(NAT_G, nb - p0)
+            base = t % NAT_SLOTS * slot
+            parts = [(0, af, mk), (NAT_G * mk, bf, kn)]
+            if cf is not None:
+                parts.append((NAT_G * (mk + kn), cf, mn))
+            for off, src, sz in parts:
+                if bulk and np_ == NAT_G:   # one run of the whole group
+                    smem[base + off:base + off + NAT_G * sz] = src[
+                        p0 * sz:(p0 + NAT_G) * sz]
+                else:                       # word by word, np_ problems
+                    for q in range(np_ * sz):
+                        smem[base + off + q] = src[p0 * sz + q]
+
+        for s in range(NAT_SLOTS):
+            issue(s)
+        for t in range(mine):
+            p0 = (blk + t * grid) * NAT_G
+            np_ = min(NAT_G, nb - p0)
+            base = t % NAT_SLOTS * slot
+            cs = base + NAT_G * (mk + kn)
+            for lane in range(32):
+                p, r = divmod(lane, NAT_RT)
+                if p >= np_:
+                    continue
+                a_s, b_s = base + p * mk, base + NAT_G * mk + p * kn
+                c_s = cs + p * mn
+                for m0 in range(0, m, NAT_TM):
+                    rows = [m0 + r + i * NAT_RT for i in range(NAT_R)]
+                    arow = torch.tensor([min(x, m - 1) for x in rows])
+                    for n0 in range(0, n, NAT_NT):
+                        cols = torch.arange(n0, n0 + NAT_NT)
+                        ok = ((torch.tensor(rows) < m)[:, None]
+                              & (cols < n)[None, :])
+                        idx = torch.tensor(rows)[:, None] * n + cols[None, :]
+                        acc = torch.zeros(ok.shape)
+                        if cf is not None:
+                            acc[ok] = smem[c_s + idx[ok]]
+                        for kk in range(k):
+                            ai = a_s + (arow + kk * m if trans_a
+                                        else arow * k + kk)
+                            bi = b_s + (cols.clamp(max=n - 1) * k + kk
+                                        if trans_b else kk * n + cols)
+                            assert int(bi.max()) < size
+                            acc = acc + smem[ai][:, None] * smem[bi][None, :]
+                        smem[c_s + idx[ok]] = acc[ok]
+            out[p0 * mn:(p0 + np_) * mn] = smem[cs:cs + np_ * mn]
+            issue(t + NAT_SLOTS)
+    return out.view(nb, m, n)
+
+
+@pytest.mark.parametrize("m,n,k,nb,grid", [
+    (23, 23, 23, 37, 3), (5, 3, 7, 61, 4), (30, 50, 9, 9, 2), (1, 1, 1, 6, 3),
+    (23, 23, 23, 8, 5)])
+@pytest.mark.parametrize("trans", ["NN", "TT"])
+@pytest.mark.parametrize("beta", [0, 1])
+@pytest.mark.parametrize("bulk", [True, False], ids=["bulk", "cp.async"])
+def test_natural_kernel_emulated_matches_plain(rng, m, n, k, nb, grid, trans,
+                                               beta, bulk):
+    """natural_kernel's groups, ring, lanes, row and column passes and its
+    two stagings, emulated, give natural_f32_plain's bits: ragged last
+    groups (37, 61, 9, 6 problems), more blocks than groups (8 problems on
+    5 blocks), 30 rows (two passes) and 50 columns (three)."""
+    ta, tb = trans[0] == "T", trans[1] == "T"
+    a = torch.from_numpy(rng.standard_normal(
+        (nb, k, m) if ta else (nb, m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(
+        (nb, n, k) if tb else (nb, k, n)).astype(np.float32))
+    c = (torch.from_numpy(rng.standard_normal((nb, m, n)).astype(np.float32))
+         if beta else None)
+    got = _natural_emulated(a, b, c, grid, ta, tb, bulk)
+    want = smm_packed.natural_f32_plain(a, b, c, trans_a=ta, trans_b=tb)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got - want).abs().max()

@@ -117,9 +117,8 @@ def test_a_call_of_each_entry_point_records_its_layers():
     assert [s.name for s in roots] == ["dispatch", "frontend", "frontend"]
     natural, sparse = roots[1], roots[2]
     inner = [(s.name, s.parent) for s in spans if s.call == natural.id][1:]
-    packed = [s for s in spans if s.call == natural.id][1]
-    # __call__ -> packed (both frontends) -> the kernel wrapper
-    assert inner == [("frontend", natural.id), ("wrapper", packed.id)]
+    # __call__ (the frontend) -> the natural kernel's wrapper, no pack
+    assert inner == [("wrapper", natural.id)]
     assert [(s.name, s.parent) for s in spans if s.call == sparse.id][1:] \
         == [("wrapper", sparse.id)]
     # the CPU runs the plain versions: nothing is launched

@@ -1,6 +1,8 @@
 // Batched small GEMM on the lane-packed layout: the three Hopper kernels
 // behind xsmm_tpu_torch/ops/smm_packed.py, built for sm_90a with a plain C
-// interface (loaded through ctypes by ops/cuda_build.py).
+// interface (loaded through ctypes by ops/cuda_build.py); and, at the end,
+// the natural kernel, which runs the F32 schedule on f32 operands in the
+// caller's batch-first layout (its own notes).
 //
 // Layout, one problem per batch index b, b innermost and contiguous:
 //   A [M, K, Bp], B [K, N, Bp], C [M, N, Bp]
@@ -579,7 +581,12 @@ int launch_tile(const float* a0, const float* a1, const float* b0,
 
 // The staging a launch takes, named by the caller (ops/smm_packed.py
 // STAGINGS) and checked here against the planes
-enum Staging { STAGE_TMA = 0, STAGE_CP_ASYNC = 1, STAGE_FIRST = 2 };
+enum Staging {
+  STAGE_TMA = 0,
+  STAGE_CP_ASYNC = 1,
+  STAGE_FIRST = 2,
+  STAGE_BULK = 3  // the natural kernel's bulk copies
+};
 
 // f32 planes take the tile kernel, 16-bit inputs the first design; -2 where
 // `staging` is not the one these planes take
@@ -640,6 +647,266 @@ int launch_f32(int out_code, const void* a, const void* b, const void* cin,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The natural kernel: f32 problems in the caller's batch-first layout,
+//   A [Bn, M, K] ([Bn, K, M] with TA), B [Bn, K, N] ([Bn, N, K] with TB),
+//   C [Bn, M, N], each problem's A, B and C contiguous.
+// It replaces no TPU kernel.  BatchedSMM.__call__ on f32 tensors used to
+// pack A and B into the planes above (BatchedSMM.pack_a / pack_b: two
+// transposes on the card), run the tile kernel's F32 schedule and hand back
+// a permuted view of C (unpack_c).  At 23^3, B = 131072 the transposes moved
+// 1.11 GB a call beside the product's own 0.832 GB, and took three times
+// the tile kernel's time.  This kernel fuses the pack and the unpack with
+// that schedule: it reads A and B and writes C where the caller keeps them,
+// each byte once.
+//
+// Bound on an H100 SXM at 23^3, B = 131072, beta = 0: 0.832 GB -> 0.248 ms
+// (bytes); the FP32 work, 3.19 GFLOP as separate multiplies and adds, takes
+// 0.095 ms at 67 TFLOP/s.
+//
+// Design.  TMA's tiled mode cannot address this layout (a row is 92 bytes,
+// not a multiple of 16), but NAT_G = 4 problems of f32 are 16*M*K bytes of
+// A: a whole group is one contiguous run that is a multiple of 16 bytes, on
+// 16 bytes wherever the tensor is.
+//   * A block is one warp; the persistent blocks (as many as fit the SMs)
+//     walk groups g = blockIdx.x, + gridDim.x, ... through a ring of
+//     NAT_SLOTS slots, each holding a group's A, B and C.  Lane 0 stages a
+//     whole group by bulk copies (cp.async.bulk, one an operand) counted on
+//     the slot's mbarrier; the ragged tail, and operands that are not all on
+//     16 bytes, are staged by every lane with 4-byte cp.async.  A slot is
+//     refilled once its group's C has left, so a group's copies are in
+//     flight while the group before it is computed.
+//   * Lane 8p + r computes rows r, r + 8, r + 16 of each 24-row pass of
+//     problem p, NAT_NT columns of C a pass in registers: per k it loads 3
+//     words of A and one word of B a column for 3 terms.  The row stride K
+//     and the problem stride M*K are odd at 23^3, so the lanes' A words fall
+//     in distinct banks (two ways at most), and the 8 lanes of a problem
+//     read the same B word (a broadcast).
+//   * The rows go back into the slot's C part, and the warp writes the
+//     group's C as one contiguous run (16-byte stores for a whole group on
+//     16 bytes), every store coalesced.
+// Numerics are the F32 schedule's term for term (packed_tile_kernel with
+// TOut = float): each product and each sum rounded (__fmul_rn/__fadd_rn, no
+// FMA contraction), k ascending, the sum started from c_in (beta = 1) or 0.
+// The bits are those of the pack route.
+// Measured on the H100 at 700 W, 23^3, B = 131072, beta = 0: 0.303 ms (82 %
+// of the bound) against 1.68 for the pack route (the transposes and kernel
+// 2's 0.413) and 0.450 for torch.bmm in f32; the staging and stores alone
+// take 0.285, the arithmetic alone 0.274, so each hides the other.  A first
+// version whose k loop branched around each column's load (a column past N
+// was skipped) ran 1.04: the load's latency stood in every column.
+// ---------------------------------------------------------------------------
+constexpr int NAT_G = 4;                  // problems a group
+constexpr int NAT_RT = 8;                 // lanes a problem
+constexpr int NAT_R = 3;                  // rows of C a lane holds a pass
+constexpr int NAT_NT = 24;                // columns of C a pass
+constexpr int NAT_SLOTS = 2;              // slots of a block's ring
+constexpr int NAT_TM = NAT_RT * NAT_R;    // rows a pass
+constexpr int NAT_MAX_SMEM = 232448;      // shared memory a block may have
+
+// `bytes` (a multiple of 16; both addresses on 16 bytes) global -> shared,
+// completion counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// n words global -> shared, one 4-byte cp.async each, neighbouring lanes on
+// neighbouring words
+__device__ __forceinline__ void stage_words(float* dst, const float* src,
+                                            int n, int lane) {
+  for (int i = lane; i < n; i += 32) __pipeline_memcpy_async(dst + i, src + i, 4);
+}
+
+// Lane r's rows of one problem: A, B, C in the slot (C holds c_in when
+// `beta`), C overwritten with the result.  The k loop has no branch, so its
+// loads can be issued ahead of the arithmetic: a row past M repeats row
+// M - 1, a column past N (with TB) repeats column N - 1, and without TB a
+// column past N reads on past the row (into the slot, or the padding after
+// the ring); such terms are computed and never stored.
+template <bool TA, bool TB>
+__device__ __forceinline__ void natural_rows(const float* As, const float* Bs,
+                                             float* Cs, bool beta, int M,
+                                             int N, int K, int r) {
+  for (int m0 = 0; m0 < M; m0 += NAT_TM) {
+    int aoff[NAT_R];
+#pragma unroll
+    for (int i = 0; i < NAT_R; ++i) {
+      const int m = min(m0 + r + i * NAT_RT, M - 1);
+      aoff[i] = TA ? m : m * K;
+    }
+    for (int n0 = 0; n0 < N; n0 += NAT_NT) {
+      int boff[NAT_NT];
+#pragma unroll
+      for (int j = 0; j < NAT_NT; ++j)
+        boff[j] = TB ? min(n0 + j, N - 1) * K : n0 + j;
+      float acc[NAT_R][NAT_NT];
+#pragma unroll
+      for (int i = 0; i < NAT_R; ++i) {
+        const int m = m0 + r + i * NAT_RT;
+#pragma unroll
+        for (int j = 0; j < NAT_NT; ++j) {
+          const int n = n0 + j;
+          acc[i][j] = (beta && m < M && n < N) ? Cs[m * N + n] : 0.f;
+        }
+      }
+#pragma unroll 2
+      for (int k = 0; k < K; ++k) {
+        float av[NAT_R];
+#pragma unroll
+        for (int i = 0; i < NAT_R; ++i) av[i] = As[aoff[i] + (TA ? k * M : k)];
+        const float* brow = Bs + (TB ? k : k * N);
+#pragma unroll
+        for (int j = 0; j < NAT_NT; ++j) {
+          const float bv = brow[boff[j]];
+#pragma unroll
+          for (int i = 0; i < NAT_R; ++i)
+            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(av[i], bv));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NAT_R; ++i) {
+        const int m = m0 + r + i * NAT_RT;
+#pragma unroll
+        for (int j = 0; j < NAT_NT; ++j) {
+          const int n = n0 + j;
+          if (m < M && n < N) Cs[m * N + n] = acc[i][j];
+        }
+      }
+    }
+  }
+}
+
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(32)
+natural_kernel(const float* __restrict__ a, const float* __restrict__ b,
+               const float* __restrict__ c_in, float* __restrict__ c, int M,
+               int N, int K, long long nb, bool bulk) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int lane = threadIdx.x;
+  const int mk = M * K, kn = K * N, mn = M * N;
+  const int slot_elems = NAT_G * (mk + kn + mn);  // 16-byte multiple
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NAT_SLOTS * slot_elems);
+  const long long ngroups = (nb + NAT_G - 1) / NAT_G;
+  const long long mine =
+      blockIdx.x < ngroups ? (ngroups - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  // a group staged by bulk copies: whole, and every operand on 16 bytes
+  auto whole = [&](long long g) { return bulk && (g + 1) * NAT_G <= nb; };
+
+  if (lane == 0) {
+    for (int s = 0; s < NAT_SLOTS; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // this block's t-th group into slot t % NAT_SLOTS; every lane commits one
+  // cp.async group a t, empty where it copies nothing
+  auto issue = [&](long long t) {
+    if (t < mine) {
+      const long long g = blockIdx.x + t * gridDim.x, p0 = g * NAT_G;
+      float* dst = smem + (int)(t % NAT_SLOTS) * slot_elems;
+      if (whole(g)) {
+        // the slot's reads and writes by the lanes come before the bulk
+        // copies write it
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) {
+          uint64_t* bar = &full[t % NAT_SLOTS];
+          const unsigned ab = NAT_G * mk * 4, bb = NAT_G * kn * 4,
+                         cb = NAT_G * mn * 4;
+          mbar_expect_tx(bar, ab + bb + (c_in != nullptr ? cb : 0));
+          bulk_load(dst, a + p0 * mk, ab, bar);
+          bulk_load(dst + NAT_G * mk, b + p0 * kn, bb, bar);
+          if (c_in != nullptr)
+            bulk_load(dst + NAT_G * (mk + kn), c_in + p0 * mn, cb, bar);
+        }
+      } else {
+        const int np = (int)(nb - p0 < NAT_G ? nb - p0 : NAT_G);
+        stage_words(dst, a + p0 * mk, np * mk, lane);
+        stage_words(dst + NAT_G * mk, b + p0 * kn, np * kn, lane);
+        if (c_in != nullptr)
+          stage_words(dst + NAT_G * (mk + kn), c_in + p0 * mn, np * mn, lane);
+      }
+    }
+    __pipeline_commit();
+  };
+
+  for (int s = 0; s < NAT_SLOTS; ++s) issue(s);
+  const int p = lane / NAT_RT, r = lane % NAT_RT;
+  for (long long t = 0; t < mine; ++t) {
+    const long long g = blockIdx.x + t * gridDim.x, p0 = g * NAT_G;
+    const int np = (int)(nb - p0 < NAT_G ? nb - p0 : NAT_G);
+    float* slot = smem + (int)(t % NAT_SLOTS) * slot_elems;
+    float* cs = slot + NAT_G * (mk + kn);
+    // -- the stage wait: this lane's copies of group t, then the bulk
+    // copies (a slot's earlier groups were all whole: only the last group
+    // of all can be ragged)
+    __pipeline_wait_prior(NAT_SLOTS - 1);
+    if (whole(g)) mbar_wait(&full[t % NAT_SLOTS], (unsigned)(t / NAT_SLOTS) & 1);
+    __syncwarp();
+    // -- the arithmetic
+    if (p < np)
+      natural_rows<TA, TB>(slot + p * mk, slot + NAT_G * mk + p * kn,
+                           cs + p * mn, c_in != nullptr, M, N, K, r);
+    __syncwarp();
+    // -- the store: the group's C, one contiguous run
+    float* cg = c + p0 * mn;
+    if (whole(g)) {
+      const float4* src = reinterpret_cast<const float4*>(cs);
+      float4* dst = reinterpret_cast<float4*>(cg);
+      for (int i = lane; i < NAT_G * mn / 4; i += 32) dst[i] = src[i];
+    } else {
+      for (int i = lane; i < np * mn; i += 32) cg[i] = cs[i];
+    }
+    __syncwarp();
+    issue(t + NAT_SLOTS);
+  }
+}
+
+// Shared memory of a natural launch: the ring's slots, their mbarriers, and
+// NAT_NT words of padding that the last slot's column reads past N may reach
+size_t natural_smem(int m, int n, int k) {
+  return (size_t)NAT_SLOTS * NAT_G *
+             ((size_t)m * k + (size_t)k * n + (size_t)m * n) * sizeof(float) +
+         NAT_SLOTS * sizeof(uint64_t) + NAT_NT * sizeof(float);
+}
+
+template <bool TA, bool TB>
+int launch_natural(const float* a, const float* b, const float* cin, float* c,
+                   int m, int n, int k, long long nb, bool bulk, int device,
+                   cudaStream_t st) {
+  const size_t smem = natural_smem(m, n, k);
+  if (smem > NAT_MAX_SMEM) return -2;
+  auto kern = natural_kernel<TA, TB>;
+  // the blocks the card holds at this ring size, asked once a device and
+  // size (per thread: ctypes calls run without the GIL); the attribute is
+  // the most any launch asks, so no thread's launch outgrows it
+  static thread_local int c_device = -1;
+  static thread_local size_t c_smem = 0;
+  static thread_local long long c_blocks = 0;
+  if (device != c_device || smem != c_smem) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         NAT_MAX_SMEM);
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32, smem);
+    if (per_sm < 1) return -2;
+    c_device = device;
+    c_smem = smem;
+    c_blocks = (long long)per_sm * sms;
+  }
+  const long long groups = (nb + NAT_G - 1) / NAT_G;
+  const long long grid = c_blocks < groups ? c_blocks : groups;
+  kern<<<dim3((unsigned)grid), dim3(32), smem, st>>>(a, b, cin, c, m, n, k, nb,
+                                                     bulk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t) on
@@ -685,4 +952,29 @@ extern "C" int xsmm_packed_split2(const float* ah, const float* al,
                                   void* stream) {
   return launch<SPLIT2, float, float>(ah, al, bh, bl, chin, clin, ch, cl, m, n,
                                       k, bp, staging, device, stream);
+}
+
+// The natural kernel on nb problems: A [nb, M, K] ([nb, K, M] with trans_a),
+// B [nb, K, N] ([nb, N, K] with trans_b), C [nb, M, N]; `staging` is
+// STAGE_BULK where every operand starts on 16 bytes, else STAGE_CP_ASYNC.
+// -2 (nothing launched) for another staging, or a ring that does not fit a
+// block's shared memory.
+extern "C" int xsmm_natural_f32(const float* a, const float* b,
+                                const float* cin, float* c, int m, int n,
+                                int k, long long nb, int trans_a, int trans_b,
+                                int staging, int device, void* stream) {
+  cudaSetDevice(device);
+  const bool bulk = !(((uintptr_t)a | (uintptr_t)b | (uintptr_t)cin |
+                       (uintptr_t)c) & 15);
+  if (staging != (bulk ? STAGE_BULK : STAGE_CP_ASYNC)) return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (trans_a)
+    return trans_b ? launch_natural<true, true>(a, b, cin, c, m, n, k, nb,
+                                                bulk, device, st)
+                   : launch_natural<true, false>(a, b, cin, c, m, n, k, nb,
+                                                 bulk, device, st);
+  return trans_b ? launch_natural<false, true>(a, b, cin, c, m, n, k, nb, bulk,
+                                               device, st)
+                 : launch_natural<false, false>(a, b, cin, c, m, n, k, nb,
+                                                bulk, device, st);
 }

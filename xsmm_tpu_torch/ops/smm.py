@@ -6,7 +6,8 @@ restrictions, alpha = 1 and beta in {0, 1} (README.md:11).
 
 * **Batched SMM** (``BatchedSMM``) runs one problem per batch index on the
   lane-packed layout A ``[M,K,B]``, B ``[K,N,B]``, C ``[M,N,B]``, through
-  the three hand-written CUDA kernels of ``ops/smm_packed.py``.
+  the three hand-written CUDA kernels of ``ops/smm_packed.py``; an f32 call
+  on batch-first tensors runs its natural kernel on them unpacked.
 * **Large, single and integer GEMMs** (``XlaGemm``) and **batch-reduce GEMM**
   (``BatchReduceGemm``, one flattened ``[M, I*K] @ [I*K, N]`` product) are
   plain products that the JAX package leaves to XLA; here they are
@@ -186,8 +187,10 @@ class BatchedSMM(_Kernel):
     The kernels take any Bp, so packing does not pad.
 
     Call forms:
-      * ``kernel(a, b[, c])`` with [B,M,K]/[B,K,N]/[B,M,N] operands — packs,
-        computes, unpacks;
+      * ``kernel(a, b[, c])`` with [B,M,K]/[B,K,N]/[B,M,N] operands: f32 in
+        and out on contiguous operands runs the natural kernel on them as
+        they are and returns a contiguous [B,M,N] (``_natural``); every
+        other call packs, computes and returns the unpacked view;
       * ``kernel.packed(ap, bp[, cp])`` on packed operands: by strategy
         (ah, bh, bl[, ch]) for split2_fast, (ah, al, bh, bl[, ch, cl]) for
         split2 (returns (ch, cl)), (a, b[, c]) otherwise.
@@ -244,14 +247,37 @@ class BatchedSMM(_Kernel):
             return smm_packed.packed_f32(*ops, out_dtype=self.out_dt)
 
     # -- convenience full path ----------------------------------------------
+    def _natural(self, a: torch.Tensor, b: torch.Tensor,
+                 c: Optional[torch.Tensor]) -> bool:
+        """Whether the call takes the natural kernel
+        (``smm_packed.natural_f32``): f32 in and out, contiguous 3-D
+        operands, and a ring of groups small enough that an SM holds
+        ``NATURAL_ROUTE_BLOCKS`` of its blocks.  Every other call packs."""
+        ops = (a, b) if c is None else (a, b, c)
+        if not (self.desc.in_dtype == self.desc.out_dtype == "float32"
+                and all(t.dim() == 3 and t.is_contiguous() for t in ops)):
+            return False
+        m, k = a.shape[1:][::-1] if self.desc.trans_a else a.shape[1:]
+        n = b.shape[1] if self.desc.trans_b else b.shape[2]
+        return (smm_packed.natural_blocks(m, n, k)
+                >= smm_packed.NATURAL_ROUTE_BLOCKS)
+
     def _full(self, a, b, c=None):
         dev = self.device
-        ops = [self.pack_a(as_tensor(a, dev, self.in_dt, slot="a")),
-               self.pack_b(as_tensor(b, dev, self.in_dt, slot="b"))]
+        a = as_tensor(a, dev, self.in_dt, slot="a")
+        b = as_tensor(b, dev, self.in_dt, slot="b")
         if self.desc.beta:
             if c is None:
                 raise ValueError("beta=1 kernel requires c operand")
-            ops.append(self.pack_c(as_tensor(c, dev, self.out_dt, slot="c")))
+            c = as_tensor(c, dev, self.out_dt, slot="c")
+        else:
+            c = None
+        if self._natural(a, b, c):
+            return smm_packed.natural_f32(a, b, c, trans_a=self.desc.trans_a,
+                                          trans_b=self.desc.trans_b)
+        ops = [self.pack_a(a), self.pack_b(b)]
+        if c is not None:
+            ops.append(self.pack_c(c))
         return self.unpack_c(self.packed(*ops), ops[0].shape[-1])
 
     def __call__(self, a, b, c=None):
