@@ -86,7 +86,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     launch counts set to 0 just before and read just after each call (each
     must launch its one kernel): ``getrf_dispatch`` 16x16 at batch 131072
     in f32 and f64 (numpy in and out), 12x8 and 8x12; ``trsm_dispatch``
-    16/16 in the six variants of ``tests/test_packed.py`` and with alpha 2;
+    16/16 in the six variants of ``tests/test_packed.py`` (the four that
+    reduce to an upper left solve launch the upper variant) and with alpha 2;
     the f64 trsm under refine None, "host" and False; getrf and trsm at
     125 (the element block of a p = 4 hexahedron) and batch 4096, which
     take the loop kernels (getrf on its "tile" route), and getrf at 140,
@@ -104,7 +105,12 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     and the loop trsm in turns with theirs (kernel, library, library,
     kernel), and the trsm's unit-diagonal solve), and the whole
     ``getrf_dispatch(16, 16, batch=131072)(a)`` call with a tensor on the
-    card and with numpy f64 step by step;
+    card and with numpy f64 step by step; then block-Jacobi's solves at
+    ``--packed-big-m`` (125) with one column, B = ``--packed-batch``: one
+    packed LU, the unit-lower solve and the upper variant on it through
+    ``trsm_dispatch(...).packed`` (each must launch its one kernel), bit
+    for bit their plain versions, and timed in turns (lower, upper, upper,
+    lower) beside their bounds;
 18. drives the RNN forward path through its entry points
     (``create_rnncell(RnnDesc(...))`` then ``forward`` and
     ``forward_train``) at N, C, K, T = 128, 512, 512, 32, the shape of
@@ -1207,9 +1213,12 @@ def packed_phase(args, dev, smi):
             m, n, batch=B)(a), "getrf_unrolled")
     for v in TRSM_VARIANTS:
         side, uplo, transa, diag = v
+        # the left solve that the call reduces to is upper where the stored
+        # triangle is upper and no transpose flips it, or lower and one does
+        upper = (uplo == "U") == ((side == "R") == (transa == "T"))
         drive(f"trsm f32 {''.join(v)} {M}/{M}", lambda v=v: xp.trsm_dispatch(
             M, M, side=v[0], uplo=v[1], transa=v[2], diag=v[3], batch=B)(
-                a32, b32), "trsm_unrolled")
+                a32, b32), "trsm_unrolled_upper" if upper else "trsm_unrolled")
     drive(f"trsm f32 LLNN {M}/{M} alpha=2", lambda: xp.trsm_dispatch(
         M, M, batch=B)(a32, b32, alpha=2.0), "trsm_unrolled")
     k64 = xp.trsm_dispatch(M, M, dtype="float64", batch=B)
@@ -1399,6 +1408,66 @@ def packed_phase(args, dev, smi):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library": lib_name, "check": "pass",
             "shape": shape, **extra})
+
+    # -- 16b'. block-Jacobi's solves: kernel 14 at one column on one packed
+    # LU, the lower (unit) solve and the upper variant, which reads triu(LU)
+    # in place
+    rows_by = {row["name"]: row for row in rows}
+    pa1 = torch.randn((BM, BM, B), generator=g, device=dev,
+                      dtype=torch.float32) / BM
+    idx = torch.arange(BM, device=dev)
+    pa1[idx, idx] += 1.0
+    lu1 = pk.getrf_loop(pa1)
+    del pa1
+    r1 = torch.randn((BM, 1, B), generator=g, device=dev,
+                     dtype=torch.float32)
+    solves, outs = {}, {}
+    for uplo, diag, expect in (("L", "U", "trsm_loop"),
+                               ("U", "N", "trsm_loop_upper")):
+        kern = xp.trsm_dispatch(BM, 1, uplo=uplo, diag=diag, batch=B)
+        drive(f"trsm f32 L{uplo}N{diag} {BM}/1 packed",
+              lambda k=kern: k.packed(lu1, r1), expect)
+        got = outs.pop(f"trsm f32 L{uplo}N{diag} {BM}/1 packed")
+        want = (pk.trsm_loop_plain(lu1, r1, True) if uplo == "L"
+                else pk.trsm_loop_upper_plain(lu1, r1, False))
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(got).all()) and torch.equal(got, want)
+        print(f"plain {expect:15s} {BM}/1 B={B} packed on the LU: bit for "
+              f"bit {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{expect} {BM}/1: kernel and plain version "
+                               f"disagree")
+        del got, want
+        # reads its triangle (the diagonal where it divides), B and X
+        tri = BM * (BM - 1) // 2 + (0 if diag == "U" else BM)
+        nbytes = (tri + 2 * BM) * 4 * B
+        nops = (BM * (BM - 1) + (0 if diag == "U" else BM)) * B
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_FLOP_PER_S * 1e3
+        solves[uplo] = {"bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations", "ms_turns": []}
+    for uplo in ("L", "U", "U", "L"):
+        solves[uplo]["ms_turns"].append(cuda_time_ms(
+            pk.trsm_loop, lu1, r1, uplo == "L", uplo == "U", warmup=3,
+            iters=20))
+    # the lower solve with the division, which the upper one makes: the
+    # variants' gap apart from the diagonal
+    lower_div_ms = cuda_time_ms(pk.trsm_loop, lu1, r1, False, warmup=3,
+                                iters=20)
+    for uplo, name in (("L", "lower unit"), ("U", "upper")):
+        sv = solves[uplo]
+        sv["ms"] = sum(sv["ms_turns"]) / 2
+        print(f"time  trsm_loop {name:10s} {BM}/1 B={B} packed on the LU in "
+              f"turns: {sv['ms_turns'][0]:.4f} / {sv['ms_turns'][1]:.4f} ms, "
+              f"bound {sv['bound_ms']:.4f} ms ({sv['bound_by']}), share "
+              f"{sv['bound_ms'] / sv['ms']:.3f}  [{smi}]")
+    print(f"time  trsm_loop lower, non-unit diagonal, {BM}/1 B={B}: "
+          f"{lower_div_ms:.4f} ms  [{smi}]")
+    rows_by["trsm_loop"]["block_jacobi"] = {
+        "shape": f"{BM}/1 B={B}", "lower_unit": solves["L"],
+        "upper": solves["U"], "lower_ms": lower_div_ms}
+    del lu1, r1
 
     # -- 16c. the whole getrf call: tensors on the card, and numpy f64 ------
     kern = xp.getrf_dispatch(M, M, batch=B)

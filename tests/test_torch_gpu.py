@@ -935,6 +935,118 @@ def test_trsm_shared_template_matches_plain(cuda, sm, sn, kernel, unit):
     _same(got, getattr(pk, kernel + "_plain")(a, b, unit))
 
 
+@pytest.mark.parametrize("sm,sn", TRSM_SHAPES + SHARED_TRSM_SHAPES
+                         + [(125, 1)])
+@pytest.mark.parametrize("kernel", ["trsm_unrolled", "trsm_loop"])
+@pytest.mark.parametrize("unit", [False, True])
+def test_trsm_upper_variant_matches_plain(cuda, kernel, sm, sn, unit):
+    """The upper variant (triu(A) read in place, row i at SM-1-i) bit for
+    bit against its plain version, counted under its own name; the strict
+    lower triangle holds NaN, which it must not read."""
+    a = _lower(cuda, 61, sm, bp=300)
+    a = a / sm if unit else a
+    a = a + torch.tril(torch.full((sm, sm), float("nan"), device=cuda),
+                       -1)[..., None]
+    b = _planes(cuda, 62, (sm, sn, 300))[0]
+    before = dict(pk.launches)
+    got = getattr(pk, kernel)(a, b, unit, upper=True)
+    torch.cuda.synchronize()
+    assert pk.launches[kernel + "_upper"] == before[kernel + "_upper"] + 1
+    assert pk.launches[kernel] == before[kernel]
+    assert torch.isfinite(got).all()
+    _same(got, getattr(pk, kernel + "_upper_plain")(a, b, unit))
+
+
+@pytest.mark.parametrize("sm", [16, 125])   # kernel 13, then kernel 14
+@pytest.mark.parametrize("side,uplo,transa", [
+    (s, u, t) for s in "LR" for u in "LU" for t in "NT"])
+def test_call_launches_the_upper_variant_with_the_flip_routes_bits(
+        cuda, sm, side, uplo, transa):
+    """``__call__`` reduces a descriptor to a left solve by transposes and
+    launches the upper variant where that solve is upper, once and nothing
+    else: the bits of the lower kernel on flipped copies of A and B."""
+    from xsmm_tpu_torch.ops.pack_util import pack_lanes
+
+    other, bsz = 5, 300
+    m, n = (sm, other) if side == "L" else (other, sm)
+    a = _lower(cuda, 65, sm, bp=bsz)
+    a = (a + a.transpose(0, 1)).permute(2, 0, 1)   # both triangles
+    b = _planes(cuda, 66, (bsz, m, n))[0]
+    kern = xp.trsm_dispatch(m, n, side=side, uplo=uplo, transa=transa,
+                            batch=bsz)
+    name = kern.kernel_name
+    transposed = (side == "R") != (transa == "T")
+    upper = (uplo == "U") != transposed
+    pk.reset_launches()
+    got = kern(a, b)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in pk.launches.items() if v} == {
+        name + "_upper" if upper else name: 1}
+    a_eff = a.transpose(-1, -2) if transposed else a
+    b_eff = b.transpose(-1, -2) if side == "R" else b
+    if upper:
+        a_eff, b_eff = a_eff.flip((-1, -2)), b_eff.flip(-2)
+    x = getattr(pk, name)(pack_lanes(a_eff), pack_lanes(b_eff),
+                          False).permute(2, 0, 1)
+    if upper:
+        x = x.flip(-2)
+    _same(got, x.transpose(-1, -2) if side == "R" else x)
+
+
+def _device_op(ev) -> bool:
+    """A kernel, copy or set on the card's timeline (no annotation)."""
+    if not str(ev.device_type()).endswith("CUDA"):
+        return False
+    kind = getattr(ev, "activity_type", None)
+    if kind is not None:
+        return str(kind()).lower() in ("kernel", "gpu_memcpy", "gpu_memset")
+    return not ev.is_user_annotation()
+
+
+def test_block_jacobi_apply_on_the_card(cuda):
+    """The packed LU, then the unit-lower and the upper solve on that same
+    LU through ``packed``, at the p = 4 block (125) with one right-hand
+    side: each launches its one kernel and nothing else runs on the card
+    between them (no copy of the factors); bit for bit the plain versions;
+    against the f64 reference within 2e-5 a solve (f32 rounding over ~125
+    terms of well-conditioned, diagonally dominant blocks; the CPU tests'
+    readings are 1e-7 to 3.2e-7, bf16 factors read 2e-3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from reference_torch import block_jacobi as ref
+
+    n, bsz = 125, 2000
+    a = _planes(cuda, 63, (n, n, bsz))[0] / n ** 0.5
+    idx = torch.arange(n, device=cuda)
+    a[idx, idx] = 0.0
+    a[idx, idx] = a.abs().sum(1) * 1.5
+    r = _planes(cuda, 64, (n, 1, bsz))[0]
+    getrf = xp.getrf_dispatch(n, n, batch=bsz)
+    lower = xp.trsm_dispatch(n, 1, uplo="L", diag="U", batch=bsz)
+    upper = xp.trsm_dispatch(n, 1, uplo="U", diag="N", batch=bsz)
+    lu = getrf.packed(a)
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = lower.packed(lu, r)
+        x = upper.packed(lu, y)
+        torch.cuda.synchronize()
+    assert {k: v for k, v in pk.launches.items() if v} == {
+        "trsm_loop": 1, "trsm_loop_upper": 1}
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if _device_op(e)]
+    assert len(ops) == 2, ops
+    assert "trsm_shared<" in ops[0] and "trsm_shared_upper<" in ops[1], ops
+    _same(lu, pk.getrf_loop_plain(a))
+    _same(y, pk.trsm_loop_plain(lu, r, True))
+    _same(x, pk.trsm_loop_upper_plain(lu, y, False))
+    want = ref.block_jacobi(a.permute(2, 0, 1), r.permute(2, 0, 1))
+    err = torch.linalg.vector_norm(x.permute(2, 0, 1).double() - want,
+                                   dim=(1, 2))
+    assert float((err / torch.linalg.vector_norm(want, dim=(1, 2))).max()) \
+        <= 2e-5
+
+
 def test_redesigned_kernels_repeat_bit_identical(cuda):
     """Kernel 4 on the TMA route (one block's tiles, and split K) and kernel
     14 give the same bits on every one of 50 launches: the mbarrier ring and
@@ -981,7 +1093,9 @@ def test_tile_kernels_repeat_bit_identical(cuda):
 def test_packed_entry_points_card_equal_cpu(cuda, knob):
     """getrf_dispatch, trsm_dispatch (six variants), trmm_dispatch and
     pgemm_dispatch in f32 give the same bits on the card as on the CPU, and
-    reach the kernels the knob picks."""
+    reach the kernels the knob picks: the trsm's lower kernel for the two
+    variants that reduce to a lower left solve, its upper variant for the
+    other four."""
     rng = np.random.default_rng(25)
     m, n, bsz = 12, 9, 300
     a = rng.standard_normal((bsz, m, m)) / m + np.eye(m)
@@ -1010,7 +1124,8 @@ def test_packed_entry_points_card_equal_cpu(cuda, knob):
         if target == "cuda":
             kind = "unrolled" if knob >= m else "loop"
             assert launched[f"getrf_{kind}"] == 2
-            assert launched[f"trsm_{kind}"] == 6
+            assert launched[f"trsm_{kind}"] == 2
+            assert launched[f"trsm_{kind}_upper"] == 4
             assert sum(launched.values()) == 8
     xp.get_registry().clear()
     xp.set_config(getrf_unroll=64)

@@ -125,6 +125,44 @@ def test_a_call_of_each_entry_point_records_its_layers():
     assert "launch" not in {s.name for s in spans}
 
 
+@pytest.mark.parametrize("target", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_a_packed_solve_records_frontend_wrapper_launch(target):
+    """One packed LU and one upper solve on it: each is a ``frontend`` span
+    with the kernel wrapper's ``wrapper`` inside, and on the card the
+    ``launch`` inside that; the CPU runs the plain versions and launches
+    nothing."""
+    if target == "cuda":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the CUDA kernels have no CPU "
+                        "mode")
+        xp.set_config(target="cuda")
+    dev = torch.device(target)
+    n, b = 70, 40
+    a = torch.randn((n, n, b), device=dev) / n
+    a[torch.arange(n), torch.arange(n)] += 1.0
+    r = torch.randn((n, 1, b), device=dev)
+    getrf = xp.getrf_dispatch(n, n, batch=b)
+    upper = xp.trsm_dispatch(n, 1, uplo="U", batch=b)
+    with trace.recording() as rec:
+        lu = getrf.packed(a)
+        upper.packed(lu, r)
+    spans = rec.spans()
+    roots = [s for s in spans if s.parent is None]
+    assert [s.name for s in roots] == ["frontend", "frontend"]
+    for root in roots:
+        chain = [s.name for s in spans if s.call == root.id]
+        nested = [(s.name, s.parent) for s in spans if s.call == root.id]
+        wrapper = next(s for s in spans if s.call == root.id
+                       and s.name == "wrapper")
+        assert nested[1] == ("wrapper", root.id)
+        if target == "cuda":
+            assert chain == ["frontend", "wrapper", "launch"]
+            assert nested[2] == ("launch", wrapper.id)
+        else:
+            assert chain == ["frontend", "wrapper"]
+
+
 def test_a_create_hit_records_its_digest_and_a_miss_its_build():
     op = _op()
     with trace.recording() as rec:

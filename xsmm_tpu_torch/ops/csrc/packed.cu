@@ -13,6 +13,10 @@
 //   xsmm_getrf_loop     <- xsmm_tpu/ops/packed.py:104 _getrf_kernel
 //   xsmm_trsm_unrolled  <- xsmm_tpu/ops/packed.py:196 _trsm_kernel_unrolled
 //   xsmm_trsm_loop      <- xsmm_tpu/ops/packed.py:219 _trsm_kernel
+//   xsmm_trsm_unrolled_upper, xsmm_trsm_loop_upper: the same kernels on the
+//     upper triangle (the backward solve U X = B on getrf's packed factors),
+//     which the TPU kernels reach only through flipped and repacked copies
+//     (xsmm_tpu/ops/packed.py _solve)
 //
 // Arithmetic, term by term as the Pallas kernels and the plain PyTorch
 // versions, every product and sum rounded on its own (__fmul_rn, __fsub_rn,
@@ -25,6 +29,12 @@
 //     unit), then x[r] -= a[r,i] * x[i] for the rows r > i.
 //   * trsm_loop: left-looking; x[i] = (b[i] - s) / a[i,i] with
 //     s = sum_{r<i} a[i,r] * x[r] summed from 0 in r order.
+//   * the upper variants (trsm_reg_upper, trsm_shared_upper): the same
+//     arithmetic on the reversed order, row i -> SM-1-i: backward
+//     substitution on triu(A), x[i] from the last row up, each sum taken
+//     from column SM-1 down.  They read triu(A), B and X in place by that
+//     index: no copy, no flip.  A flipped lower solve (the path the JAX
+//     package takes for uplo U) gives the same bits.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32), each input read once and
 // each output written once; trsm needs only tril(A), SM(SM+1)/2 elements:
@@ -424,12 +434,23 @@ getrf_tile(const float* __restrict__ a, float* __restrict__ o, int m, int n,
 // ---------------------------------------------------------------------------
 // Kernel 13, SM <= NB: one thread per (problem, column of X), X's column in
 // registers; the lower triangle of A for the block's P problems is staged in
-// shared memory [SM(SM+1)/2][P] once, with whole-line loads.
+// shared memory [SM(SM+1)/2][P] once, with whole-line loads.  UP: the upper
+// variant, the same solve with row i of A, B and X read at SM-1-i (and
+// column i of A at SM-1-i), so triu(A) lands as the lower triangle.
 // ---------------------------------------------------------------------------
-template <int NB>
-__global__ void __launch_bounds__(TrsmReg<NB>::P * TrsmReg<NB>::CY)
-trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
-         float* __restrict__ xo, int sm, int sn, long long bp, bool unit) {
+
+// the row of the pack that the solve's row r reads: r, or SM-1-r upward
+template <bool UP>
+__device__ __forceinline__ int pack_row(int r, int sm) {
+  return UP ? sm - 1 - r : r;
+}
+
+template <int NB, bool UP>
+__device__ __forceinline__ void trsm_reg_solve(const float* __restrict__ a,
+                                               const float* __restrict__ bm,
+                                               float* __restrict__ xo, int sm,
+                                               int sn, long long bp,
+                                               bool unit) {
   constexpr int P = TrsmReg<NB>::P;
   extern __shared__ float as[];
   const int x = threadIdx.x;
@@ -437,7 +458,8 @@ trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int nthreads = P * blockDim.y;
   for (int t = threadIdx.y * P + x; t < sm * sm * P; t += nthreads) {
-    const int e = t / P, q = t % P, r = e / sm, i = e % sm;
+    const int e = t / P, q = t % P;
+    const int r = pack_row<UP>(e / sm, sm), i = pack_row<UP>(e % sm, sm);
     if (i <= r && b0 + q < bp)
       as[(r * (r + 1) / 2 + i) * P + q] = a[(long long)e * bp + b0 + q];
   }
@@ -445,7 +467,8 @@ trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
   if (b >= bp || j >= sn) return;
   float xv[NB];
 #pragma unroll
-  for (int i = 0; i < NB; ++i) xv[i] = i < sm ? bm[at(i, j, sn, bp, b)] : 0.f;
+  for (int i = 0; i < NB; ++i)
+    xv[i] = i < sm ? bm[at(pack_row<UP>(i, sm), j, sn, bp, b)] : 0.f;
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
     if (i < sm) {
@@ -463,7 +486,22 @@ trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
   }
 #pragma unroll
   for (int i = 0; i < NB; ++i)
-    if (i < sm) xo[at(i, j, sn, bp, b)] = xv[i];
+    if (i < sm) xo[at(pack_row<UP>(i, sm), j, sn, bp, b)] = xv[i];
+}
+
+template <int NB>
+__global__ void __launch_bounds__(TrsmReg<NB>::P * TrsmReg<NB>::CY)
+trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
+         float* __restrict__ xo, int sm, int sn, long long bp, bool unit) {
+  trsm_reg_solve<NB, false>(a, bm, xo, sm, sn, bp, unit);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(TrsmReg<NB>::P * TrsmReg<NB>::CY)
+trsm_reg_upper(const float* __restrict__ a, const float* __restrict__ bm,
+               float* __restrict__ xo, int sm, int sn, long long bp,
+               bool unit) {
+  trsm_reg_solve<NB, true>(a, bm, xo, sm, sn, bp, unit);
 }
 
 // ---------------------------------------------------------------------------
@@ -490,6 +528,11 @@ trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
 //   kernel 13: v starts at b and loses a[r,i] * x[i] a step; x[i] = v[i] *
 //     (1 / a[i,i]).
 // Unit diagonal: no division (no reciprocal).
+// UP (trsm_shared_upper): the loads and stores read element (R, I) of A, row
+// R of B and write row R of X at R -> SM-1-R, I -> SM-1-I, so triu(A) takes
+// the place of tril(A) and the solve runs from the last row up; the solve
+// itself is the same code.  The sectors read and written are the lower
+// variant's.
 // ---------------------------------------------------------------------------
 
 // offset of a[i,i] in tril(A) packed by columns (column i: rows i .. sm-1)
@@ -540,12 +583,10 @@ __device__ __forceinline__ void trsm_solve_row(const float (&v)[TRSM_CPL],
   st_cols(row, x);
 }
 
-template <bool UNROLLED, int NW>
-__global__ void __cluster_dims__(TRSM_CLUSTER, 1, 1)
-__launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
-trsm_shared(const float* __restrict__ a, const float* __restrict__ bm,
-            float* __restrict__ xo, int sm, int sn, int cw, long long bp,
-            bool unit) {
+template <bool UNROLLED, int NW, bool UP>
+__device__ __forceinline__ void trsm_shared_solve(
+    const float* __restrict__ a, const float* __restrict__ bm,
+    float* __restrict__ xo, int sm, int sn, int cw, long long bp, bool unit) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [sm][cw]: B, then X
   float* ta = xs + sm * cw;  // tril(A) packed by columns, NW * TRSM_Q pad
@@ -581,13 +622,15 @@ trsm_shared(const float* __restrict__ a, const float* __restrict__ bm,
 #pragma unroll
       for (int u = 0; u < TRSM_LU; ++u) {
         const int t = t0 + u * stride;
-        const int r = t / sm, i = t - r * sm;
+        const int r = pack_row<UP>(t / sm, sm);
+        const int i = pack_row<UP>(t - t / sm * sm, sm);
         v[u] = on && t < sm * sm && i <= r ? a[(long long)t * bp + bq] : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < TRSM_LU; ++u) {
         const int t = t0 + u * stride;
-        const int r = t / sm, i = t - r * sm;
+        const int r = pack_row<UP>(t / sm, sm);
+        const int i = pack_row<UP>(t - t / sm * sm, sm);
         if (on && t < sm * sm && i <= r) ta_p[tri_col(i, sm) + r - i] = v[u];
       }
     }
@@ -597,8 +640,9 @@ trsm_shared(const float* __restrict__ a, const float* __restrict__ bm,
       for (int u = 0; u < TRSM_LU; ++u) {
         const int t = t0 + u * stride;
         const int r = t / cw, c = t - r * cw;
-        v[u] = on && t < sm * cw && j0 + c < sn ? bm[at(r, j0 + c, sn, bp, bq)]
-                                                : 0.f;
+        v[u] = on && t < sm * cw && j0 + c < sn
+                   ? bm[at(pack_row<UP>(r, sm), j0 + c, sn, bp, bq)]
+                   : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < TRSM_LU; ++u) {
@@ -677,11 +721,30 @@ trsm_shared(const float* __restrict__ a, const float* __restrict__ bm,
       for (int u = 0; u < TRSM_LU; ++u) {
         const int t = t0 + u * stride;
         const int r = t / cw, c = t - r * cw;
-        if (on && t < sm * cw && j0 + c < sn) xo[at(r, j0 + c, sn, bp, bq)] = v[u];
+        if (on && t < sm * cw && j0 + c < sn)
+          xo[at(pack_row<UP>(r, sm), j0 + c, sn, bp, bq)] = v[u];
       }
     }
   }
   cluster.sync();  // no block leaves while another reads its X
+}
+
+template <bool UNROLLED, int NW>
+__global__ void __cluster_dims__(TRSM_CLUSTER, 1, 1)
+__launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
+trsm_shared(const float* __restrict__ a, const float* __restrict__ bm,
+            float* __restrict__ xo, int sm, int sn, int cw, long long bp,
+            bool unit) {
+  trsm_shared_solve<UNROLLED, NW, false>(a, bm, xo, sm, sn, cw, bp, unit);
+}
+
+template <bool UNROLLED, int NW>
+__global__ void __cluster_dims__(TRSM_CLUSTER, 1, 1)
+__launch_bounds__(NW * 32, NW == 8 ? 2 : 1)
+trsm_shared_upper(const float* __restrict__ a, const float* __restrict__ bm,
+                  float* __restrict__ xo, int sm, int sn, int cw, long long bp,
+                  bool unit) {
+  trsm_shared_solve<UNROLLED, NW, true>(a, bm, xo, sm, sn, cw, bp, unit);
 }
 
 int bucket(int size) {
@@ -722,20 +785,20 @@ int launch_getrf_tile(const float* a, float* o, int m, int n, long long bp,
   return 0;
 }
 
-template <int NB>
+template <int NB, bool UP>
 void launch_trsm_reg(const float* a, const float* b, float* x, int sm, int sn,
                      long long bp, bool unit, cudaStream_t st) {
   constexpr int P = TrsmReg<NB>::P, CY = TrsmReg<NB>::CY;
   const int cy = sn < CY ? sn : CY;
   const size_t smem = (size_t)sm * (sm + 1) / 2 * P * sizeof(float);
-  auto kern = trsm_reg<NB>;
+  auto kern = UP ? trsm_reg_upper<NB> : trsm_reg<NB>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kern<<<dim3((unsigned)((bp + P - 1) / P), (unsigned)((sn + cy - 1) / cy)),
          dim3(P, cy), smem, st>>>(a, b, x, sm, sn, bp, unit);
 }
 
-template <bool UNROLLED>
+template <bool UNROLLED, bool UP>
 int launch_trsm_shared(const float* a, const float* b, float* x, int sm, int sn,
                        long long bp, bool unit, cudaStream_t st) {
   // a chunk of up to TRSM_CW columns, TRSM_CPL a lane
@@ -748,11 +811,42 @@ int launch_trsm_shared(const float* a, const float* b, float* x, int sm, int sn,
   // whole clusters: blocks past the last problem load and solve nothing
   const long long gx = (bp + TRSM_CLUSTER - 1) / TRSM_CLUSTER * TRSM_CLUSTER;
   const dim3 grid((unsigned)gx, (unsigned)((sn + TRSM_CW - 1) / TRSM_CW));
-  auto kern = nw == 8 ? trsm_shared<UNROLLED, 8> : trsm_shared<UNROLLED, 16>;
+  auto kern = UP ? (nw == 8 ? trsm_shared_upper<UNROLLED, 8>
+                            : trsm_shared_upper<UNROLLED, 16>)
+                 : (nw == 8 ? trsm_shared<UNROLLED, 8>
+                            : trsm_shared<UNROLLED, 16>);
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kern<<<grid, dim3(nw * 32), smem, st>>>(a, b, x, sm, sn, cw, bp, unit);
   return 0;
+}
+
+template <bool UP>
+int trsm_unrolled_entry(const float* a, const float* b, float* x, int sm,
+                        int sn, long long bp, int unit, int device,
+                        void* stream) {
+  cudaSetDevice(device);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (bucket(sm)) {
+    case 8: launch_trsm_reg<8, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
+    case 16: launch_trsm_reg<16, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
+    case 32: launch_trsm_reg<32, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
+    case 64: launch_trsm_reg<64, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
+    default:
+      if (launch_trsm_shared<true, UP>(a, b, x, sm, sn, bp, unit != 0, st))
+        return -2;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool UP>
+int trsm_loop_entry(const float* a, const float* b, float* x, int sm, int sn,
+                    long long bp, int unit, int device, void* stream) {
+  cudaSetDevice(device);
+  if (launch_trsm_shared<false, UP>(a, b, x, sm, sn, bp, unit != 0,
+                                    static_cast<cudaStream_t>(stream)))
+    return -2;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -791,28 +885,27 @@ extern "C" int xsmm_getrf_loop(const float* a, float* o, int m, int n,
   return (int)cudaGetLastError();
 }
 
+// tril(A) X = B (unit diagonal if `unit`); the _upper entries: triu(A) X = B
 extern "C" int xsmm_trsm_unrolled(const float* a, const float* b, float* x,
                                   int sm, int sn, long long bp, int unit,
                                   int device, void* stream) {
-  cudaSetDevice(device);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (bucket(sm)) {
-    case 8: launch_trsm_reg<8>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    case 16: launch_trsm_reg<16>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    case 32: launch_trsm_reg<32>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    case 64: launch_trsm_reg<64>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    default:
-      if (launch_trsm_shared<true>(a, b, x, sm, sn, bp, unit != 0, st)) return -2;
-  }
-  return (int)cudaGetLastError();
+  return trsm_unrolled_entry<false>(a, b, x, sm, sn, bp, unit, device, stream);
+}
+
+extern "C" int xsmm_trsm_unrolled_upper(const float* a, const float* b,
+                                        float* x, int sm, int sn, long long bp,
+                                        int unit, int device, void* stream) {
+  return trsm_unrolled_entry<true>(a, b, x, sm, sn, bp, unit, device, stream);
 }
 
 extern "C" int xsmm_trsm_loop(const float* a, const float* b, float* x, int sm,
                               int sn, long long bp, int unit, int device,
                               void* stream) {
-  cudaSetDevice(device);
-  if (launch_trsm_shared<false>(a, b, x, sm, sn, bp, unit != 0,
-                                static_cast<cudaStream_t>(stream)))
-    return -2;
-  return (int)cudaGetLastError();
+  return trsm_loop_entry<false>(a, b, x, sm, sn, bp, unit, device, stream);
+}
+
+extern "C" int xsmm_trsm_loop_upper(const float* a, const float* b, float* x,
+                                    int sm, int sn, long long bp, int unit,
+                                    int device, void* stream) {
+  return trsm_loop_entry<true>(a, b, x, sm, sn, bp, unit, device, stream);
 }

@@ -163,7 +163,7 @@ _GEMM_STAMPS = [
        "\"memory\");\n    PROF_END(128)\n")]),
 ]
 _TRSM_STAMPS = [
-    ("trsm_shared(const float* __restrict__ a", "int bucket(int size)",
+    ("void trsm_shared_solve(", "int bucket(int size)",
      [("  // -- the load:", "  PROF_BEGIN\n  // -- the load:"),
       ("  float v[TRSM_Q][TRSM_CPL];\n",
        "  PROF_MARK(0)\n  float v[TRSM_Q][TRSM_CPL];\n"),

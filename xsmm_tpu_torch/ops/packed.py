@@ -11,10 +11,13 @@ per batch index, the batch innermost.
   kernel 11 (``getrf_unrolled``) when min(M, N) <= ``getrf_unroll``, else
   kernel 12 (``getrf_loop``) of ``ops/packed_kernels.py``: the JAX
   package's pick.
-* **trsm** — forward substitution on the canonical (left, lower) form;
-  right/upper/transposed variants are mapped onto it by flips and
-  transposes before packing; kernel 13 (``trsm_unrolled``) when
-  SM <= ``getrf_unroll``, else kernel 14 (``trsm_loop``).
+* **trsm** — a left solve, lower (forward substitution) or upper (the
+  kernels' upper variant: backward substitution reading triu(A) in place);
+  right and transposed variants are mapped onto a left one by transposes
+  before packing; kernel 13 (``trsm_unrolled``) when SM <= ``getrf_unroll``,
+  else kernel 14 (``trsm_loop``).  ``packed`` takes the left lower and the
+  left upper untransposed forms on packed operands as they are (the
+  backward solve on getrf's packed factors, with no copy of them).
 * **trmm** — the batched SMM with the triangle masked at pack time.
 
 Entry points take numpy arrays or tensors and run on ``platform.device()``.
@@ -116,7 +119,7 @@ class GetrfKernel:
     def packed(self, ap) -> torch.Tensor:
         """LU [M, N, Bp] of a packed A [M, N, Bp] (f32, on the device);
         numpy data such as the JAX package's pack is taken as well."""
-        with trace.scope(self.name + "_packed"):
+        with trace.scope(self.name + "_packed", "frontend"):
             ap = _f32(ap, platform.device(), slot="ap").contiguous()
             return getattr(packed_kernels, self.kernel_name)(ap)
 
@@ -131,7 +134,7 @@ class GetrfKernel:
 
 
 # ---------------------------------------------------------------------------
-# TRSM — triangular solve (canonical: left/lower)
+# TRSM — triangular solve (a left solve, lower or upper)
 # ---------------------------------------------------------------------------
 
 
@@ -163,7 +166,7 @@ class TrsmKernel:
         _check_shape(b, (self.desc.m, self.desc.n), "trsm B")
         if alpha != 1.0:
             b = b * alpha
-        # Reduce to a canonical LEFT solve  M_eff @ Y = B_eff:
+        # Reduce to a LEFT solve  M_eff @ Y = B_eff:
         #   side=L: M_eff = op(A),    B_eff = B
         #   side=R: X op(A) = B  <=>  op(A)^T X^T = B^T
         #           M_eff = op(A)^T,  B_eff = B^T
@@ -175,14 +178,9 @@ class TrsmKernel:
         if (self.side == "R") != self.trans:
             a = a.transpose(-1, -2)
             eff_uplo = "U" if eff_uplo == "L" else "L"
-        if eff_uplo == "U":
-            # reverse row/col order: upper solve == flipped lower solve
-            a = a.flip((-1, -2))
-            b = b.flip((-2,))
         kern = getattr(packed_kernels, self.kernel_name)
-        x = kern(pack_lanes(a), pack_lanes(b), self.unit).permute(2, 0, 1)
-        if eff_uplo == "U":
-            x = x.flip((-2,))
+        x = kern(pack_lanes(a), pack_lanes(b), self.unit,
+                 upper=eff_uplo == "U").permute(2, 0, 1)
         if self.side == "R":
             x = x.transpose(-1, -2)
         return x
@@ -190,18 +188,21 @@ class TrsmKernel:
     def packed(self, ap, bp) -> torch.Tensor:
         """X [M, N, Bp] of A X = B on packed operands A [M, M, Bp], B [M, N,
         Bp] (f32, on the device; numpy taken as well): kernel 13 or 14
-        alone, for a left, lower, untransposed descriptor (the data-parallel
-        wrapper's form, ``parallel/dist_spmm.dp_packed``)."""
-        if (self.side, self.uplo, self.trans) != ("L", "L", False):
-            raise ValueError("packed() solves the left lower system; this "
-                             f"descriptor is side={self.side} uplo="
-                             f"{self.uplo} trans={self.trans}")
-        with trace.scope(self.name + "_packed"):
+        alone, for a left, untransposed descriptor.  Lower: tril(A) X = B
+        (the data-parallel wrapper's form, ``parallel/dist_spmm.dp_packed``);
+        upper: triu(A) X = B by the kernel's upper variant, which reads A
+        in place, so ``ap`` may be getrf's packed LU as it stands."""
+        if self.side != "L" or self.trans:
+            raise ValueError("packed() solves the left untransposed lower or "
+                             f"upper system; this descriptor is side="
+                             f"{self.side} uplo={self.uplo} trans="
+                             f"{self.trans}")
+        with trace.scope(self.name + "_packed", "frontend"):
             dev = platform.device()
             ap = _f32(ap, dev, slot="ap").contiguous()
             bp = _f32(bp, dev, slot="bp").contiguous()
-            return getattr(packed_kernels, self.kernel_name)(ap, bp,
-                                                             self.unit)
+            return getattr(packed_kernels, self.kernel_name)(
+                ap, bp, self.unit, upper=self.uplo == "U")
 
     def _op_a(self, a, tril, triu):
         """op(A) with only its referenced triangle kept (array functions

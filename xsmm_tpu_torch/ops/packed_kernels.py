@@ -3,10 +3,18 @@ counts.
 
 Operands use the lane-packed layout of ``xsmm_tpu/ops/packed.py``, batch
 index innermost and contiguous: GETRF A and LU ``[M, N, Bp]``; TRSM A
-``[SM, SM, Bp]`` (the canonical left/lower operator), B and X
-``[SM, SN, Bp]``; any Bp, float32.
+``[SM, SM, Bp]`` (the left operator: tril(A), or triu(A) with
+``upper=True``), B and X ``[SM, SN, Bp]``; any Bp, float32.
 
-Each wrapper checks device, dtype, shape and contiguity, then:
+Each TRSM kernel has an upper variant (``upper=True``): the backward solve
+on triu(A), which reads A, B and X in place with row i at SM-1-i, so that
+it solves on getrf's packed factors with no copy.  Its arithmetic is the
+lower kernel's on the reversed order (``*_upper_plain``), the same bits as
+the lower kernel on flipped copies.  Each triangle counts in ``launches``
+under its own name (``trsm_loop`` and ``trsm_loop_upper``).
+
+Each wrapper checks device, dtype, shape and contiguity (inside the span
+``wrapper``), then:
 
 * on CUDA tensors it allocates the output with ``torch.empty``, launches
   its kernel (``ops/csrc/packed.cu``) on the current stream, raises if the
@@ -39,11 +47,14 @@ from typing import Dict, Optional
 
 import torch
 
+from ..utils import trace
 from . import cuda_build
 
-# kernel name -> launches since the last reset_launches()
+# kernel name -> launches since the last reset_launches(); the TRSM kernels'
+# upper variants count apart
 launches: Dict[str, int] = {"getrf_unrolled": 0, "getrf_loop": 0,
-                            "trsm_unrolled": 0, "trsm_loop": 0}
+                            "trsm_unrolled": 0, "trsm_loop": 0,
+                            "trsm_unrolled_upper": 0, "trsm_loop_upper": 0}
 
 # kernel 12's routes -> their codes in ops/csrc/packed.cu, and launches
 # since the last reset_launches() (each also counts in launches["getrf_loop"])
@@ -71,7 +82,8 @@ def _lib() -> ctypes.CDLL:
         lib.xsmm_getrf_loop.argtypes = [p, p, i, i, ll, i, i, p]
         for fn in (lib.xsmm_getrf_unrolled, lib.xsmm_getrf_loop):
             fn.restype = ctypes.c_int
-        for fn in (lib.xsmm_trsm_unrolled, lib.xsmm_trsm_loop):
+        for fn in (lib.xsmm_trsm_unrolled, lib.xsmm_trsm_loop,
+                   lib.xsmm_trsm_unrolled_upper, lib.xsmm_trsm_loop_upper):
             fn.argtypes = [p, p, p, i, i, ll, i, i, p]
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -128,16 +140,17 @@ def getrf_unrolled_plain(a: torch.Tensor) -> torch.Tensor:
 def getrf_unrolled(a: torch.Tensor) -> torch.Tensor:
     """LU [M, N, Bp] of A [M, N, Bp] (unit L below the diagonal, U on and
     above it), kernel 11's arithmetic."""
-    _check("A", a)
-    if a.device.type == "cpu":
-        return getrf_unrolled_plain(a)
-    m, n, bp = a.shape
-    o = torch.empty_like(a)
-    if o.numel():
-        cuda_build.launch(_lib().xsmm_getrf_unrolled, a.device, a.data_ptr(),
-                          o.data_ptr(), m, n, bp)
-        launches["getrf_unrolled"] += 1
-    return o
+    with trace.span("wrapper"):
+        _check("A", a)
+        if a.device.type == "cpu":
+            return getrf_unrolled_plain(a)
+        m, n, bp = a.shape
+        o = torch.empty_like(a)
+        if o.numel():
+            cuda_build.launch(_lib().xsmm_getrf_unrolled, a.device,
+                              a.data_ptr(), o.data_ptr(), m, n, bp)
+            launches["getrf_unrolled"] += 1
+        return o
 
 
 # ---------------------------------------------------------------------------
@@ -177,23 +190,24 @@ def getrf_loop(a: torch.Tensor) -> torch.Tensor:
 def _getrf_loop(a: torch.Tensor, route: Optional[str]) -> torch.Tensor:
     """``getrf_loop`` on a named route (None: ``getrf_route(M, N)``); the
     CPU ignores it."""
-    _check("A", a)
-    if route is not None and route not in GETRF_ROUTES:
-        raise ValueError(f"route {route!r}: expected one of "
-                         f"{list(GETRF_ROUTES)}")
-    if a.device.type == "cpu":
-        return getrf_loop_plain(a)
-    m, n, bp = a.shape
-    rt = route or getrf_route(m, n)
-    o = torch.empty_like(a)
-    if o.numel():
-        cuda_build.launch(_lib().xsmm_getrf_loop, a.device, a.data_ptr(),
-                          o.data_ptr(), m, n, bp, GETRF_ROUTES[rt],
-                          refused=(GETRF_TILE_REFUSED if rt == "tile"
-                                   else None))
-        launches["getrf_loop"] += 1
-        getrf_route_launches[rt] += 1
-    return o
+    with trace.span("wrapper"):
+        _check("A", a)
+        if route is not None and route not in GETRF_ROUTES:
+            raise ValueError(f"route {route!r}: expected one of "
+                             f"{list(GETRF_ROUTES)}")
+        if a.device.type == "cpu":
+            return getrf_loop_plain(a)
+        m, n, bp = a.shape
+        rt = route or getrf_route(m, n)
+        o = torch.empty_like(a)
+        if o.numel():
+            cuda_build.launch(_lib().xsmm_getrf_loop, a.device, a.data_ptr(),
+                              o.data_ptr(), m, n, bp, GETRF_ROUTES[rt],
+                              refused=(GETRF_TILE_REFUSED if rt == "tile"
+                                       else None))
+            launches["getrf_loop"] += 1
+            getrf_route_launches[rt] += 1
+        return o
 
 
 # ---------------------------------------------------------------------------
@@ -217,19 +231,49 @@ def trsm_unrolled_plain(a: torch.Tensor, b: torch.Tensor,
     return x
 
 
-def trsm_unrolled(a: torch.Tensor, b: torch.Tensor,
-                  unit: bool) -> torch.Tensor:
-    """X [SM, SN, Bp] with tril(A) X = B (unit diagonal if ``unit``),
-    kernel 13's arithmetic."""
-    sm, sn, bp = _trsm_shapes(a, b)
-    if a.device.type == "cpu":
-        return trsm_unrolled_plain(a, b, unit)
-    x = torch.empty_like(b)
-    if x.numel():
-        cuda_build.launch(_lib().xsmm_trsm_unrolled, a.device, a.data_ptr(),
-                          b.data_ptr(), x.data_ptr(), sm, sn, bp, int(unit))
-        launches["trsm_unrolled"] += 1
+def trsm_unrolled_upper_plain(a: torch.Tensor, b: torch.Tensor,
+                              unit: bool) -> torch.Tensor:
+    """``trsm_unrolled_plain`` on triu(A), backward: from the last row up,
+    row i of X times 1/a[i,i] (unless unit), then the rows above less
+    a[r,i] * x[i]."""
+    x = b.clone()
+    for i in reversed(range(a.shape[0])):
+        xi = x[i]
+        if not unit:
+            xi = xi * torch.reciprocal(a[i, i])[None, :]
+            x[i] = xi
+        if i > 0:
+            x[:i] = x[:i] - a[:i, i][:, None, :] * xi[None]
     return x
+
+
+def _trsm(kernel: str, a: torch.Tensor, b: torch.Tensor, unit: bool,
+          upper: bool) -> torch.Tensor:
+    """Kernel 13 or 14 (``kernel``), or its upper variant: X [SM, SN, Bp]
+    with tril(A) X = B, or triu(A) X = B where ``upper``."""
+    name = kernel + "_upper" if upper else kernel
+    with trace.span("wrapper"):
+        sm, sn, bp = _trsm_shapes(a, b)
+        if a.device.type == "cpu":
+            plain = {"trsm_unrolled": trsm_unrolled_plain,
+                     "trsm_unrolled_upper": trsm_unrolled_upper_plain,
+                     "trsm_loop": trsm_loop_plain,
+                     "trsm_loop_upper": trsm_loop_upper_plain}[name]
+            return plain(a, b, unit)
+        x = torch.empty_like(b)
+        if x.numel():
+            cuda_build.launch(getattr(_lib(), "xsmm_" + name), a.device,
+                              a.data_ptr(), b.data_ptr(), x.data_ptr(), sm,
+                              sn, bp, int(unit))
+            launches[name] += 1
+        return x
+
+
+def trsm_unrolled(a: torch.Tensor, b: torch.Tensor, unit: bool,
+                  upper: bool = False) -> torch.Tensor:
+    """X [SM, SN, Bp] with tril(A) X = B (unit diagonal if ``unit``), or
+    triu(A) X = B where ``upper``, kernel 13's arithmetic."""
+    return _trsm("trsm_unrolled", a, b, unit, upper)
 
 
 # ---------------------------------------------------------------------------
@@ -255,14 +299,27 @@ def trsm_loop_plain(a: torch.Tensor, b: torch.Tensor,
     return x
 
 
-def trsm_loop(a: torch.Tensor, b: torch.Tensor, unit: bool) -> torch.Tensor:
-    """X [SM, SN, Bp] with tril(A) X = B, kernel 14's arithmetic."""
-    sm, sn, bp = _trsm_shapes(a, b)
-    if a.device.type == "cpu":
-        return trsm_loop_plain(a, b, unit)
+def trsm_loop_upper_plain(a: torch.Tensor, b: torch.Tensor,
+                          unit: bool) -> torch.Tensor:
+    """Backward substitution, ``trsm_loop_plain`` on triu(A) from the last
+    row up: x[i] = (b[i] - s[i]) / a[i,i], where s[i] = sum_{r>i} a[i,r] *
+    x[r] is summed from r = SM-1 down (a running sum for every row, one
+    term a step)."""
     x = torch.empty_like(b)
-    if x.numel():
-        cuda_build.launch(_lib().xsmm_trsm_loop, a.device, a.data_ptr(),
-                          b.data_ptr(), x.data_ptr(), sm, sn, bp, int(unit))
-        launches["trsm_loop"] += 1
+    s = torch.zeros_like(b)
+    for i in reversed(range(a.shape[0])):
+        xi = b[i] - s[i]
+        if not unit:
+            xi = xi / a[i, i][None, :]
+        x[i] = xi
+        if i > 0:
+            s[:i] = s[:i] + a[:i, i][:, None, :] * xi[None]
     return x
+
+
+def trsm_loop(a: torch.Tensor, b: torch.Tensor, unit: bool,
+              upper: bool = False) -> torch.Tensor:
+    """X [SM, SN, Bp] with tril(A) X = B, or triu(A) X = B where
+    ``upper``, kernel 14's arithmetic."""
+    return _trsm("trsm_loop", a, b, unit, upper)
+
