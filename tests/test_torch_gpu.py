@@ -16,6 +16,8 @@ another order than its plain version: 1e-5 rel-Frobenius (1e-2 for a
 16-bit output).  The RNN kernels: 1e-5 with f32 R, 1e-3 with bf16 R.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -921,18 +923,87 @@ SHARED_TRSM_SHAPES = [(125, 125), (125, 300), (125, 7), (125, 130),
 @pytest.mark.parametrize("kernel", ["trsm_loop", "trsm_unrolled"])
 @pytest.mark.parametrize("unit", [False, True])
 def test_trsm_shared_template_matches_plain(cuda, sm, sn, kernel, unit):
-    """Bit for bit against the unchanged plain versions; the unit-diagonal
-    solves take A scaled by 1/sm (random unit-lower matrices grow X
-    exponentially in sm)."""
+    """The chunk route (the shared template), forced: bit for bit against
+    the unchanged plain versions; the unit-diagonal solves take A scaled by
+    1/sm (random unit-lower matrices grow X exponentially in sm)."""
     a = _lower(cuda, 47, sm, bp=300)
     a = a / sm if unit else a
     b = _planes(cuda, 48, (sm, sn, 300))[0]
     before = pk.launches[kernel]
-    got = getattr(pk, kernel)(a, b, unit)
+    chunk = pk.trsm_route_launches["chunk"]
+    got = pk._trsm(kernel, a, b, unit, False, "chunk")
     torch.cuda.synchronize()
     assert pk.launches[kernel] == before + 1
+    assert pk.trsm_route_launches["chunk"] == chunk + 1
     assert torch.isfinite(got).all()
     _same(got, getattr(pk, kernel + "_plain")(a, b, unit))
+
+
+# the narrow route's streamed solve: every SN up to the rule's edge at 125
+# (50) at each SM, and each SM's own edge where it lies further; ragged Bp
+# (a partial warp, one warp and a lane, a block past 4096)
+NARROW_SM = [65, 100, 125, 128]
+NARROW_CASES = [(sm, sn) for sm in NARROW_SM for sn in range(1, 51)] + [
+    (65, 186), (100, 78)]
+NARROW_BP = [1, 31, 33, 4097]
+
+
+@pytest.mark.parametrize("sm,sn", NARROW_CASES)
+def test_trsm_narrow_route_matches_plain(cuda, sm, sn):
+    """Kernels 13 and 14 on the narrow route, lower and upper, unit
+    diagonal and not, at each ragged Bp, bit for bit against the plain
+    versions, each launch counted on its route; the triangle the solve does
+    not read (and, with a unit diagonal, the diagonal) holds NaN."""
+    nan = torch.full((sm, sm), float("nan"), device=cuda)
+    for bp in NARROW_BP:
+        a = _lower(cuda, 71, sm, bp=bp)
+        b = _planes(cuda, 72, (sm, sn, bp))[0]
+        for kernel, upper, unit in itertools.product(
+                ("trsm_unrolled", "trsm_loop"), (False, True), (False, True)):
+            aa = a / sm if unit else a
+            other = torch.tril(nan, -1) if upper else torch.triu(nan, 1)
+            if unit:
+                other = other + torch.diag(torch.diagonal(nan))
+            name = kernel + "_upper" * upper
+            before = pk.launches[name]
+            narrow = pk.trsm_route_launches["narrow"]
+            got = pk._trsm(kernel, aa + other[..., None], b, unit, upper,
+                           "narrow")
+            torch.cuda.synchronize()
+            assert pk.launches[name] == before + 1
+            assert pk.trsm_route_launches["narrow"] == narrow + 1
+            case = (bp, name, unit)
+            assert torch.isfinite(got).all(), case
+            want = getattr(pk, name + "_plain")(aa, b, unit)
+            assert torch.equal(got, want), (case, (
+                got - want).abs().max().item())
+
+
+@pytest.mark.parametrize("sm,sn,bp", [(125, 1, 4096), (125, 7, 300),
+                                      (70, 2, 1000), (16, 3, 100)])
+def test_trsm_routes_agree(cuda, sm, sn, bp):
+    """Both routes forced on the same operands give equal bits, for both
+    kernels and both triangles."""
+    a = _lower(cuda, 73, sm, bp=bp)
+    b = _planes(cuda, 74, (sm, sn, bp))[0]
+    for kernel in ("trsm_unrolled", "trsm_loop"):
+        for upper in (False, True):
+            got = [pk._trsm(kernel, a, b, False, upper, rt)
+                   for rt in ("narrow", "chunk")]
+            torch.cuda.synchronize()
+            assert torch.equal(*got), (kernel, upper)
+
+
+def test_trsm_narrow_refused_launches_nothing(cuda):
+    """The narrow route refuses SM above 256 (-2 in packed.cu) before any
+    launch: ValueError, nothing counted."""
+    a = _lower(cuda, 75, 257, bp=2)
+    b = _planes(cuda, 76, (257, 1, 2))[0]
+    before, routes = dict(pk.launches), dict(pk.trsm_route_launches)
+    with pytest.raises(ValueError, match="narrow route takes SM <= 256"):
+        pk._trsm("trsm_loop", a, b, True, False, "narrow")
+    torch.cuda.synchronize()
+    assert pk.launches == before and pk.trsm_route_launches == routes
 
 
 @pytest.mark.parametrize("sm,sn", TRSM_SHAPES + SHARED_TRSM_SHAPES
@@ -1033,10 +1104,13 @@ def test_block_jacobi_apply_on_the_card(cuda):
         torch.cuda.synchronize()
     assert {k: v for k, v in pk.launches.items() if v} == {
         "trsm_loop": 1, "trsm_loop_upper": 1}
+    route = pk.trsm_route(n, 1, bsz)
+    assert pk.trsm_route_launches[route] == 2
     ops = [e.name() for e in prof.profiler.kineto_results.events()
            if _device_op(e)]
     assert len(ops) == 2, ops
-    assert "trsm_shared<" in ops[0] and "trsm_shared_upper<" in ops[1], ops
+    kern = {"narrow": "trsm_reg", "chunk": "trsm_shared"}[route]
+    assert kern + "<" in ops[0] and kern + "_upper<" in ops[1], ops
     _same(lu, pk.getrf_loop_plain(a))
     _same(y, pk.trsm_loop_plain(lu, r, True))
     _same(x, pk.trsm_loop_upper_plain(lu, y, False))

@@ -678,3 +678,188 @@ def test_getrf_loop_route_checked_and_counted(monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         pk._getrf_loop(a, "shared")
     assert pk.launches["getrf_loop"] == 2
+
+
+# ---------------------------------------------------------------------------
+# The TRSM routes (ops/csrc/packed.cu): "narrow", a thread a (problem,
+# column), and "chunk", a block a problem; the streamed narrow solve's walk,
+# emulated element for element on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sm,sn,bp,route", [
+    # up to SM 64 every width (measured to 128 columns)
+    (8, 200, 131072, "narrow"), (16, 128, 4096, "narrow"),
+    (64, 128, 131072, "narrow"), (64, 1, 1, "narrow"),
+    # above, the sweep's edges: SN * SM^2 <= 48 * 128^2
+    (65, 1, 4096, "narrow"), (65, 128, 131072, "narrow"),
+    (65, 186, 4096, "narrow"), (65, 187, 4096, "chunk"),
+    (96, 64, 131072, "narrow"), (96, 96, 4096, "chunk"),
+    (125, 1, 131072, "narrow"), (125, 48, 4096, "narrow"),
+    (125, 50, 131072, "narrow"), (125, 51, 131072, "chunk"),
+    (125, 64, 131072, "chunk"), (125, 125, 4096, "chunk"),
+    (128, 48, 131072, "narrow"), (128, 49, 4096, "chunk"),
+    (200, 5, 300, "narrow"), (256, 12, 2, "narrow"), (256, 13, 2, "chunk")])
+def test_trsm_route(sm, sn, bp, route):
+    assert pk.trsm_route(sm, sn, bp) == route
+
+
+def test_trsm_route_checked_and_counted(monkeypatch):
+    """An unknown route raises before any launch, on either device; on the
+    card each launch passes its route's code and counts in its kernel's
+    launches and in ``trsm_route_launches``, and the narrow route's
+    refusal (-2) raises with its own message."""
+    a, b = torch.zeros((125, 125, 2)), torch.zeros((125, 1, 2))
+    for route in ("big", "shared"):
+        with pytest.raises(ValueError, match=f"route {route!r}"):
+            pk._trsm("trsm_loop", a, b, True, False, route)
+    calls = []
+
+    def entry(rc):
+        def launch(*args):
+            calls.append(args)
+            return rc
+        return types.SimpleNamespace(**{
+            f"xsmm_{k}{u}": launch for k in ("trsm_loop", "trsm_unrolled")
+            for u in ("", "_upper")})
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(pk, "_lib", lambda: entry(0))
+    pk.reset_launches()
+    pk.trsm_loop(a, b, True)
+    pk.trsm_loop(a, b, False, upper=True)
+    pk._trsm("trsm_unrolled", a, b, False, False, "chunk")
+    assert [c[7] for c in calls] == [1, 1, 0]  # the route codes
+    assert pk.launches["trsm_loop"] == pk.launches["trsm_loop_upper"] == 1
+    assert pk.launches["trsm_unrolled"] == 1
+    assert pk.trsm_route_launches == {"chunk": 1, "narrow": 2}
+    monkeypatch.setattr(pk, "_lib", lambda: entry(-2))
+    with pytest.raises(ValueError, match="narrow route takes SM <= 256"):
+        pk._trsm("trsm_loop", a, b, True, False, "narrow")
+    with pytest.raises(ValueError, match="shared memory"):
+        pk._trsm("trsm_loop", a, b, True, False, "chunk")
+    assert sum(pk.trsm_route_launches.values()) == 3
+    assert sum(pk.launches.values()) == 3
+
+
+def test_reset_launches_zeroes_the_trsm_routes():
+    pk.trsm_route_launches.update(chunk=3, narrow=5)
+    pk.launches["trsm_loop"] = 8
+    pk.reset_launches()
+    assert pk.trsm_route_launches == {"chunk": 0, "narrow": 0}
+    assert not any(pk.launches.values())
+
+
+@pytest.mark.parametrize("route", [None, "chunk", "narrow"])
+@pytest.mark.parametrize("kernel", ["trsm_unrolled", "trsm_loop"])
+@pytest.mark.parametrize("upper", [False, True])
+def test_cpu_trsm_ignores_the_route(rng, route, kernel, upper):
+    """On the CPU a named route changes nothing: the plain version runs and
+    no launch counts."""
+    a = _well_conditioned(rng, 70, 70, 5)
+    b = torch.from_numpy(rng.standard_normal((70, 2, 5)).astype(np.float32))
+    pk.reset_launches()
+    got = pk._trsm(kernel, a, b, False, upper, route)
+    plain = getattr(pk, kernel + "_upper" * upper + "_plain")
+    assert torch.equal(got, plain(a, b, False))
+    assert not any(pk.trsm_route_launches.values())
+
+
+def _narrow_stream_emulated(a, b, unit, upper, unrolled, nd=4):
+    """trsm_narrow_stream's walk for each (column, problem) of B [SM, SN,
+    Bp]: chunks of up to ``nd`` terms of one row (row 0's one chunk has
+    none), each loaded from the pack's flat [SM*SM*Bp] view (a row's terms
+    `step` apart) into one of two banks in turn, the next chunk (with a
+    row's last, its diagonal) loaded before the current one is summed;
+    x in place of b.  Each element is loaded at most once, and none
+    outside what the solve reads."""
+    sm, sn, bp = b.shape
+    flat, zero = a.reshape(-1), torch.zeros((), dtype=a.dtype)
+    step = -bp if upper else bp
+    out = torch.empty_like(b)
+
+    def pack_row(r):
+        return sm - 1 - r if upper else r
+
+    def nxt(i, c0):
+        return (i, c0 + nd) if c0 + nd < i else (i + 1, 0)
+
+    for j in range(sn):
+        for q in range(bp):
+            a0 = (sm * sm - 1 if upper else 0) * bp + q
+            xs = [b[pack_row(i), j, q].clone() for i in range(sm)]
+            seen = set()
+
+            def load(e):
+                assert e not in seen
+                seen.add(e)
+                return flat[e]
+
+            def fetch(i, c0):
+                ln = min(nd, i - c0)
+                p = a0 + (i * sm + c0) * step
+                bank = [load(p + u * step) if u < ln else None
+                        for u in range(nd)]
+                d = load(p + ln * step) if not unit and c0 + ln == i else None
+                return bank, d
+
+            s = [xs[0] if unrolled else zero]
+
+            def take(bank, d, i, c0):
+                ln = min(nd, i - c0)
+                for u in range(ln):
+                    t = bank[u] * xs[c0 + u]
+                    s[0] = s[0] - t if unrolled else s[0] + t
+                if c0 + ln == i:
+                    if unrolled:
+                        xi = s[0] if unit else s[0] * torch.reciprocal(d)
+                    else:
+                        xi = xs[i] - s[0]
+                        xi = xi if unit else xi / d
+                    xs[i] = xi
+                    out[pack_row(i), j, q] = xi
+                    s[0] = xs[i + 1] if unrolled and i + 1 < sm else zero
+
+            banks = [fetch(0, 0), None]
+            f, t, k = nxt(0, 0), (0, 0), 0
+            while True:
+                if f[0] < sm:
+                    banks[1 - k] = fetch(*f)
+                f = nxt(*f)
+                take(*banks[k], *t)
+                t, k = nxt(*t), 1 - k
+                if t[0] >= sm:
+                    break
+            n = sm * (sm - 1) // 2 + (0 if unit else sm)
+            assert len(seen) == n
+    return out
+
+
+@pytest.mark.parametrize("sm,sn,bp", [(1, 1, 2), (2, 2, 1), (9, 2, 3),
+                                      (17, 1, 2)])
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("upper", [False, True])
+@pytest.mark.parametrize("kernel", ["trsm_unrolled", "trsm_loop"])
+def test_narrow_stream_walk_matches_plain(rng, sm, sn, bp, unit, upper,
+                                          kernel):
+    """The streamed narrow solve's schedule (emulated) gives the plain
+    version's bits: each row's terms in r order, x[i] from its own row's
+    sum, full and partial chunks, rows shorter than a chunk included; the
+    other triangle (and, with a unit diagonal, the diagonal) hold NaN, which
+    the walk must not read."""
+    a = _well_conditioned(rng, sm, sm, bp)
+    a = a / sm if unit else a
+    nan = torch.full((sm, sm), float("nan"))
+    other = torch.tril(nan, -1) if upper else torch.triu(nan, 1)
+    if unit:
+        other = other + torch.diag(torch.diagonal(nan))
+    a_nan = a + other[..., None]
+    b = torch.from_numpy(rng.standard_normal((sm, sn, bp)).astype(np.float32))
+    got = _narrow_stream_emulated(a_nan, b, unit, upper,
+                                  kernel == "trsm_unrolled")
+    want = getattr(pk, kernel + "_upper" * upper + "_plain")(a, b, unit)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got - want).abs().max()

@@ -83,6 +83,26 @@
 //     memory.  The same templates take
 //     kernel 11's or 13's arithmetic when the runtime knob (getrf_unroll)
 //     sends a size above 64 to them.
+//   * trsm routes: each solve (kernels 13 and 14, lower and upper) takes one
+//     of two routes, named by the caller (packed_kernels.trsm_route, from the
+//     sizes alone): "chunk", the block a problem above (trsm_shared), and
+//     "narrow", the register trsm (trsm_reg): one thread per (problem,
+//     column of X), a warp 32 neighbouring problems: the register buckets
+//     above (either arithmetic) at small SM with many columns
+//     (narrow_bucket), else the triangle streamed from the pack
+//     (trsm_reg<0, ...>), at any SM up to 256.  At one column
+//     the chunk route ran a block of 8 warps a problem in which one lane held
+//     the column, 125 barriers a solve, 24-30x its byte bound (29.8 ms for
+//     the lower unit solve at 125/1, B = 131072, against 1.252).  What
+//     bounds the streamed solve is the bytes of tril(A), read once, so the
+//     design is about keeping enough of them in flight: x lives in shared
+//     memory [SM][32] a warp (500 bytes a thread at 125, so about 13 warps
+//     an SM), and each thread loads its triangle in chunks of a row's terms
+//     into two banks of registers, one chunk in flight while it sums the
+//     other; a warp's load is one 128-byte line of the pack.  No barrier, no
+//     lane idle, no test inside a full chunk.  (A first design that took the
+//     terms one at a time from a ring ran each warp at ~200 cycles a term,
+//     its branches in series: 2.1-2.3 ms.)
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -99,6 +119,10 @@ constexpr int TRSM_Q = 16;          // rows of X a warp of it holds
 constexpr int TRSM_CLUSTER = 8;     // neighbouring problems (blocks) a cluster
                                     // loads and stores together
 constexpr int TRSM_LU = 8;          // its loads in flight a thread
+constexpr int TRSM_ND = 32;         // terms of tril(A) a chunk of the streamed
+                                    // narrow trsm (two in flight a thread)
+constexpr int TRSM_NCY = 2;         // columns of X (warps) a block of it takes
+constexpr int TRSM_MAX = 16 * TRSM_Q;  // the largest SM of either route
 constexpr int GETRF_THREADS = 256;  // threads of the shared getrf
 
 // problems a block of the register getrf takes: at most 512 threads of NB rows
@@ -109,11 +133,13 @@ struct Reg {
 
 // problems (P) and columns of X (CY) a block of the register trsm takes: 512
 // threads up to NB = 32; 256 at NB = 64, which leaves a thread 255 registers
-// and the lower triangle of A for 16 problems (133 KB) room in shared memory
+// and the lower triangle of A for 16 problems (133 KB) room in shared memory;
+// NB = 0, the streamed solve: a warp of 32 problems a column, TRSM_NCY
+// columns
 template <int NB>
 struct TrsmReg {
-  static constexpr int P = NB <= 32 ? 32 : 16;
-  static constexpr int CY = 16;
+  static constexpr int P = NB == 0 || NB <= 32 ? 32 : 16;
+  static constexpr int CY = NB == 0 ? TRSM_NCY : 16;
 };
 
 __device__ __forceinline__ long long at(int i, int j, int n, long long bp,
@@ -432,11 +458,18 @@ getrf_tile(const float* __restrict__ a, float* __restrict__ o, int m, int n,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 13, SM <= NB: one thread per (problem, column of X), X's column in
-// registers; the lower triangle of A for the block's P problems is staged in
-// shared memory [SM(SM+1)/2][P] once, with whole-line loads.  UP: the upper
-// variant, the same solve with row i of A, B and X read at SM-1-i (and
-// column i of A at SM-1-i), so triu(A) lands as the lower triangle.
+// The "narrow" route of kernels 13 and 14 (UNROLLED: kernel 13's
+// arithmetic, else kernel 14's): one thread per (problem, column of X).  UP:
+// the upper variant, the same solve with row i of A, B and X read at SM-1-i
+// (and column i of A at SM-1-i), so triu(A) lands as the lower triangle.
+//   * NB = 8 .. 64, SM <= NB (the register buckets, where narrow_bucket
+//     sends a size): X's column in registers; the lower triangle of A for
+//     the block's P problems is staged in shared memory [SM(SM+1)/2][P] once,
+//     with whole-line loads.  Kernel 13 runs right-looking (row r's value
+//     loses a[r,i] * x[i] at step i), kernel 14 left-looking (row i's sum
+//     from 0 in r order): each row takes its terms in its plain version's
+//     order.
+//   * NB = 0 (trsm_narrow_stream): the triangle streamed from the pack.
 // ---------------------------------------------------------------------------
 
 // the row of the pack that the solve's row r reads: r, or SM-1-r upward
@@ -445,7 +478,7 @@ __device__ __forceinline__ int pack_row(int r, int sm) {
   return UP ? sm - 1 - r : r;
 }
 
-template <int NB, bool UP>
+template <int NB, bool UP, bool UNROLLED>
 __device__ __forceinline__ void trsm_reg_solve(const float* __restrict__ a,
                                                const float* __restrict__ bm,
                                                float* __restrict__ xo, int sm,
@@ -469,19 +502,35 @@ __device__ __forceinline__ void trsm_reg_solve(const float* __restrict__ a,
 #pragma unroll
   for (int i = 0; i < NB; ++i)
     xv[i] = i < sm ? bm[at(pack_row<UP>(i, sm), j, sn, bp, b)] : 0.f;
+  if constexpr (UNROLLED) {
 #pragma unroll
-  for (int i = 0; i < NB; ++i) {
-    if (i < sm) {
-      float xi = xv[i];
-      if (!unit) {
-        xi = __fmul_rn(xi, __frcp_rn(as[(i * (i + 1) / 2 + i) * P + x]));
+    for (int i = 0; i < NB; ++i) {
+      if (i < sm) {
+        float xi = xv[i];
+        if (!unit) {
+          xi = __fmul_rn(xi, __frcp_rn(as[(i * (i + 1) / 2 + i) * P + x]));
+          xv[i] = xi;
+        }
+#pragma unroll
+        for (int r = i + 1; r < NB; ++r)
+          if (r < sm)
+            xv[r] = __fsub_rn(
+                xv[r], __fmul_rn(as[(r * (r + 1) / 2 + i) * P + x], xi));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if (i < sm) {
+        const float* row = as + i * (i + 1) / 2 * P + x;  // row[r*P] = a[i,r]
+        float s = 0.f;
+#pragma unroll
+        for (int r = 0; r < i; ++r)
+          s = __fadd_rn(s, __fmul_rn(row[r * P], xv[r]));
+        float xi = __fsub_rn(xv[i], s);
+        if (!unit) xi = __fdiv_rn(xi, row[i * P]);
         xv[i] = xi;
       }
-#pragma unroll
-      for (int r = i + 1; r < NB; ++r)
-        if (r < sm)
-          xv[r] = __fsub_rn(xv[r],
-                            __fmul_rn(as[(r * (r + 1) / 2 + i) * P + x], xi));
     }
   }
 #pragma unroll
@@ -489,25 +538,144 @@ __device__ __forceinline__ void trsm_reg_solve(const float* __restrict__ a,
     if (i < sm) xo[at(pack_row<UP>(i, sm), j, sn, bp, b)] = xv[i];
 }
 
-template <int NB>
+// The streamed solve (the narrow route above 64).  Block g * ncg + c (ncg
+// column groups, so the groups of one set of problems run side by side and
+// meet its triangle in L1 or L2) holds 32 problems (lanes x) and TRSM_NCY
+// columns (warps y).  B lands in this warp's xs
+// [SM][32], and row i of it becomes x[i] once solved (shared memory: 500
+// bytes a thread at 125, which caps an SM at about 13 warps, so the bytes in
+// flight come from depth).  Row i of the solve reads a[i,0..i-1] (and a[i,i]
+// where it divides): the lower triangle's (i, r) is row i*SM + r of the
+// pack's [SM*SM, Bp] view, the upper's SM*SM-1 - (i*SM + r), so a row's
+// terms are consecutive there and a warp's load is one 128-byte line.  They
+// come in chunks of up to TRSM_ND terms of one row, into two banks of
+// registers in turn: the next chunk's loads (and, with a row's last chunk,
+// its diagonal) are in flight while the sum takes the current one, term by
+// term, with no branch and no test inside a full chunk.  The sum, in the
+// plain version's order:
+//   kernel 14: s = 0, s += a[i,r] * x[r] for r ascending, x[i] = (b[i] - s)
+//     / a[i,i];
+//   kernel 13: v = b[i], v -= a[i,r] * x[r] for r ascending, x[i] = v *
+//     (1 / a[i,i]).
+// Unit diagonal: no division (no reciprocal), and a[i,i] is not read.
+template <bool UP, bool UNROLLED>
+__device__ __forceinline__ void trsm_narrow_stream(
+    const float* __restrict__ a, const float* __restrict__ bm,
+    float* __restrict__ xo, int sm, int sn, long long bp, bool unit) {
+  extern __shared__ float xsh[];
+  const int cy = blockDim.y, ncg = (sn + cy - 1) / cy;
+  const long long b = (long long)(blockIdx.x / ncg) * 32 + threadIdx.x;
+  const int j = (int)(blockIdx.x % ncg) * cy + threadIdx.y;
+  if (b >= bp || j >= sn) return;  // no barrier below
+  float* xs = xsh + threadIdx.y * sm * 32 + threadIdx.x;  // xs[r * 32]
+  for (int i0 = 0; i0 < sm; i0 += TRSM_ND) {
+    float v[TRSM_ND];
+#pragma unroll
+    for (int u = 0; u < TRSM_ND; ++u)
+      if (i0 + u < sm) v[u] = bm[at(pack_row<UP>(i0 + u, sm), j, sn, bp, b)];
+#pragma unroll
+    for (int u = 0; u < TRSM_ND; ++u)
+      if (i0 + u < sm) xs[(i0 + u) * 32] = v[u];
+  }
+
+  // a[i,r] of the solve at a0 + (i*SM + r) * step
+  const long long step = UP ? -bp : bp;
+  const float* a0 = a + (UP ? (long long)sm * sm - 1 : 0) * bp + b;
+  // a chunk: row i's terms c0 .. c0 + len - 1, len = min(TRSM_ND, i - c0)
+  // (row 0's one chunk has none); the next starts at c0 + TRSM_ND or row
+  // i + 1
+  auto next = [&](int& i, int& c0) {
+    if (c0 + TRSM_ND < i) {
+      c0 += TRSM_ND;
+    } else {
+      ++i;
+      c0 = 0;
+    }
+  };
+  auto fetch = [&](float (&bank)[TRSM_ND], float& d, int i, int c0) {
+    const int len = min(TRSM_ND, i - c0);
+    const float* p = a0 + ((long long)i * sm + c0) * step;
+#pragma unroll
+    for (int u = 0; u < TRSM_ND; ++u)
+      if (u < len) bank[u] = __ldg(p + u * step);
+    if (!unit && c0 + len == i) d = __ldg(p + len * step);  // a[i,i]
+  };
+  float s = UNROLLED ? xs[0] : 0.f;
+  auto take = [&](const float (&bank)[TRSM_ND], float d, int i, int c0) {
+    const int len = min(TRSM_ND, i - c0);
+    const float* xr = xs + c0 * 32;
+    if (len == TRSM_ND) {
+#pragma unroll
+      for (int u = 0; u < TRSM_ND; ++u) {
+        const float t = __fmul_rn(bank[u], xr[u * 32]);
+        s = UNROLLED ? __fsub_rn(s, t) : __fadd_rn(s, t);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < TRSM_ND; ++u) {
+        if (u < len) {
+          const float t = __fmul_rn(bank[u], xr[u * 32]);
+          s = UNROLLED ? __fsub_rn(s, t) : __fadd_rn(s, t);
+        }
+      }
+    }
+    if (c0 + len == i) {  // the row's last chunk: x[i]
+      float xi;
+      if constexpr (UNROLLED) {
+        xi = unit ? s : __fmul_rn(s, __frcp_rn(d));
+      } else {
+        xi = __fsub_rn(xs[i * 32], s);
+        if (!unit) xi = __fdiv_rn(xi, d);
+      }
+      xs[i * 32] = xi;
+      xo[at(pack_row<UP>(i, sm), j, sn, bp, b)] = xi;
+      s = UNROLLED && i + 1 < sm ? xs[(i + 1) * 32] : 0.f;
+    }
+  };
+
+  float bank0[TRSM_ND], bank1[TRSM_ND], d0 = 1.f, d1 = 1.f;
+  int fi = 0, fc = 0, ti = 0, tc = 0;  // the chunks to fetch and to take
+  fetch(bank0, d0, fi, fc);
+  next(fi, fc);
+  while (true) {
+    if (fi < sm) fetch(bank1, d1, fi, fc);
+    next(fi, fc);
+    take(bank0, d0, ti, tc);
+    next(ti, tc);
+    if (ti >= sm) break;
+    if (fi < sm) fetch(bank0, d0, fi, fc);
+    next(fi, fc);
+    take(bank1, d1, ti, tc);
+    next(ti, tc);
+    if (ti >= sm) break;
+  }
+}
+
+template <int NB, bool UNROLLED>
 __global__ void __launch_bounds__(TrsmReg<NB>::P * TrsmReg<NB>::CY)
 trsm_reg(const float* __restrict__ a, const float* __restrict__ bm,
          float* __restrict__ xo, int sm, int sn, long long bp, bool unit) {
-  trsm_reg_solve<NB, false>(a, bm, xo, sm, sn, bp, unit);
+  if constexpr (NB == 0)
+    trsm_narrow_stream<false, UNROLLED>(a, bm, xo, sm, sn, bp, unit);
+  else
+    trsm_reg_solve<NB, false, UNROLLED>(a, bm, xo, sm, sn, bp, unit);
 }
 
-template <int NB>
+template <int NB, bool UNROLLED>
 __global__ void __launch_bounds__(TrsmReg<NB>::P * TrsmReg<NB>::CY)
 trsm_reg_upper(const float* __restrict__ a, const float* __restrict__ bm,
                float* __restrict__ xo, int sm, int sn, long long bp,
                bool unit) {
-  trsm_reg_solve<NB, true>(a, bm, xo, sm, sn, bp, unit);
+  if constexpr (NB == 0)
+    trsm_narrow_stream<true, UNROLLED>(a, bm, xo, sm, sn, bp, unit);
+  else
+    trsm_reg_solve<NB, true, UNROLLED>(a, bm, xo, sm, sn, bp, unit);
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 14 (UNROLLED = false), and kernel 13 above the register buckets
-// (UNROLLED = true): one block per (problem, chunk of up to TRSM_CW columns
-// of X), NW warps.  tril(A) is packed by columns in shared memory; the
+// The "chunk" route of kernel 14 (UNROLLED = false) and kernel 13 (UNROLLED =
+// true): one block per (problem, chunk of up to TRSM_CW columns of X), NW
+// warps.  tril(A) is packed by columns in shared memory; the
 // chunk of B sits in shared memory [SM][cw], and row i of it is overwritten
 // by x[i] once that is solved, which publishes it to the block.  The solve
 // is right-looking over a register tile: warp w holds rows w + NW*q (q <
@@ -785,17 +953,53 @@ int launch_getrf_tile(const float* a, float* o, int m, int n, long long bp,
   return 0;
 }
 
-template <int NB, bool UP>
+template <int NB, bool UP, bool UNROLLED>
 void launch_trsm_reg(const float* a, const float* b, float* x, int sm, int sn,
                      long long bp, bool unit, cudaStream_t st) {
   constexpr int P = TrsmReg<NB>::P, CY = TrsmReg<NB>::CY;
   const int cy = sn < CY ? sn : CY;
   const size_t smem = (size_t)sm * (sm + 1) / 2 * P * sizeof(float);
-  auto kern = UP ? trsm_reg_upper<NB> : trsm_reg<NB>;
+  auto kern = UP ? trsm_reg_upper<NB, UNROLLED> : trsm_reg<NB, UNROLLED>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   kern<<<dim3((unsigned)((bp + P - 1) / P), (unsigned)((sn + cy - 1) / cy)),
          dim3(P, cy), smem, st>>>(a, b, x, sm, sn, bp, unit);
+}
+
+// Which solve the narrow route runs: the register buckets stage tril(A) once
+// for a block's 16 columns but run few threads at few columns (and 16
+// problems a block at NB = 64), the streamed solve reads A once a column.
+// On the H100 (B = 4096 and 131072) the buckets won at SM <= 32 from 4
+// columns (16/16: 0.18 ms against 0.64) and at 33..48 from 16; the streamed
+// solve everywhere else (16/1: 0.056 against 0.132; 64/1: 0.43 against 27).
+bool narrow_bucket(int sm, int sn) {
+  return sm <= 32 ? sn >= 4 : sm <= 48 ? sn >= 16 : false;
+}
+
+// the narrow route: the register buckets or the streamed solve
+template <bool UNROLLED, bool UP>
+int launch_trsm_narrow(const float* a, const float* b, float* x, int sm,
+                       int sn, long long bp, bool unit, cudaStream_t st) {
+  if (sm > TRSM_MAX) return -2;
+  switch (narrow_bucket(sm, sn) ? bucket(sm) : 0) {
+    case 8: launch_trsm_reg<8, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+      return 0;
+    case 16: launch_trsm_reg<16, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+      return 0;
+    case 32: launch_trsm_reg<32, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+      return 0;
+    case 64: launch_trsm_reg<64, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+      return 0;
+  }
+  const int cy = sn < TRSM_NCY ? sn : TRSM_NCY;
+  const size_t smem = (size_t)cy * sm * 32 * sizeof(float);
+  auto kern = UP ? trsm_reg_upper<0, UNROLLED> : trsm_reg<0, UNROLLED>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const long long blocks = (bp + 31) / 32 * ((sn + cy - 1) / cy);
+  kern<<<dim3((unsigned)blocks), dim3(32, cy), smem, st>>>(a, b, x, sm, sn,
+                                                           bp, unit);
+  return 0;
 }
 
 template <bool UNROLLED, bool UP>
@@ -807,7 +1011,7 @@ int launch_trsm_shared(const float* a, const float* b, float* x, int sm, int sn,
   const int nw = sm <= 8 * TRSM_Q ? 8 : 16;
   const size_t smem = ((size_t)sm * (sm + 1) / 2 + (size_t)nw * TRSM_Q +
                        (size_t)sm * cw) * sizeof(float);
-  if (smem > SHARED_MAX || sm > 16 * TRSM_Q) return -2;
+  if (smem > SHARED_MAX || sm > TRSM_MAX) return -2;
   // whole clusters: blocks past the last problem load and solve nothing
   const long long gx = (bp + TRSM_CLUSTER - 1) / TRSM_CLUSTER * TRSM_CLUSTER;
   const dim3 grid((unsigned)gx, (unsigned)((sn + TRSM_CW - 1) / TRSM_CW));
@@ -821,30 +1025,16 @@ int launch_trsm_shared(const float* a, const float* b, float* x, int sm, int sn,
   return 0;
 }
 
-template <bool UP>
-int trsm_unrolled_entry(const float* a, const float* b, float* x, int sm,
-                        int sn, long long bp, int unit, int device,
-                        void* stream) {
+// route 0 ("chunk"): trsm_shared; route 1 ("narrow"): trsm_reg
+template <bool UNROLLED, bool UP>
+int trsm_entry(const float* a, const float* b, float* x, int sm, int sn,
+               long long bp, int unit, int route, int device, void* stream) {
   cudaSetDevice(device);
   const auto st = static_cast<cudaStream_t>(stream);
-  switch (bucket(sm)) {
-    case 8: launch_trsm_reg<8, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    case 16: launch_trsm_reg<16, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    case 32: launch_trsm_reg<32, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    case 64: launch_trsm_reg<64, UP>(a, b, x, sm, sn, bp, unit != 0, st); break;
-    default:
-      if (launch_trsm_shared<true, UP>(a, b, x, sm, sn, bp, unit != 0, st))
-        return -2;
-  }
-  return (int)cudaGetLastError();
-}
-
-template <bool UP>
-int trsm_loop_entry(const float* a, const float* b, float* x, int sm, int sn,
-                    long long bp, int unit, int device, void* stream) {
-  cudaSetDevice(device);
-  if (launch_trsm_shared<false, UP>(a, b, x, sm, sn, bp, unit != 0,
-                                    static_cast<cudaStream_t>(stream)))
+  if (route == 1
+          ? launch_trsm_narrow<UNROLLED, UP>(a, b, x, sm, sn, bp, unit != 0, st)
+          : launch_trsm_shared<UNROLLED, UP>(a, b, x, sm, sn, bp, unit != 0,
+                                             st))
     return -2;
   return (int)cudaGetLastError();
 }
@@ -885,27 +1075,35 @@ extern "C" int xsmm_getrf_loop(const float* a, float* o, int m, int n,
   return (int)cudaGetLastError();
 }
 
-// tril(A) X = B (unit diagonal if `unit`); the _upper entries: triu(A) X = B
+// tril(A) X = B (unit diagonal if `unit`); the _upper entries: triu(A) X = B.
+// `route` 0 ("chunk"): the block a problem (trsm_shared), any SM <= 256 whose
+// chunk fits a block's shared memory; 1 ("narrow"): a thread a (problem,
+// column) (trsm_reg), SM <= 256; -2 outside those sizes
 extern "C" int xsmm_trsm_unrolled(const float* a, const float* b, float* x,
                                   int sm, int sn, long long bp, int unit,
-                                  int device, void* stream) {
-  return trsm_unrolled_entry<false>(a, b, x, sm, sn, bp, unit, device, stream);
+                                  int route, int device, void* stream) {
+  return trsm_entry<true, false>(a, b, x, sm, sn, bp, unit, route, device,
+                                 stream);
 }
 
 extern "C" int xsmm_trsm_unrolled_upper(const float* a, const float* b,
                                         float* x, int sm, int sn, long long bp,
-                                        int unit, int device, void* stream) {
-  return trsm_unrolled_entry<true>(a, b, x, sm, sn, bp, unit, device, stream);
+                                        int unit, int route, int device,
+                                        void* stream) {
+  return trsm_entry<true, true>(a, b, x, sm, sn, bp, unit, route, device,
+                                stream);
 }
 
 extern "C" int xsmm_trsm_loop(const float* a, const float* b, float* x, int sm,
-                              int sn, long long bp, int unit, int device,
-                              void* stream) {
-  return trsm_loop_entry<false>(a, b, x, sm, sn, bp, unit, device, stream);
+                              int sn, long long bp, int unit, int route,
+                              int device, void* stream) {
+  return trsm_entry<false, false>(a, b, x, sm, sn, bp, unit, route, device,
+                                  stream);
 }
 
 extern "C" int xsmm_trsm_loop_upper(const float* a, const float* b, float* x,
                                     int sm, int sn, long long bp, int unit,
-                                    int device, void* stream) {
-  return trsm_loop_entry<true>(a, b, x, sm, sn, bp, unit, device, stream);
+                                    int route, int device, void* stream) {
+  return trsm_entry<false, true>(a, b, x, sm, sn, bp, unit, route, device,
+                                 stream);
 }

@@ -6,7 +6,8 @@ the card.
     python -m xsmm_tpu_torch.ops.kernel_profile
         [--kernel gemm|trsm|both|getrf|smm|copy|spgemm] [--variant base]
         [--variant WG_BN_WIDE=128] [--variant src=PATH] [--size 4096]
-        [--trsm 125,125,4096] [--getrf 125,125,4096]
+        [--trsm 125,125,4096] [--route chunk|narrow] [--sweep]
+        [--getrf 125,125,4096]
         [--smm 23,23,23,131072] [--copy 8192] [--sparse-n 65536]
         [--sparse-big 1048576] [--turns 1] [--quick]
 
@@ -35,13 +36,21 @@ over the block's loop (``both`` is gemm and trsm).  It prints how many
   waiting for TMA's stage; ``mma``: issuing the stage's wgmma; ``retire``:
   waiting for the previous stage's products), cycles a block, mean over
   blocks;
-* trsm: holds ``trsm_loop`` and ``trsm_unrolled`` (the shared template at
-  SM > 64) bit for bit against their plain versions at ``--trsm`` SM/SN,
-  unit diagonal and not; times ``trsm_loop`` at ``--trsm`` in turns beside
+* trsm: builds ``ops/csrc/packed.cu`` per variant, where ``src=PATH`` is
+  another copy of it (e.g. the parent tree's; a copy whose trsm entries
+  take no route runs its one route in every case); holds ``trsm_loop`` and
+  ``trsm_unrolled``, lower and upper, unit diagonal and not, on each
+  ``--route`` (default both: "chunk" and "narrow") bit for bit against
+  their plain versions at ``--trsm`` SM/SN/B; times the packed LU cell's
+  two solves (lower unit, upper) and the lower one dividing on each route
+  at ``--trsm``, the variants in turns, beside
   ``torch.linalg.solve_triangular`` on the same problems in [B, SM, SN];
-  prints the phases of a block (``load``; ``solve``, the solve's work
-  seen by warp 0; ``store``; ``barrier``, warp 0's waits at the solve's
-  barriers);
+  prints the phases of a chunk-route block (``load``; ``solve``, the
+  solve's work seen by warp 0; ``store``; ``barrier``, warp 0's waits at
+  the solve's barriers); with ``--sweep`` times the two solves at every
+  ``--sweep-sm`` x ``--sweep-sn`` x ``--sweep-bp`` on the chunk route and
+  on each variant's narrow route (the sweep behind
+  ``packed_kernels.trsm_route``);
 * getrf: holds ``getrf_loop`` on each route (``tile`` and ``shared``) bit
   for bit against ``getrf_loop_plain`` at ``--getrf`` and at every size the
   card tests take above 64 (Bp 1000); times both routes at ``--getrf`` in
@@ -178,7 +187,8 @@ _TRSM_STAMPS = [
 
 
 _GETRF_STAMPS = [
-    ("getrf_tile(const float* __restrict__ a", "// Kernel 13, SM <= NB",
+    ("getrf_tile(const float* __restrict__ a",
+     "// The \"narrow\" route of kernels 13 and 14",
      [("  // -- the load: the cluster's problems",
        "  PROF_BEGIN\n  // -- the load: the cluster's problems"),
       ("  // -- the factorization", "  PROF_MARK(0)\n  // -- the factorization"),
@@ -350,6 +360,13 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=None)
     ap.add_argument("--size", type=int, default=4096)
     ap.add_argument("--trsm", default="125,125,4096", help="SM,SN,B")
+    ap.add_argument("--route", action="append", default=None,
+                    choices=("chunk", "narrow"), help="the trsm routes")
+    ap.add_argument("--sweep", action="store_true",
+                    help="trsm: time both routes over --sweep-sm/sn/bp")
+    ap.add_argument("--sweep-sm", default="64,65,96,125,128")
+    ap.add_argument("--sweep-sn", default="1,2,4,8,16,32")
+    ap.add_argument("--sweep-bp", default="4096,131072")
     ap.add_argument("--getrf", default="125,125,4096", help="M,N,B")
     ap.add_argument("--smm", default="23,23,23,131072", help="M,N,K,B")
     ap.add_argument("--copy", type=int, default=8192, help="T: T^2 f32 and "
@@ -455,51 +472,7 @@ def main() -> int:
                     (s // 128) * (s // 256)))
 
     if args.kernel in ("trsm", "both"):
-        libs = build("packed", variants, _TRSM_STAMPS)
-
-        def use(v, kind):
-            cuda_build._LIBS["packed"] = ctypes.CDLL(str(libs[(v, kind)]))
-            pk._LIB = None
-            return pk._lib()
-
-        sm, sn, bsz = (int(x) for x in args.trsm.split(","))
-        a = randn(bsz, sm, sm) / sm
-        idx = torch.arange(sm, device=dev)
-        a[:, idx, idx] += 1.0
-        b = randn(bsz, sm, sn)
-        pa = a.permute(1, 2, 0).contiguous()
-        pb = b.permute(1, 2, 0).contiguous()
-        for v in variants:
-            use(v, "plain")
-            for kname in ("trsm_loop", "trsm_unrolled"):
-                for unit in (False, True):
-                    aa = pa / sm if unit else pa
-                    got = getattr(pk, kname)(aa, pb, unit)
-                    want = getattr(pk, kname + "_plain")(aa, pb, unit)
-                    torch.cuda.synchronize()
-                    ok = torch.equal(got, want)
-                    print(f"  check {v} {kname} {sm}/{sn} unit={unit}: "
-                          f"{'bit-exact' if ok else 'FAIL'} (max "
-                          f"{(got - want).abs().max().item():.2e})")
-        if not args.quick:
-            cases = {f"trsm_loop {sm}/{sn} B={bsz}":
-                     lambda: pk.trsm_loop(pa, pb, False),
-                     f"trsm_loop unit {sm}/{sn} B={bsz}":
-                     lambda: pk.trsm_loop(pa / sm, pb, True)}
-            lib_ms = cuda_time_ms(lambda: torch.linalg.solve_triangular(
-                a, b, upper=False))
-            ms = turns(cases, use)
-            print(f"solve_triangular {sm}/{sn} B={bsz}: {lib_ms:.4f} ms")
-            for v in variants:
-                for c in cases:
-                    print(f"  {v:24s} {c:32s} "
-                          f"{' / '.join('%.4f' % t for t in ms[v][c])} ms")
-            for v in variants:
-                lib = use(v, "prof")
-                print(f"  {v}: trsm phases: " + _phases(
-                    lib, cases[f"trsm_loop {sm}/{sn} B={bsz}"],
-                    ("load", "solve", "store", "barrier"),
-                    bsz * ((sn + 127) // 128)))
+        profile_trsm(args, variants, randn, turns)
 
     if args.kernel == "getrf":
         profile_getrf(args, variants, randn, turns)
@@ -522,6 +495,161 @@ def _bits(label: str, got, want) -> None:
           f"{(got.double() - want.double()).abs().max().item():.2e})")
     if not ok:
         raise RuntimeError(f"{label}: kernel and plain version disagree")
+
+
+def packed_sources(variant: str) -> Dict[str, str]:
+    """"plain" and "prof" -> the two sources of a ``--kernel trsm``
+    variant: ``base``, ``NAME=VALUE,...`` or ``src=PATH`` (another copy of
+    ``packed.cu``, e.g. the parent tree's; one without the trsm entries'
+    ``route`` runs its one route, whatever route a case names)."""
+    if variant.startswith("src="):
+        src = Path(variant[4:]).read_text()
+    else:
+        src = apply_settings((CSRC / "packed.cu").read_text(),
+                             parse_variant(variant))
+    return {"plain": src, "prof": instrument(src, _TRSM_STAMPS)}
+
+
+def _routed(src: str) -> bool:
+    """Whether the trsm entry points of a ``packed.cu`` take a route."""
+    i = src.index("int xsmm_trsm_loop(")
+    return "route" in src[i:src.index("{", i)]
+
+
+def _trsm_launcher(so: Path, routed: bool) -> Callable:
+    """``solve(kernel, a, b, unit, upper, route)`` -> X through the entry
+    points of the library ``so`` (as ``packed_kernels._trsm``, without its
+    counts); ``routed``: its entries take the route."""
+    import torch
+
+    from . import packed_kernels as pk
+
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("trsm_loop", "trsm_unrolled"):
+        for suffix in ("", "_upper"):
+            fn = getattr(lib, f"xsmm_{name}{suffix}")
+            fn.argtypes = [p, p, p, i, i, ll, i] + [i] * routed + [i, p]
+            fn.restype = ctypes.c_int
+
+    def solve(kernel, a, b, unit, upper, route):
+        sm, sn, bp = b.shape
+        x = torch.empty_like(b)
+        extra = [pk.TRSM_ROUTES[route or pk.trsm_route(sm, sn, bp)]] * routed
+        cuda_build.launch(getattr(lib, f"xsmm_{kernel}{'_upper' * upper}"),
+                          a.device, a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                          sm, sn, bp, int(unit), *extra)
+        return x
+    return solve
+
+
+def profile_trsm(args, variants, randn, turns) -> None:
+    """The --kernel trsm part of the module docstring."""
+    import torch
+
+    from . import packed_kernels as pk
+    from ..utils.timer import cuda_time_ms
+
+    routes = args.route or list(pk.TRSM_ROUTES)
+    srcs = {v: packed_sources(v)["plain"] for v in variants}
+    libs = build("packed", variants, None, lambda v: {
+        k: t for k, t in packed_sources(v).items()
+        if k == "plain" or "chunk" in routes})
+    routed = {v: _routed(srcs[v]) for v in variants}
+    cur: Dict[str, Callable] = {}
+
+    def use(v, kind):
+        cur["solve"] = _trsm_launcher(libs[(v, kind)], routed[v])
+
+    def solve(*args_):
+        return cur["solve"](*args_)
+
+    def problems(sm, sn, bsz):
+        """A [SM, SM, B] (entries of size 1/SM off the diagonal, 1 + ... on
+        it: either triangle, unit or not) and B [SM, SN, B], packed."""
+        a = randn(sm, sm, bsz) / sm
+        idx = torch.arange(sm, device=a.device)
+        a[idx, idx] += 1.0
+        return a, randn(sm, sn, bsz)
+
+    sm, sn, bsz = (int(x) for x in args.trsm.split(","))
+    pa, pb = problems(sm, sn, bsz)
+    for v in variants:
+        use(v, "plain")
+        for rt in routes if routed[v] else ["its own"]:
+            for kname in ("trsm_loop", "trsm_unrolled"):
+                for unit in (False, True):
+                    for upper in (False, True):
+                        plain = getattr(pk, kname + "_upper" * upper
+                                        + "_plain")
+                        _bits(f"{v} {rt} {kname} {'upper' if upper else 'lower'}"
+                              f" unit={unit} {sm}/{sn} B={bsz}",
+                              solve(kname, pa, pb, unit, upper,
+                                    None if rt == "its own" else rt),
+                              plain(pa, pb, unit))
+    if args.quick:
+        return
+    # the packed LU cell's two solves (lower unit, upper), and the lower
+    # one dividing, on each route (a variant without routes: its own)
+    cases = {}
+    for rt in routes:
+        for label, unit, upper in (("lower unit", True, False),
+                                   ("upper", False, True),
+                                   ("lower", False, False)):
+            cases[f"trsm_loop {label} {rt} {sm}/{sn} B={bsz}"] = (
+                lambda unit=unit, upper=upper, rt=rt:
+                solve("trsm_loop", pa, pb, unit, upper, rt))
+    lib_ms = cuda_time_ms(lambda: torch.linalg.solve_triangular(
+        pa.permute(2, 0, 1), pb.permute(2, 0, 1), upper=False))
+    ms = turns(cases, use)
+    print(f"solve_triangular {sm}/{sn} B={bsz}: {lib_ms:.4f} ms "
+          f"(on [B, SM, SM] views of the packed operands)")
+    for v in variants:
+        for c in cases:
+            print(f"  {v:24s} {c:44s} "
+                  f"{' / '.join('%.4f' % t for t in ms[v][c])} ms"
+                  + ("" if routed[v] else " (its one route)"))
+    if "chunk" in routes:
+        for v in variants:
+            use(v, "prof")
+            print(f"  {v}: trsm chunk phases: " + _phases(
+                ctypes.CDLL(str(libs[(v, "prof")])),
+                lambda: solve("trsm_loop", pa, pb, False, False, "chunk"),
+                ("load", "solve", "store", "barrier"),
+                bsz * ((sn + 127) // 128)))
+    if args.sweep:
+        del pa, pb
+        sweep_trsm(args, variants, use, solve, problems)
+
+
+def sweep_trsm(args, variants, use, solve, problems) -> None:
+    """The cell's two solves (lower unit, upper) at every (SM, SN, B) of the
+    sweep: ms a launch on the chunk route (the first variant) and on the
+    narrow route of each variant, and the fastest."""
+    from ..utils.timer import cuda_time_ms
+
+    print("sweep: SM SN B solve: chunk ms, narrow ms of "
+          f"{', '.join(variants)}; fastest")
+    for bsz in (int(x) for x in args.sweep_bp.split(",")):
+        for sm in (int(x) for x in args.sweep_sm.split(",")):
+            a, b = problems(sm, max(int(x) for x in args.sweep_sn.split(",")),
+                            bsz)
+            for sn in (int(x) for x in args.sweep_sn.split(",")):
+                bs = b[:, :sn].contiguous()
+                for label, unit, upper in (("lower unit", True, False),
+                                           ("upper", False, True)):
+                    t = {}
+                    for v, rt in [(variants[0], "chunk")] + [
+                            (v, "narrow") for v in variants]:
+                        use(v, "plain")
+                        t[f"{rt} {v}"] = cuda_time_ms(
+                            lambda rt=rt: solve("trsm_loop", a, bs, unit,
+                                                upper, rt), warmup=2, iters=5)
+                    print(f"  sweep {sm} {sn} {bsz} {label}: "
+                          + ", ".join(f"{x:.4f}" for x in t.values())
+                          + f"; {min(t, key=t.get)}")
+                del bs
+            del a, b
 
 
 def profile_getrf(args, variants, randn, turns) -> None:

@@ -38,6 +38,15 @@ card tests and ``kernel_profile``, which hold each route against the plain
 version); the kernel refuses "tile" outside its sizes, which raises
 ``ValueError`` with nothing launched.  Each launch also counts in
 ``getrf_route_launches``.
+
+Kernels 13 and 14 and their upper variants have two routes
+(``trsm_route``, from SM, SN and Bp alone): "narrow", a thread a (problem,
+column of X) (the register buckets at small SM and many columns, else the
+triangle streamed from the pack), for right sides of few columns, and
+"chunk", a block a problem and chunk of 128 columns, for wide ones.  Both take SM <= 256 and
+give the same bits (each row's terms in its plain version's order).
+``_trsm`` names the route (the card tests, ``kernel_profile``); each launch
+also counts in ``trsm_route_launches``.
 """
 
 from __future__ import annotations
@@ -64,11 +73,22 @@ GETRF_TILE_SIZES = (65, 128)  # the tile route's min(M, N) and max(M, N)
 GETRF_TILE_REFUSED = ("the tile route takes 65 <= min(M, N) and max(M, N) <= "
                       "128; nothing was launched")
 
+# the TRSM kernels' routes -> their codes in ops/csrc/packed.cu, and launches
+# since the last reset_launches() (each also counts in launches[name])
+TRSM_ROUTES = {"chunk": 0, "narrow": 1}
+trsm_route_launches: Dict[str, int] = dict.fromkeys(TRSM_ROUTES, 0)
+TRSM_MAX = 256           # the largest SM of either route
+TRSM_NARROW_SM = 64      # up to this SM the narrow route takes any SN
+TRSM_NARROW_WORK = 48 * 128 * 128  # above it, SN * SM^2 up to this
+TRSM_REFUSED = {"narrow": f"the narrow route takes SM <= {TRSM_MAX}, the "
+                          "sizes the chunk route's shared memory holds; "
+                          "nothing was launched", "chunk": None}
+
 _LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for counts in (launches, getrf_route_launches):
+    for counts in (launches, getrf_route_launches, trsm_route_launches):
         for name in counts:
             counts[name] = 0
 
@@ -84,7 +104,7 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         for fn in (lib.xsmm_trsm_unrolled, lib.xsmm_trsm_loop,
                    lib.xsmm_trsm_unrolled_upper, lib.xsmm_trsm_loop_upper):
-            fn.argtypes = [p, p, p, i, i, ll, i, i, p]
+            fn.argtypes = [p, p, p, i, i, ll, i, i, i, p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -247,25 +267,48 @@ def trsm_unrolled_upper_plain(a: torch.Tensor, b: torch.Tensor,
     return x
 
 
+def trsm_route(sm: int, sn: int, bp: int) -> str:
+    """The route a CUDA call of ``trsm_unrolled`` or ``trsm_loop`` (either
+    triangle) takes for A [SM, SM, Bp], B [SM, SN, Bp]: "narrow" up to SM
+    ``TRSM_NARROW_SM`` and, above, while SN * SM^2 <= ``TRSM_NARROW_WORK``;
+    else "chunk".
+
+    The narrow route reads the triangle once a column, the chunk route once
+    a chunk of 128 columns, so the edge falls with SM^2.  On the H100, both
+    solves at B = 4096 and 131072: narrow faster at every SN up to 128 for
+    SM <= 65, up to 64 at 96, 48 at 125; chunk faster from 96 at 96 and 64
+    at 125 and 128 (48 at 128 a tie); at 125/1, B = 131072, 1.59 ms against
+    29.7 (``PERF.md`` §6, row 14).  Bp moved no edge."""
+    return ("narrow" if sm <= TRSM_NARROW_SM
+            or sn * sm * sm <= TRSM_NARROW_WORK else "chunk")
+
+
 def _trsm(kernel: str, a: torch.Tensor, b: torch.Tensor, unit: bool,
-          upper: bool) -> torch.Tensor:
+          upper: bool, route: Optional[str] = None) -> torch.Tensor:
     """Kernel 13 or 14 (``kernel``), or its upper variant: X [SM, SN, Bp]
-    with tril(A) X = B, or triu(A) X = B where ``upper``."""
+    with tril(A) X = B, or triu(A) X = B where ``upper``, on the named
+    route (None: ``trsm_route``); the CPU ignores the route."""
     name = kernel + "_upper" if upper else kernel
     with trace.span("wrapper"):
         sm, sn, bp = _trsm_shapes(a, b)
+        if route is not None and route not in TRSM_ROUTES:
+            raise ValueError(f"route {route!r}: expected one of "
+                             f"{list(TRSM_ROUTES)}")
         if a.device.type == "cpu":
             plain = {"trsm_unrolled": trsm_unrolled_plain,
                      "trsm_unrolled_upper": trsm_unrolled_upper_plain,
                      "trsm_loop": trsm_loop_plain,
                      "trsm_loop_upper": trsm_loop_upper_plain}[name]
             return plain(a, b, unit)
+        rt = route or trsm_route(sm, sn, bp)
         x = torch.empty_like(b)
         if x.numel():
             cuda_build.launch(getattr(_lib(), "xsmm_" + name), a.device,
                               a.data_ptr(), b.data_ptr(), x.data_ptr(), sm,
-                              sn, bp, int(unit))
+                              sn, bp, int(unit), TRSM_ROUTES[rt],
+                              refused=TRSM_REFUSED[rt])
             launches[name] += 1
+            trsm_route_launches[rt] += 1
         return x
 
 
