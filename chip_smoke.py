@@ -316,13 +316,14 @@ import subprocess
 import sys
 import time
 
+from xsmm_tpu_torch.core.platform import H100, PEAKS
+
 M = N = K = 23
 GOLD_SUBSET = 4096
 
-# H100 SXM peaks (NVIDIA data sheet; the card's power limit is printed
-# beside every number)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+# H100 SXM peaks (the card's power limit is printed beside every number)
+HBM_BYTES_PER_S = PEAKS[H100]["hbm_bytes_per_s"]
+FP32_FLOP_PER_S = PEAKS[H100]["f32_flop_per_s"]
 
 SOURCE = "xsmm_tpu_torch/ops/csrc/smm_packed.cu"
 REPLACES = {
@@ -346,7 +347,7 @@ PYFR_SPECS = [(105, 75, 0.11), (75, 105, 0.08), (150, 150, 0.05)]
 SPARSE_TOL = {"float64": 1e-5, "float32": 1e-3}  # tests/test_sparse.py gates
 PLAIN_TOL = 1e-6
 
-BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
+BF16_FLOP_PER_S = PEAKS[H100]["bf16_flop_per_s"]  # on the tensor cores
 DENSE_SOURCES = {
     "tiled_gemm": ("xsmm_tpu_torch/ops/csrc/tiled_gemm.cu",
                    "xsmm_tpu/ops/tiled_gemm.py:83"),

@@ -450,6 +450,44 @@ def test_missing_nvcc_raises(monkeypatch):
         cuda_build.load("smm_packed")
 
 
+# library -> the module that binds its entry points (cuda_build.bind)
+BINDERS = {"smm_packed": "ops.smm_packed", "packed": "ops.packed_kernels",
+           "spgemm": "ops.spgemm_kernels", "xcopy": "ops.xcopy_kernels",
+           "tiled_gemm": "ops.tiled_gemm_kernels", "rnn_seq": "dnn.rnn_seq",
+           "pooling": "dnn.pooling"}
+C_ARGS = {"int": cuda_build.I, "long long": cuda_build.LL}
+
+
+def _c_arg(param: str):
+    """The ctypes type of one C parameter: any pointer is a c_void_p."""
+    if "*" in param:
+        return cuda_build.P
+    words = param.split()
+    if len(words) > 1 and words[-1] not in ("int", "long"):
+        words = words[:-1]  # the parameter's name
+    return C_ARGS.get(" ".join(words), param)
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build.SOURCES))
+def test_bindings_match_the_sources(name):
+    """Each library's binding table (its module's ``_lib``, made by
+    ``cuda_build.bind``) holds every ``extern "C"`` entry point of its
+    sources, each with the ctypes type of each C parameter, and nothing
+    else; every entry point returns int.  Nothing is built here."""
+    import importlib
+    import re
+
+    src = "".join((REPO / "xsmm_tpu_torch" / "ops" / s).read_text()
+                  for s in cuda_build.SOURCES[name])
+    protos = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert len(protos) == src.count('extern "C"')
+    want = {fn: [_c_arg(p) for p in params.split(",")]
+            for fn, params in protos}
+    mod = importlib.import_module("xsmm_tpu_torch." + BINDERS[name])
+    got = {fn: list(args) for fn, args in mod._lib.entries.items()}
+    assert got == want
+
+
 def test_import_has_no_jax_and_builds_nothing(tmp_path):
     """Importing every module of the port (the sparse path's spgemm,
     spgemm_kernels, fsspmdm, spmdm and utils.mtx, and the dense path's

@@ -748,15 +748,16 @@ NAT_TM = NAT_RT * NAT_R
     ("NAT_G", smm_packed.NATURAL_GROUP), ("NAT_SLOTS",
                                           smm_packed.NATURAL_SLOTS),
     ("NAT_NT", smm_packed.NATURAL_COLUMNS),
-    ("NAT_MAX_SMEM", smm_packed.NATURAL_MAX_SMEM),
+    ("BLOCK_SMEM_MAX", smm_packed.NATURAL_MAX_SMEM),
     ("NAT_G", NAT_G), ("NAT_RT", NAT_RT), ("NAT_R", NAT_R),
     ("NAT_NT", NAT_NT), ("NAT_SLOTS", NAT_SLOTS)])
 def test_natural_constants_are_the_kernels(c_name, value):
     """The natural kernel's constants that the route rule
     (``smm_packed.natural_blocks``) and the emulation below mirror are those
-    of ops/csrc/smm_packed.cu."""
-    src = (Path(smm_packed.__file__).parent / "csrc"
-           / "smm_packed.cu").read_text()
+    of ops/csrc/smm_packed.cu and the launch header it includes."""
+    csrc = Path(smm_packed.__file__).parent / "csrc"
+    src = "".join((csrc / f).read_text() for f in ("smm_packed.cu",
+                                                   "launch.cuh"))
     found = re.findall(rf"constexpr int {c_name} = (\d+);", src)
     assert found == [str(value)]
 

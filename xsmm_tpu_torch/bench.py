@@ -1,4 +1,4 @@
-"""Headline benchmark of the port: batched FP64 SMM 23x23x23.
+"""The port bench: batched FP64 SMM 23x23x23, kernel 1 alone.
 
     python -m xsmm_tpu_torch.bench        # on the card
     XSMM_TARGET=cpu python -m xsmm_tpu_torch.bench
@@ -32,11 +32,13 @@ import subprocess
 import sys
 import time
 
-# memory rate (bytes/s) by device name: the H100 SXM's HBM3 (NVIDIA's data
-# sheet; the PCIe and NVL cards have other rates and are not listed, so they
+from .core.platform import PEAKS
+
+# memory rate (bytes/s) by device name: the cards of core/platform.PEAKS
+# (the PCIe and NVL cards have other rates and are not listed, so they
 # raise), and a nominal figure for the CPU target (CI only)
 HBM_BW = {
-    "H100 80GB HBM3": 3.35e12,
+    **{name: p["hbm_bytes_per_s"] for name, p in PEAKS.items()},
     "cpu": 100e9,
 }
 

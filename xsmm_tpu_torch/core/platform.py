@@ -19,6 +19,15 @@ from .config import get_config
 
 _TARGETS = ("cuda", "cpu")
 
+# The published peaks of the card, by the name torch.cuda.get_device_name
+# gives it: NVIDIA's H100 SXM data sheet, dense rates (float32 outside the
+# tensor cores, bf16 on them) at the card's 700 W limit, so a share against
+# them is printed beside the card's power limit.  portbench/roofline.py
+# keeps the benchmark's own copy.
+H100 = "H100 80GB HBM3"
+PEAKS = {H100: {"hbm_bytes_per_s": 3.35e12, "f32_flop_per_s": 67e12,
+                "bf16_flop_per_s": 989e12}}
+
 
 @functools.lru_cache(maxsize=None)
 def backend() -> str:

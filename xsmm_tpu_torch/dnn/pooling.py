@@ -34,23 +34,21 @@ max-pool backward does.  The two routes agree on finite inputs only.
 
 from __future__ import annotations
 
-import ctypes
 import math
 import os
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from ..core.descriptors import TORCH_DTYPES
 from ..ops import cuda_build
+from ..ops.cuda_build import I, P
 from .operands import device_of, on
 from .types import Kind, PoolingDesc, PoolType
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {"maxpool2x2_bwd": 0}
-
-_LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -58,15 +56,9 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("pooling")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.xsmm_maxpool2x2_bwd.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.xsmm_maxpool2x2_bwd.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_lib = cuda_build.bind("pooling", {
+    "xsmm_maxpool2x2_bwd": [P, P, P, I, I, I, I, I, P],
+})
 
 
 # ---------------------------------------------------------------------------

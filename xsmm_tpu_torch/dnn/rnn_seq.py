@@ -63,6 +63,7 @@ import torch
 
 from ..core import platform
 from ..ops import cuda_build
+from ..ops.cuda_build import I, P, ptr
 from ..ops.smm import _matmul
 
 # kernel name -> launches since the last reset_launches(); train_launches
@@ -95,8 +96,6 @@ BWD_ROWS = {4: 32, 3: 32, 1: 16}
 ACTS = {"relu": (0, torch.relu), "sigmoid": (1, torch.sigmoid),
         "tanh": (2, torch.tanh)}
 
-_LIB: Optional[ctypes.CDLL] = None
-
 
 def reset_launches() -> None:
     for counts in (launches, train_launches, bwd_launches, form_launches):
@@ -104,35 +103,18 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("rnn_seq")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.xsmm_lstm_seq.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p,
-                                      p, p, i, i, i, p, i, p]
-        lib.xsmm_gru_seq.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, i, i,
-                                     i, p, i, p]
-        lib.xsmm_rnn_seq.argtypes = [p, p, i, p, p, p, i, p, p, i, i, i, p, i,
-                                     p]
-        lib.xsmm_lstm_seq_bwd.argtypes = [p] * 10 + [i, p, i] + [p] * 6 + [
-            i, i, i, i, p]
-        lib.xsmm_gru_seq_bwd.argtypes = [p] * 9 + [i, p, p, i] + [p] * 6 + [
-            i, i, i, i, p]
-        lib.xsmm_rnn_seq_bwd.argtypes = [p, p, p, p, i, p, i, i] + [p] * 5 + [
-            i, i, i, i, p]
-        lib.xsmm_rnn_seq_fits.argtypes = [i, i, i, i, i]
-        lib.xsmm_rnn_seq_form.argtypes = [i, i, i, i, p, i, p]
-        lib.xsmm_rnn_seq_bwd_fits.argtypes = [i, i, i, i, i]
-        lib.xsmm_rnn_seq_bwd_scratch.argtypes = [i, i, i, i, p, i, p]
-        for fn in (lib.xsmm_lstm_seq, lib.xsmm_gru_seq, lib.xsmm_rnn_seq,
-                   lib.xsmm_lstm_seq_bwd, lib.xsmm_gru_seq_bwd,
-                   lib.xsmm_rnn_seq_bwd, lib.xsmm_rnn_seq_fits,
-                   lib.xsmm_rnn_seq_form,
-                   lib.xsmm_rnn_seq_bwd_fits, lib.xsmm_rnn_seq_bwd_scratch):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_lib = cuda_build.bind("rnn_seq", {
+    "xsmm_lstm_seq": [P, P, I] + [P] * 12 + [I, I, I, P, I, P],
+    "xsmm_gru_seq": [P, P, I] + [P] * 9 + [I, I, I, P, I, P],
+    "xsmm_rnn_seq": [P, P, I, P, P, P, I, P, P, I, I, I, P, I, P],
+    "xsmm_lstm_seq_bwd": [P] * 10 + [I, P, I] + [P] * 6 + [I, I, I, I, P],
+    "xsmm_gru_seq_bwd": [P] * 9 + [I, P, P, I] + [P] * 6 + [I, I, I, I, P],
+    "xsmm_rnn_seq_bwd": [P, P, P, P, I, P, I, I] + [P] * 5 + [I, I, I, I, P],
+    "xsmm_rnn_seq_fits": [I, I, I, I, I],
+    "xsmm_rnn_seq_form": [I, I, I, I, P, I, P],
+    "xsmm_rnn_seq_bwd_fits": [I, I, I, I, I],
+    "xsmm_rnn_seq_bwd_scratch": [I, I, I, I, P, I, P],
+})
 
 
 @functools.lru_cache(maxsize=256)
@@ -278,10 +260,6 @@ def _scratch(n: int, k: int, dev: torch.device):
             torch.empty((1,), dtype=torch.int32, device=dev))
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 # ---------------------------------------------------------------------------
 # Kernel 15: _lstm_kernel (xsmm_tpu/dnn/rnn_seq.py:112)
 # ---------------------------------------------------------------------------
@@ -331,7 +309,7 @@ def lstm_seq(zx: torch.Tensor, r: torch.Tensor, h0: torch.Tensor,
     cuda_build.launch(_lib().xsmm_lstm_seq, dev, zx.data_ptr(), r.data_ptr(),
                       int(r.dtype == torch.bfloat16), h0.data_ptr(),
                       c0.data_ptr(), seqs[0].data_ptr(), ht.data_ptr(),
-                      ct.data_ptr(), *(_ptr(x) for x in res), hbuf.data_ptr(),
+                      ct.data_ptr(), *(ptr(x) for x in res), hbuf.data_ptr(),
                       bar.data_ptr(), t, n, k, ctypes.byref(form))
     launches["lstm_seq"] += 1
     form_launches[FORMS[form.value]] += 1
@@ -385,7 +363,7 @@ def gru_seq(zx: torch.Tensor, r: torch.Tensor, h0: torch.Tensor, *,
     cuda_build.launch(_lib().xsmm_gru_seq, dev, zx.data_ptr(), r.data_ptr(),
                       int(r.dtype == torch.bfloat16), h0.data_ptr(),
                       seqs[0].data_ptr(), ht.data_ptr(),
-                      *(_ptr(x) for x in res), hbuf.data_ptr(),
+                      *(ptr(x) for x in res), hbuf.data_ptr(),
                       bar.data_ptr(), t, n, k, ctypes.byref(form))
     launches["gru_seq"] += 1
     form_launches[FORMS[form.value]] += 1

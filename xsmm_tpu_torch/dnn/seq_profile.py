@@ -121,7 +121,7 @@ extern "C" int xsmm_rnn_seq_bwd_scratch(int n, int k, int gates, int, long long*
 # take the form's pointer (the copy's own, renamed, are called from them)
 # and set it to 2: the wide form, which keeps that design's geometry
 _FORM_SHIM = """
-extern "C" int xsmm_rnn_seq_form(int, int, int, int, int* out, int) {
+extern "C" int xsmm_rnn_seq_form(int, int, int, int, int* out, int, void*) {
   for (int i = 0; i < 6; ++i) out[i] = 0;
   return 0;
 }
@@ -240,8 +240,8 @@ def build(variants: List[str]) -> Dict[tuple, ctypes.CDLL]:
             cu = OUT_DIR / f"v{i}_{kind}.cu"
             cu.write_text(text)
             so = cu.with_suffix(".so")
-            cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                   str(so), str(cu)]
+            cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                   str(SOURCE.parent), "-o", str(so), str(cu)]
             procs[(v, kind)] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), so)
@@ -280,7 +280,6 @@ def main() -> int:
 
     def use(lib):
         cuda_build._LIBS["rnn_seq"] = lib
-        rs._LIB = None
         rs._fits.cache_clear()
         rs._form.cache_clear()
         rs._bwd_scratch_floats.cache_clear()

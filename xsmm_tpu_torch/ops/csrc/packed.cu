@@ -107,11 +107,12 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int SHARED_MAX = 232448;  // bytes of shared memory a block may have
 constexpr int TRSM_CPL = 4;         // columns of X a lane of the shared trsm
                                     // holds (one float4)
 constexpr int TRSM_CW = 32 * TRSM_CPL;  // columns of X a block of it takes
@@ -929,25 +930,23 @@ void launch_getrf_reg(const float* a, float* o, int m, int n, long long bp,
 
 template <bool RECIP>
 int launch_getrf_shared(const float* a, float* o, int m, int n, long long bp,
-                        cudaStream_t st) {
+                        int device, cudaStream_t st) {
   const size_t smem = (size_t)m * n * sizeof(float);
-  if (smem > SHARED_MAX) return -2;
+  if (smem > BLOCK_SMEM_MAX) return -2;
   auto kern = getrf_shared<RECIP>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  prepare(kern, smem, device);
   kern<<<dim3((unsigned)bp), dim3(GETRF_THREADS), smem, st>>>(a, o, m, n, bp);
   return 0;
 }
 
 int launch_getrf_tile(const float* a, float* o, int m, int n, long long bp,
-                      cudaStream_t st) {
+                      int device, cudaStream_t st) {
   if ((m < n ? m : n) < GT_MIN || (m > n ? m : n) > GT_MAX) return -2;
   const size_t smem = (128 * GT_LD + 2 * 128) * sizeof(float);
   static_assert(GT_C == 4 && GT_Q * GT_NW == 128, "the tile is 128 x 128");
   // whole clusters: blocks past the last problem load and factor nothing
   const long long gx = (bp + GT_CLUSTER - 1) / GT_CLUSTER * GT_CLUSTER;
-  cudaFuncSetAttribute(getrf_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  prepare(getrf_tile, smem, device);
   getrf_tile<<<dim3((unsigned)gx), dim3(GT_NW * 32), smem, st>>>(a, o, m, n,
                                                                 bp);
   return 0;
@@ -955,13 +954,12 @@ int launch_getrf_tile(const float* a, float* o, int m, int n, long long bp,
 
 template <int NB, bool UP, bool UNROLLED>
 void launch_trsm_reg(const float* a, const float* b, float* x, int sm, int sn,
-                     long long bp, bool unit, cudaStream_t st) {
+                     long long bp, bool unit, int device, cudaStream_t st) {
   constexpr int P = TrsmReg<NB>::P, CY = TrsmReg<NB>::CY;
   const int cy = sn < CY ? sn : CY;
   const size_t smem = (size_t)sm * (sm + 1) / 2 * P * sizeof(float);
   auto kern = UP ? trsm_reg_upper<NB, UNROLLED> : trsm_reg<NB, UNROLLED>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  prepare(kern, smem, device);
   kern<<<dim3((unsigned)((bp + P - 1) / P), (unsigned)((sn + cy - 1) / cy)),
          dim3(P, cy), smem, st>>>(a, b, x, sm, sn, bp, unit);
 }
@@ -979,23 +977,27 @@ bool narrow_bucket(int sm, int sn) {
 // the narrow route: the register buckets or the streamed solve
 template <bool UNROLLED, bool UP>
 int launch_trsm_narrow(const float* a, const float* b, float* x, int sm,
-                       int sn, long long bp, bool unit, cudaStream_t st) {
+                       int sn, long long bp, bool unit, int device,
+                       cudaStream_t st) {
   if (sm > TRSM_MAX) return -2;
   switch (narrow_bucket(sm, sn) ? bucket(sm) : 0) {
-    case 8: launch_trsm_reg<8, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+    case 8:
+      launch_trsm_reg<8, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, device, st);
       return 0;
-    case 16: launch_trsm_reg<16, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+    case 16:
+      launch_trsm_reg<16, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, device, st);
       return 0;
-    case 32: launch_trsm_reg<32, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+    case 32:
+      launch_trsm_reg<32, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, device, st);
       return 0;
-    case 64: launch_trsm_reg<64, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, st);
+    case 64:
+      launch_trsm_reg<64, UP, UNROLLED>(a, b, x, sm, sn, bp, unit, device, st);
       return 0;
   }
   const int cy = sn < TRSM_NCY ? sn : TRSM_NCY;
   const size_t smem = (size_t)cy * sm * 32 * sizeof(float);
   auto kern = UP ? trsm_reg_upper<0, UNROLLED> : trsm_reg<0, UNROLLED>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  prepare(kern, smem, device);
   const long long blocks = (bp + 31) / 32 * ((sn + cy - 1) / cy);
   kern<<<dim3((unsigned)blocks), dim3(32, cy), smem, st>>>(a, b, x, sm, sn,
                                                            bp, unit);
@@ -1004,14 +1006,14 @@ int launch_trsm_narrow(const float* a, const float* b, float* x, int sm,
 
 template <bool UNROLLED, bool UP>
 int launch_trsm_shared(const float* a, const float* b, float* x, int sm, int sn,
-                       long long bp, bool unit, cudaStream_t st) {
+                       long long bp, bool unit, int device, cudaStream_t st) {
   // a chunk of up to TRSM_CW columns, TRSM_CPL a lane
   const int cw = sn >= TRSM_CW ? TRSM_CW
                                : (sn + TRSM_CPL - 1) / TRSM_CPL * TRSM_CPL;
   const int nw = sm <= 8 * TRSM_Q ? 8 : 16;
   const size_t smem = ((size_t)sm * (sm + 1) / 2 + (size_t)nw * TRSM_Q +
                        (size_t)sm * cw) * sizeof(float);
-  if (smem > SHARED_MAX || sm > TRSM_MAX) return -2;
+  if (smem > BLOCK_SMEM_MAX || sm > TRSM_MAX) return -2;
   // whole clusters: blocks past the last problem load and solve nothing
   const long long gx = (bp + TRSM_CLUSTER - 1) / TRSM_CLUSTER * TRSM_CLUSTER;
   const dim3 grid((unsigned)gx, (unsigned)((sn + TRSM_CW - 1) / TRSM_CW));
@@ -1019,8 +1021,7 @@ int launch_trsm_shared(const float* a, const float* b, float* x, int sm, int sn,
                             : trsm_shared_upper<UNROLLED, 16>)
                  : (nw == 8 ? trsm_shared<UNROLLED, 8>
                             : trsm_shared<UNROLLED, 16>);
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  prepare(kern, smem, device);
   kern<<<grid, dim3(nw * 32), smem, st>>>(a, b, x, sm, sn, cw, bp, unit);
   return 0;
 }
@@ -1031,10 +1032,10 @@ int trsm_entry(const float* a, const float* b, float* x, int sm, int sn,
                long long bp, int unit, int route, int device, void* stream) {
   cudaSetDevice(device);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (route == 1
-          ? launch_trsm_narrow<UNROLLED, UP>(a, b, x, sm, sn, bp, unit != 0, st)
-          : launch_trsm_shared<UNROLLED, UP>(a, b, x, sm, sn, bp, unit != 0,
-                                             st))
+  if (route == 1 ? launch_trsm_narrow<UNROLLED, UP>(a, b, x, sm, sn, bp,
+                                                    unit != 0, device, st)
+                 : launch_trsm_shared<UNROLLED, UP>(a, b, x, sm, sn, bp,
+                                                    unit != 0, device, st))
     return -2;
   return (int)cudaGetLastError();
 }
@@ -1056,7 +1057,7 @@ extern "C" int xsmm_getrf_unrolled(const float* a, float* o, int m, int n,
     case 32: launch_getrf_reg<32>(a, o, m, n, bp, st); break;
     case 64: launch_getrf_reg<64>(a, o, m, n, bp, st); break;
     default:
-      if (launch_getrf_shared<true>(a, o, m, n, bp, st)) return -2;
+      if (launch_getrf_shared<true>(a, o, m, n, bp, device, st)) return -2;
   }
   return (int)cudaGetLastError();
 }
@@ -1069,8 +1070,8 @@ extern "C" int xsmm_getrf_loop(const float* a, float* o, int m, int n,
                                void* stream) {
   cudaSetDevice(device);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (route == 1 ? launch_getrf_tile(a, o, m, n, bp, st)
-                 : launch_getrf_shared<false>(a, o, m, n, bp, st))
+  if (route == 1 ? launch_getrf_tile(a, o, m, n, bp, device, st)
+                 : launch_getrf_shared<false>(a, o, m, n, bp, device, st))
     return -2;
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -103,11 +105,10 @@ extern "C" int xsmm_maxpool2x2_bwd(const void* x, const void* dy, void* dx,
   if (rc != cudaSuccess) return (int)rc;
   const long long items = (long long)n * (h / 2) * (w / 2) * (c / 4);
   if (items == 0) return 0;
-  int sms = 0;
-  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (rc != cudaSuccess) return (int)rc;
+  const DeviceFacts dev = device_facts(device);
+  if (dev.err != cudaSuccess) return (int)dev.err;
   long long blocks = (items + THREADS - 1) / THREADS;
-  const long long cap = (long long)sms * BLOCKS_PER_SM;
+  const long long cap = (long long)dev.sms * BLOCKS_PER_SM;
   if (blocks > cap) blocks = cap;
   maxpool2x2_bwd_kernel<<<(unsigned)blocks, THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(

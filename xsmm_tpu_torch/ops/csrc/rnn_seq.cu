@@ -104,7 +104,7 @@
 //     (t+1) x gridDim.x, then __syncthreads.  No full fence: it measured
 //     0.3-0.4 us a step slower in all six kernels.
 //     The launch is cudaLaunchCooperativeKernel, with the grid sized from
-//     cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count, so a
+//     the blocks an SM keeps resident (launch.cuh) x the SM count, so a
 //     grid that cannot be co-resident is refused before any launch (-2)
 //     and never hangs.
 //
@@ -143,9 +143,10 @@
 #include <cstdint>
 #include <mutex>
 
+#include "launch.cuh"
+
 namespace {
 
-constexpr int SHARED_MAX = 232448;  // bytes of shared memory a block may have
 constexpr int THREADS = 256;       // 8 warps: 2 row halves x 4 quarters of the units
 constexpr int RM = 2;              // rows a thread owns in a pass, 8 apart
 constexpr int ROWS = 16 * RM;      // rows a pass: 2 row halves x 8 lanes x RM
@@ -1382,17 +1383,13 @@ struct Plan {
 int coop_plan(const void* kern, int threads, size_t smem, int cb, int rpass, int device,
               Plan* pl) {
   pl->smem = smem;
-  if (smem > (size_t)SHARED_MAX) return -2;
-  int coop = 0, sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (!coop) return -2;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  if (smem > (size_t)BLOCK_SMEM_MAX) return -2;
+  const DeviceFacts dev = device_facts(device);
+  if (!dev.coop) return -2;
+  int per_sm = 0;
+  const cudaError_t e = blocks_per_sm(kern, threads, smem, device, &per_sm);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long slots = (long long)per_sm * sms;
+  const long long slots = (long long)per_sm * dev.sms;
   pl->cb = cb;
   if (cb > slots) return -2;
   const long long rb_max = slots / cb;
@@ -1412,7 +1409,7 @@ int plan_chain(int n, int k, int device, Plan* pl) {
   constexpr int G = CellTraits<CELL>::G, UNITS = CellTraits<CELL>::UNITS;
   const long long kr = (k + KT - 1LL) / KT * KT;
   const long long smem = H_SMEM + kr * G * UNITS * (long long)sizeof(RS);
-  if (smem > SHARED_MAX) return -2;
+  if (smem > BLOCK_SMEM_MAX) return -2;
   return coop_plan(reinterpret_cast<const void*>(seq_fwd<CELL, RS, TRAIN>), THREADS,
                    (size_t)smem, (k + UNITS - 1) / UNITS, (n + ROWS - 1) / ROWS, device, pl);
 }
@@ -1423,7 +1420,7 @@ int plan_split(int n, int k, int device, Plan* pl) {
   constexpr int UNITS = CellTraits<CELL>::UNITS;
   const long long kr = (k + KT - 1LL) / KT * KT;
   const long long smem = H_SMEM + (kr * Geo::COLS + Geo::RED) * 4LL;
-  if (smem > SHARED_MAX) return -2;
+  if (smem > BLOCK_SMEM_MAX) return -2;
   return coop_plan(reinterpret_cast<const void*>(seq_fwd_split<CELL, TRAIN>), THREADS,
                    (size_t)smem, (k + UNITS - 1) / UNITS, (n + ROWS - 1) / ROWS, device, pl);
 }
@@ -1433,7 +1430,7 @@ int plan_wide(int n, int k, int device, Plan* pl) {
   constexpr int UNITS = WideTraits<CELL>::UNITS;
   const long long kr = (k + KT - 1LL) / KT * KT;
   const long long smem = W_H_SMEM + kr * W_COLS * 2LL;
-  if (smem > SHARED_MAX) return -2;
+  if (smem > BLOCK_SMEM_MAX) return -2;
   return coop_plan(reinterpret_cast<const void*>(seq_fwd_wide<CELL, TRAIN>), W_THREADS,
                    (size_t)smem, (k + UNITS - 1) / UNITS, (n + W_ROWS - 1) / W_ROWS, device, pl);
 }
@@ -1477,8 +1474,7 @@ int plan_form(int n, int k, int r_bf16, int device, FwdForm* f) {
     Plan w;
     const int rw = plan_wide<CELL, TRAIN>(n, k, device, &w);
     if (rw != 0 && rw != -2) return rw;
-    int sms = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const int sms = device_facts(device).sms;
     if (rw == 0 && 10LL * w.grid >= (long long)WideTraits<CELL>::FILL * sms &&
         (rc != 0 || rows_covered(w, W_ROWS) <=
                         WideTraits<CELL>::CHAIN_COST * rows_covered(f->pl, ROWS))) {
@@ -1531,7 +1527,7 @@ int plan_bwd(int n, int k, int device, Plan* pl) {
   const long long ks = (k + 7LL) / 8 * 8;
   const long long smem = Geo::P * ks * (long long)sizeof(RS) +
                          ((long long)Geo::P * (Geo::DZS + Geo::EG) + Geo::BROWS * Geo::BU) * 4;
-  if (smem > SHARED_MAX) return -2;
+  if (smem > BLOCK_SMEM_MAX) return -2;
   return coop_plan(reinterpret_cast<const void*>(seq_bwd<CELL, RT, RS, BU>), BWD_THREADS,
                    (size_t)smem, (k + BU - 1) / BU, (n + Geo::BROWS - 1) / Geo::BROWS, device,
                    pl);
@@ -1547,12 +1543,8 @@ int launch(Params p, const FwdForm& f, const void* kern, cudaStream_t st) {
   p.passes = pl.passes;
   p.h0_vec = p.k % 4 == 0 && reinterpret_cast<uintptr_t>(p.h0) % 16 == 0;
   p.r_vec = p.k % 4 == 0 && reinterpret_cast<uintptr_t>(p.r) % (4 * sizeof(RT)) == 0;
-  // the kernel's shared-memory limit as this plan needs it (a kept plan's
-  // may have been lowered since by the plan of another shape)
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)pl.smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaMemsetAsync(p.bar, 0, sizeof(unsigned), st);
+  // (coop_plan raised the kernel's shared-memory limit to the plan's)
+  cudaError_t e = cudaMemsetAsync(p.bar, 0, sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&p};
   e = cudaLaunchCooperativeKernel(kern, dim3(pl.grid), dim3(f.threads), args, pl.smem, st);
@@ -1753,18 +1745,17 @@ extern "C" int xsmm_rnn_seq_fits(int n, int k, int gates, int r_itemsize, int de
 // out[0] blocks, out[1] column blocks, out[2] ROWS-row passes a block,
 // out[3] the form (0 chain, 1 split, 2 wide), out[4] the SMs of the card,
 // out[5] the rows of a pass.  0, or as xsmm_rnn_seq_fits' refusals
-// (-2: outside the envelope).
-extern "C" int xsmm_rnn_seq_form(int n, int k, int gates, int r_itemsize, int* out, int device) {
+// (-2: outside the envelope).  `stream` is not used.
+extern "C" int xsmm_rnn_seq_form(int n, int k, int gates, int r_itemsize, int* out, int device,
+                                 void*) {
   if (r_itemsize != 2 && r_itemsize != 4) return -1;
   if (n < 1 || k < 1) return -2;
   cudaSetDevice(device);
   FwdForm f;
   const int rc = fwd_form_any(gates, n, k, r_itemsize == 2, device, &f);
   if (rc) return rc;
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   out[0] = f.pl.grid; out[1] = f.pl.cb; out[2] = f.pl.passes; out[3] = f.form;
-  out[4] = sms; out[5] = f.form == FORM_WIDE ? W_ROWS : ROWS;
+  out[4] = device_facts(device).sms; out[5] = f.form == FORM_WIDE ? W_ROWS : ROWS;
   return 0;
 }
 

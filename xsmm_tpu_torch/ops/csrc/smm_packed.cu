@@ -68,6 +68,7 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -543,15 +544,12 @@ int launch_tile_kernel(const TileMaps& maps, const float* a0, const float* a1,
   const size_t smem = (size_t)STAGES * tile_stage_elems<S>() * sizeof(float) +
                       STAGES * sizeof(uint64_t);
   auto kern = packed_tile_kernel<S, TOut, TMA>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  int sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TILE_THREADS,
-                                                smem);
+  int per_sm = 0;
+  blocks_per_sm(kern, TILE_THREADS, smem, device, &per_sm);
   const long long items = (bp + TP - 1) / TP * ((m + TM - 1) / TM) *
                           ((n + TN - 1) / TN);
-  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  long long grid =
+      (long long)(per_sm > 0 ? per_sm : 1) * device_facts(device).sms;
   if (grid > items) grid = items;
   kern<<<dim3((unsigned)grid), dim3(TILE_THREADS), smem, st>>>(
       maps, a0, a1, b0, b1, c0_in, c1_in, c0, c1, m, n, k, bp);
@@ -614,8 +612,7 @@ int launch(const void* a0, const void* a1, const void* b0, const void* b1,
     const int rows = m < MAX_ROWS ? m : MAX_ROWS;
     const size_t smem = 2 * (size_t)buffer_elems(rows) * sizeof(TIn);
     auto kern = packed_kernel<TIn, TOut>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+    prepare(kern, smem, device);
     kern<<<dim3((unsigned)((bp + P - 1) / P)), dim3(P, rows), smem,
            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const TIn*>(a0), static_cast<const TIn*>(b0),
@@ -702,7 +699,6 @@ constexpr int NAT_R = 3;                  // rows of C a lane holds a pass
 constexpr int NAT_NT = 24;                // columns of C a pass
 constexpr int NAT_SLOTS = 2;              // slots of a block's ring
 constexpr int NAT_TM = NAT_RT * NAT_R;    // rows a pass
-constexpr int NAT_MAX_SMEM = 232448;      // shared memory a block may have
 
 // `bytes` (a multiple of 16; both addresses on 16 bytes) global -> shared,
 // completion counted on bar
@@ -881,27 +877,14 @@ int launch_natural(const float* a, const float* b, const float* cin, float* c,
                    int m, int n, int k, long long nb, bool bulk, int device,
                    cudaStream_t st) {
   const size_t smem = natural_smem(m, n, k);
-  if (smem > NAT_MAX_SMEM) return -2;
+  if (smem > BLOCK_SMEM_MAX) return -2;
   auto kern = natural_kernel<TA, TB>;
-  // the blocks the card holds at this ring size, asked once a device and
-  // size (per thread: ctypes calls run without the GIL); the attribute is
-  // the most any launch asks, so no thread's launch outgrows it
-  static thread_local int c_device = -1;
-  static thread_local size_t c_smem = 0;
-  static thread_local long long c_blocks = 0;
-  if (device != c_device || smem != c_smem) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         NAT_MAX_SMEM);
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32, smem);
-    if (per_sm < 1) return -2;
-    c_device = device;
-    c_smem = smem;
-    c_blocks = (long long)per_sm * sms;
-  }
+  int per_sm = 0;
+  blocks_per_sm(kern, 32, smem, device, &per_sm);
+  if (per_sm < 1) return -2;
+  const long long blocks = (long long)per_sm * device_facts(device).sms;
   const long long groups = (nb + NAT_G - 1) / NAT_G;
-  const long long grid = c_blocks < groups ? c_blocks : groups;
+  const long long grid = blocks < groups ? blocks : groups;
   kern<<<dim3((unsigned)grid), dim3(32), smem, st>>>(a, b, cin, c, m, n, k, nb,
                                                      bulk);
   return (int)cudaGetLastError();

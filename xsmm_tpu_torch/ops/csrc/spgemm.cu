@@ -89,6 +89,7 @@
 #include <mutex>
 #include <unordered_map>
 
+#include "launch.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -580,24 +581,6 @@ spgemm_kernel(const __grid_constant__ Maps maps, const int* __restrict__ row_ptr
   }
 }
 
-// the card's SM count and the shared memory a block can opt into, once a
-// device
-struct DevInfo {
-  int sms, smem_optin;
-};
-
-DevInfo dev_info(int device) {
-  static DevInfo info[MAX_DEVICES] = {};
-  if (info[device].sms == 0) {
-    DevInfo d = {};
-    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, device);
-    cudaDeviceGetAttribute(&d.smem_optin,
-                           cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    info[device] = d;
-  }
-  return info[device];
-}
-
 // A launch's item counters {next item, blocks done} on `device` for
 // `stream`: a pair of the stream's own (the launches on one stream run one
 // after another, and each leaves its pair at zero), from a pool zeroed
@@ -658,26 +641,11 @@ int launch_kernel(const Maps& maps, const int* row_ptr, const int* cols,
   constexpr int CT = 32 * CPT;
   auto kern = spgemm_kernel<F64, BLO, CLO, ACC, STAGED, SHS, CPT, CSTG>;
   const int threads = (RG + (STAGED && !tma ? CP_WARPS : 1)) * 32;
-  // once an instance and device: the opt-in shared memory; the blocks an SM
-  // at the last shared-memory size asked for
-  static bool opted[MAX_DEVICES] = {};
-  static int last_smem[MAX_DEVICES], last_per_sm[MAX_DEVICES];
-  const DevInfo info = dev_info(device);
-  if (!opted[device]) {
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         info.smem_optin);
-    opted[device] = true;
-    last_per_sm[device] = 0;
-  }
-  if (last_per_sm[device] == 0 || last_smem[device] != smem) {
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                  smem);
-    last_smem[device] = smem;
-    last_per_sm[device] = per_sm > 0 ? per_sm : 1;
-  }
+  int per_sm = 0;
+  blocks_per_sm(kern, threads, smem, device, &per_sm);
   const long long tiles = (n + CT - 1) / CT;
-  const long long sms_grid = (long long)last_per_sm[device] * info.sms;
+  const long long sms_grid =
+      (long long)(per_sm > 0 ? per_sm : 1) * device_facts(device).sms;
   // a last round that would leave half the blocks idle or more is cut into
   // row slices, so that the blocks share it
   const long long rounds = (tiles + sms_grid - 1) / sms_grid;
@@ -713,8 +681,8 @@ bool two_d(long long n, const float* p, const float* q) {
 // where two of its stages fit beside the acc kernels' C_in rings, else the
 // narrow one (a column a lane); `geo` and `cpt` say which.
 int plan(bool f64, int planes, int wide, bool acc, bool clo, int m, int k,
-         int nnz, int staging, int structure, const DevInfo& info, Geom& geo,
-         int& cpt, long long& smem) {
+         int nnz, int staging, int structure, Geom& geo, int& cpt,
+         long long& smem) {
   if (structure != SR_SHARED && structure != SR_GLOBAL) return -2;
   const long long sbytes =
       structure == SR_SHARED
@@ -727,7 +695,7 @@ int plan(bool f64, int planes, int wide, bool acc, bool clo, int m, int k,
     geo.nbox = (k + MAX_BOX_ROWS - 1) / MAX_BOX_ROWS;
     geo.box_rows = (k + geo.nbox - 1) / geo.nbox;
     geo.kp = geo.nbox * geo.box_rows;
-    const long long room = info.smem_optin - sbytes - BAR_BYTES;
+    const long long room = BLOCK_SMEM_MAX - sbytes - BAR_BYTES;
     long long stage = 4LL * planes * geo.kp * 32 * cpt;
     if (2 * stage + cbuf_bytes(acc, clo, cpt) > room)
       cpt = 1, stage = 4LL * planes * geo.kp * 32;
@@ -739,7 +707,7 @@ int plan(bool f64, int planes, int wide, bool acc, bool clo, int m, int k,
   } else if (staging != ST_UNSTAGED) {
     return -2;
   }
-  return smem > info.smem_optin ? -2 : 0;
+  return smem > BLOCK_SMEM_MAX ? -2 : 0;
 }
 
 // The route the caller named (ops/spgemm_kernels.py pick_route), checked
@@ -755,12 +723,11 @@ int launch(const int* row_ptr, const int* cols, const float* vh,
   constexpr int PLANES = BLO ? 2 : 1;
   if (device < 0 || device >= MAX_DEVICES) return -2;
   cudaSetDevice(device);
-  const DevInfo info = dev_info(device);
   Geom geo;
   int cpt;
   long long smem;
-  if (plan(F64, PLANES, WIDE, ACC, CLO, m, k, nnz, staging, structure, info,
-           geo, cpt, smem))
+  if (plan(F64, PLANES, WIDE, ACC, CLO, m, k, nnz, staging, structure, geo,
+           cpt, smem))
     return -2;
   const bool shs = structure == SR_SHARED;
   const long long sbytes =
@@ -776,7 +743,7 @@ int launch(const int* row_ptr, const int* cols, const float* vh,
       return -2;
     // acc on the wide tile: the C_in tile staged with B where two such
     // stages fit (and, for TMA, where it can address the C_in planes)
-    const long long room = info.smem_optin - sbytes - BAR_BYTES;
+    const long long room = BLOCK_SMEM_MAX - sbytes - BAR_BYTES;
     geo.nmbox = (m + MAX_BOX_ROWS - 1) / MAX_BOX_ROWS;
     geo.mbox_rows = (m + geo.nmbox - 1) / geo.nmbox;
     geo.mp = geo.nmbox * geo.mbox_rows;
@@ -916,5 +883,5 @@ extern "C" int xsmm_spgemm_fits(int f64, int b_planes, int c_planes, int m,
   long long smem;
   return plan(f64 != 0, b_planes, b_planes == 2 ? CPT_TWO : CPT_ONE,
               c_planes > 0, c_planes == 2, m, k, nnz, staging, structure,
-              dev_info(device), geo, cpt, smem) == 0;
+              geo, cpt, smem) == 0;
 }

@@ -69,6 +69,7 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -683,14 +684,6 @@ splitk_reduce_kernel(const float* __restrict__ W, TOut* __restrict__ C,
   }
 }
 
-int sm_count(int device) {
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-      cudaSuccess)
-    return 0;
-  return sms;
-}
-
 // Split-K count: enough (m, n) tiles of bm x bn times splits to give every
 // SM two blocks, each split at least four 64-deep k tiles, at most
 // MAX_SPLITS.
@@ -719,13 +712,12 @@ template <typename TA, typename TOut>
 int launch_gemm(void (*kern)(const TA*, const TA*, TOut*, int, int, int, int,
                              long long),
                 size_t smem, const void* a, const void* b, TOut* c, int m,
-                int n, int k, int splits, cudaStream_t stream) {
+                int n, int k, int splits, int device, cudaStream_t stream) {
   const long long gy = ((long long)m + BM - 1) / BM;
   if (gy > 65535) return (int)cudaErrorInvalidConfiguration;
   // above 48 KB of dynamic shared memory only after this; a refused launch
   // never runs
-  cudaError_t rc = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t rc = prepare(kern, smem, device);
   if (rc != cudaSuccess) return (int)rc;
   kern<<<dim3((unsigned)((n + BN - 1) / BN), (unsigned)gy, (unsigned)splits),
          THREADS, smem, stream>>>(static_cast<const TA*>(a),
@@ -764,13 +756,13 @@ bool tma_aligned(const void* a, const void* b, int n, int k) {
 
 template <int BN_, bool BF16, typename TOut>
 int launch_wgmma_bn(const CUtensorMap& ta, const CUtensorMap& tb, TOut* c,
-                    int m, int n, int k, int splits, cudaStream_t stream) {
+                    int m, int n, int k, int splits, int device,
+                    cudaStream_t stream) {
   const long long gy = ((long long)m + WG_BM - 1) / WG_BM;
   if (gy > 65535) return (int)cudaErrorInvalidConfiguration;
   auto kern = gemm_wgmma_kernel<BN_, BF16, TOut>;
   constexpr size_t smem = WgCfg<BN_>::SMEM;
-  cudaError_t rc = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t rc = prepare(kern, smem, device);
   if (rc != cudaSuccess) return (int)rc;
   kern<<<dim3((unsigned)((n + BN_ - 1) / BN_), (unsigned)gy, (unsigned)splits),
          WG_THREADS, smem, stream>>>(ta, tb, c, m, n, k, split_cols(k, splits),
@@ -780,7 +772,7 @@ int launch_wgmma_bn(const CUtensorMap& ta, const CUtensorMap& tb, TOut* c,
 
 template <bool BF16, typename TOut>
 int launch_wgmma(const void* a, const void* b, TOut* c, int m, int n, int k,
-                 int splits, cudaStream_t stream) {
+                 int splits, int device, cudaStream_t stream) {
   if (!tma_aligned(a, b, n, k)) return -2;
   CUtensorMap ta, tb;
   if (!make_map(&ta, a, m, k, WG_BM, BF16) ||
@@ -788,15 +780,16 @@ int launch_wgmma(const void* a, const void* b, TOut* c, int m, int n, int k,
     return (int)cudaErrorInvalidValue;
   if (block_n(ROUTE_TMA, n) == WG_BN_WIDE)
     return launch_wgmma_bn<WG_BN_WIDE, BF16, TOut>(ta, tb, c, m, n, k, splits,
-                                                   stream);
+                                                   device, stream);
   return launch_wgmma_bn<WG_BN_NARROW, BF16, TOut>(ta, tb, c, m, n, k, splits,
-                                                   stream);
+                                                   device, stream);
 }
 
 // One GEMM kernel for (in_code, route, TStore), storing TStore at c.
 template <typename TStore>
 int launch_in(int in_code, int route, const void* a, const void* b, TStore* c,
-              int m, int n, int k, int splits, cudaStream_t stream) {
+              int m, int n, int k, int splits, int device,
+              cudaStream_t stream) {
   constexpr size_t h_smem = STAGES * H_STAGE * sizeof(uint16_t);
   constexpr size_t f_smem = 2 * WT_STAGE * sizeof(float);
   if (in_code != CODE_F32 && in_code != CODE_BF16 && in_code != CODE_F16)
@@ -805,20 +798,21 @@ int launch_in(int in_code, int route, const void* a, const void* b, TStore* c,
   switch (route) {
     case ROUTE_SIMT:
       return launch_gemm<float, TStore>(gemm_f32_kernel<TStore>, f_smem, a, b,
-                                        c, m, n, k, splits, stream);
+                                        c, m, n, k, splits, device, stream);
     case ROUTE_MMA:
       return in_code == CODE_BF16
                  ? launch_gemm<uint16_t, TStore>(gemm_mma_kernel<true, TStore>,
                                                  h_smem, a, b, c, m, n, k,
-                                                 splits, stream)
+                                                 splits, device, stream)
                  : launch_gemm<uint16_t, TStore>(
                        gemm_mma_kernel<false, TStore>, h_smem, a, b, c, m, n,
-                       k, splits, stream);
+                       k, splits, device, stream);
     case ROUTE_TMA:
       return in_code == CODE_BF16
-                 ? launch_wgmma<true, TStore>(a, b, c, m, n, k, splits, stream)
+                 ? launch_wgmma<true, TStore>(a, b, c, m, n, k, splits,
+                                              device, stream)
                  : launch_wgmma<false, TStore>(a, b, c, m, n, k, splits,
-                                               stream);
+                                               device, stream);
     default:
       return -1;
   }
@@ -826,15 +820,16 @@ int launch_in(int in_code, int route, const void* a, const void* b, TStore* c,
 
 template <typename TOut>
 int launch_out(int in_code, int route, const void* a, const void* b, void* c,
-               float* work, int m, int n, int k, int splits, int sms,
+               float* work, int m, int n, int k, int splits, int device,
                cudaStream_t stream) {
   if (splits <= 1)
     return launch_in<TOut>(in_code, route, a, b, static_cast<TOut*>(c), m, n,
-                           k, 1, stream);
+                           k, 1, device, stream);
   int rc = launch_in<float>(in_code, route, a, b, work, m, n, k, splits,
-                            stream);
+                            device, stream);
   if (rc != 0) return rc;
   const long long mn = (long long)m * n;
+  const int sms = device_facts(device).sms;
   long long blocks = (mn + THREADS - 1) / THREADS;
   if (blocks > 8LL * sms) blocks = 8LL * sms;
   splitk_reduce_kernel<TOut><<<(unsigned)blocks, THREADS, 0, stream>>>(
@@ -849,7 +844,7 @@ int launch_out(int in_code, int route, const void* a, const void* b, void* c,
 // workspace of splits * m * n elements).
 extern "C" int xsmm_tiled_gemm_splits(int m, int n, int k, int route,
                                       int device) {
-  return splits_for(m, n, k, block_n(route, n), sm_count(device));
+  return splits_for(m, n, k, block_n(route, n), device_facts(device).sms);
 }
 
 // C[m, n] = A[m, k] @ B[k, n], row-major and contiguous; A and B of dtype
@@ -872,18 +867,17 @@ extern "C" int xsmm_tiled_gemm(const void* a, const void* b, void* c,
   if (rc != cudaSuccess) return (int)rc;
   if (splits < 1 || splits > MAX_SPLITS || (splits > 1 && work == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int sms = sm_count(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (out_code) {
     case CODE_F32:
       return launch_out<float>(in_code, route, a, b, c, work, m, n, k, splits,
-                               sms, st);
+                               device, st);
     case CODE_BF16:
       return launch_out<__nv_bfloat16>(in_code, route, a, b, c, work, m, n, k,
-                                       splits, sms, st);
+                                       splits, device, st);
     case CODE_F16:
       return launch_out<__half>(in_code, route, a, b, c, work, m, n, k, splits,
-                                sms, st);
+                                device, st);
     default:
       return -1;
   }

@@ -8,6 +8,11 @@ carries a hash of the sources and flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is.  ``build_all()`` starts one ``nvcc`` for
 every library at once and waits for all of them.
 
+Each wrapper module binds its library's entry points with ``bind`` (the
+argument types of each ``extern "C"`` prototype, every one returning int;
+tests/test_torch_core.py holds the tables against the sources) and launches
+them with ``launch``.
+
 Nothing here runs at import time.  A missing ``nvcc`` or a failed build
 raises ``RuntimeError`` with the compiler's output.
 """
@@ -21,7 +26,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 from ..utils import trace
 
@@ -55,6 +60,10 @@ builds: Dict[str, int] = {"compiled": 0, "loaded": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+# the argument types of the entry points (bind): a pointer (a tensor's
+# address, a stream, or None), an int, a long long
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def find_nvcc() -> str:
@@ -155,3 +164,34 @@ def load(name: str) -> ctypes.CDLL:
             _LIBS[name] = lib
             builds["loaded"] += 1
         return lib
+
+
+def bind(name: str, entries: Dict[str, Sequence]) -> Callable[[], ctypes.CDLL]:
+    """A function that returns library ``name`` (``load``) with each entry
+    point of ``entries`` (entry point -> its ctypes argument types) typed,
+    returning ``c_int``.  A library is typed once; one put in its place in
+    ``_LIBS`` (a profiler's variant build) is typed at its first use.  The
+    table is kept as the function's ``entries``."""
+    typed = None
+
+    def lib() -> ctypes.CDLL:
+        nonlocal typed
+        cdll = _LIBS.get(name)
+        if cdll is None:
+            cdll = load(name)
+        if cdll is not typed:
+            for entry, argtypes in entries.items():
+                fn = getattr(cdll, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            typed = cdll
+        return cdll
+
+    lib.entries = entries
+    return lib
+
+
+def ptr(t) -> Optional[int]:
+    """The address of tensor ``t`` for an entry point, or None (a null
+    pointer) for None."""
+    return None if t is None else t.data_ptr()

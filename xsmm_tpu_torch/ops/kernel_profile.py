@@ -113,6 +113,7 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 from . import cuda_build
+from ..core.platform import H100, PEAKS
 from ..dnn.seq_profile import apply_settings, parse_variant
 
 CSRC = Path(cuda_build.__file__).resolve().parent / "csrc"
@@ -220,7 +221,8 @@ _SMM_STAMPS = [
 # consumer warp 0, a block's tiles summed ("wait": the prologue and the
 # stage waits; "sum"; "store"; "release": the slot handed back)
 _SPGEMM_STAMPS = [
-    ("spgemm_kernel(const __grid_constant__ Maps maps", "struct DevInfo {",
+    ("spgemm_kernel(const __grid_constant__ Maps maps",
+     "unsigned long long* sched_counters(",
      [("  // -- the consumers\n", "  PROF_BEGIN\n  // -- the consumers\n"),
       ("    if constexpr (STAGED) mbar_wait(&full[slot], (unsigned)(i / S) & 1);\n",
        "    if constexpr (STAGED) mbar_wait(&full[slot], (unsigned)(i / S) & 1);\n"
@@ -405,7 +407,6 @@ def main() -> int:
 
         def use(v, kind):
             cuda_build._LIBS["tiled_gemm"] = ctypes.CDLL(str(libs[(v, kind)]))
-            tk._LIB = None
             return tk._lib()
 
         bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -662,7 +663,6 @@ def profile_getrf(args, variants, randn, turns) -> None:
 
     def use(v, kind):
         cuda_build._LIBS["packed"] = ctypes.CDLL(str(libs[(v, kind)]))
-        pk._LIB = None
         return pk._lib()
 
     def lower(bsz, m, n):
@@ -716,7 +716,6 @@ def profile_smm(args, variants, randn, turns) -> None:
 
     def use(v, kind):
         cuda_build._LIBS["smm_packed"] = ctypes.CDLL(str(libs[(v, kind)]))
-        sp._LIB = None
         return sp._lib()
 
     def planes(*shapes, dtype=torch.float32):
@@ -797,7 +796,6 @@ def profile_copy(args, variants, randn, turns) -> None:
 
     def use(v, kind):
         cuda_build._LIBS["xcopy"] = ctypes.CDLL(str(libs[(v, kind)]))
-        xk._LIB = None
         return xk._lib()
 
     dev = torch.device("cuda", 0)
@@ -825,8 +823,9 @@ def profile_copy(args, variants, randn, turns) -> None:
              f"copy f32 16x{t // 8}x{t // 2}": lambda: xk.copy(xb),
              f"clone f32 16x{t // 8}x{t // 2}": lambda: torch.clone(xb)}
     ms = turns(cases, use)
-    bound = 2 * x.numel() * 4 / 3.35e12 * 1e3
-    print(f"copy bound (bytes, 3.35 TB/s): {bound:.4f} ms")
+    bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"copy bound (bytes, {HBM_BYTES_PER_S / 1e12:g} TB/s): "
+          f"{bound:.4f} ms")
     for v in variants:
         for c in cases:
             print(f"  {v:32s} {c:28s} "
@@ -836,7 +835,7 @@ def profile_copy(args, variants, randn, turns) -> None:
 
 # (M, K, density) of the PyFR-shaped operators, samples/pyfr_driver.py:23-30
 PYFR_SPECS = [(105, 75, 0.11), (75, 105, 0.08), (150, 150, 0.05)]
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = PEAKS[H100]["hbm_bytes_per_s"]
 # (kernel, f64 schedule) of the timed variants, as chip_smoke.py times them
 SPGEMM_TIMED = [("unroll_f32", None), ("acc_f32", None),
                 ("unroll_f64", "split2"), ("unroll_f64", "fold"),
@@ -943,7 +942,6 @@ def profile_spgemm(args, variants, randn, turns) -> None:
 
     def use(v, kind):
         cuda_build._LIBS["spgemm"] = ctypes.CDLL(str(libs[(v, kind)]))
-        sk._LIB = None
         for _, op in ops:
             op.routes.clear()  # a variant's own fit
         return sk._lib()
@@ -976,7 +974,7 @@ def profile_spgemm(args, variants, randn, turns) -> None:
                     "acc_f64": lambda: sk.acc_f64(op, d["ch"], cl, d["bh"],
                                                   bl, **kw)}[kname]
         lib = sk._lib()
-        p = sk._ptr
+        p = cuda_build.ptr
         f64 = kname.endswith("f64")
         st, sr = route or sk.pick_route(op, f64, planes_of(kname, sched, d),
                                         _cin_planes(kname, sched))

@@ -51,13 +51,13 @@ also counts in ``trsm_route_launches``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional
 
 import torch
 
 from ..utils import trace
 from . import cuda_build
+from .cuda_build import I, LL, P
 
 # kernel name -> launches since the last reset_launches(); the TRSM kernels'
 # upper variants count apart
@@ -84,8 +84,6 @@ TRSM_REFUSED = {"narrow": f"the narrow route takes SM <= {TRSM_MAX}, the "
                           "sizes the chunk route's shared memory holds; "
                           "nothing was launched", "chunk": None}
 
-_LIB: Optional[ctypes.CDLL] = None
-
 
 def reset_launches() -> None:
     for counts in (launches, getrf_route_launches, trsm_route_launches):
@@ -93,21 +91,14 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("packed")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.xsmm_getrf_unrolled.argtypes = [p, p, i, i, ll, i, p]
-        lib.xsmm_getrf_loop.argtypes = [p, p, i, i, ll, i, i, p]
-        for fn in (lib.xsmm_getrf_unrolled, lib.xsmm_getrf_loop):
-            fn.restype = ctypes.c_int
-        for fn in (lib.xsmm_trsm_unrolled, lib.xsmm_trsm_loop,
-                   lib.xsmm_trsm_unrolled_upper, lib.xsmm_trsm_loop_upper):
-            fn.argtypes = [p, p, p, i, i, ll, i, i, i, p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_lib = cuda_build.bind("packed", {
+    "xsmm_getrf_unrolled": [P, P, I, I, LL, I, P],
+    "xsmm_getrf_loop": [P, P, I, I, LL, I, I, P],
+    "xsmm_trsm_unrolled": [P, P, P, I, I, LL, I, I, I, P],
+    "xsmm_trsm_loop": [P, P, P, I, I, LL, I, I, I, P],
+    "xsmm_trsm_unrolled_upper": [P, P, P, I, I, LL, I, I, I, P],
+    "xsmm_trsm_loop_upper": [P, P, P, I, I, LL, I, I, I, P],
+})
 
 
 def _check(name: str, t, device: Optional[torch.device] = None) -> None:

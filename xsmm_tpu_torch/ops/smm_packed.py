@@ -34,13 +34,13 @@ cannot be encoded, is refused with nothing launched and raises
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..utils import trace
 from . import cuda_build
+from .cuda_build import I, LL, P, ptr
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {"packed_f32": 0, "packed_split2_fast": 0,
@@ -56,8 +56,6 @@ STAGING_REFUSED = ("the staging does not fit the planes, or their TMA tensor "
 # dtype codes of core/descriptors.py, for the types the f32 schedule takes
 _CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 
-_LIB: Optional[ctypes.CDLL] = None
-
 
 def reset_launches() -> None:
     for counts in (launches, staging_launches):
@@ -65,27 +63,12 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("smm_packed")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.xsmm_packed_f32.argtypes = [p, p, p, p, i, i, i, ll, i, i, i, i,
-                                        p]
-        lib.xsmm_natural_f32.argtypes = lib.xsmm_packed_f32.argtypes
-        lib.xsmm_packed_split2_fast.argtypes = [p, p, p, p, p, i, i, i, ll,
-                                                i, i, p]
-        lib.xsmm_packed_split2.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                           ll, i, i, p]
-        for fn in (lib.xsmm_packed_f32, lib.xsmm_packed_split2_fast,
-                   lib.xsmm_packed_split2, lib.xsmm_natural_f32):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+_lib = cuda_build.bind("smm_packed", {
+    "xsmm_packed_f32": [P, P, P, P, I, I, I, LL, I, I, I, I, P],
+    "xsmm_natural_f32": [P, P, P, P, I, I, I, LL, I, I, I, I, P],
+    "xsmm_packed_split2_fast": [P, P, P, P, P, I, I, I, LL, I, I, P],
+    "xsmm_packed_split2": [P, P, P, P, P, P, P, P, I, I, I, LL, I, I, P],
+})
 
 
 def staging(*planes: torch.Tensor) -> str:
@@ -180,8 +163,8 @@ def packed_f32(a: torch.Tensor, b: torch.Tensor,
             return packed_f32_plain(a, b, cin, out_dtype=out_dtype)
         c = torch.empty((m, n, bp), dtype=out_dtype, device=a.device)
         if c.numel():
-            _launch(_lib().xsmm_packed_f32, "packed_f32", (a, b), _ptr(a),
-                    _ptr(b), _ptr(cin), _ptr(c), m, n, k, bp,
+            _launch(_lib().xsmm_packed_f32, "packed_f32", (a, b), ptr(a),
+                    ptr(b), ptr(cin), ptr(c), m, n, k, bp,
                     _CODES[a.dtype], _CODES[out_dtype])
         return c
 
@@ -217,8 +200,8 @@ def packed_split2_fast(ah: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor,
         c = torch.empty((m, n, bp), dtype=f32, device=ah.device)
         if c.numel():
             _launch(_lib().xsmm_packed_split2_fast, "packed_split2_fast",
-                    (ah, bh, bl), _ptr(ah), _ptr(bh), _ptr(bl), _ptr(cin),
-                    _ptr(c), m, n, k, bp)
+                    (ah, bh, bl), ptr(ah), ptr(bh), ptr(bl), ptr(cin),
+                    ptr(c), m, n, k, bp)
         return c
 
 
@@ -263,8 +246,8 @@ def packed_split2(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,
         cl = torch.empty_like(ch)
         if ch.numel():
             _launch(_lib().xsmm_packed_split2, "packed_split2",
-                    (ah, al, bh, bl), _ptr(ah), _ptr(al), _ptr(bh), _ptr(bl),
-                    _ptr(chin), _ptr(clin), _ptr(ch), _ptr(cl), m, n, k, bp)
+                    (ah, al, bh, bl), ptr(ah), ptr(al), ptr(bh), ptr(bl),
+                    ptr(chin), ptr(clin), ptr(ch), ptr(cl), m, n, k, bp)
         return ch, cl
 
 
@@ -273,9 +256,10 @@ def packed_split2(ah: torch.Tensor, al: torch.Tensor, bh: torch.Tensor,
 # BatchedSMM.pack_a / pack_b / unpack_c fused in (it replaces no TPU kernel)
 # ---------------------------------------------------------------------------
 
-# problems a group, slots of a block's ring, columns of C a pass and the
-# shared memory a block may have: NAT_G, NAT_SLOTS, NAT_NT and NAT_MAX_SMEM
-# of ops/csrc/smm_packed.cu (tests/test_torch_smm.py reads both)
+# problems a group, slots of a block's ring and columns of C a pass: NAT_G,
+# NAT_SLOTS and NAT_NT of ops/csrc/smm_packed.cu; the shared memory a block
+# may have: BLOCK_SMEM_MAX of ops/csrc/launch.cuh (tests/test_torch_smm.py
+# reads both)
 NATURAL_GROUP = 4
 NATURAL_SLOTS = 2
 NATURAL_COLUMNS = 24
@@ -368,8 +352,8 @@ def natural_f32(a: torch.Tensor, b: torch.Tensor,
         c = torch.empty((nb, m, n), dtype=f32, device=a.device)
         if c.numel():
             st = natural_staging(a, b, cin, c)
-            cuda_build.launch(_lib().xsmm_natural_f32, a.device, _ptr(a),
-                              _ptr(b), _ptr(cin), _ptr(c), m, n, k, nb,
+            cuda_build.launch(_lib().xsmm_natural_f32, a.device, ptr(a),
+                              ptr(b), ptr(cin), ptr(c), m, n, k, nb,
                               int(trans_a), int(trans_b), STAGINGS[st],
                               refused=NATURAL_REFUSED)
             launches["natural_f32"] += 1

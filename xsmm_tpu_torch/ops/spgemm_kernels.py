@@ -42,7 +42,6 @@ launched.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -50,6 +49,7 @@ import torch
 
 from ..utils import trace
 from . import cuda_build
+from .cuda_build import I, LL, P, ptr
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {"spgemm_unroll_f32": 0, "spgemm_unroll_f64": 0,
@@ -67,8 +67,6 @@ STRUCT_BUDGET = 48 * 1024  # the operator in shared memory up to this
 # routes picked (pick_route's cache misses; utils/trace.build_counts)
 routes_picked = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-
 F32 = torch.float32
 Out64 = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 Route = Tuple[str, str]
@@ -80,23 +78,14 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("spgemm")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        tail = [i, i, ll, i, i, i, i, p]  # m k n nnz staging structure
-        lib.xsmm_spgemm_unroll_f32.argtypes = [p] * 5 + tail
-        lib.xsmm_spgemm_acc_f32.argtypes = [p] * 6 + tail
-        lib.xsmm_spgemm_unroll_f64.argtypes = [p] * 8 + tail
-        lib.xsmm_spgemm_acc_f64.argtypes = [p] * 10 + tail
-        lib.xsmm_spgemm_fits.argtypes = [i] * 9
-        for fn in (lib.xsmm_spgemm_unroll_f32, lib.xsmm_spgemm_acc_f32,
-                   lib.xsmm_spgemm_unroll_f64, lib.xsmm_spgemm_acc_f64,
-                   lib.xsmm_spgemm_fits):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_TAIL = [I, I, LL, I, I, I, I, P]  # m k n nnz staging structure device stream
+_lib = cuda_build.bind("spgemm", {
+    "xsmm_spgemm_unroll_f32": [P] * 5 + _TAIL,
+    "xsmm_spgemm_acc_f32": [P] * 6 + _TAIL,
+    "xsmm_spgemm_unroll_f64": [P] * 8 + _TAIL,
+    "xsmm_spgemm_acc_f64": [P] * 10 + _TAIL,
+    "xsmm_spgemm_fits": [I] * 9,
+})
 
 
 def split_values(values) -> Tuple[np.ndarray, np.ndarray]:
@@ -162,10 +151,6 @@ class SparseOperator:
     def nonempty(self) -> torch.Tensor:
         """[M, 1] bool: rows with at least one term."""
         return (self.row_ptr[1:] > self.row_ptr[:-1])[:, None]
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def _check(op: SparseOperator, ops: Dict[str, Optional[torch.Tensor]],
@@ -366,7 +351,7 @@ def unroll_f32(op: SparseOperator, b: torch.Tensor, *,
         c = torch.empty((op.m, n), dtype=F32, device=op.device)
         if c.numel():
             _launch(_lib().xsmm_spgemm_unroll_f32, "spgemm_unroll_f32", op, n,
-                    rt, *op.ptrs[:3], _ptr(b), _ptr(c))
+                    rt, *op.ptrs[:3], ptr(b), ptr(c))
         return c
 
 
@@ -390,7 +375,7 @@ def unroll_f64(op: SparseOperator, bh: torch.Tensor,
         cl = torch.empty_like(ch) if c_lo else None
         if ch.numel():
             _launch(_lib().xsmm_spgemm_unroll_f64, "spgemm_unroll_f64", op, n,
-                    rt, *op.ptrs, _ptr(bh), _ptr(bl), _ptr(ch), _ptr(cl))
+                    rt, *op.ptrs, ptr(bh), ptr(bl), ptr(ch), ptr(cl))
         return (ch, cl) if c_lo else ch
 
 
@@ -412,7 +397,7 @@ def acc_f32(op: SparseOperator, cin: torch.Tensor, b: torch.Tensor, *,
         c = torch.empty((op.m, n), dtype=F32, device=op.device)
         if c.numel():
             _launch(_lib().xsmm_spgemm_acc_f32, "spgemm_acc_f32", op, n, rt,
-                    *op.ptrs[:3], _ptr(cin), _ptr(b), _ptr(c))
+                    *op.ptrs[:3], ptr(cin), ptr(b), ptr(c))
         return c
 
 
@@ -439,6 +424,6 @@ def acc_f64(op: SparseOperator, chin: torch.Tensor,
         cl = None if clin is None else torch.empty_like(ch)
         if ch.numel():
             _launch(_lib().xsmm_spgemm_acc_f64, "spgemm_acc_f64", op, n, rt,
-                    *op.ptrs, _ptr(chin), _ptr(clin), _ptr(bh), _ptr(bl),
-                    _ptr(ch), _ptr(cl))
+                    *op.ptrs, ptr(chin), ptr(clin), ptr(bh), ptr(bl),
+                    ptr(ch), ptr(cl))
         return ch if cl is None else (ch, cl)

@@ -31,12 +31,12 @@ raises ``ValueError`` with nothing launched.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional
 
 import torch
 
 from . import cuda_build
+from .cuda_build import I, P
 from .smm import _matmul
 
 # kernel name -> launches since the last reset_launches()
@@ -55,8 +55,6 @@ TMA_REFUSED = ("the TMA route needs base addresses on 16 bytes and rows of "
 # dtype codes of core/descriptors.py
 _CODES = {torch.float32: 1, torch.bfloat16: 2, torch.float16: 3}
 
-_LIB: Optional[ctypes.CDLL] = None
-
 
 def reset_launches() -> None:
     for counts in (launches, route_launches):
@@ -64,18 +62,10 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("tiled_gemm")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.xsmm_tiled_gemm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                         p]
-        lib.xsmm_tiled_gemm_splits.argtypes = [i, i, i, i, i]
-        for fn in (lib.xsmm_tiled_gemm, lib.xsmm_tiled_gemm_splits):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_lib = cuda_build.bind("tiled_gemm", {
+    "xsmm_tiled_gemm": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "xsmm_tiled_gemm_splits": [I, I, I, I, I],
+})
 
 
 def _check(a, b, out_dtype: torch.dtype) -> None:

@@ -14,17 +14,15 @@ the plain version's exactly.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
 from . import cuda_build
+from .cuda_build import I, LL, P
 
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {"xcopy_copy": 0, "xcopy_trans": 0}
-
-_LIB: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -32,17 +30,10 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load("xcopy")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.xsmm_copy.argtypes = [p, p, ll, i, p]
-        lib.xsmm_trans.argtypes = [p, p, ll, ll, i, i, p]
-        for fn in (lib.xsmm_copy, lib.xsmm_trans):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_lib = cuda_build.bind("xcopy", {
+    "xsmm_copy": [P, P, LL, I, P],
+    "xsmm_trans": [P, P, LL, LL, I, I, P],
+})
 
 
 def _check(x) -> None:
