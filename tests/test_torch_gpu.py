@@ -843,10 +843,15 @@ def _lower(dev, seed, m, n=None, bp=PACKED_BP):
     return a
 
 
-@pytest.mark.parametrize("m,n", GETRF_SHAPES)
+# the shapes at PACKED_BP, and the packed LU cell's 125 x 125 at a batch that
+# ends inside a cluster of the tile route
+GETRF_BATCHES = [(m, n, PACKED_BP) for m, n in GETRF_SHAPES] + [(125, 125, 4097)]
+
+
+@pytest.mark.parametrize("m,n,bp", GETRF_BATCHES)
 @pytest.mark.parametrize("kernel", ["getrf_unrolled", "getrf_loop"])
-def test_getrf_matches_plain(cuda, kernel, m, n):
-    a = _lower(cuda, 20, m, n)
+def test_getrf_matches_plain(cuda, kernel, m, n, bp):
+    a = _lower(cuda, 20, m, n, bp)
     before = pk.launches[kernel]
     got = getattr(pk, kernel)(a)
     torch.cuda.synchronize()
@@ -867,15 +872,19 @@ def test_trsm_matches_plain(cuda, kernel, sm, sn, unit):
     _same(got, getattr(pk, kernel + "_plain")(a, b, unit))
 
 
-@pytest.mark.parametrize("m,n", [s for s in GETRF_SHAPES if max(s) > 64]
-                         + [(65, 65), (128, 65), (140, 140), (129, 100)])
+@pytest.mark.parametrize("m,n,bp", [
+    (m, n, bp) for m, n, bp in GETRF_BATCHES if max(m, n) > 64]
+    + [(m, n, PACKED_BP) for m, n in ((65, 65), (128, 65), (65, 128),
+                                      (66, 66), (96, 96), (112, 112),
+                                      (140, 140), (129, 100))])
 @pytest.mark.parametrize("route", ["tile", "shared"])
-def test_getrf_loop_routes_match_plain(cuda, m, n, route):
+def test_getrf_loop_routes_match_plain(cuda, m, n, bp, route):
     """Kernel 12 on each route that takes the size, bit for bit against the
     unchanged plain version, counted in its route; the tile route refuses
     sizes outside 65 <= min(M, N), max(M, N) <= 128 with nothing
-    launched."""
-    a = _lower(cuda, 53, m, n)
+    launched.  The tile route's panel edges: a last panel of one column
+    (66 x 66, 128 x 65), sizes no multiple of the panel."""
+    a = _lower(cuda, 53, m, n, bp)
     before, rbefore = dict(pk.launches), dict(pk.getrf_route_launches)
     if route == "tile" and pk.getrf_route(m, n) != "tile":
         with pytest.raises(ValueError, match="tile route takes"):

@@ -18,7 +18,9 @@ it builds, the port's kernel wrappers.
 """
 
 import dataclasses
+import re
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -554,64 +556,211 @@ def test_dispatch_without_card_raises(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 12's "tile" route (ops/csrc/packed.cu getrf_tile): its schedule,
-# emulated index for index on the CPU
+# Kernel 12's "tile" route (ops/csrc/packed.cu getrf_tile): its blocked panel
+# schedule, emulated index for index on the CPU
 # ---------------------------------------------------------------------------
 
-GT_NW, GT_LD = 16, 128  # warps of getrf_tile; rows and columns of its tile
+# getrf_tile's panel width, warps, and rows and columns of a thread's block of
+# the trailing update (test_getrf_tile_constants_are_the_kernels)
+GT_NB, GT_NW, GT_BR, GT_BC = 8, 8, 8, 4
+GT_PAD = 128  # rows and columns of its shared matrix
 
 
-def _getrf_tile_emulated(a: torch.Tensor, nw: int = GT_NW) -> torch.Tensor:
-    """getrf_tile's schedule on A [M, N, Bp]: the register tile (thread
-    (w, x) holds rows w + nw*q and columns x + 32*c of the 128 x 128 tile)
-    as a [128, 128, Bp] tensor, the shared matrix s and the two pcol
-    buffers with the pad left NaN (a published value that read the pad
-    would be NaN), one barrier a step.  Each step's reads see the state at
-    its barrier and its writes land at the next one; a location written and
-    read in the same step (a race on the card) fails the emulation."""
+class _Barriers:
+    """The accesses of one interval between two block barriers of
+    getrf_tile: who wrote and who read each location, each warp's view of the
+    matrix (the state at the barrier plus its own writes; warp 0's steps
+    after a __syncwarp see its earlier steps' writes) and the writes that
+    land at the next barrier.  A location one thread writes and another
+    reads or writes in the interval is a race on the card, unless both are
+    warp 0's and a __syncwarp lies between their steps (``syncwarp(e)``:
+    one lies before warp 0's step ``e``)."""
+
+    def __init__(self, s: torch.Tensor):
+        self.s = s
+        self.views = {}
+        self.writes = {}
+        self.acc = {}  # (i, j) -> [(thread, epoch, write)]
+        self.syncs = set()  # warp 0's steps that a __syncwarp precedes
+
+    def syncwarp(self, epoch: int) -> None:
+        self.syncs.add(epoch)
+
+    def ordered(self, thread, epoch, other, oepoch) -> bool:
+        lo, hi = sorted((epoch, oepoch))
+        return (thread < 32 and other < 32
+                and any(lo < e <= hi for e in self.syncs))
+
+    def view(self, warp: int) -> torch.Tensor:
+        if warp not in self.views:
+            self.views[warp] = self.s.clone()
+        return self.views[warp]
+
+    def access(self, thread, epoch, reads, writes) -> None:
+        for loc in reads:
+            self.acc.setdefault(loc, []).append((thread, epoch, False))
+        for loc in writes:
+            self.acc.setdefault(loc, []).append((thread, epoch, True))
+
+    def write(self, warp: int, rows, cols, value: torch.Tensor) -> None:
+        self.view(warp)[rows, cols] = value
+        self.writes.setdefault(warp, []).append((rows, cols, value))
+
+    def close(self, label: str) -> torch.Tensor:
+        for loc, seen in self.acc.items():
+            for thread, epoch, wrote in seen:
+                if not wrote:
+                    continue
+                for other, oepoch, _ in seen:
+                    assert other == thread or self.ordered(
+                        thread, epoch, other, oepoch), (
+                        f"{label}: {loc} written by thread {thread} and "
+                        f"touched by thread {other}")
+        for w in self.writes.values():
+            for rows, cols, value in w:
+                self.s[rows, cols] = value
+        return self.s
+
+
+def _tile_diag(bar, k0, kp, m, nb, warp=0, epoch=0):
+    """getrf_tile_diag: warp ``warp`` factors the panel's diagonal block in
+    registers (lane x: row k0 + x), the pivot row by shuffles; each lane
+    reads and writes only its own row."""
+    v = bar.view(warp)
+    rows, cols = slice(k0, min(k0 + nb, m)), slice(k0, k0 + nb)
+    r = v[rows, cols].clone()
+    for kk in range(nb):
+        if k0 + kk >= kp:
+            break
+        u, piv = r[kk, kk + 1:].clone(), r[kk, kk].clone()
+        r[kk + 1:, kk] = r[kk + 1:, kk] / piv
+        r[kk + 1:, kk + 1:] = r[kk + 1:, kk + 1:] - r[kk + 1:, kk, None] * u
+    for i in range(rows.start, rows.stop):
+        locs = [(i, j) for j in range(k0, k0 + nb)]
+        bar.access(32 * warp + i - k0, epoch, locs, locs)
+    bar.write(warp, rows, cols, r)
+
+
+def _tile_ucol(bar, k0, kp, j, nb, tid):
+    """getrf_tile_ucol: thread ``tid`` takes column j's rows k0 + 1 ..
+    k0 + nb - 1 through the panel's unit lower diagonal block."""
+    v = bar.view(tid // 32)
+    u = v[k0:k0 + nb, j].clone()
+    reads = {(k0 + i, j) for i in range(nb)}
+    for kk in range(nb):
+        if k0 + kk >= kp:
+            break
+        u[kk + 1:] = u[kk + 1:] - v[k0 + kk + 1:k0 + nb, k0 + kk] * u[kk]
+        reads |= {(k0 + i, k0 + kk) for i in range(kk + 1, nb)}
+    bar.access(tid, 0, reads, [(k0 + i, j) for i in range(1, nb)])
+    bar.write(tid // 32, slice(k0 + 1, k0 + nb), j, u[1:])
+
+
+def _tile_lrow(bar, k0, kp, i, nb, tid):
+    """getrf_tile_lrow: thread ``tid`` takes row i's panel columns through
+    the diagonal block's U, dividing each multiplier in turn."""
+    v = bar.view(tid // 32)
+    r = v[i, k0:k0 + nb].clone()
+    reads = {(i, k0 + j) for j in range(nb)}
+    for kk in range(nb):
+        k = k0 + kk
+        if k >= kp:
+            break
+        r[kk] = r[kk] / v[k, k]
+        r[kk + 1:] = r[kk + 1:] - r[kk] * v[k, k + 1:k0 + nb]
+        reads |= {(k, j) for j in range(k, k0 + nb)}
+    bar.access(tid, 0, reads, [(i, k0 + j) for j in range(nb)])
+    bar.write(tid // 32, i, slice(k0, k0 + nb), r)
+
+
+def _tile_diag_update(bar, k0, kp, nb, warp=0):
+    """getrf_tile_diag_update: the trailing update on the next panel's
+    diagonal block, nb * nb / 32 elements a lane of warp ``warp``."""
+    v = bar.view(warp)
+    k1, e = k0 + nb, nb * nb // 32
+    for lane in range(32):
+        for x in range(lane * e, lane * e + e):
+            i, j = k1 + x // nb, k1 + x % nb
+            t = v[i, j].clone()
+            for k in range(k0, kp):
+                t = t - v[i, k] * v[k, j]
+            reads = {(i, j)} | {(i, k) for k in range(k0, kp)} | {
+                (k, j) for k in range(k0, kp)}
+            bar.access(32 * warp + lane, 0, reads, [(i, j)])
+            bar.write(warp, i, j, t)
+
+
+def _tile_trailing(bar, k0, kp, m, ncols, nb, br, bc, tid, nt, epoch):
+    """getrf_tile_trailing for thread ``tid``, the t-th blocks for t =
+    (tid - 32) mod nt, ... of rows >= k0 + nb and columns [k0 + nb, ncols)
+    but the diagonal's: each takes the steps k0 <= k < kp in one pass,
+    every element's terms in ascending k."""
+    k1 = k0 + nb
+    rows = max(0, -(-m // br) - k1 // br)
+    cols = max(0, (ncols - k1) // bc)
+    v = bar.view(tid // 32)
+    for t in range((tid + nt - 32) % nt, rows * cols, nt):
+        rb, cb = divmod(t, cols)
+        if rb < nb // br and cb < nb // bc:
+            continue
+        i0, j0 = k1 + rb * br, k1 + cb * bc
+        ri, cj = slice(i0, i0 + br), slice(j0, j0 + bc)
+        blk = v[ri, cj].clone()
+        reads = {(i, j) for i in range(i0, i0 + br) for j in range(j0, j0 + bc)}
+        writes = set(reads)
+        for k in range(k0, kp):
+            blk = blk - v[ri, k][:, None] * v[k, cj][None]
+            reads |= {(i, k) for i in range(i0, i0 + br)}
+            reads |= {(k, j) for j in range(j0, j0 + bc)}
+        bar.access(tid, epoch, reads, writes)
+        bar.write(tid // 32, ri, cj, blk)
+
+
+def _getrf_tile_emulated(a: torch.Tensor, nb: int = GT_NB, nw: int = GT_NW,
+                         br: int = GT_BR, bc: int = GT_BC,
+                         diag_warp: int = 0) -> torch.Tensor:
+    """getrf_tile's schedule on A [M, N, Bp]: the shared matrix [128, 128,
+    Bp] with the pad left NaN (a value that read the pad would be NaN);
+    panel 0's diagonal block by warp 0, then for each panel a barrier, U's
+    rows (a thread a column, threads 0 .. nt/2 - 1) and L's rows (a thread a
+    row, the others), a barrier, and the trailing update (warp 0 the next
+    panel's diagonal block, its factorization after a __syncwarp, then its
+    share of the other blocks, the last ones; every other warp its share).
+    Each interval's reads see the state at its barrier and its writes land
+    at the next; a race (_Barriers) fails the emulation.  ``diag_warp``
+    moves the next diagonal block's factorization to another warp (a
+    schedule the card would race on)."""
     m, n, bp = a.shape
-    nan = float("nan")
-    s = torch.full((GT_LD, GT_LD, bp), nan)
+    s = torch.full((GT_PAD, GT_PAD, bp), float("nan"))
     s[:m, :n] = a
-    pcol = torch.full((2, GT_LD, bp), nan)
-    r = torch.zeros((GT_LD, GT_LD, bp))
-    r[:m, :n] = s[:m, :n]
     kend = min(n, m - 1)
-    for i in range(1, m):  # C_0 and column 1 ahead, each thread its rows
-        s[i, 0] = s[i, 0] / s[0, 0]
-        pcol[1, i] = s[i, 1]
-    for k in range(kend):
-        reads, writes = set(), {}
-        # C_{k+1} from pcol, rows k + 2 .. M - 1
-        if k + 1 < kend:
-            pb = (k + 1) % 2
-            u = s[k, k + 1]
-            piv = pcol[pb, k + 1] - s[k + 1, k] * u
-            reads |= {("p", pb, k + 1), ("s", k + 1, k), ("s", k, k + 1)}
-            for i in range(k + 2, m):
-                reads |= {("p", pb, i), ("s", i, k)}
-                writes[("s", i, k + 1)] = (pcol[pb, i] - s[i, k] * u) / piv
-        # the trailing update over the live groups of rows and columns
-        u = s[k].clone()
-        reads |= {("s", k, j) for j in range(GT_LD)}
-        rows = range((k + 1) // nw, GT_LD // nw)  # groups not left behind
-        cols = range((k + 1) // 32, GT_LD // 32)
-        for q in rows:
-            for i in range(nw * q, nw * q + nw):
-                reads.add(("s", i, k))
-                for c in cols:
-                    js = slice(32 * c, 32 * c + 32)
-                    r[i, js] = r[i, js] - s[i, k] * u[js]
-        # R_{k+1} from its owner warp; column k + 2 ahead from its lanes
-        if k + 1 < m:
-            for j in range(k + 1, n):
-                writes[("s", k + 1, j)] = r[k + 1, j].clone()
-        if k + 2 < kend:
-            for i in range(k + 2, m):
-                writes[("p", k % 2, i)] = r[i, k + 2].clone()
-        assert not reads & set(writes), f"step {k}: {reads & set(writes)}"
-        for (arr, i, j), v in writes.items():
-            (s if arr == "s" else pcol)[i, j] = v
+    npanel = -(-kend // nb)
+    ncols = -(-n // bc) * bc
+    nt, half = 32 * nw, 16 * nw
+    bar = _Barriers(s)
+    _tile_diag(bar, 0, min(nb, kend), m, nb)
+    for p in range(npanel):
+        k0, kp, k1 = p * nb, min(p * nb + nb, kend), p * nb + nb
+        s = bar.close(f"panel {p}")
+        bar = _Barriers(s)
+        for tid in range(half):
+            for j in range(k1 + tid, n, half):
+                _tile_ucol(bar, k0, kp, j, nb, tid)
+        for tid in range(half, nt):
+            for i in range(k1 + tid - half, m, half):
+                _tile_lrow(bar, k0, kp, i, nb, tid)
+        s = bar.close(f"U and L rows {p}")
+        bar = _Barriers(s)
+        if k1 < m and k1 < n:
+            _tile_diag_update(bar, k0, kp, nb)
+            if p + 1 < npanel:
+                bar.syncwarp(1)
+                _tile_diag(bar, k1, min(k1 + nb, kend), m, nb, diag_warp,
+                           epoch=1)
+        for tid in range(nt):
+            _tile_trailing(bar, k0, kp, m, ncols, nb, br, bc, tid, nt,
+                           2 if tid < 32 else 0)
+    s = bar.close("last trailing update")
     return s[:m, :n].clone()
 
 
@@ -624,17 +773,66 @@ def _well_conditioned(rng, m, n, bp):
     return torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("m,n", [(65, 65), (80, 80), (100, 70), (70, 100),
-                                 (125, 125), (128, 128)])
-def test_getrf_tile_schedule_matches_plain(rng, m, n):
-    """getrf_tile's index schedule (emulated) gives getrf_loop_plain's bits:
-    every element keeps its own chain of terms in pivot order and its
-    multiplier is divided once, from its value at its step."""
+@pytest.mark.parametrize("name,value", [("GT_NB", GT_NB), ("GT_NW", GT_NW),
+                                        ("GT_BR", GT_BR), ("GT_BC", GT_BC),
+                                        ("GT_MAX", GT_PAD)])
+def test_getrf_tile_constants_are_the_kernels(name, value):
+    """The emulation below runs getrf_tile's own panel, warps and blocks."""
+    src = (Path(cuda_build.__file__).parent / "csrc" / "packed.cu").read_text()
+    assert re.findall(rf"constexpr int {name} = (\d+);", src) == [str(value)]
+
+
+# the six sizes of the route's sizes, two more squares, the tall and wide
+# extremes, and the panel's edges: a last panel of one column (66 x 66,
+# 128 x 65), sizes no multiple of the panel, a panel of 16 columns and
+# 4 warps (the other shapes the kernel's constants allow)
+@pytest.mark.parametrize("m,n,nb,nw", [
+    (65, 65, GT_NB, GT_NW), (80, 80, GT_NB, GT_NW), (100, 70, GT_NB, GT_NW),
+    (70, 100, GT_NB, GT_NW), (125, 125, GT_NB, GT_NW),
+    (128, 128, GT_NB, GT_NW), (96, 112, GT_NB, GT_NW),
+    (66, 66, GT_NB, GT_NW), (128, 65, GT_NB, GT_NW), (65, 128, GT_NB, GT_NW),
+    (125, 125, 16, 4), (97, 90, 16, GT_NW)])
+def test_getrf_tile_schedule_matches_plain(rng, m, n, nb, nw):
+    """getrf_tile's blocked schedule (emulated) gives getrf_loop_plain's
+    bits: every element keeps its own chain of terms in pivot order and its
+    multiplier is divided once, from its value at its step, whichever phase
+    takes the term; no interval races and no pad value reaches the LU."""
     a = _well_conditioned(rng, m, n, 3)
-    got = _getrf_tile_emulated(a)
+    got = _getrf_tile_emulated(a, nb, nw)
     want = pk.getrf_loop_plain(a)
     assert torch.isfinite(got).all()
     assert torch.equal(got, want), (got - want).abs().max()
+
+
+def test_getrf_tile_emulation_sees_a_race(rng):
+    """The next diagonal block factored on warp 1, which did not update it,
+    reads warp 0's writes between two barriers: the emulation refuses it."""
+    a = _well_conditioned(rng, 70, 70, 2)
+    with pytest.raises(AssertionError, match="written by thread"):
+        _getrf_tile_emulated(a, diag_warp=1)
+
+
+# (writer, its step), (reader, its step), the steps a __syncwarp precedes:
+# only warp 0's threads are ordered, and only across a __syncwarp
+@pytest.mark.parametrize("w,r,syncs,races", [
+    ((0, 1), (1, 2), set(), True), ((0, 1), (1, 2), {1}, True),
+    ((0, 1), (1, 2), {2}, False), ((1, 2), (0, 0), {1}, False),
+    ((0, 1), (32, 2), {2}, True), ((0, 1), (1, 1), {1}, True)])
+def test_getrf_tile_race_check_orders_only_across_syncwarp(w, r, syncs,
+                                                           races):
+    """Warp 0's steps that no __syncwarp separates (the next diagonal
+    block's factorization and warp 0's share of the trailing update) are
+    unordered: a location one writes and the other reads is a race."""
+    bar = _Barriers(torch.zeros(2, 2))
+    for e in syncs:
+        bar.syncwarp(e)
+    bar.access(w[0], w[1], [], [(0, 0)])
+    bar.access(r[0], r[1], [(0, 0)], [])
+    if races:
+        with pytest.raises(AssertionError, match="written by thread"):
+            bar.close("check")
+    else:
+        bar.close("check")
 
 
 @pytest.mark.parametrize("m,n,route", [

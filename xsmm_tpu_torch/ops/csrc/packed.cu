@@ -65,9 +65,10 @@
 //       one barrier.
 //   * Larger sizes, getrf (kernel 12; also kernel 11 where the knob sends
 //     it): at 65 <= min(M, N), max(M, N) <= 128, the "tile" route
-//     (getrf_tile): one block per problem, right-looking over a register
-//     tile, one barrier a step, clusters for the load and store.  Every
-//     other size, and kernel 11 above 64, takes the "shared" route
+//     (getrf_tile): a right-looking LU blocked by panels of 8 columns, one
+//     block per problem and three an SM, two barriers a panel, clusters for
+//     the load and store.  Every other size, and kernel 11 above 64, takes
+//     the "shared" route
 //     (getrf_shared): one block per problem, the matrix in dynamic shared
 //     memory, the block's threads spread over the trailing update.  Each
 //     element read from the pack lands in a sector of its own; consecutive
@@ -227,102 +228,272 @@ getrf_shared(const float* __restrict__ a, float* __restrict__ o, int m, int n,
 
 // ---------------------------------------------------------------------------
 // Kernel 12 at 65 <= min(M, N), max(M, N) <= 128 (the "tile" route; the
-// first design, getrf_shared above, keeps every other size and ran 3.64 ms
-// at 125 x 125, B = 4096, three shared accesses an update and two barriers
-// a step): one block of GT_NW warps per problem, right-looking over a
-// register tile.  Thread (warp w, lane x) holds rows w + GT_NW*q (q < GT_Q)
-// and columns x + 32*c (c < GT_C) of the 128 x 128 padded matrix, so the
-// shrinking trailing block stays spread over every warp and lane.  A group
-// of rows or columns that the factorization has left behind is skipped: the
-// pair of counts is block-uniform, and a switch picks a body compiled for it
-// (getrf_tile_step), so no element of the update is tested; the dead and pad
-// elements of a live group take their terms anyway (nobody reads them
-// again).  Step k needs R_k (row k of U) and C_k (the multipliers of column
-// k): both lie in the shared matrix s, which fills with LU as its rows and
-// columns become final, so the update makes one shared load a row and one a
-// column for its GT_Q * GT_C terms, O(n) shared traffic a step.  One
-// barrier a step:
-//   * C_{k+1} is made during step k.  The owner lanes of column k+1 put it in
-//     pcol a step ahead (its values after k updates), so any thread can take
-//     its step-k term and divide: threads 0.. take rows k+2.. (pivot
-//     a[k+1,k+1] = pcol[k+1] - C_k[k+1] * R_k[k+1], the owner's own
-//     arithmetic, so the bits agree);
-//   * the owner warp of row k+1 writes R_{k+1} after its update;
-//   * the owner lanes of column k+2 write pcol for step k+1 (two buffers).
-// No location is written and read in the same step (tests/test_torch_packed
-// emulates the schedule and checks that).  The load and store go through
-// clusters of GT_CLUSTER neighbouring problems, as trsm_shared's (on the
-// H100, clusters of 2 beat 4 and 8, whose blocks wait longer for the
-// cluster's slowest, and no cluster at all, whose 4-byte loads each take a
-// sector of their own).
+// first design, getrf_shared above, keeps every other size).  What bounds it
+// at 125 x 125, B = 131072: 16.4 GB in and out, 4.89 ms at 3.35 TB/s, and
+// 643,250 multiply-subtract terms and 7,750 divisions a problem, 1.69e11
+// FP32 instructions with multiply and subtract rounded apart, ~5.0 ms of
+// issue on 132 SMs x 128 lanes at 1.98 GHz.  The design before this one took
+// one pivot a barrier over a register tile (a block of 16 warps a problem, A
+// in registers and in shared memory, two blocks an SM): each step paid a
+// block barrier, a division chain on the way to it and a dozen shared loads
+// for at most 32 terms a thread, ~1300 cycles a step, 53 ms a call.
+//
+// This one is a right-looking LU blocked by panels of GT_NB columns: a block
+// of GT_NW warps a problem, the matrix held once, in shared memory
+// [128][GT_LD], so that three blocks share an SM (80 registers a thread) and
+// a block's load, store and division chains overlap the others' arithmetic.
+// Panel p takes the pivot steps k0 = p * GT_NB <= k < kp = min(k0 + GT_NB,
+// kend) in three phases, two barriers a panel:
+//   * its diagonal block (getrf_tile_diag): warp 0, a row a lane in
+//     registers, the pivot row by shuffles, one division a lane a step;
+//   * U's rows right of it (getrf_tile_ucol, a thread a column: a unit lower
+//     solve with the block) and L's rows below it (getrf_tile_lrow, a thread
+//     a row: its multipliers divided in turn by the block's pivots);
+//   * the trailing update: every element right of and below the panel takes
+//     the panel's terms in one pass, in ascending k, GT_BR x GT_BC a thread
+//     in registers (getrf_tile_block), a term's multipliers and U row read
+//     once from shared memory.  Look-ahead: warp 0 first updates the next
+//     panel's diagonal block (getrf_tile_diag_update, two elements a lane)
+//     and factors it, then takes the last of the other blocks
+//     (getrf_tile_trailing).
+// A thread's block starts at a multiple of GT_BR rows and GT_BC columns, so
+// only the pad to 128 is computed and discarded; a block's row is one
+// float4, so neighbouring lanes' shared accesses fall in different banks.
+// Timed at 125 x 125, B = 131072, variants of this design chose GT_NB 8 (16
+// was slower), 8 warps (12 spill), blocks of 8 x 4 (4 x 8 was 1.5 % slower),
+// clusters of 4 (2 and 8 were slower) and 4 loads in flight (2, 3, 6, 8, 16
+// and 32 were slower).  Slower too, 49 ms against 36.4: storing each part of
+// the LU from the thread that makes it final (a problem a 32-byte sector,
+// four times the requests), and a block that stays on its SM, storing one
+// group while it loads the next.  A call takes ~36.4 ms there: a block
+// spends ~47 % of its time in the load and store, and its phases wait on
+// their own chains more than on the card's issue rate.
+//
+// The bits equal getrf_loop_plain's: every element a[i,j] loses l_ik * u_kj
+// for k ascending, each product and difference rounded on its own
+// (__fmul_rn, __fsub_rn), and every multiplier is a[i,k] / a[k,k] by
+// __fdiv_rn from their values after k terms, whichever phase takes the term.
+// No location is written between two barriers by one thread and read or
+// written by another (warp 0's writes reach its own later steps through
+// __syncwarp); tests/test_torch_packed emulates the schedule and checks
+// both.  The load and store go through clusters of GT_CLUSTER neighbouring
+// problems, so that a warp's 4-byte accesses share 32-byte sectors.
 // ---------------------------------------------------------------------------
-constexpr int GT_NW = 16;            // warps of the tile getrf
-constexpr int GT_Q = 128 / GT_NW;    // rows a thread holds: w + GT_NW * q
-constexpr int GT_C = 4;              // columns a lane holds: x + 32 * c
-constexpr int GT_LD = 129;           // row stride of the shared matrix (odd:
-                                     // a column is read without conflicts)
-constexpr int GT_MINB = 2;           // blocks an SM the registers must allow
-constexpr int GT_CLUSTER = 2;        // neighbouring problems (blocks) a
+constexpr int GT_NB = 8;             // columns (pivot steps) a panel
+constexpr int GT_NW = 8;             // warps of the tile getrf
+constexpr int GT_BR = 8;             // rows ...
+constexpr int GT_BC = 4;             // ... and columns of a thread's block of
+                                     // the trailing update
+constexpr int GT_LD = 132;           // row stride of the shared matrix (rows
+                                     // of whole float4)
+constexpr int GT_MINB = 3;           // blocks an SM the registers must allow
+constexpr int GT_CLUSTER = 4;        // neighbouring problems (blocks) a
                                      // cluster loads and stores together
-constexpr int GT_LU = 8;             // its loads in flight a thread
+constexpr int GT_LU = 4;             // its loads in flight a thread
 constexpr int GT_MIN = 65;           // the tile route's min(M, N) ...
 constexpr int GT_MAX = 128;          // ... and max(M, N)
+static_assert(GT_NB <= 32 && GT_NB * GT_NB % 32 == 0,
+              "warp 0 holds a diagonal block a row a lane, and updates it "
+              "in whole elements a lane");
+static_assert(GT_NB % GT_BR == 0 && GT_NB % GT_BC == 0 && GT_BC % 4 == 0 &&
+                  GT_LD % 4 == 0 && GT_LD >= GT_MAX,
+              "a panel starts a block; a block's rows are whole float4");
 
-// Step k's work on this thread's tile, with Q0 = (k + 1) / GT_NW row groups
-// and C0 = (k + 1) / 32 column groups left behind: both block-uniform and
-// fixed at compile time here (getrf_tile_rows picks the body), so nothing is
-// tested per element of the update:
-//   * the trailing update a[i,j] -= C_k[i] * R_k[j] (dead and pad elements
-//     of a live group take garbage);
-//   * R_{k+1} into `rownext` from its owner warp, whose row Q0 it is;
-//   * column k + 2 for step k + 1 into `pc` from its owner lane: column
-//     group C0, or C0 + 1 where k + 2 opens it.
-template <int Q0, int C0>
-__device__ __forceinline__ void getrf_tile_step(
-    float (&r)[GT_Q][GT_C], const float (&u)[GT_C], const float* col,
-    float* rownext, float* pc, int warp, int lane, int k, int m, int n,
-    int kend) {
-  float l[GT_Q];
+// The panel's diagonal block (rows and columns [k0, k0 + GT_NB)), its pivot
+// steps k0 <= k < kp, by one warp: lane x < GT_NB holds row k0 + x in
+// registers; step k: the pivot row from lane k - k0 by shuffles, then each
+// row below it divides and takes the step's term on its later columns.
+__device__ __forceinline__ void getrf_tile_diag(float* s, int k0, int kp,
+                                                int m, int lane) {
+  const int i = k0 + lane;
+  const bool mine = lane < GT_NB && i < m;
+  float4* row = reinterpret_cast<float4*>(s + i * GT_LD + k0);
+  float r[GT_NB];
 #pragma unroll
-  for (int q = Q0; q < GT_Q; ++q) l[q] = col[(warp + GT_NW * q) * GT_LD];
-#pragma unroll
-  for (int q = Q0; q < GT_Q; ++q) {
-#pragma unroll
-    for (int c = C0; c < GT_C; ++c)
-      r[q][c] = __fsub_rn(r[q][c], __fmul_rn(l[q], u[c]));
+  for (int v = 0; v < GT_NB / 4; ++v) {
+    const float4 x = mine ? row[v] : make_float4(0, 0, 0, 0);
+    r[4 * v] = x.x;
+    r[4 * v + 1] = x.y;
+    r[4 * v + 2] = x.z;
+    r[4 * v + 3] = x.w;
   }
-  if (warp == (k + 1) % GT_NW) {
 #pragma unroll
-    for (int c = C0; c < GT_C; ++c) {
-      const int j = lane + 32 * c;
-      if ((c > C0 || j > k) && j < n) rownext[j] = r[Q0][c];
+  for (int kk = 0; kk < GT_NB; ++kk) {
+    if (k0 + kk < kp) {  // warp-uniform
+      const float piv = __shfl_sync(0xffffffffu, r[kk], kk);
+      float u[GT_NB];
+#pragma unroll
+      for (int j = kk + 1; j < GT_NB; ++j)
+        u[j] = __shfl_sync(0xffffffffu, r[j], kk);
+      if (mine && lane > kk) {
+        const float l = __fdiv_rn(r[kk], piv);
+        r[kk] = l;
+#pragma unroll
+        for (int j = kk + 1; j < GT_NB; ++j)
+          r[j] = __fsub_rn(r[j], __fmul_rn(l, u[j]));
+      }
     }
   }
-  if (k + 2 < kend && lane == ((k + 2) & 31)) {
-    constexpr int C1 = C0 + 1 < GT_C ? C0 + 1 : C0;
-    const bool opens = ((k + 2) & 31) == 0;
+  if (mine) {
 #pragma unroll
-    for (int q = Q0; q < GT_Q; ++q) {
-      const int i = warp + GT_NW * q;
-      if ((q > Q0 || i >= k + 2) && i < m) pc[i] = opens ? r[q][C1] : r[q][C0];
-    }
+    for (int v = 0; v < GT_NB / 4; ++v)
+      row[v] = make_float4(r[4 * v], r[4 * v + 1], r[4 * v + 2], r[4 * v + 3]);
   }
 }
 
-// the body of getrf_tile_step for qlo = (k + 1) / GT_NW
-template <int Q0, int C0>
-__device__ __forceinline__ void getrf_tile_rows(
-    int qlo, float (&r)[GT_Q][GT_C], const float (&u)[GT_C], const float* col,
-    float* rownext, float* pc, int warp, int lane, int k, int m, int n,
-    int kend) {
-  if constexpr (Q0 + 1 < GT_Q) {
-    if (qlo > Q0) {
-      getrf_tile_rows<Q0 + 1, C0>(qlo, r, u, col, rownext, pc, warp, lane, k,
-                                  m, n, kend);
-      return;
+// L's rows of the panel: row i below its diagonal block takes the steps
+// k0 <= k < kp on the panel's columns (a solve with the block's U), its
+// multipliers divided in turn, one thread a row
+__device__ __forceinline__ void getrf_tile_lrow(float* s, int k0, int kp,
+                                                int i) {
+  float4* row = reinterpret_cast<float4*>(s + i * GT_LD + k0);
+  float r[GT_NB];
+#pragma unroll
+  for (int v = 0; v < GT_NB / 4; ++v) {
+    const float4 x = row[v];
+    r[4 * v] = x.x;
+    r[4 * v + 1] = x.y;
+    r[4 * v + 2] = x.z;
+    r[4 * v + 3] = x.w;
+  }
+#pragma unroll
+  for (int kk = 0; kk < GT_NB; ++kk) {
+    if (k0 + kk < kp) {  // block-uniform
+      const float* urow = s + (k0 + kk) * GT_LD + k0;
+      const float l = __fdiv_rn(r[kk], urow[kk]);
+      r[kk] = l;
+#pragma unroll
+      for (int j = kk + 1; j < GT_NB; ++j)
+        r[j] = __fsub_rn(r[j], __fmul_rn(l, urow[j]));
     }
   }
-  getrf_tile_step<Q0, C0>(r, u, col, rownext, pc, warp, lane, k, m, n, kend);
+#pragma unroll
+  for (int v = 0; v < GT_NB / 4; ++v)
+    row[v] = make_float4(r[4 * v], r[4 * v + 1], r[4 * v + 2], r[4 * v + 3]);
+}
+
+// U's rows of the panel: rows k0 + 1 .. k0 + GT_NB - 1 of column j right of
+// it take the steps k0 <= k < kp (a unit lower solve with the panel's
+// diagonal block), one thread a column
+__device__ __forceinline__ void getrf_tile_ucol(float* s, int k0, int kp,
+                                                int j) {
+  float u[GT_NB];
+#pragma unroll
+  for (int i = 0; i < GT_NB; ++i) u[i] = s[(k0 + i) * GT_LD + j];
+#pragma unroll
+  for (int kk = 0; kk < GT_NB; ++kk) {
+    if (k0 + kk < kp) {  // block-uniform
+#pragma unroll
+      for (int i = kk + 1; i < GT_NB; ++i)
+        u[i] = __fsub_rn(u[i],
+                         __fmul_rn(s[(k0 + i) * GT_LD + k0 + kk], u[kk]));
+    }
+  }
+#pragma unroll
+  for (int i = 1; i < GT_NB; ++i) s[(k0 + i) * GT_LD + j] = u[i];
+}
+
+// The steps k0 <= k < kp on the block of rows i0.. and columns j0.. of the
+// trailing matrix, in registers: a term's multipliers and U row are read
+// once and serve the block
+__device__ __forceinline__ void getrf_tile_block(float* s, int i0, int j0,
+                                                 int k0, int kp) {
+  constexpr int V = GT_BC / 4;  // float4 chunks of a block's row
+  float t[GT_BR][GT_BC];
+#pragma unroll
+  for (int q = 0; q < GT_BR; ++q) {
+    const float4* row =
+        reinterpret_cast<const float4*>(s + (i0 + q) * GT_LD + j0);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float4 x = row[v];
+      t[q][4 * v] = x.x;
+      t[q][4 * v + 1] = x.y;
+      t[q][4 * v + 2] = x.z;
+      t[q][4 * v + 3] = x.w;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < GT_NB; ++kk) {
+    if (k0 + kk < kp) {  // block-uniform
+      float l[GT_BR], u[GT_BC];
+#pragma unroll
+      for (int q = 0; q < GT_BR; ++q) l[q] = s[(i0 + q) * GT_LD + k0 + kk];
+      const float4* urow =
+          reinterpret_cast<const float4*>(s + (k0 + kk) * GT_LD + j0);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float4 x = urow[v];
+        u[4 * v] = x.x;
+        u[4 * v + 1] = x.y;
+        u[4 * v + 2] = x.z;
+        u[4 * v + 3] = x.w;
+      }
+#pragma unroll
+      for (int q = 0; q < GT_BR; ++q) {
+#pragma unroll
+        for (int c = 0; c < GT_BC; ++c)
+          t[q][c] = __fsub_rn(t[q][c], __fmul_rn(l[q], u[c]));
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < GT_BR; ++q) {
+    float4* row = reinterpret_cast<float4*>(s + (i0 + q) * GT_LD + j0);
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      row[v] = make_float4(t[q][4 * v], t[q][4 * v + 1], t[q][4 * v + 2],
+                           t[q][4 * v + 3]);
+  }
+}
+
+// The trailing update of the panel (pivot steps k0 <= k < kp) on the next
+// panel's diagonal block (rows and columns [k1, k1 + GT_NB), k1 = k0 +
+// GT_NB), by one warp, GT_NB * GT_NB / 32 elements a lane
+__device__ __forceinline__ void getrf_tile_diag_update(float* s, int k0,
+                                                       int kp, int lane) {
+  constexpr int E = GT_NB * GT_NB / 32;
+  const int k1 = k0 + GT_NB;
+  float t[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int x = lane * E + e;
+    t[e] = s[(k1 + x / GT_NB) * GT_LD + k1 + x % GT_NB];
+  }
+#pragma unroll
+  for (int kk = 0; kk < GT_NB; ++kk) {
+    if (k0 + kk < kp) {  // warp-uniform
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int x = lane * E + e;
+        const float l = s[(k1 + x / GT_NB) * GT_LD + k0 + kk];
+        const float u = s[(k0 + kk) * GT_LD + k1 + x % GT_NB];
+        t[e] = __fsub_rn(t[e], __fmul_rn(l, u));
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int x = lane * E + e;
+    s[(k1 + x / GT_NB) * GT_LD + k1 + x % GT_NB] = t[e];
+  }
+}
+
+// ... and on every other block of GT_BR x GT_BC over rows [k1, M) and
+// columns [k1, N) (M and N rounded up to whole blocks), the t-th for t =
+// t0, t0 + dt, ...
+__device__ __forceinline__ void getrf_tile_trailing(float* s, int k0, int kp,
+                                                    int m, int ncols, int t0,
+                                                    int dt) {
+  constexpr int DR = GT_NB / GT_BR, DC = GT_NB / GT_BC;  // diagonal blocks
+  const int k1 = k0 + GT_NB;
+  const int rows = max(0, (m + GT_BR - 1) / GT_BR - k1 / GT_BR);
+  const int cols = max(0, (ncols - k1) / GT_BC);
+  for (int t = t0; t < rows * cols; t += dt) {
+    const int rb = t / cols, cb = t % cols;
+    if (rb < DR && cb < DC) continue;  // the diagonal's
+    getrf_tile_block(s, k1 + rb * GT_BR, k1 + cb * GT_BC, k0, kp);
+  }
 }
 
 __global__ void __cluster_dims__(GT_CLUSTER, 1, 1)
@@ -331,12 +502,10 @@ getrf_tile(const float* __restrict__ a, float* __restrict__ o, int m, int n,
            long long bp) {
   extern __shared__ float4 smem4[];
   float* s = reinterpret_cast<float*>(smem4);  // [128][GT_LD]: A, then LU
-  float* pcol = s + 128 * GT_LD;               // [2][128]: a column ahead
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const long long b = blockIdx.x, b0 = b - rank;  // the cluster's problems
   constexpr int nt = GT_NW * 32;
-  static_assert(nt >= 128, "a thread a row of the next column");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mn = m * n;
   // the load and store: GT_CLUSTER threads share an element of the
@@ -374,61 +543,34 @@ getrf_tile(const float* __restrict__ a, float* __restrict__ o, int m, int n,
 
   // -- the factorization (a block past the last problem has none)
   if (b < bp) {
-    float r[GT_Q][GT_C];
-#pragma unroll
-    for (int q = 0; q < GT_Q; ++q) {
-      const int i = warp + GT_NW * q;
-#pragma unroll
-      for (int c = 0; c < GT_C; ++c) {
-        const int j = lane + 32 * c;
-        r[q][c] = i < m && j < n ? s[i * GT_LD + j] : 0.f;
-      }
-    }
     const int kend = min(n, m - 1);  // steps k < min(M, N) with k + 1 < M
-    __syncthreads();  // every tile is read before C_0 overwrites column 0
-    // C_0 (R_0 is A's row 0, in place) and column 1 for step 0
-    for (int i = 1 + tid; i < m; i += nt) {
-      s[i * GT_LD] = __fdiv_rn(s[i * GT_LD], s[0]);
-      pcol[128 + i] = s[i * GT_LD + 1];
-    }
-    for (int k = 0; k < kend; ++k) {
-      __syncthreads();  // R_k, C_k and column k + 1 ahead are in
-      const float* rowk = s + k * GT_LD;
-      // C_{k+1}: row k + 2 + tid's step-k term, then its multiplier
-      if (const int i = k + 2 + tid; k + 1 < kend && i < m) {
-        const float* pc = pcol + ((k + 1) & 1) * 128;
-        const float u = rowk[k + 1];
-        const float piv =
-            __fsub_rn(pc[k + 1], __fmul_rn(s[(k + 1) * GT_LD + k], u));
-        const float t = __fsub_rn(pc[i], __fmul_rn(s[i * GT_LD + k], u));
-        s[i * GT_LD + k + 1] = __fdiv_rn(t, piv);
+    const int np = (kend + GT_NB - 1) / GT_NB;
+    const int ncols = (n + GT_BC - 1) / GT_BC * GT_BC;  // N, whole blocks
+    constexpr int half = nt / 2;
+    if (warp == 0) getrf_tile_diag(s, 0, min(GT_NB, kend), m, lane);
+    for (int pn = 0; pn < np; ++pn) {
+      const int k0 = pn * GT_NB, kp = min(k0 + GT_NB, kend), k1 = k0 + GT_NB;
+      __syncthreads();  // the panel's diagonal block and the trailing
+                        // update of panel pn - 1 are in
+      // -- U's rows and L's rows of the panel: a thread a column or a row
+      if (tid < half) {
+        for (int j = k1 + tid; j < n; j += half) getrf_tile_ucol(s, k0, kp, j);
+      } else {
+        for (int i = k1 + tid - half; i < m; i += half)
+          getrf_tile_lrow(s, k0, kp, i);
       }
-      // the trailing update, R_{k+1} and column k + 2 ahead, over the
-      // groups of rows and columns not left behind (a group is left behind
-      // once all of it is <= k)
-      float u[GT_C];
-#pragma unroll
-      for (int c = 0; c < GT_C; ++c) u[c] = rowk[lane + 32 * c];
-      const int qlo = (k + 1) / GT_NW;
-      float* rownext = s + (k + 1) * GT_LD;
-      float* pc = pcol + (k & 1) * 128;
-      switch ((k + 1) >> 5) {
-        case 0:
-          getrf_tile_rows<0, 0>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
-                                m, n, kend);
-          break;
-        case 1:
-          getrf_tile_rows<0, 1>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
-                                m, n, kend);
-          break;
-        case 2:
-          getrf_tile_rows<0, 2>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
-                                m, n, kend);
-          break;
-        default:
-          getrf_tile_rows<0, 3>(qlo, r, u, s + k, rownext, pc, warp, lane, k,
-                                m, n, kend);
+      __syncthreads();  // U's and L's rows of panel pn are in
+      // -- the trailing update: warp 0 the next panel's diagonal block, then
+      // that block's factorization, then its share of the other blocks
+      // (the last of them: warps 1.. take theirs first)
+      if (warp == 0 && k1 < m && k1 < n) {
+        getrf_tile_diag_update(s, k0, kp, lane);
+        if (pn + 1 < np) {
+          __syncwarp();  // the diagonal block is in, from every lane
+          getrf_tile_diag(s, k1, min(k1 + GT_NB, kend), m, lane);
+        }
       }
+      getrf_tile_trailing(s, k0, kp, m, ncols, (tid + nt - 32) % nt, nt);
     }
   }
   cluster.sync();  // every LU is final in its block
@@ -942,8 +1084,7 @@ int launch_getrf_shared(const float* a, float* o, int m, int n, long long bp,
 int launch_getrf_tile(const float* a, float* o, int m, int n, long long bp,
                       int device, cudaStream_t st) {
   if ((m < n ? m : n) < GT_MIN || (m > n ? m : n) > GT_MAX) return -2;
-  const size_t smem = (128 * GT_LD + 2 * 128) * sizeof(float);
-  static_assert(GT_C == 4 && GT_Q * GT_NW == 128, "the tile is 128 x 128");
+  const size_t smem = (size_t)GT_MAX * GT_LD * sizeof(float);
   // whole clusters: blocks past the last problem load and factor nothing
   const long long gx = (bp + GT_CLUSTER - 1) / GT_CLUSTER * GT_CLUSTER;
   prepare(getrf_tile, smem, device);

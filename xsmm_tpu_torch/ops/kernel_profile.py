@@ -51,14 +51,20 @@ over the block's loop (``both`` is gemm and trsm).  It prints how many
   ``--sweep-sm`` x ``--sweep-sn`` x ``--sweep-bp`` on the chunk route and
   on each variant's narrow route (the sweep behind
   ``packed_kernels.trsm_route``);
-* getrf: holds ``getrf_loop`` on each route (``tile`` and ``shared``) bit
-  for bit against ``getrf_loop_plain`` at ``--getrf`` and at every size the
-  card tests take above 64 (Bp 1000); times both routes at ``--getrf`` in
-  turns beside ``torch.linalg.lu_factor_ex(pivot=False)`` on the same
-  problems in [B, M, N]; prints the phases of the tile route's block
-  (``load``: the cluster's load; ``steps``: the tile, C_0 and the pivot
-  steps' work seen by warp 0; ``store``; ``barrier``: warp 0's waits at the
-  step barrier);
+* getrf: builds ``ops/csrc/packed.cu`` per variant, where ``src=PATH`` is
+  another copy of it (e.g. the parent tree's; one whose tile kernel has other
+  anchors runs without stamps); holds ``getrf_loop`` on each route (``tile``
+  and ``shared``) bit for bit against ``getrf_loop_plain`` at ``--getrf``
+  and at every size the card tests take above 64 (Bp 1000, and 125 x 125 at
+  Bp 4097); times both routes at ``--getrf`` in turns beside
+  ``torch.linalg.lu_factor_ex(pivot=False)`` on the same problems in [B, M,
+  N]; prints the phases of the tile route's warps 0 and 1 (``load``: the
+  cluster's load; ``diag``: the diagonal blocks warp 0 factors;
+  ``trailing``: its blocks of the trailing update; ``rows``: its columns of
+  U's rows or rows of L; ``barrier``: its waits at the block and cluster
+  barriers; ``store``); with
+  ``--sweep`` times the tile route of every variant at each
+  ``GETRF_SWEEP`` size and ``--sweep-bp`` batch, in turns;
 * smm: holds the three schedules (``packed_split2``, ``packed_split2_fast``,
   ``packed_f32`` in f32 and bf16) bit for bit against their plain versions
   at the card tests' shapes, beta 0 and 1; times them at ``--smm`` in
@@ -119,18 +125,20 @@ from ..dnn.seq_profile import apply_settings, parse_variant
 CSRC = Path(cuda_build.__file__).resolve().parent / "csrc"
 OUT_DIR = cuda_build.BUILD_DIR / "kernel_profile"
 PROF_BLOCKS = 8192   # blocks whose phases are kept
+PROF_SLOTS = 8       # phases a stamped kernel may count
 CLOCK_GHZ = 1.98     # the H100 SXM's boost clock, for cycles -> us
 
 _HEAD = """namespace {
-__device__ long long g_prof[%d * 4];
-#define PROF_BEGIN long long _p0 = clock64(), _pacc[4] = {0, 0, 0, 0};
+__device__ long long g_prof[%d * %d];
+#define PROF_BEGIN long long _p0 = clock64(), _pacc[%d] = {};
 #define PROF_MARK(i) { const long long _t = clock64(); _pacc[i] += _t - _p0; \\
                        _p0 = _t; }
 #define PROF_END(tid) { const long long _b = blockIdx.x + (long long)gridDim.x \\
     * (blockIdx.y + (long long)gridDim.y * blockIdx.z); \\
   if (threadIdx.x == (tid) && _b < %d) \\
-    for (int _i = 0; _i < 4; ++_i) g_prof[_b * 4 + _i] = _pacc[_i]; }
-""" % (PROF_BLOCKS, PROF_BLOCKS)
+    for (int _i = 0; _i < %d; ++_i) g_prof[_b * %d + _i] = _pacc[_i]; }
+""" % (PROF_BLOCKS, PROF_SLOTS, PROF_SLOTS, PROF_BLOCKS, PROF_SLOTS,
+       PROF_SLOTS)
 _TAIL = """
 extern "C" int xsmm_prof_read(long long* prof) {
   return (int)cudaMemcpyFromSymbol(prof, g_prof, sizeof(g_prof));
@@ -187,22 +195,44 @@ _TRSM_STAMPS = [
 ]
 
 
+# a thread of the tile getrf (0, or 32 in "prof_w1"): "load" (the cluster's
+# load), "diag" (the diagonal blocks warp 0 factors), "trailing" (its part of
+# the trailing update), "rows" (its columns of U's rows or rows of L),
+# "barrier" (its waits at the block and cluster barriers), "store"
 _GETRF_STAMPS = [
     ("getrf_tile(const float* __restrict__ a",
      "// The \"narrow\" route of kernels 13 and 14",
      [("  // -- the load: the cluster's problems",
        "  PROF_BEGIN\n  // -- the load: the cluster's problems"),
       ("  // -- the factorization", "  PROF_MARK(0)\n  // -- the factorization"),
-      ("      __syncthreads();  // R_k, C_k and column k + 1 ahead are in\n",
-       "      PROF_MARK(1)\n"
-       "      __syncthreads();  // R_k, C_k and column k + 1 ahead are in\n"
-       "      PROF_MARK(3)\n"),
+      ("    if (warp == 0) getrf_tile_diag(s, 0, min(GT_NB, kend), m, lane);\n",
+       "    if (warp == 0) getrf_tile_diag(s, 0, min(GT_NB, kend), m, lane);\n"
+       "    PROF_MARK(1)\n"),
+      ("                        // update of panel pn - 1 are in\n",
+       "                        // update of panel pn - 1 are in\n"
+       "      PROF_MARK(4)\n"),
+      ("      __syncthreads();  // U's and L's rows of panel pn are in\n",
+       "      PROF_MARK(3)\n"
+       "      __syncthreads();  // U's and L's rows of panel pn are in\n"
+       "      PROF_MARK(4)\n"),
+      ("        getrf_tile_diag_update(s, k0, kp, lane);\n",
+       "        getrf_tile_diag_update(s, k0, kp, lane);\n        PROF_MARK(2)\n"),
+      ("          getrf_tile_diag(s, k1, min(k1 + GT_NB, kend), m, lane);\n",
+       "          getrf_tile_diag(s, k1, min(k1 + GT_NB, kend), m, lane);\n"
+       "          PROF_MARK(1)\n"),
+      ("      getrf_tile_trailing(s, k0, kp, m, ncols, (tid + nt - 32) % nt, nt);\n",
+       "      getrf_tile_trailing(s, k0, kp, m, ncols, (tid + nt - 32) % nt, nt);\n"
+       "      PROF_MARK(2)\n"),
       ("  cluster.sync();  // every LU is final in its block\n",
-       "  PROF_MARK(1)\n  cluster.sync();  // every LU is final in its block\n"),
+       "  cluster.sync();  // every LU is final in its block\n  PROF_MARK(4)\n"),
       ("  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");\n}",
        "  asm volatile(\"barrier.cluster.wait.aligned;\\n\" ::: \"memory\");\n"
-       "  PROF_MARK(2)\n  PROF_END(0)\n}")]),
+       "  PROF_MARK(5)\n  PROF_END(0)\n}")]),
 ]
+GETRF_PHASES = ("load", "diag", "trailing", "rows", "barrier", "store")
+# the tile route's sizes that --sweep times (M, N)
+GETRF_SWEEP = ((65, 65), (80, 80), (96, 96), (112, 112), (125, 125),
+               (128, 128), (100, 70), (70, 100), (128, 65))
 _SMM_STAMPS = [
     ("packed_tile_kernel(const __grid_constant__ TileMaps maps",
      "bool plane_map(",
@@ -238,20 +268,25 @@ _SPGEMM_STAMPS = [
 ]
 
 
-def spgemm_sources(variant: str) -> Dict[str, str]:
-    """"plain" and "prof" -> the two sources of a ``--kernel spgemm``
-    variant: ``base``, ``NAME=VALUE,...`` or ``src=PATH`` (a copy with this
-    tree's entry points; one whose anchors differ is timed without
-    stamps)."""
+def stamped_sources(name: str, stamps, variant: str) -> Dict[str, str]:
+    """"plain" and "prof" -> the two sources of a variant of
+    ``ops/csrc/<name>.cu``: ``base``, ``NAME=VALUE,...`` or ``src=PATH``
+    (another copy with this tree's entry points, e.g. the parent tree's;
+    one whose anchors differ is timed without stamps)."""
     if variant.startswith("src="):
         src = Path(variant[4:]).read_text()
     else:
-        src = apply_settings((CSRC / "spgemm.cu").read_text(),
+        src = apply_settings((CSRC / f"{name}.cu").read_text(),
                              parse_variant(variant))
     try:
-        return {"plain": src, "prof": instrument(src, _SPGEMM_STAMPS)}
+        return {"plain": src, "prof": instrument(src, stamps)}
     except ValueError:
         return {"plain": src}
+
+
+def spgemm_sources(variant: str) -> Dict[str, str]:
+    """The sources of a ``--kernel spgemm`` variant (``stamped_sources``)."""
+    return stamped_sources("spgemm", _SPGEMM_STAMPS, variant)
 
 
 def instrument(src: str, stamps) -> str:
@@ -329,13 +364,14 @@ def _phases(lib, run: Callable, names, blocks: int, spread: bool = False):
 
     lib.xsmm_prof_zero.argtypes = [ctypes.c_void_p]
     lib.xsmm_prof_read.argtypes = [ctypes.c_void_p]
-    zeros = np.zeros(PROF_BLOCKS * 4, np.int64)
+    zeros = np.zeros(PROF_BLOCKS * PROF_SLOTS, np.int64)
     lib.xsmm_prof_zero(zeros.ctypes.data)
     run()
     torch.cuda.synchronize()
-    prof = np.zeros(PROF_BLOCKS * 4, np.int64)
+    prof = np.zeros(PROF_BLOCKS * PROF_SLOTS, np.int64)
     lib.xsmm_prof_read(prof.ctypes.data)
-    p = prof.reshape(PROF_BLOCKS, 4)[:min(blocks, PROF_BLOCKS)].astype(float)
+    p = prof.reshape(PROF_BLOCKS, PROF_SLOTS)[:min(blocks, PROF_BLOCKS)]
+    p = p.astype(float)
     p = p[p.sum(axis=1) > 0]  # blocks that stamped (a grid may be smaller)
     tot = p[:, :len(names)].sum(axis=1).mean() if len(p) else 0
     if not tot:
@@ -365,7 +401,8 @@ def main() -> int:
     ap.add_argument("--route", action="append", default=None,
                     choices=("chunk", "narrow"), help="the trsm routes")
     ap.add_argument("--sweep", action="store_true",
-                    help="trsm: time both routes over --sweep-sm/sn/bp")
+                    help="trsm: time both routes over --sweep-sm/sn/bp; "
+                    "getrf: the tile route over GETRF_SWEEP x --sweep-bp")
     ap.add_argument("--sweep-sm", default="64,65,96,125,128")
     ap.add_argument("--sweep-sn", default="1,2,4,8,16,32")
     ap.add_argument("--sweep-bp", default="4096,131072")
@@ -653,13 +690,22 @@ def sweep_trsm(args, variants, use, solve, problems) -> None:
             del a, b
 
 
+def getrf_sources(variant: str) -> Dict[str, str]:
+    """The sources of a ``--kernel getrf`` variant (``stamped_sources``),
+    and "prof_w1", its stamps taken by warp 1."""
+    out = stamped_sources("packed", _GETRF_STAMPS, variant)
+    if "prof" in out:
+        out["prof_w1"] = out["prof"].replace("PROF_END(0)", "PROF_END(32)")
+    return out
+
+
 def profile_getrf(args, variants, randn, turns) -> None:
     """The --kernel getrf part of the module docstring."""
     import torch
 
     from . import packed_kernels as pk
 
-    libs = build("packed", variants, _GETRF_STAMPS)
+    libs = build("packed", variants, None, getrf_sources)
 
     def use(v, kind):
         cuda_build._LIBS["packed"] = ctypes.CDLL(str(libs[(v, kind)]))
@@ -674,18 +720,22 @@ def profile_getrf(args, variants, randn, turns) -> None:
     m, n, bsz = (int(x) for x in args.getrf.split(","))
     a = lower(bsz, m, n)
     pa = a.permute(1, 2, 0).contiguous()
-    small = {s: lower(1000, *s).permute(1, 2, 0).contiguous()
-             for s in ((65, 65), (70, 20), (80, 80), (100, 70), (70, 100),
-                       (128, 128), (140, 140))}
+    small = [lower(bp, *s).permute(1, 2, 0).contiguous()
+             for s, bp in (((65, 65), 1000), ((70, 20), 1000),
+                           ((80, 80), 1000), ((100, 70), 1000),
+                           ((70, 100), 1000), ((128, 128), 1000),
+                           ((140, 140), 1000), ((66, 66), 1000),
+                           ((128, 65), 1000), ((125, 125), 4097))]
     for v in variants:
         use(v, "plain")
-        for x in [pa, *small.values()]:
+        for x in [pa, *small]:
             for rt in ("tile", "shared"):
                 if rt == "tile" and pk.getrf_route(*x.shape[:2]) != "tile":
                     continue
                 _bits(f"{v} getrf_loop {rt} {x.shape[0]}x{x.shape[1]} "
                       f"Bp={x.shape[2]}", pk._getrf_loop(x, rt),
                       pk.getrf_loop_plain(x))
+    del small
     if args.quick:
         return
     cases = {f"getrf_loop tile {m}x{n} B={bsz}":
@@ -700,10 +750,39 @@ def profile_getrf(args, variants, randn, turns) -> None:
             print(f"  {v:24s} {c:44s} "
                   f"{' / '.join('%.4f' % t for t in ms[v][c])} ms")
     for v in variants:
-        lib = use(v, "prof")
-        print(f"  {v}: getrf tile phases: " + _phases(
-            lib, cases[f"getrf_loop tile {m}x{n} B={bsz}"],
-            ("load", "steps", "store", "barrier"), (bsz + 7) // 8 * 8))
+        if (v, "prof") not in libs:
+            print(f"  {v}: no stamps (its anchors differ)")
+            continue
+        for kind, who in (("prof", "warp 0"), ("prof_w1", "warp 1")):
+            lib = use(v, kind)
+            print(f"  {v}: getrf tile phases ({who}): " + _phases(
+                lib, cases[f"getrf_loop tile {m}x{n} B={bsz}"], GETRF_PHASES,
+                (bsz + 7) // 8 * 8))
+    if args.sweep:
+        del a, pa
+        sweep_getrf(args, variants, use, lower)
+
+
+def sweep_getrf(args, variants, use, lower) -> None:
+    """The tile route at every GETRF_SWEEP size and --sweep-bp batch: ms a
+    launch of each variant, in turns (a, b, ..., b, a), and the fastest."""
+    from . import packed_kernels as pk
+    from ..utils.timer import cuda_time_ms
+
+    print("sweep: M N B: tile ms of " + ", ".join(
+        f"{v} (turns)" for v in variants) + "; fastest")
+    for bsz in (int(x) for x in args.sweep_bp.split(",")):
+        for m, n in GETRF_SWEEP:
+            pa = lower(bsz, m, n).permute(1, 2, 0).contiguous()
+            t = {v: [] for v in variants}
+            for v in (variants + variants[::-1]) * args.turns:
+                use(v, "plain")
+                t[v].append(cuda_time_ms(lambda: pk._getrf_loop(pa, "tile"),
+                                         warmup=2, iters=10))
+            print(f"  sweep {m} {n} {bsz}: " + ", ".join(
+                " / ".join(f"{x:.4f}" for x in t[v]) for v in variants)
+                + f"; {min(variants, key=lambda v: min(t[v]))}")
+            del pa
 
 
 def profile_smm(args, variants, randn, turns) -> None:

@@ -30,14 +30,22 @@ problem with the matrix in shared memory; ``packed.cu`` alone decides what
 fits, and refuses sizes that do not fit a block's shared memory before any
 launch, which ``cuda_build.launch`` raises as ``ValueError``.
 
-Kernel 12 (``getrf_loop``) has two routes (``getrf_route``): "tile", a
-register tile a block, for 65 <= min(M, N) and max(M, N) <= 128 (the p = 4
-hexahedron's 125 x 125), and "shared", the matrix in shared memory, for
-every other size that fits.  ``_getrf_loop`` names the route (for the
-card tests and ``kernel_profile``, which hold each route against the plain
-version); the kernel refuses "tile" outside its sizes, which raises
-``ValueError`` with nothing launched.  Each launch also counts in
-``getrf_route_launches``.
+Kernel 12 (``getrf_loop``) has two routes (``getrf_route``): "tile", for
+65 <= min(M, N) and max(M, N) <= 128 (the p = 4 hexahedron's 125 x 125),
+and "shared", the matrix in shared memory with one barrier pair a pivot
+step, for every other size that fits.  The tile route is a right-looking LU
+blocked by panels of 8 columns, a block a problem, the matrix held once in
+shared memory, three blocks an SM: warp 0 factors a panel's diagonal block
+in registers, a thread a column or a row takes U's rows right of it and L's
+rows below it, and every thread takes the panel's 8 terms on an 8 x 4 block
+of the trailing matrix in one pass, while warp 0 factors the next diagonal
+block (two barriers a panel).  What bounds it at 125 x 125, B = 131072, is
+4.89 ms of bytes beside ~5.0 ms of FP32 issue with multiply and subtract
+rounded apart; the blocked schedule keeps each element's terms in pivot
+order, so both routes give the plain version's bits.  ``_getrf_loop`` names the route (for the card tests and
+``kernel_profile``, which hold each route against the plain version); the
+kernel refuses "tile" outside its sizes, which raises ``ValueError`` with
+nothing launched.  Each launch also counts in ``getrf_route_launches``.
 
 Kernels 13 and 14 and their upper variants have two routes
 (``trsm_route``, from SM, SN and Bp alone): "narrow", a thread a (problem,
