@@ -250,7 +250,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc.  It:
     ``ingest_image_dir``, the native ``DataLoader`` feeding the card,
     ``make_augment`` on the card and cifar10net at batch 128 for 30
     epochs, with the sample's criterion, the loader backend (native) and
-    images/s from disk to the trained step;
+    images/s from disk to the trained step; then runs the benchmark cell
+    ``resnet50_train.bf16_b256`` through its driver for 4 steps at its
+    batch (``MLEngine.train_step`` replaying the step's CUDA graph) and
+    fails unless every step after the capture replayed and its kept
+    outputs meet the cell's limits against the f32 reference;
 36. drives the distributed layer's ring on one card, its d ranks virtual
     ranks on ``cuda:0`` (each with its own compute and communication
     streams; the cards round robin where there are more):
@@ -3808,6 +3812,50 @@ def train_datapipe(args, dev, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def train_cell(args, dev, smi):
+    """Step 35, last part: the benchmark cell ``resnet50_train.bf16_b256``
+    (``portbench/drivers/resnet_train.py``) for 4 steps at its own batch,
+    after its set-up's training steps,
+    with the port's configuration and ``XSMM_*`` settings put back after
+    it: the steps' times, the engine's forms, the peak memory and the
+    numbers of its check against the f32 reference, each beside its
+    limit."""
+    import dataclasses
+
+    import xsmm_tpu_torch as xp
+    from portbench import run
+    from xsmm_tpu_torch.utils import graphs
+
+    cell = "resnet50_train.bf16_b256"
+    saved = dataclasses.asdict(xp.get_config())
+    env = {k: v for k, v in os.environ.items() if k.startswith("XSMM_")}
+    captures = graphs.captures
+    t0 = time.perf_counter()
+    try:
+        res, info = run.run_cell(cell, args.seed, 0, False, "cuda", steps=4)
+    finally:
+        for k in [k for k in os.environ if k.startswith("XSMM_")]:
+            del os.environ[k]
+        os.environ.update(env)
+        xp.set_config(**saved)
+    m = res["metrics"]
+    print(f"train cell {cell}: {info['steps']} steps, step_ms_p95 "
+          f"{m['step_ms_p95']['value']:.2f}, {m['work_gflops']['value']:.1f}"
+          f" GFLOP/s, peak {m['peak_mem_gib']['value']:.3f} GiB, setup "
+          f"{m['setup_s']['value']:.1f} s, checks "
+          + ", ".join(f"{k} {c['value']:.4g} (limit {c['limit']:.4g})"
+                      for k, c in res["checks"].items())
+          + f"; {graphs.captures - captures} capture, "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"{'pass' if res['correct'] else 'FAIL'}  [{smi}]")
+    if graphs.captures - captures != 1:
+        raise RuntimeError(f"{cell}: {graphs.captures - captures} captures "
+                           f"for the steps of one key, not 1")
+    if not res["correct"]:
+        raise RuntimeError(f"{cell}: the driver's steps do not meet the "
+                           f"cell's limits: {res['checks']}")
+
+
 def kernel_modules():
     """The modules of the 22 kernels' wrappers, each with its launch
     counters (``*launches`` dicts) and ``reset_launches``."""
@@ -3848,6 +3896,8 @@ def training_phase(args, dev, smi):
     train_scan(args, dev, smi)
     torch.cuda.empty_cache()
     train_datapipe(args, dev, smi)
+    torch.cuda.empty_cache()
+    train_cell(args, dev, smi)
     launched = kernel_launch_counts()
     print(f"train path kernel launches (every wrapper's counts, set to 0 "
           f"before step 32): {launched or 'none'}")

@@ -2818,3 +2818,72 @@ def test_compiled_train_epoch_and_validate_equal_eager(cuda, model, dp):
                     tree_flatten_with_path(getattr(engs[0], tree)),
                     tree_flatten_with_path(getattr(engs[1], tree))):
                 assert torch.equal(x, y), (tree, k)
+
+
+def test_resnet50_compiled_bf16_step_meets_the_cells_limits(cuda):
+    """ResNet-50 v1.5 at its published width in bf16 through
+    ``MLEngine.train_step`` in the card's default form (the step's CUDA
+    graph) as the benchmark cell runs it: batch 256 at 224 x 224, the
+    traffic's set-up steps and the harness's three warm-up steps (the
+    first the eager warm-up and capture), then three replays, each
+    against the plain reference's f32 step from the state
+    before it (``reference_torch/resnet50.py``, run once the engine is
+    freed), by the cell's own numbers (``step_numbers`` of its driver: the
+    loss, and the step's own term of the update over every leaf and over
+    the classifier's) under its limits
+    (``portbench/limits/resnet50_train.bf16_b256.json``)."""
+    import gc
+    import json
+    from pathlib import Path
+
+    from portbench.drivers.resnet_train import step_numbers
+    from reference_torch import resnet50 as ref
+    from xsmm_tpu_torch.models import MLEngine, SolverConfig, resnet
+    from xsmm_tpu_torch.models.engine import tree_map
+
+    bench = Path(__file__).resolve().parents[1] / "portbench"
+    limits = {k: v["limit"] for k, v in json.loads(
+        (bench / "limits" / "resnet50_train.bf16_b256.json").read_text()
+    )["numbers"].items()}
+    pretrain = json.loads((bench / "traffic" / "bf16_b256.json").read_text()
+                          )["pretrain_steps"]
+    n, hw = 256, 224
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, fwd = resnet(depth=50, num_classes=1000, width=64, seed=11,
+                         input_shape=(n, hw, hw, 3), dtype="bfloat16")
+    eng = MLEngine(params, fwd, SolverConfig(lr=0.1, momentum=0.9,
+                                             weight_decay=1e-4))
+    del params
+    assert eng.compiled
+    g = torch.Generator(device=cuda).manual_seed(12)
+
+    def named(tree):
+        return ref.from_engine(tree_map(lambda t: t.detach().clone(),
+                                        tree)["layers"])
+
+    sets = [(torch.randn((n, hw, hw, 3), generator=g, device=cuda),
+             torch.randint(0, 1000, (n,), generator=g, device=cuda))
+            for _ in range(3)]      # cycled, as the cell's operand sets
+    warm, steps = pretrain + 3, []  # set-up's and run.py's warm-up steps
+    for i in range(warm + 3):
+        x, y = sets[i % 3]
+        p0, m0 = named(eng.params), named(eng.momentum)
+        loss = eng.train_step(x, y)
+        assert loss.device.type == "cuda" and loss.dim() == 0
+        if i >= warm:
+            steps.append((x, y, p0, m0, named(eng.params),
+                          named(eng.momentum), loss))
+    assert eng.forms == {"graph": 0, "graph_copy": warm + 2, "eager": 0,
+                         "captures": 1}
+    del eng, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for x, y, p0, m0, p1, m1, loss in steps:
+        st = ref.train_step(p0, m0, x, y)
+        got = step_numbers(loss, p0, m0, p1, m1, st, 0.1, 0.9)
+        del st
+        assert set(got) == set(limits)
+        for k, v in got.items():
+            assert v <= limits[k], (k, v, limits[k])

@@ -9,7 +9,9 @@ every epoch + snapshot dirs (:245-365), resumes at startup (:488-500).
 The same surface as the JAX package: ``SolverConfig`` and its schedules,
 ``softmax_xent``, ``MLEngine(params, forward, solver)`` with ``train_epoch``,
 ``train_epoch_scan``, ``validate``, ``checkpoint`` and ``resume``, and the
-batch sources.  Inside, PyTorch idiom on one device (``platform.device()``):
+batch sources; and ``train_step``, one step on a batch with the loss left on
+the device, which ``train_epoch`` runs for each of its batches.  Inside,
+PyTorch idiom on one device (``platform.device()``):
 
 * parameters, momentum and BN running state are tensors the engine owns
   (copies of the caller's), updated in place under ``torch.no_grad()``;
@@ -19,10 +21,11 @@ batch sources.  Inside, PyTorch idiom on one device (``platform.device()``):
   with ``lr`` a device tensor written before the step;
 * dropout draws from the engine's ``torch.Generator`` (seeded 0xA6);
 * compiled, as the JAX package's ``jax.jit(self._train_step_impl)`` and
-  ``jax.jit(self._eval_step_impl)``: on the card ``train_epoch`` and
-  ``validate`` run each step as a CUDA graph (``utils/graphs.py``), one a
-  key (the batch's shapes, dtypes, strides and devices, and the solver's
-  momentum and weight decay, which the graph holds as constants).  The
+  ``jax.jit(self._eval_step_impl)``: on the card ``train_step`` (so
+  ``train_epoch``) and ``validate`` run each step as a CUDA graph
+  (``utils/graphs.py``), one a key (the batch's shapes, dtypes, strides
+  and devices, and the solver's momentum and weight decay, which the graph
+  holds as constants).  The
   first step of a key runs eagerly on a side stream, as the warm-up and
   the epoch's step, then is captured, with the dropout generator
   registered with the graph; each later step stages its host batch to the
@@ -198,7 +201,6 @@ class MLEngine:
                          if mesh is not None else [platform.device()])
         self.device = self._devices[0]
         self.compiled = graphs.graph_form(self._devices, compiled, "MLEngine")
-        self._dp = 1 if mesh is None else mesh.shape["dp"]
         self.epoch = 0
         self.step = 0
 
@@ -406,22 +408,34 @@ class MLEngine:
         return rows[0] if len(rows) == 1 else torch.stack(rows).mean(dim=0)
 
     # -- public API --------------------------------------------------------------
+    def train_step(self, x, y) -> torch.Tensor:
+        """One SGD step on a batch (images NHWC, int labels: tensors, numpy
+        arrays or ``Sharded`` batches) at the current epoch's lr, in the
+        engine's form (compiled: the replay of the train step's CUDA graph
+        for the batch's key).  Returns the loss as a device tensor; nothing
+        is read back to the host.  The span ``engine.step`` covers its host
+        work: the batch onto the device, the copy into the graph's inputs,
+        the replay, the copy of the loss out."""
+        with trace.span("engine.step"):
+            self._lr.fill_(_schedule(self.solver, self.epoch))
+            loss = self._run("train", self._train_step, self._batch(x),
+                             self._batch(y), (self._gen,))
+        self.step += 1
+        return loss
+
     def train_epoch(self, batches: Iterator[Tuple[Any, Any]],
                     log_every: int = 50, verbose: bool = True):
-        """One epoch over an iterator of (images NHWC, int labels), numpy
-        arrays (staged to the card through pinned memory) or tensors.
-        Returns images/s, the last loss, the lr and every step's loss."""
+        """One epoch of ``train_step`` over an iterator of (images NHWC,
+        int labels), numpy arrays (staged to the card through pinned
+        memory) or tensors.  Returns images/s, the last loss, the lr and
+        every step's loss."""
         lr = _schedule(self.solver, self.epoch)
-        self._lr.fill_(lr)
         n_images = 0
         t0 = time.perf_counter()
         losses = []
         for bi, (x, y) in enumerate(batches):
-            x, y = self._batch(x), self._batch(y)
-            losses.append(self._run("train", self._train_step, x, y,
-                                    (self._gen,)))
-            n_images += sum(t.shape[0] for t in x) * self._dp // len(x)
-            self.step += 1
+            losses.append(self.train_step(x, y))
+            n_images += x.shape[0]
             if verbose and bi % log_every == 0:
                 print(f"epoch {self.epoch} batch {bi} "
                       f"loss {float(losses[-1]):.4f} lr {lr:.5f}")
